@@ -1,0 +1,238 @@
+"""Command-line driver of the PyTorch port.
+
+Counterpart of ``schwingermodel_tpu/cli.py``: the same flags, and with
+parameters missing from the flags the same ten prompts on stderr, read
+from stdin in the same order, so reference-style parameter pipes work:
+
+    printf '1\\n1\\n0.2\\n10\\n0.1\\n4\\n10\\n10\\n10\\n0\\n' | \\
+        python -m schwingermodel_tpu_torch --nx 64 --nt 64 --device cuda
+
+``--device {cuda,cpu}`` replaces ``--platform``. Both devices run the same
+path (f32 working precision, refined 1e-10 contract, even-odd, leapfrog,
+forecasting on): on ``cuda`` through the CUDA kernels, on ``cpu`` through
+their plain PyTorch twins. Flags that select something not ported yet exit
+with status 2 and a "not yet ported" message.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+import numpy as np
+
+
+def _prompt(question: str, cast, interactive: bool):
+    """Reference-style parameter input: prompt on stderr, value from stdin
+    (src/main.cpp:30-58)."""
+    if interactive:
+        print(question, file=sys.stderr)
+    line = sys.stdin.readline()
+    if not line:
+        raise SystemExit(f"missing input for: {question}")
+    return cast(line.split()[0])
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m schwingermodel_tpu_torch",
+        description="HMC for the two-flavor Schwinger model (PyTorch + CUDA)",
+    )
+    p.add_argument("--nx", type=int, default=64, help="lattice extent in x")
+    p.add_argument("--nt", type=int, default=64, help="lattice extent in t")
+    p.add_argument("--beta", type=float, default=None)
+    p.add_argument("--m0", type=float, default=None)
+    p.add_argument("--md-steps", type=int, default=None)
+    p.add_argument("--tau", type=float, default=None, help="trajectory length")
+    p.add_argument("--ntherm", type=int, default=None)
+    p.add_argument("--nmeas", type=int, default=None)
+    p.add_argument("--nsteps", type=int, default=None,
+                   help="decorrelation sweeps between measurements")
+    p.add_argument("--save-conf", action="store_true", default=None)
+    p.add_argument("--ranks-x", type=int, default=None,
+                   help="device mesh extent in x (only 1 is ported)")
+    p.add_argument("--ranks-t", type=int, default=None)
+    p.add_argument("--ranks-chain", type=int, default=1)
+    p.add_argument("--cg-tol", type=float, default=None,
+                   help="CG relative tolerance (default 1e-10)")
+    p.add_argument("--cg-max-iter", type=int, default=10000)
+    p.add_argument("--cg-refine", dest="cg_refine", action="store_true",
+                   default=None,
+                   help="mixed-precision solves: f32 recursion, f64 solution "
+                        "and true residual (the default)")
+    p.add_argument("--no-cg-refine", dest="cg_refine", action="store_false")
+    p.add_argument("--cg-inner-tol", type=float, default=1e-5)
+    p.add_argument("--cg-force-tol", type=float, default=None,
+                   help="MD force-solve tolerance (default 1e-8; the "
+                        "Metropolis action solves run at --cg-tol)")
+    p.add_argument("--mre-history", type=int, default=0)
+    p.add_argument("--dtype", choices=["float32", "float64"], default="float32")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--chains", type=int, default=1,
+                   help="independent chains advanced together")
+    p.add_argument("--quenched", action="store_true")
+    p.add_argument("--integrator", choices=["leapfrog", "omelyan"],
+                   default="leapfrog")
+    p.add_argument("--hasenbusch-dm", type=float, default=None, metavar="DM")
+    p.add_argument("--no-even-odd", dest="even_odd", action="store_false",
+                   default=True)
+    p.add_argument("--no-cg-forecast", dest="cg_forecast", action="store_false",
+                   default=True,
+                   help="restart every solve from b like the reference")
+    p.add_argument("--autotune", action="store_true")
+    p.add_argument("--tune-target", type=float, default=0.7)
+    p.add_argument("--n-tune", type=int, default=100)
+    p.add_argument("--condensate", action="store_true")
+    p.add_argument("--n-noise", type=int, default=8)
+    p.add_argument("--cold-start", action="store_true")
+    p.add_argument("--out-dir", default=".")
+    p.add_argument("--resume", default=None, metavar="CKPT")
+    p.add_argument("--read-conf", default=None, metavar="CTXT",
+                   help="start from a saved gauge configuration (.ctxt)")
+    p.add_argument("--checkpoint", default=None, metavar="CKPT")
+    p.add_argument("--no-simdata", action="store_true")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    return p
+
+
+def _not_ported(args) -> list:
+    """Names of the requested options that this port does not have yet."""
+    asks = [
+        (args.ranks_chain != 1 or args.ranks_x not in (None, 1)
+         or args.ranks_t not in (None, 1), "a device mesh other than 1x1"),
+        (args.hasenbusch_dm, "--hasenbusch-dm"),
+        (not args.even_odd, "--no-even-odd"),
+        (args.quenched, "--quenched"),
+        (args.integrator != "leapfrog", f"--integrator {args.integrator}"),
+        (args.mre_history >= 2, "--mre-history >= 2"),
+        (args.autotune, "--autotune"),
+        (args.condensate, "--condensate"),
+        (args.resume, "--resume"),
+        (args.checkpoint, "--checkpoint"),
+        (args.cg_refine is False, "--no-cg-refine"),
+        (args.dtype == "float64", "--dtype float64"),
+    ]
+    return [name for cond, name in asks if cond]
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    missing = _not_ported(args)
+    if missing:
+        print("error: not yet ported to schwingermodel_tpu_torch: "
+              + ", ".join(missing), file=sys.stderr)
+        return 2
+
+    import torch
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("error: --device cuda but CUDA is not available", file=sys.stderr)
+        return 1
+
+    from schwingermodel_tpu_torch.config import (
+        CGParams, HMCParams, LatticeParams, RunParams,
+    )
+    from schwingermodel_tpu_torch.io import ctxt
+    from schwingermodel_tpu_torch.runner import run_hmc
+
+    # ---- parameters: flags, else reference-style stdin prompts ----
+    need_stdin = any(
+        v is None for v in (args.ranks_x, args.ranks_t, args.m0, args.md_steps,
+                            args.tau, args.beta, args.ntherm, args.nmeas,
+                            args.nsteps))
+    if not need_stdin and args.save_conf is None:
+        args.save_conf = False
+    interactive = sys.stdin.isatty()
+    if need_stdin:
+        if interactive:
+            print("  -----------------------------", file=sys.stderr)
+            print("|  Two-flavor Schwinger model   |", file=sys.stderr)
+            print("| Hybrid Monte Carlo simulation |", file=sys.stderr)
+            print("  -----------------------------", file=sys.stderr)
+            print(f"Nx {args.nx} Nt {args.nt}", file=sys.stderr)
+        get = lambda q, c, cur: cur if cur is not None else _prompt(q, c, interactive)
+        args.ranks_x = get("ranks_x: ", int, args.ranks_x)
+        args.ranks_t = get("ranks_t: ", int, args.ranks_t)
+        args.m0 = get("m0: ", float, args.m0)
+        args.md_steps = get("Molecular dynamics steps: ", int, args.md_steps)
+        args.tau = get("Trajectory length: ", float, args.tau)
+        args.beta = get("beta: ", float, args.beta)
+        args.ntherm = get("Thermalization: ", int, args.ntherm)
+        args.nmeas = get("Measurements: ", int, args.nmeas)
+        args.nsteps = get("Step (sweeps between measurements): ", int, args.nsteps)
+        args.save_conf = bool(get("Save configurations yes/no (1 or 0): ", int,
+                                  None if args.save_conf is None else int(args.save_conf)))
+        if args.ranks_x != 1 or args.ranks_t != 1:
+            print("error: not yet ported to schwingermodel_tpu_torch: a "
+                  "device mesh other than 1x1", file=sys.stderr)
+            return 2
+
+    if args.nx % 2 or args.nt % 2:
+        print(f"error: even-odd preconditioning needs even lattice extents, "
+              f"got {args.nx}x{args.nt}", file=sys.stderr)
+        return 2
+    lattice = LatticeParams(Nx=args.nx, Nt=args.nt, real_dtype="float32")
+    hmc = HMCParams(
+        beta=args.beta, m0=args.m0, md_steps=args.md_steps,
+        trajectory_length=args.tau, even_odd=True,
+        cg_forecast=args.cg_forecast,
+        cg=CGParams(tol=args.cg_tol if args.cg_tol is not None else 1e-10,
+                    max_iter=args.cg_max_iter, refine=True,
+                    inner_tol=args.cg_inner_tol, force_tol=args.cg_force_tol),
+    )
+    run = RunParams(n_therm=args.ntherm, n_meas=args.nmeas,
+                    n_steps=args.nsteps, save_conf=bool(args.save_conf),
+                    n_chains=args.chains, seed=args.seed, out_dir=args.out_dir)
+
+    initial_theta = None
+    if args.read_conf:
+        initial_theta = ctxt.theta_from_links(
+            ctxt.read_conf(args.read_conf, lattice.Nx, lattice.Nt))
+    elif args.cold_start:
+        initial_theta = np.zeros((2, lattice.Nx, lattice.Nt))
+
+    device_name = (torch.cuda.get_device_name(0) if args.device == "cuda"
+                   else "cpu")
+    print("*" * 70)
+    print("*                              PARAMETERS")
+    print(f"* Nx = {lattice.Nx}, Nt = {lattice.Nt}")
+    print(f"* m0 = {hmc.m0:g}, kappa = {hmc.kappa:g}")
+    print(f"* beta = {hmc.beta:g}")
+    print(f"* Thermalization confs = {run.n_therm}")
+    print(f"* Measurement confs = {run.n_meas}")
+    print(f"* Decorrelation steps (confs dropped between measurements) = {run.n_steps}")
+    print(f"* Trajectory length = {hmc.trajectory_length:g}, "
+          f"Leapfrog steps = {hmc.md_steps}, "
+          f"Integration step = {hmc.step_size:g}")
+    print(f"* CG max iterations = {hmc.cg.max_iter}, "
+          f"CG tolerance = {hmc.cg.tol:g} (mixed-precision: f32 recursion "
+          f"+ f64 true residual, replacement every {hmc.cg.inner_tol:g})")
+    ftol = hmc.cg.resolved_force_tol()
+    if ftol != hmc.cg.tol:
+        print(f"* CG force tolerance = {ftol:g} "
+              f"(action solves at {hmc.cg.tol:g})")
+    print(f"* Device = {args.device} ({device_name})")
+    print(f"* Chains = {run.n_chains}, dtype = {lattice.real_dtype}, "
+          f"seed = {run.seed}")
+    print("*" * 70)
+
+    result = run_hmc(lattice, hmc, run, device=args.device,
+                     initial_theta=initial_theta, progress=print,
+                     write_simdata=not args.no_simdata)
+
+    print(f"Average plaquette value / volume: Ep = {result.Ep:.17g} "
+          f"dEp = {result.dEp:.17g}")
+    print(f"Average gauge action / volume: gS = {result.gS:.17g} "
+          f"dgS = {result.dgS:.17g}")
+    print(f"Acceptance rate: {result.acceptance_rate:.17g}")
+    print(f"<exp(-dH)> = {result.exp_mdH_mean:.6f}, all solves converged: "
+          f"{result.all_converged}")
+    print(f"Execution time = {result.elapsed_seconds:.6f} s")
+    print("-------------------------------")
+    if result.n_ill:
+        print(f"WARNING: {result.n_ill} ill (CG-failed) configurations dumped")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

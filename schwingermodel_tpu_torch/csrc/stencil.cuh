@@ -1,0 +1,212 @@
+// Even-odd Wilson stencil on one chain's checkerboard planes, for the
+// port's kernels (force_step.cu, solve_ru.cu, cg_fallback.cu).
+//
+// Device counterpart of schwingermodel_tpu_torch/ops/eo.py (and of the
+// packed stencil of schwingermodel_tpu/ops/pallas_eo.py:118-181), templated
+// on the real type so that one source serves the f32 recursion and the f64
+// true residual.
+//
+// Layout of one chain's parity field: component-major planes
+// [comp][Nx][Nth] with V2 = Nx*Nth sites; a spinor has 4 components
+// (spin0 re, spin0 im, spin1 re, spin1 im), links have 4 (u0 re, u0 im,
+// u1 re, u1 im), angles 2 (theta0, theta1). Site s = x*Nth + k holds
+// t = 2k + off(x), with off = (x + parity) & 1.
+//
+// Execution model: one thread block per chain, the block's threads stride
+// over the V2 sites; a stencil stage reads neighbours that other threads
+// wrote, so stages are separated by __syncthreads().
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace sm {
+
+constexpr int kThreads = 512;
+
+struct Geo {
+  int Nx, Nth, V2;
+};
+
+template <typename T>
+struct Cx {
+  T re, im;
+};
+
+template <typename T>
+__device__ __forceinline__ Cx<T> cadd(Cx<T> a, Cx<T> b) { return {a.re + b.re, a.im + b.im}; }
+template <typename T>
+__device__ __forceinline__ Cx<T> csub(Cx<T> a, Cx<T> b) { return {a.re - b.re, a.im - b.im}; }
+template <typename T>
+__device__ __forceinline__ Cx<T> cmul(Cx<T> a, Cx<T> b) {
+  return {a.re * b.re - a.im * b.im, a.re * b.im + a.im * b.re};
+}
+// conj(a) * b
+template <typename T>
+__device__ __forceinline__ Cx<T> cmulc(Cx<T> a, Cx<T> b) {
+  return {a.re * b.re + a.im * b.im, a.re * b.im - a.im * b.re};
+}
+template <typename T>
+__device__ __forceinline__ Cx<T> cconj(Cx<T> a) { return {a.re, -a.im}; }
+// i * a
+template <typename T>
+__device__ __forceinline__ Cx<T> cmuli(Cx<T> a) { return {-a.im, a.re}; }
+template <typename T>
+__device__ __forceinline__ Cx<T> cneg(Cx<T> a) { return {-a.re, -a.im}; }
+
+// complex component `comp` of a planar field at site s
+template <typename T>
+__device__ __forceinline__ Cx<T> ld(const T* __restrict__ p, int comp, int s, int V2) {
+  return {p[(2 * comp) * V2 + s], p[(2 * comp + 1) * V2 + s]};
+}
+template <typename T>
+__device__ __forceinline__ void st(T* __restrict__ p, int comp, int s, int V2, Cx<T> v) {
+  p[(2 * comp) * V2 + s] = v.re;
+  p[(2 * comp + 1) * V2 + s] = v.im;
+}
+
+__device__ __forceinline__ void sincos_t(float a, float* s, float* c) { sincosf(a, s, c); }
+__device__ __forceinline__ void sincos_t(double a, double* s, double* c) { sincos(a, s, c); }
+
+// Neighbour indices of target site s = (x, k) with packed offset `off`:
+// pt/mt = the source-parity site at t+1 / t-1, px/mx = at x+1 / x-1.
+struct Nbr {
+  int pt, mt, px, mx;
+};
+
+__device__ __forceinline__ Nbr neighbours(int x, int k, int off, const Geo& g) {
+  const int s = x * g.Nth + k;
+  const int kp = (k + 1 == g.Nth) ? 0 : k + 1;
+  const int km = (k == 0) ? g.Nth - 1 : k - 1;
+  const int xp = (x + 1 == g.Nx) ? 0 : x + 1;
+  const int xm = (x == 0) ? g.Nx - 1 : x - 1;
+  Nbr n;
+  n.pt = off ? x * g.Nth + kp : s;
+  n.mt = off ? s : x * g.Nth + km;
+  n.px = xp * g.Nth + k;
+  n.mx = xm * g.Nth + k;
+  return n;
+}
+
+// Folded links of one parity from its angles: u_mu = exp(i theta_mu), with
+// the antiperiodic sign on u0 at global t = Nt-1 (packed column Nth-1 of
+// the rows whose offset is 1). Angles are f32; T=double evaluates the
+// exponential in f64 from the exact f32 values.
+template <typename T>
+__device__ void make_links(const float* __restrict__ th, int parity, T* __restrict__ u,
+                           const Geo& g) {
+  for (int s = threadIdx.x; s < g.V2; s += blockDim.x) {
+    const int x = s / g.Nth;
+    const int k = s - x * g.Nth;
+    const bool flip = ((x + parity) & 1) && (k == g.Nth - 1);
+    for (int mu = 0; mu < 2; ++mu) {
+      T sn, cs;
+      sincos_t(static_cast<T>(th[mu * g.V2 + s]), &sn, &cs);
+      if (mu == 0 && flip) {
+        sn = -sn;
+        cs = -cs;
+      }
+      u[(2 * mu) * g.V2 + s] = cs;
+      u[(2 * mu + 1) * g.V2 + s] = sn;
+    }
+  }
+}
+
+// H (DAG=false) or H^+ (DAG=true) from the source parity to one target site
+// (ops/eo.py hop / hop_dag). Ut: target-parity links, Us: source-parity
+// links, S: source-parity spinor.
+template <typename T, bool DAG>
+__device__ __forceinline__ void hop_site(const T* __restrict__ Ut, const T* __restrict__ Us,
+                                         const T* __restrict__ S, int s, const Nbr& n,
+                                         int V2, Cx<T>& h0, Cx<T>& h1) {
+  const Cx<T> u0t = ld(Ut, 0, s, V2), u1t = ld(Ut, 1, s, V2);
+  const Cx<T> p0_pt = ld(S, 0, n.pt, V2), p1_pt = ld(S, 1, n.pt, V2);
+  const Cx<T> p0_px = ld(S, 0, n.px, V2), p1_px = ld(S, 1, n.px, V2);
+  const Cx<T> u0s = ld(Us, 0, n.mt, V2);
+  const Cx<T> s0t = ld(S, 0, n.mt, V2), s1t = ld(S, 1, n.mt, V2);
+  const Cx<T> u1s = ld(Us, 1, n.mx, V2);
+  const Cx<T> s0x = ld(S, 0, n.mx, V2), s1x = ld(S, 1, n.mx, V2);
+  if (!DAG) {
+    const Cx<T> bt = cmulc(u0s, cadd(s0t, s1t));
+    const Cx<T> bx0 = cmulc(u1s, csub(s0x, cmuli(s1x)));
+    const Cx<T> bx1 = cmulc(u1s, cadd(cmuli(s0x), s1x));
+    h0 = cadd(cadd(cmul(u0t, csub(p0_pt, p1_pt)), cmul(u1t, cadd(p0_px, cmuli(p1_px)))),
+              cadd(bt, bx0));
+    h1 = cadd(cadd(cmul(u0t, csub(p1_pt, p0_pt)), cmul(u1t, csub(p1_px, cmuli(p0_px)))),
+              cadd(bt, bx1));
+  } else {
+    const Cx<T> fwd_t = cmul(u0t, cadd(p0_pt, p1_pt));
+    const Cx<T> bt = cmulc(u0s, csub(s0t, s1t));
+    const Cx<T> bx0 = cmulc(u1s, cadd(s0x, cmuli(s1x)));
+    const Cx<T> bx1 = cmulc(u1s, csub(s1x, cmuli(s0x)));
+    h0 = cadd(cadd(bt, bx0), cadd(fwd_t, cmul(u1t, csub(p0_px, cmuli(p1_px)))));
+    h1 = cadd(cadd(cneg(bt), bx1), cadd(fwd_t, cmul(u1t, cadd(p1_px, cmuli(p0_px)))));
+  }
+}
+
+// out = hop(S) at every target site (v == nullptr), or out = a*v + b*hop(S).
+template <typename T, bool DAG>
+__device__ void hop_stage(const T* __restrict__ Ut, const T* __restrict__ Us,
+                          const T* __restrict__ S, int tgt_parity, T* __restrict__ out,
+                          const T* __restrict__ v, T a, T b, const Geo& g) {
+  for (int s = threadIdx.x; s < g.V2; s += blockDim.x) {
+    const int x = s / g.Nth;
+    const int k = s - x * g.Nth;
+    const Nbr n = neighbours(x, k, (x + tgt_parity) & 1, g);
+    Cx<T> h0, h1;
+    hop_site<T, DAG>(Ut, Us, S, s, n, g.V2, h0, h1);
+    if (v != nullptr) {
+      const Cx<T> v0 = ld(v, 0, s, g.V2), v1 = ld(v, 1, s, g.V2);
+      h0 = {a * v0.re + b * h0.re, a * v0.im + b * h0.im};
+      h1 = {a * v1.re + b * h1.re, a * v1.im + b * h1.im};
+    }
+    st(out, 0, s, g.V2, h0);
+    st(out, 1, s, g.V2, h1);
+  }
+}
+
+// out = (Dhat Dhat^+) v on the even sublattice; t1..t3 are scratch spinors.
+// Starts with a barrier, so v may have been written elementwise just before.
+template <typename T>
+__device__ void normal_apply(const T* ue, const T* uo, const T* v, T* out, T* t1, T* t2, T* t3,
+                             T m, T c, const Geo& g) {
+  __syncthreads();
+  hop_stage<T, true>(uo, ue, v, 1, t1, nullptr, T(0), T(0), g);  // (H_eo)^+ v
+  __syncthreads();
+  hop_stage<T, true>(ue, uo, t1, 0, t2, v, m, -c, g);  // Dhat^+ v
+  __syncthreads();
+  hop_stage<T, false>(uo, ue, t2, 1, t3, nullptr, T(0), T(0), g);  // H_oe t2
+  __syncthreads();
+  hop_stage<T, false>(ue, uo, t3, 0, out, t2, m, -c, g);  // Dhat t2
+  __syncthreads();
+}
+
+// Sum of one double per thread over the block, returned to every thread.
+// sh holds at least 33 doubles.
+__device__ __forceinline__ double block_sum(double v, double* sh) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) sh[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    const int nw = (blockDim.x + 31) >> 5;
+    v = (lane < nw) ? sh[lane] : 0.0;
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+    if (lane == 0) sh[32] = v;
+  }
+  __syncthreads();
+  const double r = sh[32];
+  __syncthreads();
+  return r;
+}
+
+// Re<a, b> over n planar values, accumulated in f64.
+template <typename T>
+__device__ double block_dot(const T* __restrict__ a, const T* __restrict__ b, int n, double* sh) {
+  double acc = 0.0;
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    acc += static_cast<double>(a[i]) * static_cast<double>(b[i]);
+  return block_sum(acc, sh);
+}
+
+}  // namespace sm

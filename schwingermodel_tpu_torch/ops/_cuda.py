@@ -1,0 +1,125 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+On first use, every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a``
+into one shared library with a plain C interface, under
+``schwingermodel_tpu_torch/_build/``, named by a hash of the sources (so an
+edited source rebuilds and an unchanged one is reused). The library is
+loaded with ``ctypes``; every pointer and the stream are passed as
+``c_void_p``. Nothing here runs at import time.
+
+No ``--use_fast_math``: the 1e-10 solver contract needs accurate
+``sincos``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+P, I, F, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
+
+# C entry points: name -> argument types. Each returns cudaGetLastError().
+SIGNATURES = {
+    # thE, thO, psi, FE, FO, scratch, C, Nx, Nth, m0, beta, stream
+    "force_step_launch": [P, P, P, P, P, P, I, I, I, D, D, P],
+    # thE, thO, b, x0, x, x64, iters, conv, scratch32, scratch64,
+    # C, Nx, Nth, m0, tol, tau, max_iter, max_outer, certify, cert_k, stream
+    "solve_ru_launch": [P, P, P, P, P, P, P, P, P, P,
+                        I, I, I, D, D, D, I, I, I, I, P],
+    # thE, thO, b, x64_in, conv_in, iters_in, x, x64, iters, conv, scratch64,
+    # C, Nx, Nth, m0, tol, tau, max_iter, max_rounds, stream
+    "cg_fallback_launch": [P, P, P, P, P, P, P, P, P, P, P,
+                           I, I, I, D, D, D, I, I, P],
+}
+
+
+class KernelLibrary:
+    """The compiled kernels: ``build()`` once, then ``call(name, *args)``."""
+
+    def __init__(self):
+        self._lib = None
+        self.build_seconds = None
+        self.path = None
+
+    def sources(self):
+        return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+    def _digest(self) -> str:
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for p in self.sources():
+            h.update(p.name.encode())
+            h.update(p.read_bytes())
+        return h.hexdigest()[:16]
+
+    def build(self):
+        """Compile (unless a library for these sources exists) and load."""
+        if self._lib is not None:
+            return self._lib
+        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+        if not os.path.exists(nvcc):
+            raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        out = BUILD_DIR / f"libschwinger_{self._digest()}.so"
+        t0 = time.perf_counter()
+        if not out.exists():
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cus = [str(p) for p in sorted(CSRC.glob("*.cu"))]
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cus]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                    f"{proc.stderr}")
+            os.replace(tmp, out)
+        self.build_seconds = time.perf_counter() - t0
+        lib = ctypes.CDLL(str(out))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        self._lib, self.path = lib, out
+        return lib
+
+    def call(self, name: str, *args):
+        """Launch on the current stream; raise on a launch error."""
+        lib = self.build()
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, name)(*args, stream)
+        if err != 0:
+            raise RuntimeError(f"{name}: CUDA error {err}")
+
+
+KERNELS = KernelLibrary()
+
+
+def ptr(t: torch.Tensor):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def check(t: torch.Tensor, name: str, dtype, shape) -> None:
+    """Raise unless t is a contiguous CUDA tensor of this dtype and shape."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")

@@ -1,0 +1,290 @@
+"""The outer Monte-Carlo loop: thermalize, measure, accumulate, summarize.
+
+Counterpart of ``run_hmc`` in ``schwingermodel_tpu/runner.py`` on one
+device (reference HMC::HMC_algorithm, src/hmc.cpp:183-215, and
+src/main.cpp:148-174): hot or cold start, C independent chains advanced
+together by the main-path trajectory (hmc/packed.py), thermalization and
+measurement blocks in the reference's order (update, measure, then
+n_steps decorrelation updates, none after the last measurement), the
+20-bin jackknife with multi-chain pooling, the dump of the configuration
+that preceded a failed solve, and the SimData summary.
+
+Per-trajectory statistics (accept flags, CG iterations, convergence flags)
+and the first-failure capture stay on the device and are read once per
+block, as the JAX runner's ``_stat_scalars`` does: a thermalization block
+is 100 trajectories, the measurement phase is one block (or one per
+measurement when configurations are saved). Device meshes, autotuning, the
+condensate and checkpoints are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from schwingermodel_tpu_torch import observables as obs
+from schwingermodel_tpu_torch.config import HMCParams, LatticeParams, RunParams
+from schwingermodel_tpu_torch.hmc import packed as hp
+from schwingermodel_tpu_torch.io import ctxt
+from schwingermodel_tpu_torch.io.simdata import SimData, simdata_filename
+from schwingermodel_tpu_torch.models.schwinger import SchwingerModel
+from schwingermodel_tpu_torch.utils import prng, statistics
+from schwingermodel_tpu_torch.utils.metrics import PerfMonitor
+
+THERM_BLOCK = 100
+
+
+@dataclasses.dataclass
+class RunResult:
+    Ep: float               # mean plaquette (per site)
+    dEp: float              # 20-bin jackknife error
+    gS: float               # gauge action density
+    dgS: float
+    acceptance_rate: float  # accepted / total post-thermalization updates
+    elapsed_seconds: float
+    chains: dict            # observable -> np.ndarray [n_meas, n_chains]
+    n_ill: int              # ill (unconverged-solve) configurations dumped
+    theta: np.ndarray       # final configuration(s)
+    traj_index: int         # trajectories consumed (per chain)
+    cg_iters_total: int = 0
+    all_converged: bool = True
+    exp_mdH_mean: float = float("nan")   # <exp(-dH)> over measured trajectories
+    perf: Optional[dict] = None
+    ill_records: list = dataclasses.field(default_factory=list)
+
+
+def hot_start(lattice: LatticeParams, seed: int, n_chains: int, device):
+    """Uniform random angles in [-pi, pi) (reference RandomU1,
+    src/gauge_conf.cpp:23-36)."""
+    g = prng.init_generator(seed, device)
+    u = torch.rand((n_chains, 2, lattice.Nx, lattice.Nt), generator=g,
+                   dtype=lattice.rdtype, device=device)
+    return (2.0 * u - 1.0) * math.pi
+
+
+class _Block:
+    """Device-side accumulators of one host-visible block: accept count,
+    CG iterations, all-converged flag, and per chain the pre-trajectory
+    configuration and index of the first trajectory whose solve failed."""
+
+    def __init__(self, theta):
+        C = theta.shape[0]
+        dev = theta.device
+        self.accepted = torch.zeros((), dtype=torch.int64, device=dev)
+        self.cg_iters = torch.zeros((), dtype=torch.int64, device=dev)
+        self.converged = torch.ones((), dtype=torch.bool, device=dev)
+        self.exp_mdH = torch.zeros((), dtype=torch.float64, device=dev)
+        self.fail_theta = torch.zeros_like(theta)
+        self.fail_seen = torch.zeros(C, dtype=torch.bool, device=dev)
+        self.fail_index = torch.full((C,), -1, dtype=torch.int64, device=dev)
+        self.updates = 0
+
+    def add(self, theta_before, st, index: int):
+        self.accepted += st.accepted.sum()
+        self.cg_iters += st.cg_iters.sum()
+        self.converged &= st.cg_converged.all()
+        self.exp_mdH += st.exp_mdH.sum()
+        bad = ~st.cg_converged & ~self.fail_seen
+        self.fail_theta = torch.where(bad.reshape(-1, 1, 1, 1), theta_before,
+                                      self.fail_theta)
+        self.fail_index = torch.where(bad, torch.full_like(self.fail_index, index),
+                                      self.fail_index)
+        self.fail_seen |= bad
+        self.updates += st.accepted.numel()
+
+    def read(self):
+        """One host read: (accepted, cg_iters, all_converged, sum exp(-dH))."""
+        acc, it, cv, em = torch.stack([
+            self.accepted.double(), self.cg_iters.double(),
+            self.converged.double(), self.exp_mdH]).tolist()
+        return int(acc), int(it), bool(cv), em
+
+
+def run_hmc(
+    lattice: LatticeParams,
+    hmc: HMCParams,
+    run: RunParams,
+    *,
+    device="cuda",
+    initial_theta=None,
+    progress: Optional[Callable[[str], None]] = None,
+    write_simdata: bool = False,
+) -> RunResult:
+    """Full simulation on one device (reference main.cpp:148-174 +
+    hmc.cpp:183-215)."""
+    t_begin = time.perf_counter()
+    log = progress or (lambda s: None)
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but CUDA is not available")
+    if run.mesh_shape not in (None, (1, 1)):
+        raise NotImplementedError(
+            "not yet ported to schwingermodel_tpu_torch: device meshes")
+    if run.autotune:
+        raise NotImplementedError(
+            "not yet ported to schwingermodel_tpu_torch: step-size autotuning")
+    model = SchwingerModel(lattice=lattice, hmc=hmc)
+    hp.packed_supported(model)
+    n_chains = run.n_chains
+
+    if initial_theta is None:
+        theta = hot_start(lattice, run.seed, n_chains, device)
+    else:
+        theta = torch.as_tensor(np.asarray(initial_theta), dtype=lattice.rdtype,
+                                device=device)
+        if theta.ndim == 3:
+            theta = theta.expand(n_chains, *theta.shape)
+        theta = theta.contiguous()
+
+    simdata = None
+    if write_simdata:
+        simdata = SimData(os.path.join(
+            run.out_dir, simdata_filename(lattice.Nx, lattice.Nt, hmc.m0)))
+        simdata.write_header(
+            Nx=lattice.Nx, Nt=lattice.Nt, ranks_x=1, ranks_t=1,
+            beta=hmc.beta, n_therm=run.n_therm, n_meas=run.n_meas,
+            n_steps=run.n_steps, trajectory_length=hmc.trajectory_length,
+            md_steps=hmc.md_steps, cg_max_iter=hmc.cg.max_iter,
+            cg_tol=hmc.cg.tol, m0=hmc.m0,
+            cg_force_tol=hmc.cg.resolved_force_tol(),
+        )
+
+    traj_index = 0
+    n_ill = 0
+    cg_iters_total = 0
+    all_converged = True
+    ill_records = []
+
+    def advance(theta, blk: _Block, n: int):
+        nonlocal traj_index
+        for _ in range(n):
+            theta_next, st = hp.hmc_trajectory_packed(model, theta, run.seed,
+                                                      traj_index)
+            blk.add(theta, st, traj_index)
+            theta = theta_next
+            traj_index += 1
+        return theta
+
+    def close(blk: _Block):
+        """Read the block's statistics once; dump the captured first-failure
+        configurations (reference dumps from inside Force,
+        src/hmc.cpp:48-56)."""
+        nonlocal n_ill, cg_iters_total, all_converged
+        acc, it, conv, em = blk.read()
+        cg_iters_total += it
+        all_converged &= conv
+        if not conv:
+            seen = blk.fail_seen.tolist()
+            th = blk.fail_theta.cpu().numpy()
+            idx = blk.fail_index.tolist()
+            for c in np.nonzero(seen)[0]:
+                name = ctxt.ill_conf_filename(lattice.Nx, lattice.Nt,
+                                              hmc.beta, hmc.m0, n_ill)
+                ctxt.write_conf(os.path.join(run.out_dir, name),
+                                ctxt.links_from_theta(th[c]))
+                ill_records.append({"traj_index": idx[c], "chain": int(c),
+                                    "file": name})
+                n_ill += 1
+                log(f"CG failed to converge at trajectory {idx[c]}"
+                    + (f" (chain {c})" if n_chains > 1 else "")
+                    + f"; pre-trajectory configuration dumped to {name}")
+        return acc, it, em
+
+    perf = PerfMonitor(volume=lattice.volume, even_odd=hmc.even_odd)
+
+    # ---- thermalization (hmc.cpp:187-191) ----
+    done = 0
+    with perf.phase("thermalize"):
+        while done < run.n_therm:
+            n = min(THERM_BLOCK, run.n_therm - done)
+            blk = _Block(theta)
+            theta = advance(theta, blk, n)
+            _, it, _ = close(blk)
+            perf.add(trajectories=blk.updates, cg_iters=it)
+            done += n
+            log(f"{done} thermalization configurations generated")
+
+    # ---- measurements (hmc.cpp:196-212): update, measure, then n_steps
+    # decorrelation updates (none after the last measurement) ----
+    meas = {"plaquette": [], "gauge_action_density": [], "top_charge": []}
+    accepted_total = 0
+    updates_total = 0
+    exp_mdH_sum = 0.0
+    with perf.phase("measure"):
+        blk = _Block(theta)
+        for i in range(run.n_meas):
+            theta = advance(theta, blk, 1 if i == 0 else 1 + run.n_steps)
+            meas["plaquette"].append(obs.mean_plaquette(theta))
+            meas["gauge_action_density"].append(
+                obs.gauge_action_density(theta, hmc.beta))
+            meas["top_charge"].append(obs.topological_charge(theta))
+            if run.save_conf:
+                acc, _, em = close(blk)
+                accepted_total += acc
+                updates_total += blk.updates
+                exp_mdH_sum += em
+                _save_confs(theta, i, lattice, hmc, run)
+                blk = _Block(theta)
+        if blk.updates:
+            acc, _, em = close(blk)
+            accepted_total += acc
+            updates_total += blk.updates
+            exp_mdH_sum += em
+        chains = {k: torch.stack(v).cpu().numpy() for k, v in meas.items()}
+        perf.add(trajectories=updates_total,
+                 cg_iters=cg_iters_total
+                 - sum(p.cg_iters for p in perf.phases.values()))
+    for line in perf.report_lines():
+        log("perf: " + line)
+    elapsed = time.perf_counter() - t_begin
+
+    # ---- summary (hmc.cpp:213-214: mean + 20-bin jackknife) ----
+    def _jack(name):
+        x = chains[name].reshape(len(chains[name]), -1)   # [n_meas, n_chains]
+        n_meas, n_ch = x.shape
+        n_bins_t = min(20, max(2, n_meas // 2))
+        if n_ch == 1:
+            return statistics.mean(x[:, 0]), statistics.jackknife_error(
+                x[:, 0], n_bins_t)
+        # bin along time within each chain, then jackknife over the pooled
+        # chain x bin means
+        m = (n_meas // n_bins_t) * n_bins_t
+        b = x[:m].reshape(n_bins_t, m // n_bins_t, n_ch).mean(axis=1)
+        pooled = b.reshape(-1)
+        return float(x.mean()), statistics.jackknife_error(pooled, len(pooled))
+
+    Ep, dEp = _jack("plaquette")
+    gS, dgS = _jack("gauge_action_density")
+    acceptance = accepted_total / max(updates_total, 1)
+    theta_np = theta.cpu().numpy()
+    result = RunResult(
+        Ep=Ep, dEp=dEp, gS=gS, dgS=dgS, acceptance_rate=acceptance,
+        elapsed_seconds=elapsed, chains=chains, n_ill=n_ill,
+        theta=theta_np if n_chains > 1 else theta_np[0],
+        traj_index=traj_index, cg_iters_total=cg_iters_total,
+        all_converged=all_converged,
+        exp_mdH_mean=exp_mdH_sum / max(updates_total, 1), perf=perf.summary(),
+        ill_records=ill_records)
+    if simdata is not None:
+        simdata.append_results(Ep=Ep, dEp=dEp, gS=gS, dgS=dgS,
+                               acceptance_rate=acceptance,
+                               elapsed_seconds=elapsed)
+    return result
+
+
+def _save_confs(theta, index, lattice, hmc, run):
+    """Write configuration(s) like the reference (hmc.cpp:201-208)."""
+    th = theta.cpu().numpy()
+    n_chains = th.shape[0]
+    for c, th_c in enumerate(th):
+        name = ctxt.conf_filename(
+            lattice.Nx, lattice.Nt, hmc.beta, hmc.m0,
+            index if n_chains == 1 else index * n_chains + c)
+        ctxt.write_conf(os.path.join(run.out_dir, name),
+                        ctxt.links_from_theta(th_c))

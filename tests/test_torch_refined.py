@@ -1,0 +1,216 @@
+"""Kernels K3 (reliable-update solve) and K4 (f64 CG fallback) of the
+PyTorch port, held to the solver contract.
+
+The JAX packed refined solve cannot run on the CPU (its interpret-mode
+double-float jaxpr takes hours to compile), so the plain twins that CPU
+tensors run are held to the contract instead: the complex128 true residual
+from the per-site NumPy oracle (tests/reference_impl.py), the JAX x64
+refinement (solvers/refine.cg_refine through the model) and its f64 CG
+finish (solvers/refine._f64_cg_finish). The CUDA kernels are held against
+the same twins on the card by chip_smoke.py.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from schwingermodel_tpu.config import CGParams, HMCParams, LatticeParams
+from schwingermodel_tpu.models.schwinger import SchwingerModel
+from schwingermodel_tpu.ops import eo as jeo
+from schwingermodel_tpu.solvers.refine import _f64_cg_finish
+from schwingermodel_tpu_torch.ops import refined as rs
+from schwingermodel_tpu_torch.ops import traj as tr
+from tests import reference_impl as ref
+
+torch.set_num_threads(1)
+
+M0 = 0.1
+TOL = 1e-10
+
+
+def _system(rng, C, Nx=8, Nt=8):
+    theta = rng.uniform(-np.pi, np.pi, (C, 2, Nx, Nt)).astype(np.float32)
+    b = (rng.standard_normal((C, 2, Nx, Nt // 2))
+         + 1j * rng.standard_normal((C, 2, Nx, Nt // 2))).astype(np.complex64)
+    thE, thO = tr.pack_planes(torch.from_numpy(theta))
+    return theta, b, thE, thO, tr.to_planar(torch.from_numpy(b))
+
+
+def _oracle_normal(theta, v):
+    """(Dhat Dhat^+) v in complex128 from the full-lattice oracle D, for one
+    chain: theta [2, Nx, Nt], v even-packed [2, Nx, Nth]."""
+    from schwingermodel_tpu_torch.ops import eo
+
+    U = np.exp(1j * theta.astype(np.float64))
+    m = M0 + 2.0
+
+    def schur(v_e, D):
+        z = np.zeros_like(v_e)
+        full = eo.unpack(torch.from_numpy(v_e), torch.from_numpy(z)).numpy()
+        y_o = eo.pack(torch.from_numpy(D(U, full, M0)), eo.ODD).numpy()
+        w = eo.unpack(torch.from_numpy(z), torch.from_numpy(-y_o / m)).numpy()
+        return m * v_e + eo.pack(torch.from_numpy(D(U, w, M0)), eo.EVEN).numpy()
+
+    return schur(schur(v, ref.dirac_dagger_ref), ref.dirac_ref)
+
+
+def _rel_residual(theta, b, x64):
+    """Per-chain ||b - A x|| / ||b|| in complex128 (oracle operator)."""
+    xc = tr.to_complex(x64).numpy()
+    out = []
+    for c in range(len(b)):
+        r = b[c].astype(np.complex128) - _oracle_normal(theta[c], xc[c])
+        out.append(np.linalg.norm(r) / np.linalg.norm(b[c]))
+    return np.array(out)
+
+
+def _jax_model(refine=True, fallback=True, max_iter=10000):
+    return SchwingerModel(
+        lattice=LatticeParams(Nx=8, Nt=8, real_dtype="float32"),
+        hmc=HMCParams(beta=2.0, m0=M0, even_odd=True,
+                      cg=CGParams(tol=TOL, max_iter=max_iter, refine=refine,
+                                  refine_impl="x64", fallback=fallback)))
+
+
+def test_solve_refined_certified_meets_contract(rng):
+    """certify=True at 1e-10: oracle residual below 1e-10 ||b||, the flag is
+    set, and x agrees with the JAX x64 refinement to 1e-8 relative."""
+    theta, b, thE, thO, bp = _system(rng, 2)
+    launches = rs.solve_refined.launches
+    sol = rs.solve_refined(thE, thO, bp, bp, m0=M0, tol=TOL, certify=True)
+    assert rs.solve_refined.launches == launches      # plain twin on CPU
+    assert sol.x64.dtype == torch.float64 and sol.x.dtype == torch.float32
+    assert bool(sol.converged.all())
+    assert (_rel_residual(theta, b, sol.x64) < TOL).all()
+
+    model = _jax_model()
+    for c in range(2):
+        th = jnp.asarray(theta[c])
+        res = model._solve_eo(th, model.eo_ops(th), jnp.asarray(b[c]))
+        assert bool(res.converged)
+        x_ref = np.asarray(res.x)
+        x_got = tr.to_complex(sol.x64)[c].numpy()
+        assert np.linalg.norm(x_got - x_ref) < 1e-8 * np.linalg.norm(x_ref)
+
+
+def test_solve_refined_force_contract_from_forecast(rng):
+    """certify=False at 1e-8 from a forecast start (a nearby solution): the
+    trusted recursive exit still meets 1e-8 on the oracle residual."""
+    theta, b, thE, thO, bp = _system(rng, 2)
+    exact = rs.solve_refined(thE, thO, bp, bp, m0=M0, tol=1e-12)
+    noise = torch.from_numpy(rng.standard_normal(bp.shape).astype(np.float32))
+    x0 = exact.x + 1e-3 * noise * exact.x.abs().max()
+    sol = rs.solve_refined(thE, thO, bp, x0, m0=M0, tol=1e-8, certify=False)
+    assert bool(sol.converged.all())
+    assert (_rel_residual(theta, b, sol.x64) < 1e-8).all()
+    cold = rs.solve_refined(thE, thO, bp, bp, m0=M0, tol=1e-8, certify=False)
+    assert (sol.iters < cold.iters).all()
+
+
+def test_solve_refined_zero_restarts_poisoned_start(rng):
+    """A start worse than x = 0 (x0 = 1e3 b) is replaced by x = 0: the
+    solve is the cold solve from zero, iterate for iterate."""
+    theta, b, thE, thO, bp = _system(rng, 2)
+    poisoned = rs.solve_refined(thE, thO, bp, 1e3 * bp, m0=M0, tol=TOL)
+    zero = rs.solve_refined(thE, thO, bp, torch.zeros_like(bp), m0=M0, tol=TOL)
+    assert bool(poisoned.converged.all())
+    assert torch.equal(poisoned.iters, zero.iters)
+    assert torch.equal(poisoned.x64, zero.x64)
+    assert (_rel_residual(theta, b, poisoned.x64) < TOL).all()
+
+
+def test_solve_refined_starved_reports_unconverged(rng):
+    theta, b, thE, thO, bp = _system(rng, 2)
+    sol = rs.solve_refined(thE, thO, bp, bp, m0=M0, tol=TOL, max_iter=5)
+    assert not bool(sol.converged.any())
+    assert (sol.iters <= 5).all()
+    assert bool(torch.isfinite(sol.x64).all())
+
+
+@pytest.mark.parametrize("certify,tol", [(True, TOL), (False, 1e-8)])
+def test_solve_refined_per_chain_semantics(rng, certify, tol):
+    """Chain i of a C=3 batch is chain i solved alone: no decision couples
+    the chains (per-chain semantics)."""
+    theta, b, thE, thO, bp = _system(rng, 3)
+    batch = rs.solve_refined(thE, thO, bp, bp, m0=M0, tol=tol, certify=certify)
+    for c in range(3):
+        one = rs.solve_refined(thE[c:c + 1], thO[c:c + 1], bp[c:c + 1],
+                               bp[c:c + 1], m0=M0, tol=tol, certify=certify)
+        assert int(one.iters[0]) == int(batch.iters[c])
+        assert bool(one.converged[0]) == bool(batch.converged[c])
+        np.testing.assert_allclose(one.x64[0].numpy(), batch.x64[c].numpy(),
+                                   rtol=0, atol=1e-12)
+
+
+def _truncated(rng, C=2, max_iter=12):
+    theta, b, thE, thO, bp = _system(rng, C)
+    prev = rs.solve_refined(thE, thO, bp, bp, m0=M0, tol=TOL,
+                            max_iter=max_iter)
+    assert not bool(prev.converged.any())
+    return theta, b, thE, thO, bp, prev
+
+
+def test_fallback_reaches_contract_like_jax_f64_finish(rng):
+    """K4 from a truncated K3 result reaches 1e-10 on the oracle and agrees
+    with solvers/refine._f64_cg_finish started from the same x."""
+    theta, b, thE, thO, bp, prev = _truncated(rng)
+    launches = rs.solve_f64_cg_fallback.launches
+    fb = rs.solve_f64_cg_fallback(thE, thO, bp, prev, m0=M0, tol=TOL)
+    assert rs.solve_f64_cg_fallback.launches == launches
+    assert bool(fb.converged.all())
+    assert (_rel_residual(theta, b, fb.x64) < TOL).all()
+    assert (fb.iters > prev.iters).all()
+
+    model = _jax_model()
+    for c in range(2):
+        th = jnp.asarray(theta[c])
+        ops = jeo.EOOperators(model.geom, model.fermion_links_hi(th), M0)
+        b_hi = jnp.asarray(b[c]).astype(jnp.complex128)
+        x = jnp.asarray(tr.to_complex(prev.x64)[c].numpy())
+        r = b_hi - ops.normal(x)
+
+        def dot(u, v):
+            return jnp.sum(jnp.real(jnp.conj(u) * v))
+
+        stop2 = TOL * TOL * dot(b_hi, b_hi)
+        x_ref, _, rho, _ = _f64_cg_finish(ops.normal, b_hi, x, r, dot(r, r),
+                                          stop2, dot, 10000)
+        assert float(rho) < float(stop2)
+        x_got = tr.to_complex(fb.x64)[c].numpy()
+        x_ref = np.asarray(x_ref)
+        assert np.linalg.norm(x_got - x_ref) < 1e-8 * np.linalg.norm(x_ref)
+
+
+def test_fallback_never_worse_than_entry(rng):
+    """With a budget of one iteration K4 cannot reach the target; whatever
+    it does, the returned residual is not above the entry residual."""
+    theta, b, thE, thO, bp, prev = _truncated(rng)
+    entry = _rel_residual(theta, b, prev.x64)
+    for max_iter in (1, 2, 3):
+        fb = rs.solve_f64_cg_fallback(thE, thO, bp, prev, m0=M0, tol=TOL,
+                                      max_iter=max_iter)
+        assert not bool(fb.converged.any())
+        assert (_rel_residual(theta, b, fb.x64) <= entry * (1 + 1e-12)).all()
+
+
+def test_fallback_zero_restarts_poisoned_entry(rng):
+    """An entry worse than x = 0 restarts from zero: the result is the K4
+    solve from a zero entry."""
+    theta, b, thE, thO, bp, prev = _truncated(rng)
+    poisoned = prev._replace(x64=1e3 * bp.double(), x=1e3 * bp)
+    zero = prev._replace(x64=torch.zeros_like(prev.x64),
+                         x=torch.zeros_like(prev.x))
+    fb_p = rs.solve_f64_cg_fallback(thE, thO, bp, poisoned, m0=M0, tol=TOL)
+    fb_z = rs.solve_f64_cg_fallback(thE, thO, bp, zero, m0=M0, tol=TOL)
+    assert bool(fb_p.converged.all())
+    assert torch.equal(fb_p.x64, fb_z.x64)
+    assert torch.equal(fb_p.iters, fb_z.iters)
+    assert (_rel_residual(theta, b, fb_p.x64) < TOL).all()
+
+
+def test_fallback_passes_converged_chains_through(rng):
+    theta, b, thE, thO, bp = _system(rng, 2)
+    sol = rs.solve_refined(thE, thO, bp, bp, m0=M0, tol=TOL)
+    fb = rs.solve_f64_cg_fallback(thE, thO, bp, sol, m0=M0, tol=TOL)
+    assert torch.equal(fb.x64, sol.x64) and torch.equal(fb.iters, sol.iters)
