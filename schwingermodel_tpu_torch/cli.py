@@ -8,10 +8,15 @@ from stdin in the same order, so reference-style parameter pipes work:
         python -m schwingermodel_tpu_torch --nx 64 --nt 64 --device cuda
 
 ``--device {cuda,cpu}`` replaces ``--platform``. Both devices run the same
-path (f32 working precision, refined 1e-10 contract, even-odd, leapfrog,
-forecasting on): on ``cuda`` through the CUDA kernels, on ``cpu`` through
-their plain PyTorch twins. Flags that select something not ported yet exit
-with status 2 and a "not yet ported" message.
+path (f32 working precision, even-odd): on ``cuda`` through the CUDA
+kernels, on ``cpu`` through their plain PyTorch twins. The refined 1e-10
+contract is the default; ``--no-cg-refine`` selects the loose f32 contract
+(tol 1e-6 unless ``--cg-tol``), ``--integrator omelyan`` the Omelyan 2MN
+integrator and ``--hasenbusch-dm DM`` the two-pseudofermion split at the
+heavy mass m0+DM, in any combination. ``--mre-history >= 2`` is refused
+only where the JAX package would use it (refined, forecasting on, no
+Hasenbusch) and ignored elsewhere, as there. Flags that select something
+not ported yet exit with status 2 and a "not yet ported" message.
 """
 
 from __future__ import annotations
@@ -54,17 +59,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ranks-t", type=int, default=None)
     p.add_argument("--ranks-chain", type=int, default=1)
     p.add_argument("--cg-tol", type=float, default=None,
-                   help="CG relative tolerance (default 1e-10)")
+                   help="CG relative tolerance (default 1e-10; 1e-6 with "
+                        "--no-cg-refine)")
     p.add_argument("--cg-max-iter", type=int, default=10000)
     p.add_argument("--cg-refine", dest="cg_refine", action="store_true",
                    default=None,
                    help="mixed-precision solves: f32 recursion, f64 solution "
                         "and true residual (the default)")
-    p.add_argument("--no-cg-refine", dest="cg_refine", action="store_false")
+    p.add_argument("--no-cg-refine", dest="cg_refine", action="store_false",
+                   help="the loose f32 contract: f32 CG throughout")
     p.add_argument("--cg-inner-tol", type=float, default=1e-5)
     p.add_argument("--cg-force-tol", type=float, default=None,
-                   help="MD force-solve tolerance (default 1e-8; the "
-                        "Metropolis action solves run at --cg-tol)")
+                   help="MD force-solve tolerance under the refined contract "
+                        "(default 1e-8; the Metropolis action solves run at "
+                        "--cg-tol)")
     p.add_argument("--mre-history", type=int, default=0)
     p.add_argument("--dtype", choices=["float32", "float64"], default="float32")
     p.add_argument("--seed", type=int, default=0)
@@ -100,16 +108,17 @@ def _not_ported(args) -> list:
     asks = [
         (args.ranks_chain != 1 or args.ranks_x not in (None, 1)
          or args.ranks_t not in (None, 1), "a device mesh other than 1x1"),
-        (args.hasenbusch_dm, "--hasenbusch-dm"),
         (not args.even_odd, "--no-even-odd"),
         (args.quenched, "--quenched"),
-        (args.integrator != "leapfrog", f"--integrator {args.integrator}"),
-        (args.mre_history >= 2, "--mre-history >= 2"),
+        # MRE runs only refined, forecasting, without Hasenbusch
+        # (schwingermodel_tpu/hmc/packed.py:219); elsewhere it is ignored
+        (args.mre_history >= 2 and args.cg_refine is not False
+         and args.cg_forecast and not args.hasenbusch_dm,
+         "--mre-history >= 2"),
         (args.autotune, "--autotune"),
         (args.condensate, "--condensate"),
         (args.resume, "--resume"),
         (args.checkpoint, "--checkpoint"),
-        (args.cg_refine is False, "--no-cg-refine"),
         (args.dtype == "float64", "--dtype float64"),
     ]
     return [name for cond, name in asks if cond]
@@ -172,12 +181,15 @@ def main(argv=None) -> int:
               f"got {args.nx}x{args.nt}", file=sys.stderr)
         return 2
     lattice = LatticeParams(Nx=args.nx, Nt=args.nt, real_dtype="float32")
+    refine = args.cg_refine is not False
+    cg_tol = args.cg_tol if args.cg_tol is not None else (
+        1e-10 if refine else 1e-6)
     hmc = HMCParams(
         beta=args.beta, m0=args.m0, md_steps=args.md_steps,
         trajectory_length=args.tau, even_odd=True,
-        cg_forecast=args.cg_forecast,
-        cg=CGParams(tol=args.cg_tol if args.cg_tol is not None else 1e-10,
-                    max_iter=args.cg_max_iter, refine=True,
+        cg_forecast=args.cg_forecast, integrator=args.integrator,
+        mre_history=args.mre_history, hasenbusch_dm=args.hasenbusch_dm,
+        cg=CGParams(tol=cg_tol, max_iter=args.cg_max_iter, refine=refine,
                     inner_tol=args.cg_inner_tol, force_tol=args.cg_force_tol),
     )
     run = RunParams(n_therm=args.ntherm, n_meas=args.nmeas,
@@ -197,6 +209,9 @@ def main(argv=None) -> int:
     print("*                              PARAMETERS")
     print(f"* Nx = {lattice.Nx}, Nt = {lattice.Nt}")
     print(f"* m0 = {hmc.m0:g}, kappa = {hmc.kappa:g}")
+    if hmc.hasenbusch_dm:
+        print(f"* Hasenbusch split: auxiliary mass m1 = "
+              f"{hmc.m0 + hmc.hasenbusch_dm:g} (dm = {hmc.hasenbusch_dm:g})")
     print(f"* beta = {hmc.beta:g}")
     print(f"* Thermalization confs = {run.n_therm}")
     print(f"* Measurement confs = {run.n_meas}")
@@ -204,9 +219,11 @@ def main(argv=None) -> int:
     print(f"* Trajectory length = {hmc.trajectory_length:g}, "
           f"Leapfrog steps = {hmc.md_steps}, "
           f"Integration step = {hmc.step_size:g}")
+    refine_desc = (f" (mixed-precision: f32 recursion + f64 true residual, "
+                   f"replacement every {hmc.cg.inner_tol:g})"
+                   if hmc.cg.refine else " (f32 CG)")
     print(f"* CG max iterations = {hmc.cg.max_iter}, "
-          f"CG tolerance = {hmc.cg.tol:g} (mixed-precision: f32 recursion "
-          f"+ f64 true residual, replacement every {hmc.cg.inner_tol:g})")
+          f"CG tolerance = {hmc.cg.tol:g}{refine_desc}")
     ftol = hmc.cg.resolved_force_tol()
     if ftol != hmc.cg.tol:
         print(f"* CG force tolerance = {ftol:g} "

@@ -56,8 +56,10 @@ class CGParams:
 
     tol: float = 1e-10
     max_iter: int = 10000
-    # Mixed precision: f32 Krylov recursion, solution and true residual in
-    # f64 (ops/refined.py). The port supports only refine=True.
+    # The refined contract: f32 Krylov recursion, solution and true residual
+    # in f64 (ops/refined.py, K3 + K4). False is the loose contract: f32 CG
+    # throughout (K2, and the CG inside K1), converged on the recursive f32
+    # residual; the CLI then defaults tol to 1e-6.
     refine: bool = False
     # Contraction of the recursive residual between true-residual
     # replacements.

@@ -1,58 +1,47 @@
 // K1: the fused MD force step.
 //
 // Replaces schwingermodel_tpu/ops/pallas_traj.py:_force_step_kernel
-// (force_step_fused, with_solve=False, with_gauge=True): from the angle
-// planes and the solved psi = (Dhat Dhat^+)^{-1} Phi it builds the links,
-// chi' = Dhat^+ psi, the checkerboard fermion force 2c f(x = psi (+) b,
-// y = a (+) chi') with a = H_oe chi', b = (H_eo)^+ psi, and the staple force
-// F0 = -beta [sin P(n) - sin P(n-x)], F1 = beta [sin P(n) - sin P(n-t)].
+// (force_step_fused) in its four variants. From the angle planes it builds
+// the links; with_solve runs the f32 CG (stencil.cuh cg_f32) on
+// (Dhat Dhat^+) psi = phi from x0 in the same launch, otherwise psi = x0 was
+// solved outside; then chi' = Dhat^+ psi, the checkerboard fermion force
+// 2c f(x = psi (+) b, y = a (+) chi') with a = H_oe chi', b = (H_eo)^+ psi,
+// and, with_gauge, the staple force F0 = -beta [sin P(n) - sin P(n-x)],
+// F1 = beta [sin P(n) - sin P(n-t)]. with_gauge=false is the Hasenbusch
+// heavy term, whose staples the ratio kernel (K5) adds.
 //
 // What bounds it on the card: nothing of the arithmetic (a few hundred
 // flops per site); one chain is 2048 sites at 64x64, so the kernel is a
-// short chain of dependent stencil stages whose cost is barrier and L2
-// latency. Design: one thread block per chain and one launch per force
-// step, with every intermediate (links, b, chi', a, plaquette angles) in a
-// per-chain global scratch that stays in L2; stages are separated by
-// __syncthreads(). At C=32 this fills 32 of the 132 SMs; spreading a chain
-// over a cluster is later work.
+// short chain of dependent stencil stages (with the CG, ~8 barriers per
+// iteration) whose cost is barrier and L2 latency. Design: one thread block
+// per chain and one launch per force step, with every intermediate (links,
+// b, chi', a, plaquette angles, and with the CG r, d, Ad) in a per-chain
+// global scratch that stays in L2; the CG's three stencil temporaries reuse
+// the b, chi' and a planes, which are free until the force stage. Stages
+// are separated by __syncthreads(). At C=32 this fills 32 of the 132 SMs;
+// spreading a chain over a cluster is later work.
 #include "stencil.cuh"
 
 namespace sm {
 
-// Reference force stencil f_mu at one parity-p site: left operand x, right
-// operand y; *_p on-site (parity p), *_q the opposite parity gathered at
-// n+t and n+x (pallas_traj._fermion_force_p).
-__device__ __forceinline__ void fermion_force_site(const float* u, const float* xp,
-                                                   const float* yp, const float* xq,
-                                                   const float* yq, int s, const Nbr& n,
-                                                   int V2, float& f0, float& f1) {
-  const Cx<float> u0 = ld(u, 0, s, V2), u1 = ld(u, 1, s, V2);
-  const Cx<float> x0 = ld(xp, 0, s, V2), x1 = ld(xp, 1, s, V2);
-  const Cx<float> y0 = ld(yp, 0, s, V2), y1 = ld(yp, 1, s, V2);
-  const Cx<float> yt = csub(ld(yq, 0, n.pt, V2), ld(yq, 1, n.pt, V2));
-  const Cx<float> xt = cadd(ld(xq, 0, n.pt, V2), ld(xq, 1, n.pt, V2));
-  const Cx<float> yx = cadd(ld(yq, 0, n.px, V2), cmuli(ld(yq, 1, n.px, V2)));
-  const Cx<float> xx = csub(ld(xq, 0, n.px, V2), cmuli(ld(xq, 1, n.px, V2)));
-  f0 = cmul(u0, cmul(cconj(csub(x0, x1)), yt)).im -
-       cmul(cconj(u0), cmul(cconj(xt), cadd(y0, y1))).im;
-  f1 = cmul(u1, cmul(cconj(cadd(x0, cmuli(x1))), yx)).im +
-       cmul(cconj(u1), cmul(cconj(xx), cadd(cneg(y0), cmuli(y1)))).im;
-}
-
+template <bool WITH_SOLVE, bool WITH_GAUGE>
 __global__ void __launch_bounds__(kThreads)
 force_step_kernel(const float* __restrict__ thE, const float* __restrict__ thO,
-                  const float* __restrict__ psi_all, float* __restrict__ FE_all,
-                  float* __restrict__ FO_all, float* __restrict__ scratch, int Nx, int Nth,
-                  float m, float c, float beta) {
+                  const float* __restrict__ phi_all, const float* __restrict__ x0_all,
+                  float* __restrict__ psi_all, float* __restrict__ FE_all,
+                  float* __restrict__ FO_all, int* __restrict__ iters_out,
+                  unsigned char* __restrict__ conv_out, float* __restrict__ scratch, int Nx,
+                  int Nth, float m, float c, float beta, double tol, int max_iter) {
+  __shared__ double sh[33];
   const Geo g{Nx, Nth, Nx * Nth};
   const int V2 = g.V2;
   const int ch = blockIdx.x;
   const float* the = thE + (size_t)ch * 2 * V2;
   const float* tho = thO + (size_t)ch * 2 * V2;
-  const float* psi = psi_all + (size_t)ch * 4 * V2;
+  const float* x0 = x0_all + (size_t)ch * 4 * V2;
   float* FE = FE_all + (size_t)ch * 2 * V2;
   float* FO = FO_all + (size_t)ch * 2 * V2;
-  float* sc = scratch + (size_t)ch * 22 * V2;
+  float* sc = scratch + (size_t)ch * (WITH_SOLVE ? 34 : 22) * V2;
   float* ue = sc;
   float* uo = sc + 4 * V2;
   float* bo = sc + 8 * V2;    // (H_eo)^+ psi, odd
@@ -63,20 +52,38 @@ force_step_kernel(const float* __restrict__ thE, const float* __restrict__ thO,
 
   make_links<float>(the, 0, ue, g);
   make_links<float>(tho, 1, uo, g);
-  __syncthreads();
+  const float* psi = x0;
+  if (WITH_SOLVE) {
+    float* x = psi_all + (size_t)ch * 4 * V2;
+    const CgOut o = cg_f32(ue, uo, phi_all + (size_t)ch * 4 * V2, x0, x, sc + 22 * V2,
+                           sc + 26 * V2, sc + 30 * V2, bo, chi, ao, m, c, tol, max_iter, g, sh);
+    if (threadIdx.x == 0) {
+      iters_out[ch] = o.iters;
+      conv_out[ch] = o.rho < static_cast<float>(tol * tol) * o.bnorm2;
+    }
+    psi = x;
+  } else {
+    if (threadIdx.x == 0) {
+      iters_out[ch] = 0;
+      conv_out[ch] = 1;
+    }
+    __syncthreads();
+  }
   hop_stage<float, true>(uo, ue, psi, 1, bo, nullptr, 0.f, 0.f, g);
   __syncthreads();
   hop_stage<float, true>(ue, uo, bo, 0, chi, psi, m, -c, g);
-  for (int s = threadIdx.x; s < V2; s += blockDim.x) {
-    const int x = s / Nth;
-    const int k = s - x * Nth;
-    // P(n) = u0(n) u1(n+t) conj(u0(n+x) u1(n)), anchored at both parities
-    const Nbr ne = neighbours(x, k, x & 1, g);
-    const Nbr no = neighbours(x, k, (x + 1) & 1, g);
-    se[s] = cmul(cmul(ld(ue, 0, s, V2), ld(uo, 1, ne.pt, V2)),
-                 cconj(cmul(ld(uo, 0, ne.px, V2), ld(ue, 1, s, V2)))).im;
-    so[s] = cmul(cmul(ld(uo, 0, s, V2), ld(ue, 1, no.pt, V2)),
-                 cconj(cmul(ld(ue, 0, no.px, V2), ld(uo, 1, s, V2)))).im;
+  if (WITH_GAUGE) {
+    for (int s = threadIdx.x; s < V2; s += blockDim.x) {
+      const int x = s / Nth;
+      const int k = s - x * Nth;
+      // P(n) = u0(n) u1(n+t) conj(u0(n+x) u1(n)), anchored at both parities
+      const Nbr ne = neighbours(x, k, x & 1, g);
+      const Nbr no = neighbours(x, k, (x + 1) & 1, g);
+      se[s] = cmul(cmul(ld(ue, 0, s, V2), ld(uo, 1, ne.pt, V2)),
+                   cconj(cmul(ld(uo, 0, ne.px, V2), ld(ue, 1, s, V2)))).im;
+      so[s] = cmul(cmul(ld(uo, 0, s, V2), ld(ue, 1, no.pt, V2)),
+                   cconj(cmul(ld(ue, 0, no.px, V2), ld(uo, 1, s, V2)))).im;
+    }
   }
   __syncthreads();
   hop_stage<float, false>(uo, ue, chi, 1, ao, nullptr, 0.f, 0.f, g);
@@ -91,25 +98,62 @@ force_step_kernel(const float* __restrict__ thE, const float* __restrict__ thO,
     float f0, f1;
     // even sites: x = psi, y = chi'; the odd operands are b and a
     fermion_force_site(ue, psi, chi, bo, ao, s, ne, V2, f0, f1);
-    FE[s] = two_c * f0 + (-beta * (se[s] - so[ne.mx]));
-    FE[V2 + s] = two_c * f1 + beta * (se[s] - so[ne.mt]);
+    if (WITH_GAUGE) {
+      FE[s] = two_c * f0 + (-beta * (se[s] - so[ne.mx]));
+      FE[V2 + s] = two_c * f1 + beta * (se[s] - so[ne.mt]);
+    } else {
+      FE[s] = two_c * f0;
+      FE[V2 + s] = two_c * f1;
+    }
     // odd sites: x = b, y = a; the even operands are psi and chi'
     fermion_force_site(uo, bo, ao, psi, chi, s, no, V2, f0, f1);
-    FO[s] = two_c * f0 + (-beta * (so[s] - se[no.mx]));
-    FO[V2 + s] = two_c * f1 + beta * (so[s] - se[no.mt]);
+    if (WITH_GAUGE) {
+      FO[s] = two_c * f0 + (-beta * (so[s] - se[no.mx]));
+      FO[V2 + s] = two_c * f1 + beta * (so[s] - se[no.mt]);
+    } else {
+      FO[s] = two_c * f0;
+      FO[V2 + s] = two_c * f1;
+    }
   }
+}
+
+template <bool S, bool G>
+void launch(const void* thE, const void* thO, const void* phi, const void* x0, void* psi,
+            void* FE, void* FO, void* iters, void* conv, void* scratch, int C,
+            int Nx, int Nth, float m, float c, float beta, double tol, int max_iter,
+            cudaStream_t stream) {
+  force_step_kernel<S, G><<<C, kThreads, 0, stream>>>(
+      static_cast<const float*>(thE), static_cast<const float*>(thO),
+      static_cast<const float*>(phi), static_cast<const float*>(x0), static_cast<float*>(psi),
+      static_cast<float*>(FE), static_cast<float*>(FO), static_cast<int*>(iters),
+      static_cast<unsigned char*>(conv), static_cast<float*>(scratch), Nx, Nth, m, c, beta,
+      tol, max_iter);
 }
 
 }  // namespace sm
 
-extern "C" int force_step_launch(const void* thE, const void* thO, const void* psi, void* FE,
-                                 void* FO, void* scratch, int C, int Nx, int Nth, double m0,
-                                 double beta, void* stream) {
+// phi and psi are read or written only with_solve; iters and conv (bool)
+// are written in every variant (0 and true without the solve).
+extern "C" int force_step_launch(const void* thE, const void* thO, const void* phi,
+                                 const void* x0, void* psi, void* FE, void* FO, void* iters,
+                                 void* conv, void* scratch, int C, int Nx, int Nth,
+                                 double m0, double beta, double tol, int max_iter,
+                                 int with_solve, int with_gauge, void* stream) {
   const float m = static_cast<float>(m0 + 2.0);
   const float c = static_cast<float>(1.0 / (4.0 * (m0 + 2.0)));
-  sm::force_step_kernel<<<C, sm::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(thE), static_cast<const float*>(thO),
-      static_cast<const float*>(psi), static_cast<float*>(FE), static_cast<float*>(FO),
-      static_cast<float*>(scratch), Nx, Nth, m, c, static_cast<float>(beta));
+  const float b = static_cast<float>(beta);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (with_solve && with_gauge)
+    sm::launch<true, true>(thE, thO, phi, x0, psi, FE, FO, iters, conv, scratch, C, Nx,
+                           Nth, m, c, b, tol, max_iter, s);
+  else if (with_solve)
+    sm::launch<true, false>(thE, thO, phi, x0, psi, FE, FO, iters, conv, scratch, C, Nx,
+                            Nth, m, c, b, tol, max_iter, s);
+  else if (with_gauge)
+    sm::launch<false, true>(thE, thO, phi, x0, psi, FE, FO, iters, conv, scratch, C, Nx,
+                            Nth, m, c, b, tol, max_iter, s);
+  else
+    sm::launch<false, false>(thE, thO, phi, x0, psi, FE, FO, iters, conv, scratch, C,
+                             Nx, Nth, m, c, b, tol, max_iter, s);
   return static_cast<int>(cudaGetLastError());
 }

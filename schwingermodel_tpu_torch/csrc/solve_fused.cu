@@ -1,0 +1,61 @@
+// K2: the f32 solve on (Dhat Dhat^+) x = b, the loose contract.
+//
+// Replaces schwingermodel_tpu/ops/pallas_traj.py:_solve_kernel
+// (solve_fused): the links are built in-kernel from the angle planes, then
+// the f32 CG loop of stencil.cuh (cg_f32, the per-chain form of
+// pallas_traj._cg_planes) runs from x0. Outputs per chain: x, the
+// iterations, the last recursive rho and ||b||^2; the wrapper forms
+// converged = rho < f32(tol^2) ||b||^2 and the relative residual from them,
+// as solve_fused does.
+//
+// What bounds it on the card: per iteration one normal apply (4 dependent
+// stencil stages of ~150 flops per site) and 2 block reductions on 2048
+// sites per chain at 64x64, i.e. barrier and L2 latency, not bandwidth or
+// flops. Design: one thread block per chain runs the whole loop, so no
+// host synchronisation or relaunch happens per iteration; links, r, d, Ad
+// and the stencil temporaries (32 f32 values per half-lattice site, 256 KB
+// per chain at 64x64) live in a per-chain global scratch that stays in L2.
+#include "stencil.cuh"
+
+namespace sm {
+
+__global__ void __launch_bounds__(kThreads)
+solve_fused_kernel(const float* __restrict__ thE, const float* __restrict__ thO,
+                   const float* __restrict__ b_all, const float* __restrict__ x0_all,
+                   float* __restrict__ x_all, int* __restrict__ iters_out,
+                   float* __restrict__ rho_out, float* __restrict__ bnorm_out,
+                   float* __restrict__ scratch, int Nx, int Nth, float m, float c, double tol,
+                   int max_iter) {
+  __shared__ double sh[33];
+  const Geo g{Nx, Nth, Nx * Nth};
+  const int V2 = g.V2;
+  const int ch = blockIdx.x;
+  float* sc = scratch + (size_t)ch * 32 * V2;
+  float *ue = sc, *uo = sc + 4 * V2;
+  make_links<float>(thE + (size_t)ch * 2 * V2, 0, ue, g);
+  make_links<float>(thO + (size_t)ch * 2 * V2, 1, uo, g);
+  const CgOut o = cg_f32(ue, uo, b_all + (size_t)ch * 4 * V2, x0_all + (size_t)ch * 4 * V2,
+                         x_all + (size_t)ch * 4 * V2, sc + 8 * V2, sc + 12 * V2, sc + 16 * V2,
+                         sc + 20 * V2, sc + 24 * V2, sc + 28 * V2, m, c, tol, max_iter, g, sh);
+  if (threadIdx.x == 0) {
+    iters_out[ch] = o.iters;
+    rho_out[ch] = o.rho;
+    bnorm_out[ch] = o.bnorm2;
+  }
+}
+
+}  // namespace sm
+
+extern "C" int solve_fused_launch(const void* thE, const void* thO, const void* b, const void* x0,
+                                  void* x, void* iters, void* rho, void* bnorm, void* scratch,
+                                  int C, int Nx, int Nth, double m0, double tol, int max_iter,
+                                  void* stream) {
+  const float m = static_cast<float>(m0 + 2.0);
+  const float c = static_cast<float>(1.0 / (4.0 * (m0 + 2.0)));
+  sm::solve_fused_kernel<<<C, sm::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(thE), static_cast<const float*>(thO),
+      static_cast<const float*>(b), static_cast<const float*>(x0), static_cast<float*>(x),
+      static_cast<int*>(iters), static_cast<float*>(rho), static_cast<float*>(bnorm),
+      static_cast<float*>(scratch), Nx, Nth, m, c, tol, max_iter);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,5 +1,7 @@
 // Even-odd Wilson stencil on one chain's checkerboard planes, for the
-// port's kernels (force_step.cu, solve_ru.cu, cg_fallback.cu).
+// port's kernels (force_step.cu, solve_fused.cu, ratio_force.cu,
+// solve_ru.cu, cg_fallback.cu), with the fermion force stencil and the f32
+// CG loop that K1 and K2 share.
 //
 // Device counterpart of schwingermodel_tpu_torch/ops/eo.py (and of the
 // packed stencil of schwingermodel_tpu/ops/pallas_eo.py:118-181), templated
@@ -207,6 +209,83 @@ __device__ double block_dot(const T* __restrict__ a, const T* __restrict__ b, in
   for (int i = threadIdx.x; i < n; i += blockDim.x)
     acc += static_cast<double>(a[i]) * static_cast<double>(b[i]);
   return block_sum(acc, sh);
+}
+
+// Reference force stencil f_mu at one parity-p site: left operand x, right
+// operand y; *_p on-site (parity p), *_q the opposite parity gathered at
+// n+t and n+x (pallas_traj._fermion_force_p). Used by K1 and K5.
+__device__ __forceinline__ void fermion_force_site(const float* u, const float* xp,
+                                                   const float* yp, const float* xq,
+                                                   const float* yq, int s, const Nbr& n,
+                                                   int V2, float& f0, float& f1) {
+  const Cx<float> u0 = ld(u, 0, s, V2), u1 = ld(u, 1, s, V2);
+  const Cx<float> x0 = ld(xp, 0, s, V2), x1 = ld(xp, 1, s, V2);
+  const Cx<float> y0 = ld(yp, 0, s, V2), y1 = ld(yp, 1, s, V2);
+  const Cx<float> yt = csub(ld(yq, 0, n.pt, V2), ld(yq, 1, n.pt, V2));
+  const Cx<float> xt = cadd(ld(xq, 0, n.pt, V2), ld(xq, 1, n.pt, V2));
+  const Cx<float> yx = cadd(ld(yq, 0, n.px, V2), cmuli(ld(yq, 1, n.px, V2)));
+  const Cx<float> xx = csub(ld(xq, 0, n.px, V2), cmuli(ld(xq, 1, n.px, V2)));
+  f0 = cmul(u0, cmul(cconj(csub(x0, x1)), yt)).im -
+       cmul(cconj(u0), cmul(cconj(xt), cadd(y0, y1))).im;
+  f1 = cmul(u1, cmul(cconj(cadd(x0, cmuli(x1))), yx)).im +
+       cmul(cconj(u1), cmul(cconj(xx), cadd(cneg(y0), cmuli(y1)))).im;
+}
+
+// Result of cg_f32, the same in every thread of the block.
+struct CgOut {
+  int iters;    // iterations while the chain was active
+  float rho;    // last recursive residual norm^2 (f32)
+  float bnorm2; // ||b||^2 (f32)
+};
+
+// f32 CG on (Dhat Dhat^+) x = b for one chain, the loop of
+// pallas_traj._cg_planes run per chain (K2, and K1 with_solve): x starts at
+// x0 and r = b - A x0; the chain stays active while rho >= f32(tol^2)
+// ||b||^2 and fewer than max_iter iterations ran. Breakdown guards, checked
+// before the x/r update: dAd <= 0 or a non-finite alpha; then, after it, a
+// non-finite rho_c. Either freezes the chain (the loop exits, rho keeps its
+// last finite value, so converged = rho < stop2 is false). A NaN in b makes
+// rho NaN and the loop never starts: x = x0. Dots are accumulated in f64
+// and rounded to f32, as the Pallas kernel's f32 dots are. The lockstep
+// jnp.any test of the Pallas loop becomes this per-chain loop: a frozen
+// chain does not change there either. Ends with a barrier, so x may be read
+// at any site afterwards. r, d, Ad, t1..t3: scratch spinors.
+__device__ inline CgOut cg_f32(const float* ue, const float* uo, const float* b, const float* x0,
+                               float* x, float* r, float* d, float* Ad, float* t1, float* t2,
+                               float* t3, float m, float c, double tol, int max_iter,
+                               const Geo& g, double* sh) {
+  const int n = 4 * g.V2;
+  const float bnorm2 = static_cast<float>(block_dot(b, b, n, sh));
+  const float stop2 = static_cast<float>(tol * tol) * bnorm2;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) x[i] = x0[i];
+  normal_apply<float>(ue, uo, x, Ad, t1, t2, t3, m, c, g);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    r[i] = b[i] - Ad[i];
+    d[i] = r[i];
+  }
+  float rho = static_cast<float>(block_dot(r, r, n, sh));
+  int iters = 0;
+  for (int k = 0; k < max_iter && rho >= stop2; ++k) {
+    normal_apply<float>(ue, uo, d, Ad, t1, t2, t3, m, c, g);
+    const float dAd = static_cast<float>(block_dot(d, Ad, n, sh));
+    const float alpha = rho / dAd;
+    if (!(dAd > 0.0f) || !isfinite(alpha)) break;
+    double acc = 0.0;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      x[i] += alpha * d[i];
+      const float ri = r[i] + (-alpha) * Ad[i];
+      r[i] = ri;
+      acc += static_cast<double>(ri) * static_cast<double>(ri);
+    }
+    const float rho_c = static_cast<float>(block_sum(acc, sh));
+    if (!isfinite(rho_c)) break;
+    const float beta = rho_c / rho;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) d[i] = r[i] + beta * d[i];
+    rho = rho_c;
+    ++iters;
+  }
+  __syncthreads();
+  return {iters, rho, bnorm2};
 }
 
 }  // namespace sm

@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
-On first use, every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a``
-into one shared library with a plain C interface, under
+On first use, every ``csrc/*.cu`` is compiled by its own ``nvcc`` process
+for ``sm_90a`` (all started together), and the objects are linked into one
+shared library with a plain C interface, under
 ``schwingermodel_tpu_torch/_build/``, named by a hash of the sources (so an
 edited source rebuilds and an unchanged one is reused). The library is
 loaded with ``ctypes``; every pointer and the stream are passed as
@@ -28,14 +29,21 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 P, I, F, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 
 # C entry points: name -> argument types. Each returns cudaGetLastError().
 SIGNATURES = {
-    # thE, thO, psi, FE, FO, scratch, C, Nx, Nth, m0, beta, stream
-    "force_step_launch": [P, P, P, P, P, P, I, I, I, D, D, P],
+    # thE, thO, phi, x0, psi, FE, FO, iters, conv, scratch,
+    # C, Nx, Nth, m0, beta, tol, max_iter, with_solve, with_gauge, stream
+    "force_step_launch": [P, P, P, P, P, P, P, P, P, P,
+                          I, I, I, D, D, D, I, I, I, P],
+    # thE, thO, b, x0, x, iters, rho, bnorm2, scratch,
+    # C, Nx, Nth, m0, tol, max_iter, stream
+    "solve_fused_launch": [P, P, P, P, P, P, P, P, P, I, I, I, D, D, I, P],
+    # thE, thO, psi, phi2, FE, FO, scratch, C, Nx, Nth, m0, m1, beta, stream
+    "ratio_force_launch": [P, P, P, P, P, P, P, I, I, I, D, D, D, P],
     # thE, thO, b, x0, x, x64, iters, conv, scratch32, scratch64,
     # C, Nx, Nth, m0, tol, tau, max_iter, max_outer, certify, cert_k, stream
     "solve_ru_launch": [P, P, P, P, P, P, P, P, P, P,
@@ -53,6 +61,7 @@ class KernelLibrary:
     def __init__(self):
         self._lib = None
         self.build_seconds = None
+        self.build_log = ""
         self.path = None
 
     def sources(self):
@@ -76,17 +85,7 @@ class KernelLibrary:
         out = BUILD_DIR / f"libschwinger_{self._digest()}.so"
         t0 = time.perf_counter()
         if not out.exists():
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            cus = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cus]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                    f"{proc.stderr}")
-            os.replace(tmp, out)
+            self._compile(nvcc, out)
         self.build_seconds = time.perf_counter() - t0
         lib = ctypes.CDLL(str(out))
         for name, argtypes in SIGNATURES.items():
@@ -95,6 +94,34 @@ class KernelLibrary:
             fn.restype = ctypes.c_int
         self._lib, self.path = lib, out
         return lib
+
+    def _compile(self, nvcc: str, out: Path) -> None:
+        """One nvcc per source, all running at once, then one link."""
+        tmp = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+        try:
+            jobs = []
+            for src in sorted(CSRC.glob("*.cu")):
+                obj = tmp / (src.stem + ".o")
+                cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj),
+                       str(src)]
+                jobs.append((cmd, obj, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True)))
+            errs = [proc.communicate()[1] for _, _, proc in jobs]
+            for (cmd, _, proc), err in zip(jobs, errs):
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                       f"{' '.join(cmd)}\n{err}")
+            link = [nvcc, "-shared", "-o", str(tmp / out.name),
+                    *(str(obj) for _, obj, _ in jobs)]
+            proc = subprocess.run(link, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                                   f"{' '.join(link)}\n{proc.stderr}")
+            self.build_log = "".join(errs)
+            os.replace(tmp / out.name, out)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
 
     def call(self, name: str, *args):
         """Launch on the current stream; raise on a launch error."""

@@ -1,22 +1,35 @@
-"""Trajectory-state operations on the port layout, and kernel K1.
+"""Trajectory-state operations on the port layout, and kernels K1, K2, K5.
 
 Counterpart of ``schwingermodel_tpu/ops/pallas_traj.py``. The TPU package
 keeps the state lane-packed, [A, Nx, C*Nt/2]; the port keeps it
 chain-major and planar in f32:
 
 - angle, momentum and force planes [C, 2(dir), Nx, Nt/2], one per parity;
-- even-parity spinors [C, 2(spin), 2(re/im), Nx, Nt/2].
+- even-parity spinors [C, 2(spin), 2(re/im), Nx, Nt/2]; the Hasenbusch
+  noise carries a pair axis in front of the spin axis.
 
-``force_step`` is kernel K1 (``csrc/force_step.cu``, replacing
-``pallas_traj._force_step_kernel`` with ``with_solve=False``); on a CPU
-tensor it runs ``force_step_reference``, its plain twin. ``from_jax_packed``
-and ``to_jax_packed`` convert the JAX package's lane-packed numpy planes to
-and from this layout: the parameter bridge between the two packages.
+The kernels, each with its plain twin that a CPU tensor runs:
+
+- ``force_step`` is K1 (``csrc/force_step.cu``, replacing
+  ``pallas_traj._force_step_kernel``) in all four variants of
+  ``with_solve`` and ``with_gauge``; twin ``force_step_reference``.
+- ``solve_fused`` is K2 (``csrc/solve_fused.cu``, replacing
+  ``pallas_traj._solve_kernel``), the loose-contract f32 solve; twin
+  ``solve_fused_reference``.
+- ``ratio_force`` is K5 (``csrc/ratio_force.cu``, replacing
+  ``pallas_traj._ratio_force_kernel``), the Hasenbusch ratio force with the
+  staples; twin ``ratio_force_reference``.
+
+``from_jax_packed`` and ``to_jax_packed`` convert the JAX package's
+lane-packed numpy planes (any leading axes, the pair axis included) to and
+from this layout: the parameter bridge between the two packages.
 """
 
 from __future__ import annotations
 
+import collections
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -32,18 +45,21 @@ def pack_planes(a: torch.Tensor):
 
 
 def to_planar(z: torch.Tensor) -> torch.Tensor:
-    """complex [C, 2, Nx, Nth] -> planar [C, 2, 2, Nx, Nth] (real dtype)."""
-    return torch.stack([z.real, z.imag], dim=2)
+    """complex [..., 2, Nx, Nth] -> planar [..., 2, 2(re/im), Nx, Nth]
+    (real dtype)."""
+    return torch.stack([z.real, z.imag], dim=-3)
 
 
 def to_complex(p: torch.Tensor) -> torch.Tensor:
-    """planar [C, 2, 2, Nx, Nth] -> complex [C, 2, Nx, Nth]."""
-    return torch.complex(p[:, :, 0], p[:, :, 1])
+    """planar [..., 2, 2(re/im), Nx, Nth] -> complex [..., 2, Nx, Nth]."""
+    return torch.complex(p[..., 0, :, :], p[..., 1, :, :])
 
 
 def from_jax_packed(p, C: int, device=None) -> torch.Tensor:
     """JAX lane-packed numpy planes [A.., Nx, C*Nth] -> chain-major tensor
-    [C, A.., Nx, Nth] (pallas_traj.pack_chains / pack_even layout)."""
+    [C, A.., Nx, Nth] (pallas_traj.pack_chains / pack_even layout; a
+    Hasenbusch pair stacked in front, [2, 2, 2, Nx, C*Nth], becomes
+    [C, 2, 2, 2, Nx, Nth])."""
     p = np.asarray(p)
     *lead, Nx, N = p.shape
     q = np.moveaxis(p.reshape(*lead, Nx, C, N // C), -2, 0)
@@ -132,42 +148,252 @@ def fermion_force_planes(ue, uo, psi, chi_p, m0):
     return two_c * fe, two_c * fo
 
 
+# ---------- the f32 CG of K1 and K2 ----------
+
+def _dot32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-chain Re<a, b> of complex [C, ...] fields, accumulated in f64 and
+    rounded to f32 (the kernels' block_dot)."""
+    dims = tuple(range(1, a.ndim))
+    return (a.real.double() * b.real.double()
+            + a.imag.double() * b.imag.double()).sum(dim=dims).float()
+
+
+def _tol2(tol, device):
+    """f32(tol^2) as a 0-dim f32 tensor, so that f32(tol^2) * ||b||^2 is
+    an f32 product, as in the kernels."""
+    return torch.tensor(np.float32(tol * tol), device=device)
+
+
+def _converged(rho, bnorm2, tol):
+    return rho < _tol2(tol, rho.device) * bnorm2
+
+
+def _cg_f32(apply_A, b, x0, tol, max_iter):
+    """Plain twin of stencil.cuh cg_f32 (pallas_traj._cg_planes) on complex
+    [C, 2, Nx, Nth]: all chains batched, each with its own live mask, so a
+    frozen chain does not change (torch.where, never 0 * d, which would
+    turn an inf in d into NaN). Returns (x, iters int32, rho f32,
+    bnorm2 f32), all per chain."""
+    C = b.shape[0]
+    bnorm2 = _dot32(b, b)
+    stop2 = _tol2(tol, b.device) * bnorm2
+    x = x0.clone()
+    r = b - apply_A(x)
+    d = r
+    rho = _dot32(r, r)
+    iters = torch.zeros(C, dtype=torch.int32, device=b.device)
+    live = rho >= stop2                       # a NaN rho never starts
+    zero = torch.zeros((), dtype=torch.float32, device=b.device)
+
+    def per_chain(v):
+        return v.reshape(C, 1, 1, 1)
+
+    k = 0
+    while k < max_iter and bool(live.any()):
+        Ad = apply_A(d)
+        dAd = _dot32(d, Ad)
+        alpha = rho / dAd
+        # breakdown before the x/r update: non-positive curvature or a
+        # non-finite alpha freezes the chain untouched
+        live = live & (dAd > 0) & torch.isfinite(alpha)
+        a = per_chain(torch.where(live, alpha, zero))
+        x = torch.where(per_chain(live), x + a * d, x)
+        r = torch.where(per_chain(live), r + (-a) * Ad, r)
+        rho_c = _dot32(r, r)
+        # overflow after it: frozen with x as updated
+        live = live & torch.isfinite(rho_c)
+        beta = per_chain(torch.where(live, rho_c / rho, zero))
+        d = torch.where(per_chain(live), r + beta * d, d)
+        rho = torch.where(live, rho_c, rho)
+        iters = iters + live.to(torch.int32)
+        live = live & (rho >= stop2)
+        k += 1
+    return x, iters, rho, bnorm2
+
+
+# ---------- K2: the loose-contract solve ----------
+
+class SolveResult(NamedTuple):
+    x: torch.Tensor             # f32 [C, 2, 2, Nx, Nth]
+    iters: torch.Tensor         # int32 [C]
+    converged: torch.Tensor     # bool [C], rho < tol^2 ||b||^2 (recursive)
+    rel_residual: torch.Tensor  # f32 [C], sqrt(rho / ||b||^2)
+
+
+def _solve_result(x, iters, rho, bnorm2, tol) -> SolveResult:
+    tiny = torch.finfo(torch.float32).tiny
+    rel = torch.sqrt(rho) * torch.rsqrt(torch.clamp(bnorm2, min=tiny))
+    return SolveResult(x=x, iters=iters, converged=_converged(rho, bnorm2, tol),
+                       rel_residual=rel)
+
+
+def solve_fused_reference(thE, thO, b, x0, *, m0, tol, max_iter) -> SolveResult:
+    """Plain twin of K2."""
+    ue, uo = gauge.links(thE, thO)
+    x, iters, rho, bnorm2 = _cg_f32(lambda v: eo.normal(ue, uo, v, m0),
+                                    to_complex(b), to_complex(x0), tol, max_iter)
+    return _solve_result(to_planar(x), iters, rho, bnorm2, tol)
+
+
+_SOLVE_SCRATCH = 32      # f32 values per half-lattice site (solve_fused.cu)
+
+
+def solve_fused(thE, thO, b, x0, *, m0, tol, max_iter) -> SolveResult:
+    """K2: (Dhat Dhat^+)^{-1} b by f32 CG from x0, links built in-kernel
+    (pallas_traj.solve_fused). thE/thO f32 [C, 2, Nx, Nth]; b, x0 f32
+    [C, 2, 2, Nx, Nth]. converged: the recursive f32 residual is below
+    tol ||b||. CUDA tensors run csrc/solve_fused.cu; CPU tensors run
+    solve_fused_reference."""
+    if not b.is_cuda:
+        return solve_fused_reference(thE, thO, b, x0, m0=m0, tol=tol,
+                                     max_iter=max_iter)
+    C, _, Nx, Nth = thE.shape
+    _cuda.check(thE, "thE", torch.float32, (C, 2, Nx, Nth))
+    _cuda.check(thO, "thO", torch.float32, (C, 2, Nx, Nth))
+    _cuda.check(b, "b", torch.float32, (C, 2, 2, Nx, Nth))
+    _cuda.check(x0, "x0", torch.float32, (C, 2, 2, Nx, Nth))
+    dev = b.device
+    x = torch.empty_like(b)
+    iters = torch.empty(C, dtype=torch.int32, device=dev)
+    rho = torch.empty(C, dtype=torch.float32, device=dev)
+    bnorm2 = torch.empty(C, dtype=torch.float32, device=dev)
+    scratch = torch.empty(C * _SOLVE_SCRATCH * Nx * Nth, dtype=torch.float32,
+                          device=dev)
+    p = _cuda.ptr
+    _cuda.KERNELS.call("solve_fused_launch", p(thE), p(thO), p(b), p(x0), p(x),
+                       p(iters), p(rho), p(bnorm2), p(scratch), C, Nx, Nth,
+                       float(m0), float(tol), int(max_iter))
+    solve_fused.launches += 1
+    return _solve_result(x, iters, rho, bnorm2, tol)
+
+
+solve_fused.launches = 0
+
+
 # ---------- K1: the fused force step ----------
 
-def force_step_reference(thE, thO, psi, m0, beta):
-    """Plain twin of K1: total MD force (fermion + staple) at both parities
-    from the solved psi (planar f32 [C, 2, 2, Nx, Nth]). Returns (FE, FO)
-    f32 [C, 2, Nx, Nth]."""
+class ForceStepResult(NamedTuple):
+    FE: torch.Tensor         # f32 [C, 2, Nx, Nth] force at even sites
+    FO: torch.Tensor         # f32 [C, 2, Nx, Nth] force at odd sites
+    psi: torch.Tensor        # f32 [C, 2, 2, Nx, Nth], the solved psi (or x0)
+    iters: torch.Tensor      # int32 [C] CG iterations (0 without the solve)
+    converged: torch.Tensor  # bool [C] (all True without the solve)
+
+
+def force_step_reference(thE, thO, phi, x0, *, m0, beta, tol, max_iter,
+                         with_solve=True, with_gauge=True) -> ForceStepResult:
+    """Plain twin of K1: [the f32 CG for psi = (Dhat Dhat^+)^{-1} phi from
+    x0, else psi = x0], then the fermion force at both parities, plus the
+    staple force with_gauge."""
+    ue, uo = gauge.links(thE, thO)
+    C = thE.shape[0]
+    if with_solve:
+        psi_c, iters, rho, bnorm2 = _cg_f32(
+            lambda v: eo.normal(ue, uo, v, m0), to_complex(phi),
+            to_complex(x0), tol, max_iter)
+        psi, conv = to_planar(psi_c), _converged(rho, bnorm2, tol)
+    else:
+        psi, psi_c = x0, to_complex(x0)
+        iters = torch.zeros(C, dtype=torch.int32, device=x0.device)
+        conv = torch.ones(C, dtype=torch.bool, device=x0.device)
+    chi_p = eo.dhat_dag(ue, uo, psi_c, m0)
+    FE, FO = fermion_force_planes(ue, uo, psi_c, chi_p, m0)
+    if with_gauge:
+        gfe, gfo = gauge.gauge_force_planes(ue, uo, beta)
+        FE, FO = FE + gfe, FO + gfo
+    return ForceStepResult(FE=FE, FO=FO, psi=psi, iters=iters, converged=conv)
+
+
+_FORCE_SCRATCH = 22        # f32 values per half-lattice site (force_step.cu)
+_FORCE_SOLVE_SCRATCH = 34  # the same with the CG's r, d, Ad
+
+
+def force_step(thE, thO, phi, x0, *, m0, beta, tol, max_iter, with_solve=True,
+               with_gauge=True) -> ForceStepResult:
+    """K1: one MD force evaluation (pallas_traj.force_step_fused): links,
+    with_solve the f32 CG on (Dhat Dhat^+) psi = phi from x0 in the same
+    launch (else psi = x0, solved outside), chi' = Dhat^+ psi, the fermion
+    force, and with_gauge the staple force. CUDA tensors run the kernel of
+    csrc/force_step.cu; CPU tensors run force_step_reference."""
+    if not x0.is_cuda:
+        return force_step_reference(thE, thO, phi, x0, m0=m0, beta=beta,
+                                    tol=tol, max_iter=max_iter,
+                                    with_solve=with_solve, with_gauge=with_gauge)
+    C, _, Nx, Nth = thE.shape
+    _cuda.check(thE, "thE", torch.float32, (C, 2, Nx, Nth))
+    _cuda.check(thO, "thO", torch.float32, (C, 2, Nx, Nth))
+    _cuda.check(x0, "x0", torch.float32, (C, 2, 2, Nx, Nth))
+    dev = x0.device
+    FE = torch.empty_like(thE)
+    FO = torch.empty_like(thO)
+    iters = torch.empty(C, dtype=torch.int32, device=dev)
+    conv = torch.empty(C, dtype=torch.bool, device=dev)
+    p = _cuda.ptr
+    if with_solve:
+        _cuda.check(phi, "phi", torch.float32, (C, 2, 2, Nx, Nth))
+        psi = torch.empty_like(x0)
+        phi_ptr, psi_ptr = p(phi), p(psi)
+    else:
+        psi, phi_ptr, psi_ptr = x0, None, None
+    per_site = _FORCE_SOLVE_SCRATCH if with_solve else _FORCE_SCRATCH
+    scratch = torch.empty(C * per_site * Nx * Nth, dtype=torch.float32,
+                          device=dev)
+    _cuda.KERNELS.call("force_step_launch", p(thE), p(thO), phi_ptr, p(x0),
+                       psi_ptr, p(FE), p(FO), p(iters), p(conv), p(scratch),
+                       C, Nx, Nth, float(m0), float(beta), float(tol),
+                       int(max_iter), int(bool(with_solve)),
+                       int(bool(with_gauge)))
+    force_step.launches += 1
+    force_step.variants[f"with_solve={bool(with_solve)},"
+                        f"with_gauge={bool(with_gauge)}"] += 1
+    return ForceStepResult(FE=FE, FO=FO, psi=psi, iters=iters, converged=conv)
+
+
+force_step.launches = 0
+force_step.variants = collections.Counter()   # launches per (with_solve, with_gauge)
+
+
+# ---------- K5: the Hasenbusch ratio force ----------
+
+def ratio_force_reference(thE, thO, psi, phi2, *, m0, m1, beta):
+    """Plain twin of K5: ff(psi, Dhat0^+ psi; c0) - ff(psi, phi2; c1) +
+    staples, (FE, FO) f32 [C, 2, Nx, Nth]."""
     ue, uo = gauge.links(thE, thO)
     psi_c = to_complex(psi)
     chi_p = eo.dhat_dag(ue, uo, psi_c, m0)
-    ffe, ffo = fermion_force_planes(ue, uo, psi_c, chi_p, m0)
+    f0e, f0o = fermion_force_planes(ue, uo, psi_c, chi_p, m0)
+    f1e, f1o = fermion_force_planes(ue, uo, psi_c, to_complex(phi2), m1)
     gfe, gfo = gauge.gauge_force_planes(ue, uo, beta)
-    return ffe + gfe, ffo + gfo
+    return f0e - f1e + gfe, f0o - f1o + gfo
 
 
-_FORCE_SCRATCH = 22      # f32 values per half-lattice site (force_step.cu)
+_RATIO_SCRATCH = 26      # f32 values per half-lattice site (ratio_force.cu)
 
 
-def force_step(thE, thO, psi, m0, beta):
-    """K1: one MD force evaluation (links, chi' = Dhat^+ psi, fermion force,
-    staple force) with psi solved outside. CUDA tensors run the kernel of
-    csrc/force_step.cu; CPU tensors run force_step_reference."""
+def ratio_force(thE, thO, psi, phi2, *, m0, m1, beta):
+    """K5: the force of the Hasenbusch ratio term
+    (Dhat1 phi2)^+ (Dhat0 Dhat0^+)^{-1} (Dhat1 phi2) at the solved
+    psi = (Dhat0 Dhat0^+)^{-1} Dhat1 phi2, plus the staple force
+    (pallas_traj.ratio_force_fused). CUDA tensors run csrc/ratio_force.cu;
+    CPU tensors run ratio_force_reference."""
     if not psi.is_cuda:
-        return force_step_reference(thE, thO, psi, m0, beta)
+        return ratio_force_reference(thE, thO, psi, phi2, m0=m0, m1=m1,
+                                     beta=beta)
     C, _, Nx, Nth = thE.shape
     _cuda.check(thE, "thE", torch.float32, (C, 2, Nx, Nth))
     _cuda.check(thO, "thO", torch.float32, (C, 2, Nx, Nth))
     _cuda.check(psi, "psi", torch.float32, (C, 2, 2, Nx, Nth))
+    _cuda.check(phi2, "phi2", torch.float32, (C, 2, 2, Nx, Nth))
     FE = torch.empty_like(thE)
     FO = torch.empty_like(thO)
-    scratch = torch.empty(C * _FORCE_SCRATCH * Nx * Nth, dtype=torch.float32,
+    scratch = torch.empty(C * _RATIO_SCRATCH * Nx * Nth, dtype=torch.float32,
                           device=psi.device)
     p = _cuda.ptr
-    _cuda.KERNELS.call("force_step_launch", p(thE), p(thO), p(psi), p(FE),
-                       p(FO), p(scratch), C, Nx, Nth, float(m0), float(beta))
-    force_step.launches += 1
+    _cuda.KERNELS.call("ratio_force_launch", p(thE), p(thO), p(psi), p(phi2),
+                       p(FE), p(FO), p(scratch), C, Nx, Nth, float(m0),
+                       float(m1), float(beta))
+    ratio_force.launches += 1
     return FE, FO
 
 
-force_step.launches = 0
+ratio_force.launches = 0

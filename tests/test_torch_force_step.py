@@ -43,8 +43,10 @@ def test_force_step_matches_pallas_kernel(rng, Nx, Nt, m0, beta):
 
     thE, thO = tr.pack_planes(torch.from_numpy(theta))
     launches = tr.force_step.launches
-    FE, FO = tr.force_step(thE, thO, tr.to_planar(torch.from_numpy(psi)),
-                           m0, beta)
+    psi_t = tr.to_planar(torch.from_numpy(psi))
+    res_t = tr.force_step(thE, thO, psi_t, psi_t, m0=m0, beta=beta, tol=1e-8,
+                          max_iter=100, with_solve=False)
+    FE, FO = res_t.FE, res_t.FO
     assert tr.force_step.launches == launches     # CPU tensors: plain twin
     assert FE.dtype == torch.float32 and FE.shape == (C, 2, Nx, Nth)
 

@@ -84,8 +84,8 @@ def test_trajectory_stats_are_consistent(same_noise_pair):
 def test_unported_configurations_are_refused():
     lat, hmc, _ = from_jax_config(
         LatticeParams(Nx=8, Nt=8),
-        HMCParams(even_odd=True, hasenbusch_dm=0.3, cg=CGParams(refine=True)))
-    with pytest.raises(NotImplementedError, match="Hasenbusch"):
+        HMCParams(even_odd=True, quenched=True, cg=CGParams(refine=True)))
+    with pytest.raises(NotImplementedError, match="quenched"):
         hp.packed_supported(TorchModel(lattice=lat, hmc=hmc))
 
 
@@ -93,7 +93,9 @@ def test_package_imports_no_jax():
     code = ("import sys, importlib\n"
             "for m in ['schwingermodel_tpu_torch', 'schwingermodel_tpu_torch.cli',"
             " 'schwingermodel_tpu_torch.runner', 'schwingermodel_tpu_torch.ops._cuda',"
-            " 'schwingermodel_tpu_torch.ops.refined', 'schwingermodel_tpu_torch.hmc.packed']:\n"
+            " 'schwingermodel_tpu_torch.ops.refined', 'schwingermodel_tpu_torch.hmc.packed',"
+            " 'schwingermodel_tpu_torch.ops.traj', 'schwingermodel_tpu_torch.hmc.sampler',"
+            " 'schwingermodel_tpu_torch.models.schwinger']:\n"
             "    importlib.import_module(m)\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
             "assert not any(k.startswith('schwingermodel_tpu.') or k == 'schwingermodel_tpu'"
@@ -144,9 +146,9 @@ def test_cli_runs_reference_pipe_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--hasenbusch-dm", "0.3"], "not yet ported"),
-    (["--integrator", "omelyan"], "not yet ported"),
-    (["--no-cg-refine"], "not yet ported"),
+    (["--quenched"], "not yet ported"),
+    (["--no-even-odd"], "not yet ported"),
+    (["--dtype", "float64"], "not yet ported"),
     (["--device", "cuda"], "CUDA is not available"),
 ])
 def test_cli_refuses_what_it_cannot_run(argv, message):
