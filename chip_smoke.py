@@ -7,7 +7,7 @@ Run from the repository root on a machine with one CUDA card:
 Phases (any failure raises, and the script exits non-zero):
 
 0. the card's name and power limit; no CUDA, no run;
-1. build the five CUDA kernels from csrc/ with nvcc (sm_90a), one nvcc per
+1. build the seven CUDA kernels from csrc/ with nvcc (sm_90a), one nvcc per
    source, all started together;
 2. each kernel against its plain PyTorch twin on the card at m0=0.2,
    beta=4, random angles, on the main path's shape 64x64 C=32, on 64x64
@@ -23,8 +23,20 @@ Phases (any failure raises, and the script exits non-zero):
                         residual under tol ||b|| for every chain, equal
                         flags, iteration counts side by side;
    K4 solve_f64_cg_fallback  from a starved K3: reaches 1e-10;
+   K6 cg_solve_eo       on given links, B right-hand sides per
+                        configuration (B=8 at C=32, 1 at C=1, 2 at C=3):
+                        tol 1e-5 from x0 = 0 (the refinement's inner solve)
+                        and 1e-6 from x0 = b (the loose solve): equal flags,
+                        x to 2e-4, every f64 true residual under
+                        2 tol ||b||, iteration counts side by side; a
+                        starved max_iter=3 solve unconverged in both, finite;
+   K9 residual_f64      on random f64 x: |r - r_plain| <= 1e-12 (max|b| +
+                        max|A x|);
+   the refined dirac_inverse (K6 + K9 + K4) at 64x64 C=2 B=4 against the
+   plain twins on the CPU, same noise: every flag true, each estimate
+   Re(z^+ w) to rtol 1e-6;
    each kernel and its twin are timed in turns with CUDA events at 64x64
-   C=32; then four 64x64 trajectories of C=4 chains through the kernels
+   C=32 (K6 and K9 with B=8); then four 64x64 trajectories of C=4 chains through the kernels
    against the same trajectories through the plain twins on the CPU, same
    noise (refined leapfrog, loose leapfrog, refined Hasenbusch Omelyan,
    loose Hasenbusch leapfrog): |ddH| < 5e-3, |dtheta'| < 2e-4, equal
@@ -34,10 +46,17 @@ Phases (any failure raises, and the script exits non-zero):
    trajectories: the refined demo (md=10), the loose contract (md=10),
    Hasenbusch dm=0.4 (refined, md=10) and Omelyan (refined, md=5); then the
    near-critical Hasenbusch row (32x32, beta=2, m0=-0.19, dm=0.4, md=26,
-   tau=1, C=32, refined, max_iter 20000, cold start, 4 + 8 trajectories).
-   Every run has the kernels' launch counters set to 0 just before it and
-   read just after it, and fails if a kernel of its path was not launched;
-4. the kernels line, the card line, and the last line
+   tau=1, C=32, refined, max_iter 20000, cold start, 4 + 8 trajectories);
+   then the measurement path: (d) the refined demo with --condensate
+   --n-noise 8 (K6, K9, K4; on its final configurations the condensate
+   through the kernels equals the plain twins' on the card, same noise, to
+   rtol 1e-6), (e) the loose demo with --condensate (K6 from x0 = b, no
+   K9), and the meson correlators at 64x64 C=2 on (d)'s final
+   configurations (kernels against the twins on the card to rtol 1e-6; the
+   PCAC plateau printed). Every run has the kernels' launch counters set
+   to 0 just before it and read just after it, and fails if a kernel of its
+   path was not launched;
+4. the kernels line (seven entry points), the card line, and the last line
    {"ok": true, "device": {...}}.
 
 Imports nothing of jax or of the JAX package.
@@ -45,6 +64,7 @@ Imports nothing of jax or of the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -52,6 +72,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 M0, BETA, NX, NT = 0.2, 4.0, 64, 64
@@ -94,20 +115,20 @@ def in_turns(plain, kernel, reps_plain, reps_kernel):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("error: CUDA is not available", file=sys.stderr)
         return 1
+    from schwingermodel_tpu_torch import observables as obs
     from schwingermodel_tpu_torch.config import (CGParams, HMCParams,
                                                  LatticeParams, RunParams)
     from schwingermodel_tpu_torch.hmc import packed as hp
     from schwingermodel_tpu_torch.models.schwinger import SchwingerModel
-    from schwingermodel_tpu_torch.ops import _cuda, eo, gauge
+    from schwingermodel_tpu_torch.ops import _cuda, cg_eo, eo, gauge
     from schwingermodel_tpu_torch.ops import refined as rs
     from schwingermodel_tpu_torch.ops import traj as tr
     from schwingermodel_tpu_torch.runner import run_hmc
+    from schwingermodel_tpu_torch.solvers import refine
 
     # the package under test is the checkout's own, beside this script
     check(Path(_cuda.__file__).resolve().parents[2] == Path(__file__).resolve().parent,
@@ -156,12 +177,66 @@ def main() -> int:
               f"{scale:.3f}, atol {rel * max(scale, 1.0):.3e})", flush=True)
         return err
 
+    def eo_rel_residual(thE, thO, b, x):
+        """Per-entry f64 ||b - A x|| / ||b|| of [C, B] systems (K9's twin)."""
+        _, rn = rs.residual_f64_reference(thE, thO, b, x.double(), m0=M0)
+        return (rn / (b.double() ** 2).sum(dim=(2, 3, 4, 5))).sqrt()
+
     errs = dict.fromkeys(("force_step", "solve_fused", "ratio_force",
-                          "solve_refined", "solve_f64_cg_fallback"), 0.0)
+                          "solve_refined", "solve_f64_cg_fallback",
+                          "cg_solve_eo", "residual_f64"), 0.0)
+    RHS = {C_MAIN: 8, 1: 1, 3: 2}      # right-hand sides per configuration
     # the main path's shapes, and a small non-square lattice
     for nx, nt, C in ((NX, NT, C_MAIN), (NX, NT, 1), (8, 12, 3)):
         thE, thO, b = inputs(C, nx, nt)
+        B = RHS[C]
+        ue, uo = SchwingerModel.fermion_links(thE, thO)
+        bb = torch.randn((C, B, 2, 2, nx, nt // 2), generator=gen, device=dev)
         C = f"{C} at {nx}x{nt}"
+
+        # K6 on given links: the refinement's inner solve and the loose solve
+        for tol, cold in ((1e-5, True), (LOOSE_TOL, False)):
+            x0 = torch.zeros_like(bb) if cold else bb
+            label = f"K6 tol={tol:g} from x0={'0' if cold else 'b'} C={C} B={B}"
+            k = cg_eo.cg_solve_eo(ue, uo, bb, x0, m0=M0, tol=tol, max_iter=MAX_ITER)
+            p = cg_eo.cg_solve_eo_reference(ue, uo, bb, x0, m0=M0, tol=tol,
+                                            max_iter=MAX_ITER)
+            rk = eo_rel_residual(thE, thO, bb, k.x)
+            rp = eo_rel_residual(thE, thO, bb, p.x)
+            dx = (k.x - p.x).abs().max().item()
+            check(torch.equal(k.converged, p.converged) and bool(k.converged.all()),
+                  f"{label}: flags")
+            check(dx <= 2e-4, f"{label}: x differs by {dx}")
+            check(bool((rk < 2 * tol).all()) and bool((rp < 2 * tol).all()),
+                  f"{label}: true residual kernel {rk.max().item()} plain "
+                  f"{rp.max().item()}")
+            errs["cg_solve_eo"] = max(errs["cg_solve_eo"], dx)
+            print(f"phase 2: {label}: f64 true residual kernel {rk.max().item():.3e} "
+                  f"plain {rp.max().item():.3e}; max |x - x_plain| {dx:.3e}; "
+                  f"iterations kernel {k.iters.flatten()[:8].tolist()} plain "
+                  f"{p.iters.flatten()[:8].tolist()}", flush=True)
+        k = cg_eo.cg_solve_eo(ue, uo, bb, bb, m0=M0, tol=LOOSE_TOL, max_iter=3)
+        p = cg_eo.cg_solve_eo_reference(ue, uo, bb, bb, m0=M0, tol=LOOSE_TOL,
+                                        max_iter=3)
+        check(not bool(k.converged.any()) and not bool(p.converged.any())
+              and bool(torch.isfinite(k.x).all()) and bool(torch.isfinite(p.x).all()),
+              f"K6 starved C={C}: converged or non-finite")
+        print(f"phase 2: K6 starved max_iter=3 C={C} B={B}: unconverged and "
+              f"finite in both; iterations kernel {k.iters.flatten()[:4].tolist()}",
+              flush=True)
+
+        # K9 on a random f64 x
+        x64 = torch.randn(bb.shape, generator=gen, device=dev, dtype=torch.float64)
+        rk, nk = rs.residual_f64(thE, thO, bb, x64, m0=M0)
+        rp, np_ = rs.residual_f64_reference(thE, thO, bb, x64, m0=M0)
+        dr = (rk - rp).abs().max().item()
+        bound = 1e-12 * (bb.abs().max().item() + (bb.double() - rp).abs().max().item())
+        dn = ((nk - np_).abs() / np_).max().item()
+        check(dr <= bound and dn <= 1e-12,
+              f"K9 C={C}: |r - r_plain| {dr} (bound {bound}), ||r||^2 rel {dn}")
+        errs["residual_f64"] = max(errs["residual_f64"], dr)
+        print(f"phase 2: K9 C={C} B={B}: max |r - r_plain| {dr:.3e} (bound "
+              f"{bound:.3e}); max rel. difference of ||r||^2 {dn:.3e}", flush=True)
 
         # K1, every variant; with_solve from x0 = phi = b at the loose tol
         for with_solve in (False, True):
@@ -257,9 +332,38 @@ def main() -> int:
               f"kernel {fk.iters[:8].tolist()} plain {fp.iters[:8].tolist()}",
               flush=True)
 
+    # the refined dirac_inverse (K6 + K9 + K4) against the plain twins on
+    # the CPU, one configuration, same noise
+    lattice = LatticeParams(Nx=NX, Nt=NT, real_dtype="float32")
+    refined_model = SchwingerModel(lattice=lattice, hmc=HMCParams(
+        beta=BETA, m0=M0, even_odd=True,
+        cg=CGParams(tol=1e-10, max_iter=MAX_ITER, refine=True, inner_tol=1e-5)))
+    theta = (2.0 * torch.rand((2, 2, NX, NT), generator=gen, device=dev) - 1.0) * math.pi
+    zs = obs.condensate_noise(0, 0, 2, theta.shape, 4, dev)
+
+    def estimates(theta, zs):
+        w, res = refined_model.dirac_inverse(theta, zs)
+        est = (zs.to(torch.complex128).conj() * w.to(torch.complex128)).real
+        return est.sum(dim=(2, 3, 4)).cpu(), res.converged.cpu(), res.iters.cpu()
+
+    ek, ck, ik = estimates(theta, zs)
+    ep, cp, ip = estimates(theta.cpu(), zs.cpu())
+    rel = ((ek - ep).abs() / ep.abs()).max().item()
+    check(bool(ck.all()) and bool(cp.all()), "refined dirac_inverse: a flag is false")
+    check(rel <= 1e-6, f"refined dirac_inverse: estimates differ by {rel} relative")
+    print(f"phase 2: refined dirac_inverse {NX}x{NT} C=2 B=4, kernels vs plain "
+          f"twins on the CPU: every flag true, max rel. difference of Re(z^+ w) "
+          f"{rel:.3e}; iterations kernels {ik.tolist()} plain {ip.tolist()}",
+          flush=True)
+
     # timings at C=32, kernel and plain twin in turns
     thE, thO, b = inputs(C_MAIN)
     phi2 = torch.randn(b.shape, generator=gen, device=dev)
+    ue, uo = SchwingerModel.fermion_links(thE, thO)
+    bb = torch.randn((C_MAIN, RHS[C_MAIN], 2, 2, NX, NT // 2), generator=gen,
+                     device=dev)
+    zero, x64 = torch.zeros_like(bb), torch.randn(bb.shape, generator=gen,
+                                                  device=dev, dtype=torch.float64)
     starved = rs.solve_refined(thE, thO, b, b, m0=M0, tol=1e-10, max_iter=20)
 
     def k1(fn, with_solve, with_gauge):
@@ -293,6 +397,15 @@ def main() -> int:
                                                        m0=M0, tol=1e-10),
             lambda: rs.solve_f64_cg_fallback(thE, thO, b, starved, m0=M0,
                                              tol=1e-10), 1, 20),
+        # the refinement's inner solve: tol 1e-5 from 0, B=8
+        "cg_solve_eo": in_turns(
+            lambda: cg_eo.cg_solve_eo_reference(ue, uo, bb, zero, m0=M0, tol=1e-5,
+                                                max_iter=MAX_ITER),
+            lambda: cg_eo.cg_solve_eo(ue, uo, bb, zero, m0=M0, tol=1e-5,
+                                      max_iter=MAX_ITER), 2, 20),
+        "residual_f64": in_turns(
+            lambda: rs.residual_f64_reference(thE, thO, bb, x64, m0=M0),
+            lambda: rs.residual_f64(thE, thO, bb, x64, m0=M0), 20, 200),
     }
     for k_name, (ms, plain_ms) in [*times.items(),
                                    *(("force_step " + v, t) for v, t in k1_times.items())]:
@@ -300,7 +413,6 @@ def main() -> int:
               f"{ms:.4f} ms, plain twin {plain_ms:.4f} ms", flush=True)
 
     # trajectories through the kernels against the plain twins on the CPU
-    lattice = LatticeParams(Nx=NX, Nt=NT, real_dtype="float32")
 
     def hmc_params(md_steps=10, refine=True, **kw):
         return HMCParams(
@@ -340,7 +452,8 @@ def main() -> int:
     # ---- phase 3: the main paths ----
     counters = {"force_step": tr.force_step, "solve_fused": tr.solve_fused,
                 "ratio_force": tr.ratio_force, "solve_refined": rs.solve_refined,
-                "solve_f64_cg_fallback": rs.solve_f64_cg_fallback}
+                "solve_f64_cg_fallback": rs.solve_f64_cg_fallback,
+                "cg_solve_eo": cg_eo.cg_solve_eo, "residual_f64": rs.residual_f64}
     launches = dict.fromkeys(counters, 0)
     variants = {}
 
@@ -367,22 +480,15 @@ def main() -> int:
             launches[k] += n
         for k, n in by_variant.items():
             variants[k] = variants.get(k, 0) + n
-        return out, wall
+        return out, wall, got
 
     run = RunParams(n_therm=10, n_meas=20, n_steps=0, n_chains=C_MAIN, seed=0)
     refined_k = ("solve_refined", "solve_f64_cg_fallback")
-    for label, hmc, uses in (
-            ("refined demo md=10", hmc_params(),
-             ("with_solve=False,with_gauge=True", *refined_k)),
-            ("(a) --no-cg-refine md=10", hmc_params(refine=False),
-             ("with_solve=True,with_gauge=True", "solve_fused")),
-            ("(b) --hasenbusch-dm 0.4 md=10", hmc_params(hasenbusch_dm=0.4),
-             ("with_solve=False,with_gauge=False", "ratio_force", *refined_k)),
-            ("(c) --integrator omelyan md=5", hmc_params(
-                md_steps=5, integrator="omelyan"),
-             ("with_solve=False,with_gauge=True", *refined_k))):
-        res, wall = counted(label, uses,
-                            lambda: run_hmc(lattice, hmc, run, device=dev))
+    rates = {}
+
+    def main_gates(label, res, wall):
+        """The gates every main-path run passes; returns the measure phase's
+        chain-trajectories per second."""
         check(res.all_converged and res.n_ill == 0, f"{label}: a solve did not converge")
         check(0.3 < res.acceptance_rate <= 1.0,
               f"{label}: acceptance {res.acceptance_rate}")
@@ -402,6 +508,21 @@ def main() -> int:
               f"{meas['cg_iters_per_traj']:.1f} CG iterations per chain-trajectory, "
               f"{n_traj * C_MAIN / wall:.2f} chain-traj/s over the whole run; "
               f"card {card}", flush=True)
+        return meas["traj_per_s"]
+
+    for label, hmc, uses in (
+            ("refined demo md=10", hmc_params(),
+             ("with_solve=False,with_gauge=True", *refined_k)),
+            ("(a) --no-cg-refine md=10", hmc_params(refine=False),
+             ("with_solve=True,with_gauge=True", "solve_fused")),
+            ("(b) --hasenbusch-dm 0.4 md=10", hmc_params(hasenbusch_dm=0.4),
+             ("with_solve=False,with_gauge=False", "ratio_force", *refined_k)),
+            ("(c) --integrator omelyan md=5", hmc_params(
+                md_steps=5, integrator="omelyan"),
+             ("with_solve=False,with_gauge=True", *refined_k))):
+        res, wall, _ = counted(label, uses,
+                               lambda: run_hmc(lattice, hmc, run, device=dev))
+        rates[label] = main_gates(label, res, wall)
 
     # the near-critical Hasenbusch row (tools/bench_points.py:60-61)
     nc_lat = LatticeParams(Nx=32, Nt=32, real_dtype="float32")
@@ -419,7 +540,7 @@ def main() -> int:
             stats.append(st)
         return stats
 
-    stats, wall = counted(
+    stats, wall, _ = counted(
         "near-critical 32x32 beta=2 m0=-0.19 dm=0.4 md=26 tau=1", (
             "with_solve=False,with_gauge=False", "ratio_force", *refined_k),
         near_critical)
@@ -440,6 +561,77 @@ def main() -> int:
           f"{(n_therm + n_meas) * C_MAIN / wall:.2f} chain-traj/s; card {card}",
           flush=True)
 
+    # the measurement path: the condensate on the refined and loose demos
+    N_NOISE = 8
+    final_d = None
+    for label, hmc, uses, no_k9 in (
+            ("(d) refined demo --condensate --n-noise 8", hmc_params(),
+             ("with_solve=False,with_gauge=True", *refined_k, "cg_solve_eo",
+              "residual_f64"), False),
+            ("(e) --no-cg-refine --condensate --n-noise 8", hmc_params(refine=False),
+             ("with_solve=True,with_gauge=True", "solve_fused", "cg_solve_eo"),
+             True)):
+        res, wall, got = counted(label, uses, lambda: run_hmc(
+            lattice, hmc, run, device=dev, measure_condensate=True, n_noise=N_NOISE))
+        rate = main_gates(label, res, wall)
+        check(res.condensate_converged, f"{label}: a condensate solve did not converge")
+        cc = res.chains["chiral_condensate"]
+        check(cc.shape == (run.n_meas, C_MAIN) and bool(torch.isfinite(
+            torch.as_tensor(cc)).all()), f"{label}: condensate chain {cc.shape}")
+        if no_k9:
+            check(got["residual_f64"] == 0, f"{label}: K9 launched {got['residual_f64']}"
+                  " times on the loose contract")
+        s = res.summary("chiral_condensate")
+        n_solves = run.n_meas * C_MAIN * N_NOISE
+        print(f"phase 3: {label}: chiral condensate {s['mean']:.10g} +- "
+              f"{s['error']:.3g} (tau_int {s['tau_int']:.2f}); "
+              f"{res.condensate_iters / run.n_meas:.1f} CG iterations per "
+              f"measurement ({C_MAIN}x{N_NOISE} solves), "
+              f"{res.condensate_iters / n_solves:.2f} per solve; measure phase "
+              f"{rate:.2f} chain-traj/s with the condensate against "
+              f"{rates['refined demo md=10' if not no_k9 else '(a) --no-cg-refine md=10']:.2f}"
+              f" without it; card {card}", flush=True)
+        if not no_k9:
+            final_d = torch.as_tensor(res.theta, device=dev)
+            twin_model = dataclasses.replace(
+                SchwingerModel(lattice=lattice, hmc=hmc), eo_kernels=refine.PLAIN)
+            zs = obs.condensate_noise(1, 0, C_MAIN, final_d.shape, N_NOISE, dev)
+            vk = obs.chiral_condensate_given_noise(
+                SchwingerModel(lattice=lattice, hmc=hmc), final_d, zs)
+            vp = obs.chiral_condensate_given_noise(twin_model, final_d, zs)
+            rel = ((vk.value - vp.value).abs() / vp.value.abs()).max().item()
+            check(bool(vk.converged.all()) and bool(vp.converged.all()),
+                  f"{label}: final-configuration condensate flags")
+            check(rel <= 1e-6, f"{label}: kernels vs twins condensate rel {rel}")
+            print(f"phase 3: {label}: final configurations, kernels vs plain twins "
+                  f"on the card, same noise: max rel. difference of the condensate "
+                  f"{rel:.3e}; chain 0: {vk.value[0].item():.10g} against "
+                  f"{vp.value[0].item():.10g}", flush=True)
+
+    # the meson correlators on (d)'s final configurations
+    meson_model = SchwingerModel(lattice=lattice, hmc=hmc_params())
+    mk, wall, _ = counted(f"mesons {NX}x{NT} C=2", ("cg_solve_eo", "residual_f64"),
+                          lambda: obs.meson_correlators(meson_model, final_d[:2]))
+    mp = obs.meson_correlators(dataclasses.replace(meson_model, eo_kernels=refine.PLAIN),
+                               final_d[:2])
+    check(bool(mk.converged.all()) and bool(mp.converged.all()), "mesons: flags")
+    # rtol 1e-6 of each chain's correlator scale: the far-t values are
+    # below the solves' 1e-10 absolute accuracy, where two solutions that
+    # both meet the contract may differ relatively
+    merr = {}
+    for corr, k, p in (("C_PP", mk.C_PP, mp.C_PP), ("C_A0P", mk.C_A0P, mp.C_A0P)):
+        scale = p.abs().amax(dim=1, keepdim=True)
+        merr[corr] = ((k - p).abs() / scale).max().item()
+        check(merr[corr] <= 1e-6, f"mesons: {corr} differs by {merr[corr]} of its scale")
+    m_t = obs.pcac_mass(mk.C_PP, mk.C_A0P)
+    t0, t1 = NT // 5, NT // 3
+    plateau = [float(np.nanmean(m_t[c, t0:t1 + 1])) for c in range(2)]
+    print(f"phase 3: mesons {NX}x{NT} C=2 on (d)'s final configurations in "
+          f"{wall:.2f} s: kernels vs plain twins on the card, max |difference| / "
+          f"scale {merr}; iterations {mk.iters.tolist()}; C_PP(t=0..3) "
+          f"{mk.C_PP[0, :4].tolist()}; PCAC mass plateau (mean over t = {t0}..{t1}) "
+          f"{plateau}; card {card}", flush=True)
+
     # ---- phase 4: report ----
     replaces = {
         "force_step": ("csrc/force_step.cu", "schwingermodel_tpu/ops/pallas_traj.py:339"),
@@ -448,6 +640,8 @@ def main() -> int:
         "solve_refined": ("csrc/solve_ru.cu", "schwingermodel_tpu/ops/pallas_df.py:402"),
         "solve_f64_cg_fallback": ("csrc/cg_fallback.cu",
                                   "schwingermodel_tpu/ops/pallas_df.py:674"),
+        "cg_solve_eo": ("csrc/cg_eo.cu", "schwingermodel_tpu/ops/pallas_eo.py:208"),
+        "residual_f64": ("csrc/residual.cu", "schwingermodel_tpu/ops/pallas_df.py:145"),
     }
     kernels = [{"name": k, "route": "cuda",
                 "source": "schwingermodel_tpu_torch/" + src, "replaces": rep,
@@ -457,6 +651,8 @@ def main() -> int:
     kernels[0]["launches_by_variant"] = variants
     kernels[0]["ms_by_variant"] = {v: t[0] for v, t in k1_times.items()}
     kernels[0]["plain_ms_by_variant"] = {v: t[1] for v, t in k1_times.items()}
+    # K6a and K6b are one kernel
+    kernels[5]["also_replaces"] = "schwingermodel_tpu/ops/pallas_eo.py:328"
     check(all(e["launches"] > 0 for e in kernels), "a kernel was never launched")
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card}")

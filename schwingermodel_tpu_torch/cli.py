@@ -13,7 +13,8 @@ kernels, on ``cpu`` through their plain PyTorch twins. The refined 1e-10
 contract is the default; ``--no-cg-refine`` selects the loose f32 contract
 (tol 1e-6 unless ``--cg-tol``), ``--integrator omelyan`` the Omelyan 2MN
 integrator and ``--hasenbusch-dm DM`` the two-pseudofermion split at the
-heavy mass m0+DM, in any combination. ``--mre-history >= 2`` is refused
+heavy mass m0+DM, in any combination; ``--condensate`` (with ``--n-noise``)
+measures the chiral condensate on every path. ``--mre-history >= 2`` is refused
 only where the JAX package would use it (refined, forecasting on, no
 Hasenbusch) and ignored elsewhere, as there. Flags that select something
 not ported yet exit with status 2 and a "not yet ported" message.
@@ -116,7 +117,10 @@ def _not_ported(args) -> list:
          and args.cg_forecast and not args.hasenbusch_dm,
          "--mre-history >= 2"),
         (args.autotune, "--autotune"),
-        (args.condensate, "--condensate"),
+        # JAX runs an odd lattice on the full-D path (schwingermodel_tpu/
+        # cli.py:260)
+        (args.even_odd and (args.nx % 2 or args.nt % 2),
+         "full-D pseudofermions (odd lattice extents)"),
         (args.resume, "--resume"),
         (args.checkpoint, "--checkpoint"),
         (args.dtype == "float64", "--dtype float64"),
@@ -176,10 +180,6 @@ def main(argv=None) -> int:
                   "device mesh other than 1x1", file=sys.stderr)
             return 2
 
-    if args.nx % 2 or args.nt % 2:
-        print(f"error: even-odd preconditioning needs even lattice extents, "
-              f"got {args.nx}x{args.nt}", file=sys.stderr)
-        return 2
     lattice = LatticeParams(Nx=args.nx, Nt=args.nt, real_dtype="float32")
     refine = args.cg_refine is not False
     cg_tol = args.cg_tol if args.cg_tol is not None else (
@@ -235,12 +235,17 @@ def main(argv=None) -> int:
 
     result = run_hmc(lattice, hmc, run, device=args.device,
                      initial_theta=initial_theta, progress=print,
-                     write_simdata=not args.no_simdata)
+                     write_simdata=not args.no_simdata,
+                     measure_condensate=args.condensate, n_noise=args.n_noise)
 
     print(f"Average plaquette value / volume: Ep = {result.Ep:.17g} "
           f"dEp = {result.dEp:.17g}")
     print(f"Average gauge action / volume: gS = {result.gS:.17g} "
           f"dgS = {result.dgS:.17g}")
+    if args.condensate:
+        s = result.summary("chiral_condensate")
+        print(f"Chiral condensate: {s['mean']:.10g} +- {s['error']:.3g} "
+              f"(tau_int {s['tau_int']:.2f})")
     print(f"Acceptance rate: {result.acceptance_rate:.17g}")
     print(f"<exp(-dH)> = {result.exp_mdH_mean:.6f}, all solves converged: "
           f"{result.all_converged}")

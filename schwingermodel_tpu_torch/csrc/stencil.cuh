@@ -1,7 +1,7 @@
 // Even-odd Wilson stencil on one chain's checkerboard planes, for the
 // port's kernels (force_step.cu, solve_fused.cu, ratio_force.cu,
-// solve_ru.cu, cg_fallback.cu), with the fermion force stencil and the f32
-// CG loop that K1 and K2 share.
+// solve_ru.cu, cg_fallback.cu, cg_eo.cu, residual.cu), with the fermion
+// force stencil and the f32 CG loop that K1, K2 and K6 share.
 //
 // Device counterpart of schwingermodel_tpu_torch/ops/eo.py (and of the
 // packed stencil of schwingermodel_tpu/ops/pallas_eo.py:118-181), templated
@@ -244,12 +244,17 @@ struct CgOut {
 // ||b||^2 and fewer than max_iter iterations ran. Breakdown guards, checked
 // before the x/r update: dAd <= 0 or a non-finite alpha; then, after it, a
 // non-finite rho_c. Either freezes the chain (the loop exits, rho keeps its
-// last finite value, so converged = rho < stop2 is false). A NaN in b makes
-// rho NaN and the loop never starts: x = x0. Dots are accumulated in f64
-// and rounded to f32, as the Pallas kernel's f32 dots are. The lockstep
-// jnp.any test of the Pallas loop becomes this per-chain loop: a frozen
-// chain does not change there either. Ends with a barrier, so x may be read
-// at any site afterwards. r, d, Ad, t1..t3: scratch spinors.
+// last finite value, so converged = rho < stop2 is false). kGuards=false
+// drops both, as the loop of pallas_eo._cg_kernel has none (K6): a
+// breakdown then runs its iteration to the end, a NaN rho fails the stop
+// test and the loop exits with converged = false and x as the arithmetic
+// left it. A NaN in b makes rho NaN and the loop never starts: x = x0.
+// Dots are accumulated in f64 and rounded to f32, as the Pallas kernel's
+// f32 dots are. The lockstep jnp.any test of the Pallas loop becomes this
+// per-chain loop: a frozen chain does not change there either. Ends with a
+// barrier, so x may be read at any site afterwards. r, d, Ad, t1..t3:
+// scratch spinors.
+template <bool kGuards = true>
 __device__ inline CgOut cg_f32(const float* ue, const float* uo, const float* b, const float* x0,
                                float* x, float* r, float* d, float* Ad, float* t1, float* t2,
                                float* t3, float m, float c, double tol, int max_iter,
@@ -269,7 +274,7 @@ __device__ inline CgOut cg_f32(const float* ue, const float* uo, const float* b,
     normal_apply<float>(ue, uo, d, Ad, t1, t2, t3, m, c, g);
     const float dAd = static_cast<float>(block_dot(d, Ad, n, sh));
     const float alpha = rho / dAd;
-    if (!(dAd > 0.0f) || !isfinite(alpha)) break;
+    if (kGuards && (!(dAd > 0.0f) || !isfinite(alpha))) break;
     double acc = 0.0;
     for (int i = threadIdx.x; i < n; i += blockDim.x) {
       x[i] += alpha * d[i];
@@ -278,7 +283,7 @@ __device__ inline CgOut cg_f32(const float* ue, const float* uo, const float* b,
       acc += static_cast<double>(ri) * static_cast<double>(ri);
     }
     const float rho_c = static_cast<float>(block_sum(acc, sh));
-    if (!isfinite(rho_c)) break;
+    if (kGuards && !isfinite(rho_c)) break;
     const float beta = rho_c / rho;
     for (int i = threadIdx.x; i < n; i += blockDim.x) d[i] = r[i] + beta * d[i];
     rho = rho_c;

@@ -52,6 +52,11 @@ SIGNATURES = {
     # C, Nx, Nth, m0, tol, tau, max_iter, max_rounds, stream
     "cg_fallback_launch": [P, P, P, P, P, P, P, P, P, P, P,
                            I, I, I, D, D, D, I, I, P],
+    # ue, uo, b, x0, x, iters, rho, bnorm2, scratch,
+    # C, B, Nx, Nth, m0, tol, max_iter, stream
+    "cg_eo_launch": [P, P, P, P, P, P, P, P, P, I, I, I, I, D, D, I, P],
+    # thE, thO, b, x, r, rnorm2, scratch, C, B, Nx, Nth, m0, stream
+    "residual_launch": [P, P, P, P, P, P, P, I, I, I, I, D, P],
 }
 
 

@@ -1,4 +1,4 @@
-"""Refined-contract solves of (Dhat Dhat^+) x = b: kernels K3 and K4.
+"""Refined-contract solves of (Dhat Dhat^+) x = b: kernels K3, K4 and K9.
 
 Counterpart of the reliable-update half of
 ``schwingermodel_tpu/ops/pallas_df.py`` (``solve_refined_fused`` and
@@ -12,7 +12,11 @@ algorithm and uses f64 for that half.
   residual.
 - ``solve_f64_cg_fallback`` is K4 (``csrc/cg_fallback.cu``, replacing
   ``pallas_df._df_cg_fb_kernel``): an f64 CG continuation for the chains
-  K3 left unconverged.
+  K3 (or the restart refinement, ``solvers/refine.py``) left unconverged.
+- ``residual_f64`` is K9 (``csrc/residual.cu``, replacing
+  ``pallas_df._df_residual_kernel``): the f64 true residual
+  r = b - (Dhat Dhat^+) x of the restart refinement, for C configurations
+  of B right-hand sides each.
 
 Per-chain semantics. The Pallas kernels advance all chains in lockstep and
 couple them in three places: ``jnp.any`` over chains in the outer
@@ -295,3 +299,44 @@ def solve_f64_cg_fallback(thE, thO, b, prev: RefinedSolveResult, *, m0, tol,
 
 
 solve_f64_cg_fallback.launches = 0
+
+
+# ---------- K9 ----------
+
+def residual_f64_reference(thE, thO, b, x, *, m0):
+    """Plain twin of K9: (r f64 [C, B, 2, 2, Nx, Nth], ||r||^2 f64 [C, B])."""
+    ue64, uo64 = gauge.links(thE, thO, torch.complex128)
+    r = (to_complex(b).to(torch.complex128)
+         - eo.normal(ue64[:, None], uo64[:, None], to_complex(x), m0))
+    rp = to_planar(r)
+    return rp, (rp * rp).sum(dim=(2, 3, 4, 5))
+
+
+_RES_S64 = 20   # f64 scratch values per half-lattice site and entry (residual.cu)
+
+
+def residual_f64(thE, thO, b, x, *, m0):
+    """K9: r = b - (Dhat Dhat^+) x in f64, with the links evaluated in f64
+    from the f32 angles, and each entry's f64 ||r||^2.
+
+    thE/thO f32 [C, 2, Nx, Nth]; b f32 and x f64 [C, B, 2, 2, Nx, Nth].
+    Returns (r f64 [C, B, 2, 2, Nx, Nth], rnorm2 f64 [C, B])."""
+    if not b.is_cuda:
+        return residual_f64_reference(thE, thO, b, x, m0=m0)
+    C, B, _, _, Nx, Nth = b.shape
+    _cuda.check(thE, "thE", torch.float32, (C, 2, Nx, Nth))
+    _cuda.check(thO, "thO", torch.float32, (C, 2, Nx, Nth))
+    _cuda.check(b, "b", torch.float32, (C, B, 2, 2, Nx, Nth))
+    _cuda.check(x, "x", torch.float64, (C, B, 2, 2, Nx, Nth))
+    r = torch.empty_like(x)
+    rnorm2 = torch.empty((C, B), dtype=torch.float64, device=b.device)
+    s64 = torch.empty(C * B * _RES_S64 * Nx * Nth, dtype=torch.float64,
+                      device=b.device)
+    p = _cuda.ptr
+    _cuda.KERNELS.call("residual_launch", p(thE), p(thO), p(b), p(x), p(r),
+                       p(rnorm2), p(s64), C, B, Nx, Nth, float(m0))
+    residual_f64.launches += 1
+    return r, rnorm2
+
+
+residual_f64.launches = 0

@@ -168,11 +168,12 @@ def _converged(rho, bnorm2, tol):
     return rho < _tol2(tol, rho.device) * bnorm2
 
 
-def _cg_f32(apply_A, b, x0, tol, max_iter):
+def _cg_f32(apply_A, b, x0, tol, max_iter, guards=True):
     """Plain twin of stencil.cuh cg_f32 (pallas_traj._cg_planes) on complex
     [C, 2, Nx, Nth]: all chains batched, each with its own live mask, so a
     frozen chain does not change (torch.where, never 0 * d, which would
-    turn an inf in d into NaN). Returns (x, iters int32, rho f32,
+    turn an inf in d into NaN). guards=False drops the breakdown guards,
+    as cg_f32<false> does (K6). Returns (x, iters int32, rho f32,
     bnorm2 f32), all per chain."""
     C = b.shape[0]
     bnorm2 = _dot32(b, b)
@@ -193,15 +194,17 @@ def _cg_f32(apply_A, b, x0, tol, max_iter):
         Ad = apply_A(d)
         dAd = _dot32(d, Ad)
         alpha = rho / dAd
-        # breakdown before the x/r update: non-positive curvature or a
-        # non-finite alpha freezes the chain untouched
-        live = live & (dAd > 0) & torch.isfinite(alpha)
+        if guards:
+            # breakdown before the x/r update: non-positive curvature or a
+            # non-finite alpha freezes the chain untouched
+            live = live & (dAd > 0) & torch.isfinite(alpha)
         a = per_chain(torch.where(live, alpha, zero))
         x = torch.where(per_chain(live), x + a * d, x)
         r = torch.where(per_chain(live), r + (-a) * Ad, r)
         rho_c = _dot32(r, r)
-        # overflow after it: frozen with x as updated
-        live = live & torch.isfinite(rho_c)
+        if guards:
+            # overflow after it: frozen with x as updated
+            live = live & torch.isfinite(rho_c)
         beta = per_chain(torch.where(live, rho_c / rho, zero))
         d = torch.where(per_chain(live), r + beta * d, d)
         rho = torch.where(live, rho_c, rho)

@@ -13,8 +13,12 @@ Per-trajectory statistics (accept flags, CG iterations, convergence flags)
 and the first-failure capture stay on the device and are read once per
 block, as the JAX runner's ``_stat_scalars`` does: a thermalization block
 is 100 trajectories, the measurement phase is one block (or one per
-measurement when configurations are saved). Device meshes, autotuning, the
-condensate and checkpoints are not ported yet.
+measurement when configurations are saved). With ``measure_condensate``
+each measurement adds the chiral condensate of every chain
+(observables.chiral_condensate, ``n_noise`` Z2xZ2 vectors per chain, all
+C * n_noise solves in one batch); its values and flags stay on the device
+until the phase ends (the refinement itself reads the host once per pass).
+Device meshes, autotuning and checkpoints are not ported yet.
 """
 
 from __future__ import annotations
@@ -57,6 +61,11 @@ class RunResult:
     exp_mdH_mean: float = float("nan")   # <exp(-dH)> over measured trajectories
     perf: Optional[dict] = None
     ill_records: list = dataclasses.field(default_factory=list)
+    condensate_converged: bool = True    # every condensate solve converged
+    condensate_iters: int = 0            # CG iterations of the condensate solves
+
+    def summary(self, name: str) -> dict:
+        return statistics.binned_summary(np.asarray(self.chains[name]).reshape(-1))
 
 
 def hot_start(lattice: LatticeParams, seed: int, n_chains: int, device):
@@ -115,6 +124,8 @@ def run_hmc(
     initial_theta=None,
     progress: Optional[Callable[[str], None]] = None,
     write_simdata: bool = False,
+    measure_condensate: bool = False,
+    n_noise: int = 8,
 ) -> RunResult:
     """Full simulation on one device (reference main.cpp:148-174 +
     hmc.cpp:183-215)."""
@@ -213,6 +224,10 @@ def run_hmc(
     # ---- measurements (hmc.cpp:196-212): update, measure, then n_steps
     # decorrelation updates (none after the last measurement) ----
     meas = {"plaquette": [], "gauge_action_density": [], "top_charge": []}
+    if measure_condensate:
+        meas["chiral_condensate"] = []
+        cond_conv = torch.ones((), dtype=torch.bool, device=device)
+        cond_iters = torch.zeros((), dtype=torch.int64, device=device)
     accepted_total = 0
     updates_total = 0
     exp_mdH_sum = 0.0
@@ -224,6 +239,11 @@ def run_hmc(
             meas["gauge_action_density"].append(
                 obs.gauge_action_density(theta, hmc.beta))
             meas["top_charge"].append(obs.topological_charge(theta))
+            if measure_condensate:
+                cc = obs.chiral_condensate(model, theta, run.seed, i, n_noise)
+                meas["chiral_condensate"].append(cc.value)
+                cond_conv &= cc.converged.all()
+                cond_iters += cc.iters.sum()
             if run.save_conf:
                 acc, _, em = close(blk)
                 accepted_total += acc
@@ -237,6 +257,11 @@ def run_hmc(
             updates_total += blk.updates
             exp_mdH_sum += em
         chains = {k: torch.stack(v).cpu().numpy() for k, v in meas.items()}
+        condensate_converged, condensate_iters = True, 0
+        if measure_condensate:
+            condensate_converged, condensate_iters = bool(cond_conv), int(cond_iters)
+            if not condensate_converged:
+                log("a condensate solve did not converge")
         perf.add(trajectories=updates_total,
                  cg_iters=cg_iters_total
                  - sum(p.cg_iters for p in perf.phases.values()))
@@ -270,11 +295,14 @@ def run_hmc(
         traj_index=traj_index, cg_iters_total=cg_iters_total,
         all_converged=all_converged,
         exp_mdH_mean=exp_mdH_sum / max(updates_total, 1), perf=perf.summary(),
-        ill_records=ill_records)
+        ill_records=ill_records, condensate_converged=condensate_converged,
+        condensate_iters=condensate_iters)
     if simdata is not None:
+        extra = ({"chiral_condensate": _jack("chiral_condensate")}
+                 if measure_condensate else None)
         simdata.append_results(Ep=Ep, dEp=dEp, gS=gS, dgS=dgS,
                                acceptance_rate=acceptance,
-                               elapsed_seconds=elapsed)
+                               elapsed_seconds=elapsed, extra=extra)
     return result
 
 

@@ -95,7 +95,8 @@ def test_package_imports_no_jax():
             " 'schwingermodel_tpu_torch.runner', 'schwingermodel_tpu_torch.ops._cuda',"
             " 'schwingermodel_tpu_torch.ops.refined', 'schwingermodel_tpu_torch.hmc.packed',"
             " 'schwingermodel_tpu_torch.ops.traj', 'schwingermodel_tpu_torch.hmc.sampler',"
-            " 'schwingermodel_tpu_torch.models.schwinger']:\n"
+            " 'schwingermodel_tpu_torch.models.schwinger', 'schwingermodel_tpu_torch.ops.cg_eo',"
+            " 'schwingermodel_tpu_torch.solvers.refine', 'schwingermodel_tpu_torch.observables']:\n"
             "    importlib.import_module(m)\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
             "assert not any(k.startswith('schwingermodel_tpu.') or k == 'schwingermodel_tpu'"
@@ -149,6 +150,7 @@ def test_cli_runs_reference_pipe_on_cpu(tmp_path):
     (["--quenched"], "not yet ported"),
     (["--no-even-odd"], "not yet ported"),
     (["--dtype", "float64"], "not yet ported"),
+    (["--nx", "7", "--nt", "8"], "not yet ported"),
     (["--device", "cuda"], "CUDA is not available"),
 ])
 def test_cli_refuses_what_it_cannot_run(argv, message):
