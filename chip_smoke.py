@@ -2,12 +2,12 @@
 
 Run from the repository root on a machine with one CUDA card:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 Phases (any failure raises, and the script exits non-zero):
 
 0. the card's name and power limit; no CUDA, no run;
-1. build the seven CUDA kernels from csrc/ with nvcc (sm_90a), one nvcc per
+1. build the nine CUDA kernels from csrc/ with nvcc (sm_90a), one nvcc per
    source, all started together;
 2. each kernel against its plain PyTorch twin on the card at m0=0.2,
    beta=4, random angles, on the main path's shape 64x64 C=32, on 64x64
@@ -35,12 +35,32 @@ Phases (any failure raises, and the script exits non-zero):
    the refined dirac_inverse (K6 + K9 + K4) at 64x64 C=2 B=4 against the
    plain twins on the CPU, same noise: every flag true, each estimate
    Re(z^+ w) to rtol 1e-6;
+   K7 halo_normal       (with and without the dot partials) and
+   K8 halo_force        on the blocks of a mesh of shards: 64x64 over 2x2
+                        (the demo mesh), 4x1 and 1x4 at C=32, 16x16 over 2x2
+                        at C=3, and 128x128 over 2x2 at C=2 (a block too
+                        large for shared memory: the kernels' global-scratch
+                        path): out and forces to atol 3e-5 * max(scale, 1),
+                        partials to 1e-5 of the block's largest; the sharded
+                        K7 CG against the unsharded K2 on the same theta and b
+                        (tol 1e-6:
+                        flags, f64 true residuals under 2e-6 ||b||, x to
+                        2e-4, iterations side by side); K8's force,
+                        unsharded again, against K1's (with_solve=False) to
+                        3e-5 * max(scale, 1);
    each kernel and its twin are timed in turns with CUDA events at 64x64
-   C=32 (K6 and K9 with B=8); then four 64x64 trajectories of C=4 chains through the kernels
-   against the same trajectories through the plain twins on the CPU, same
+   C=32 (K6 and K9 with B=8; K7 and K8 on the 2x2 mesh), beside the kernel's
+   bound: the larger of its bytes (inputs read once, outputs written once)
+   over 3.35 TB/s and its operations (at the iteration counts these inputs
+   needed) over the card's f32 or f64 peak; then four 64x64 trajectories of C=4
+   chains through the kernels against the same trajectories through the plain twins on the CPU, same
    noise (refined leapfrog, loose leapfrog, refined Hasenbusch Omelyan,
    loose Hasenbusch leapfrog): |ddH| < 5e-3, |dtheta'| < 2e-4, equal
-   accept decisions;
+   accept decisions; the same for one trajectory on the 2x2 mesh under each
+   contract, which is also held against the packed path on the same noise
+   (dH to 5e-3, theta' to 2e-4: the forecast differs, the trajectory does
+   not) and against the unpacked sampler without a mesh, whose f32 solves
+   must launch K6;
 3. the main paths, built as the CLI builds them: runner.run_hmc at 64x64,
    beta=4, m0=0.2, tau=0.1, C=32, 10 thermalization + 20 measured
    trajectories: the refined demo (md=10), the loose contract (md=10),
@@ -53,10 +73,15 @@ Phases (any failure raises, and the script exits non-zero):
    rtol 1e-6), (e) the loose demo with --condensate (K6 from x0 = b, no
    K9), and the meson correlators at 64x64 C=2 on (d)'s final
    configurations (kernels against the twins on the card to rtol 1e-6; the
-   PCAC plateau printed). Every run has the kernels' launch counters set
+   PCAC plateau printed); then the lattice mesh, 4 + 8 trajectories: (f)
+   the refined demo on 2x2 shards (K7 in every f32 solve, K8 in every
+   force; the f64 true residual is plain PyTorch) and (g) the same loose,
+   with no K1, K2 or K3 launch. Every run has the kernels' launch counters set
    to 0 just before it and read just after it, and fails if a kernel of its
-   path was not launched;
-4. the kernels line (seven entry points), the card line, and the last line
+   path was not launched. With --profile, three batch trajectories of the
+   packed demo and of (f) and (g) then run under torch.profiler (launches,
+   device-busy share and the top kernels by device time);
+4. the kernels line (nine entry points), the card line, and the last line
    {"ok": true, "device": {...}}.
 
 Imports nothing of jax or of the JAX package.
@@ -115,6 +140,182 @@ def in_turns(plain, kernel, reps_plain, reps_kernel):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+# The card's published peaks (NVIDIA H100 SXM data sheet): device memory
+# rate, f32 and f64 outside the tensor cores.
+PEAK_BYTES, PEAK_F32, PEAK_F64 = 3.35e12, 67e12, 34e12
+# Flops per site of the even-odd stencil, counted from csrc/stencil.cuh: one
+# hop to one target site is 7 complex products and 12 complex sums (66); a
+# Dhat or Dhat^+ on one even site is two hops and the a*v + b*h (140); a
+# CG iteration is a normal apply, two dots and three axpys on 4 reals (320).
+F_HOP, F_DHAT, F_NORMAL, F_CG_ITER = 66, 140, 280, 320
+F_FORCE = 2 * 60          # the force stencil at one even and one odd site
+F_PLAQ = 2 * 30 + 2 * 8   # both plaquette angles and the staple differences
+F_LINKS = 4 * 20          # sincos of the four angles of an even/odd site pair
+
+
+def roofline(bytes_, f32_ops=0.0, f64_ops=0.0):
+    """(bound_ms, bound_by): the least time the card could take: the larger
+    of the bytes over its memory rate and the operations over its peak."""
+    t_bytes = bytes_ / PEAK_BYTES
+    t_ops = f32_ops / PEAK_F32 + f64_ops / PEAK_F64
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def halo_kernel_checks(dev, gen, card):
+    """Phase 2 for K7 and K8: kernels against twins on the blocks of a mesh,
+    the sharded solve and force against the unsharded kernels, times and
+    bounds. Returns (errs, times, bounds)."""
+    from schwingermodel_tpu_torch.config import HMCParams, LatticeParams
+    from schwingermodel_tpu_torch.models.schwinger import SchwingerModel
+    from schwingermodel_tpu_torch.ops import eo, gauge, halo
+    from schwingermodel_tpu_torch.ops import traj as tr
+    from schwingermodel_tpu_torch.ops.eo_halo import W, extend
+    from schwingermodel_tpu_torch.ops.geometry import ShardedGeometry
+    from schwingermodel_tpu_torch.parallel.mesh import lattice_mesh, shard, unshard
+
+    errs = {"halo_normal": 0.0, "halo_force": 0.0}
+    times, bounds = {}, {}
+
+    def setup(nx, nt, shape, C):
+        mesh = lattice_mesh(shape)
+        geom = ShardedGeometry(mesh)
+        model = SchwingerModel(
+            lattice=LatticeParams(Nx=nx, Nt=nt, real_dtype="float32"),
+            hmc=HMCParams(beta=BETA, m0=M0, even_odd=True), geom=geom)
+        theta = (2.0 * torch.rand((C, 2, nx, nt), generator=gen, device=dev)
+                 - 1.0) * math.pi
+        Uf = model.field_fermion_links(shard(theta, mesh))
+        return mesh, geom, theta, Uf, halo.EOOperatorsHaloFused(geom, Uf, M0)
+
+    def close(a, b, label, rel=3e-5):
+        torch.cuda.synchronize()
+        scale = b.abs().max().item()
+        err = (a - b).abs().max().item()
+        check(err <= rel * max(scale, 1.0), f"{label}: err {err} scale {scale}")
+        return err, scale
+
+    for (nx, nt), shape, C in (((NX, NT), (2, 2), C_MAIN), ((NX, NT), (4, 1), C_MAIN),
+                               ((NX, NT), (1, 4), C_MAIN), ((16, 16), (2, 2), 3),
+                               ((128, 128), (2, 2), 2)):
+        mesh, geom, theta, Uf, op = setup(nx, nt, shape, C)
+        lead = (C, *shape)
+        nxl, nthl = nx // shape[0], nt // shape[1] // 2
+        label = f"{nx}x{nt} over {shape[0]}x{shape[1]} C={C}"
+        v, r, psi = (torch.randn((*lead, 2, 2, nxl, nthl), generator=gen, device=dev)
+                     for _ in range(3))
+        v_ext, psi_ext = extend(geom, v), extend(geom, psi)
+        planes = (op.ue_ext, op.uo_ext, op.off_ext)
+        in_shared = 4 * 26 * v_ext.shape[-2] * v_ext.shape[-1] <= 220 * 1024
+        out_k, dots_k = halo.halo_normal(*planes, v_ext, r, m0=M0, with_dots=True)
+        out_p, dots_p = halo.halo_normal_reference(*planes, v_ext, r, m0=M0,
+                                                   with_dots=True)
+        out_n = halo.halo_normal(*planes, v_ext, m0=M0)
+        err, scale = close(out_k, out_p, f"K7 {label}")
+        check(torch.equal(out_k, out_n), f"K7 {label}: out differs without the dots")
+        # relative to the block's largest partial: <r,Ad> of a random r is a
+        # cancelling sum
+        drel = ((dots_k - dots_p).abs()
+                / dots_p.abs().amax(dim=-1, keepdim=True)).max().item()
+        check(drel <= 1e-5, f"K7 {label}: partials differ by {drel} relative")
+        errs["halo_normal"] = max(errs["halo_normal"], err)
+        print(f"phase 2: K7 {label} ({'shared memory' if in_shared else 'global scratch'}"
+              f"): max |out - out_plain| = {err:.3e} (scale {scale:.3f}, atol "
+              f"{3e-5 * max(scale, 1.0):.3e}); partials max rel. difference "
+              f"{drel:.3e}; equal with and without the dots", flush=True)
+        FE, FO = halo.halo_force(*planes, psi_ext, m0=M0, beta=BETA)
+        RE, RO = halo.halo_force_reference(*planes, psi_ext, m0=M0, beta=BETA)
+        err = max(close(FE, RE, f"K8 {label} even")[0],
+                  close(FO, RO, f"K8 {label} odd")[0])
+        errs["halo_force"] = max(errs["halo_force"], err)
+        print(f"phase 2: K8 {label}: max |F - F_plain| = {err:.3e} (scale "
+              f"{RE.abs().max().item():.3f})", flush=True)
+        if (nx, nt) == (128, 128):
+            continue
+
+        # the sharded K7 solve against the unsharded K2, same theta and b
+        thE, thO = tr.pack_planes(theta)
+        b = torch.randn((C, 2, 2, nx, nt // 2), generator=gen, device=dev)
+        tol = 1e-6
+        sh = halo.cg_solve_sharded_fused(
+            geom, Uf, M0, shard(tr.to_complex(b), mesh), tol=tol, max_iter=10000)
+        k2 = tr.solve_fused(thE, thO, b, b, m0=M0, tol=tol, max_iter=10000)
+        x_sh = tr.to_planar(unshard(sh.x, mesh))
+        ue, uo = gauge.links(thE, thO, torch.complex128)
+        bc = tr.to_complex(b).to(torch.complex128)
+
+        def true_res(x):
+            rr = bc - eo.normal(ue, uo, tr.to_complex(x).to(torch.complex128), M0)
+            return ((rr.abs() ** 2).sum(dim=(1, 2, 3)).sqrt()
+                    / (bc.abs() ** 2).sum(dim=(1, 2, 3)).sqrt()).max().item()
+
+        r_sh, r_k2 = true_res(x_sh), true_res(k2.x)
+        dx = (x_sh - k2.x).abs().max().item()
+        check(bool(sh.converged.all()) and bool(k2.converged.all()),
+              f"sharded CG {label}: flags")
+        check(r_sh < 2 * tol and r_k2 < 2 * tol and dx <= 2e-4,
+              f"sharded CG {label}: residual {r_sh} vs {r_k2}, |dx| {dx}")
+        print(f"phase 2: sharded K7 CG vs unsharded K2 {label} tol={tol:g}: f64 true "
+              f"residual {r_sh:.3e} vs {r_k2:.3e}; max |x - x_K2| {dx:.3e}; iterations "
+              f"sharded {sh.iters.flatten()[:8].tolist()} K2 {k2.iters[:8].tolist()}",
+              flush=True)
+
+        # K8's force, unsharded again, against K1's
+        psi_g = torch.randn((C, 2, 2, nx, nt // 2), generator=gen, device=dev)
+        F8 = unshard(halo.force_halo_fused(
+            geom, Uf, M0, shard(tr.to_complex(psi_g), mesh), BETA), mesh)
+        k1 = tr.force_step(thE, thO, psi_g, psi_g, m0=M0, beta=BETA, tol=tol,
+                           max_iter=10, with_solve=False, with_gauge=True)
+        err, scale = close(F8, eo.unpack(k1.FE, k1.FO), f"K8 vs K1 {label}")
+        print(f"phase 2: K8 (sharded, unsharded again) vs K1 {label}: max |F8 - F1| = "
+              f"{err:.3e} (scale {scale:.3f})", flush=True)
+
+    # times and bounds at the demo mesh block
+    mesh, geom, theta, Uf, op = setup(NX, NT, (2, 2), C_MAIN)
+    n_blk, nxl, nthl = C_MAIN * 4, NX // 2, NT // 4
+    v, r, psi = (torch.randn((C_MAIN, 2, 2, 2, 2, nxl, nthl), generator=gen, device=dev)
+                 for _ in range(3))
+    v_ext, psi_ext = extend(geom, v), extend(geom, psi)
+    planes = (op.ue_ext, op.uo_ext, op.off_ext)
+    V_ext, V_loc = v_ext.shape[-2] * v_ext.shape[-1], nxl * nthl
+    ext_bytes = 4 * (12 * V_ext) + 4 * (nxl + 2 * W)      # links, spinor, offsets
+    times["halo_normal"] = in_turns(
+        lambda: halo.halo_normal_reference(*planes, v_ext, r, m0=M0, with_dots=True),
+        lambda: halo.halo_normal(*planes, v_ext, r, m0=M0, with_dots=True), 20, 200)
+    bounds["halo_normal"] = roofline(
+        n_blk * (ext_bytes + 4 * (8 * V_loc + 4)),          # + r in, out and dots
+        n_blk * ((3 * F_HOP + 8) * V_ext + (F_HOP + 8 + 32) * V_loc))
+    times["halo_force"] = in_turns(
+        lambda: halo.halo_force_reference(*planes, psi_ext, m0=M0, beta=BETA),
+        lambda: halo.halo_force(*planes, psi_ext, m0=M0, beta=BETA), 20, 200)
+    bounds["halo_force"] = roofline(
+        n_blk * (ext_bytes + 4 * 4 * V_loc),
+        n_blk * ((3 * F_HOP + 8 + 60) * V_ext + (F_FORCE + 16) * V_loc))
+    t_nodots = timed(lambda: halo.halo_normal(*planes, v_ext, m0=M0), 200)
+    t_ext = timed(lambda: extend(geom, v), 200)
+    # one sharded solve: 4 ppermutes, one K7 launch, one psum and one host
+    # read per iteration
+    b_s = shard(tr.to_complex(torch.randn((C_MAIN, 2, 2, NX, NT // 2), generator=gen,
+                                          device=dev)), mesh)
+
+    def solve():
+        return halo.cg_solve_sharded_fused(geom, Uf, M0, b_s, tol=1e-6, max_iter=10000)
+
+    before = halo.halo_normal.launches
+    solve()
+    n_k7 = halo.halo_normal.launches - before
+    print(f"phase 2: one sharded K7 solve at {NX}x{NT} over 2x2 C={C_MAIN}, tol 1e-6 from "
+          f"x0 = b: {timed(solve, 10):.3f} ms with {n_k7} K7 launches; card {card}",
+          flush=True)
+    for k in times:
+        print(f"phase 2: time at {NX}x{NT} over 2x2 C={C_MAIN} ({n_blk} blocks; {card}): "
+              f"{k} kernel {times[k][0]:.4f} ms, plain twin {times[k][1]:.4f} ms, bound "
+              f"{bounds[k][0]:.5f} ms by {bounds[k][1]}", flush=True)
+    print(f"phase 2: time at the same shape: halo_normal without the dots "
+          f"{t_nodots:.4f} ms; eo_halo.extend of one spinor (4 ppermutes as rolls, 2 "
+          f"cats) {t_ext:.4f} ms", flush=True)
+    return errs, times, bounds
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("error: CUDA is not available", file=sys.stderr)
@@ -123,10 +324,13 @@ def main() -> int:
     from schwingermodel_tpu_torch.config import (CGParams, HMCParams,
                                                  LatticeParams, RunParams)
     from schwingermodel_tpu_torch.hmc import packed as hp
+    from schwingermodel_tpu_torch.hmc import sampler
     from schwingermodel_tpu_torch.models.schwinger import SchwingerModel
-    from schwingermodel_tpu_torch.ops import _cuda, cg_eo, eo, gauge
+    from schwingermodel_tpu_torch.ops import _cuda, cg_eo, eo, gauge, halo
     from schwingermodel_tpu_torch.ops import refined as rs
     from schwingermodel_tpu_torch.ops import traj as tr
+    from schwingermodel_tpu_torch.parallel.mesh import lattice_mesh
+    from schwingermodel_tpu_torch.parallel.sharded import make_sharded_traj_fn
     from schwingermodel_tpu_torch.runner import run_hmc
     from schwingermodel_tpu_torch.solvers import refine
 
@@ -332,6 +536,10 @@ def main() -> int:
               f"kernel {fk.iters[:8].tolist()} plain {fp.iters[:8].tolist()}",
               flush=True)
 
+    # K7 and K8 on the blocks of a mesh of shards
+    halo_errs, halo_times, halo_bounds = halo_kernel_checks(dev, gen, card)
+    errs.update(halo_errs)
+
     # the refined dirac_inverse (K6 + K9 + K4) against the plain twins on
     # the CPU, one configuration, same noise
     lattice = LatticeParams(Nx=NX, Nt=NT, real_dtype="float32")
@@ -407,10 +615,65 @@ def main() -> int:
             lambda: rs.residual_f64_reference(thE, thO, bb, x64, m0=M0),
             lambda: rs.residual_f64(thE, thO, bb, x64, m0=M0), 20, 200),
     }
-    for k_name, (ms, plain_ms) in [*times.items(),
-                                   *(("force_step " + v, t) for v, t in k1_times.items())]:
+    # Bounds at the timed shape. Bytes: every input read once and every
+    # output written once, per chain (or entry) in units of V2 = Nx Nt/2
+    # sites: the angles of both parities 16 V2 bytes, an f32 spinor or the
+    # forces of both parities 16 V2, an f64 spinor 32 V2, one
+    # configuration's planar links 32 V2. Operations: the F_* counts above,
+    # with the CG iterations these inputs needed, summed over the chains;
+    # K3's and K4's f64 part is counted as the two true residuals no solve
+    # can do without (entry and exit), a lower estimate.
+    V2 = NX * NT // 2
+    E = C_MAIN * RHS[C_MAIN]
+    kw = dict(m0=M0, tol=LOOSE_TOL, max_iter=MAX_ITER)
+    it_k1 = tr.force_step(thE, thO, b, b, beta=BETA, **kw).iters.sum().item()
+    it_k2 = tr.solve_fused(thE, thO, b, b, **kw).iters.sum().item()
+    it_k3 = rs.solve_refined(thE, thO, b, b, m0=M0, tol=1e-10).iters.sum().item()
+    it_k4 = (rs.solve_f64_cg_fallback(thE, thO, b, starved, m0=M0, tol=1e-10).iters
+             - starved.iters).sum().item()
+    it_k6 = cg_eo.cg_solve_eo(ue, uo, bb, zero, m0=M0, tol=1e-5,
+                              max_iter=MAX_ITER).iters.sum().item()
+    force_ops = F_LINKS + F_DHAT + F_HOP + F_FORCE
+    k1_bounds = {
+        "with_solve=False,with_gauge=True": roofline(
+            C_MAIN * 48 * V2, C_MAIN * V2 * (force_ops + F_PLAQ)),
+        "with_solve=False,with_gauge=False": roofline(
+            C_MAIN * 48 * V2, C_MAIN * V2 * force_ops),
+        "with_solve=True,with_gauge=True": roofline(
+            C_MAIN * 80 * V2, V2 * (C_MAIN * (force_ops + F_PLAQ + F_NORMAL)
+                                    + F_CG_ITER * it_k1)),
+        "with_solve=True,with_gauge=False": roofline(
+            C_MAIN * 80 * V2, V2 * (C_MAIN * (force_ops + F_NORMAL)
+                                    + F_CG_ITER * it_k1)),
+    }
+    bounds = {
+        "force_step": k1_bounds["with_solve=False,with_gauge=True"],
+        "solve_fused": roofline(C_MAIN * 64 * V2, V2 * (
+            C_MAIN * (F_LINKS + F_NORMAL) + F_CG_ITER * it_k2)),
+        "ratio_force": roofline(C_MAIN * 64 * V2, C_MAIN * V2 * (
+            F_LINKS + F_DHAT + 2 * F_HOP + 2 * F_FORCE + F_PLAQ)),
+        "solve_refined": roofline(C_MAIN * 96 * V2, V2 * F_CG_ITER * it_k3,
+                               C_MAIN * V2 * (F_LINKS + 2 * F_NORMAL)),
+        "solve_f64_cg_fallback": roofline(C_MAIN * 112 * V2, 0.0, V2 * (
+            C_MAIN * (F_LINKS + 2 * F_NORMAL) + F_CG_ITER * it_k4)),
+        "cg_solve_eo": roofline(V2 * (E * 48 + C_MAIN * 32), V2 * (
+            E * F_NORMAL + F_CG_ITER * it_k6)),
+        "residual_f64": roofline(V2 * (E * 80 + C_MAIN * 16), 0.0, V2 * (
+            E * (F_NORMAL + 8) + C_MAIN * F_LINKS)),
+    }
+    its = {"force_step with_solve=True": it_k1, "solve_fused": it_k2,
+           "solve_refined": it_k3, "solve_f64_cg_fallback": it_k4,
+           "cg_solve_eo": it_k6}
+    print(f"phase 2: CG iterations of the timed inputs, summed over the chains or "
+          f"entries: {its}", flush=True)
+    for k_name, (ms, plain_ms), (b_ms, b_by) in [
+            *((k, times[k], bounds[k]) for k in times),
+            *(("force_step " + v, k1_times[v], k1_bounds[v]) for v in k1_times)]:
         print(f"phase 2: time at {NX}x{NT} C={C_MAIN} ({card}): {k_name} kernel "
-              f"{ms:.4f} ms, plain twin {plain_ms:.4f} ms", flush=True)
+              f"{ms:.4f} ms, plain twin {plain_ms:.4f} ms, bound {b_ms:.5f} ms by "
+              f"{b_by} ({100 * b_ms / ms:.2f}% of the roofline)", flush=True)
+    times.update(halo_times)
+    bounds.update(halo_bounds)
 
     # trajectories through the kernels against the plain twins on the CPU
 
@@ -449,11 +712,59 @@ def main() -> int:
               f"iterations kernels {st_k.cg_iters.tolist()} plain "
               f"{st_p.cg_iters.tolist()}", flush=True)
 
+    # one trajectory on the 2x2 mesh under each contract: the halo kernels
+    # against their twins on the CPU, and against the packed path
+    mesh22 = lattice_mesh((2, 2))
+    for label, hmc in (("refined", hmc_params()), ("loose", hmc_params(refine=False))):
+        model = SchwingerModel(lattice=lattice, hmc=hmc)
+        theta = (2.0 * torch.rand((4, 2, NX, NT), generator=gen, device=dev)
+                 - 1.0) * math.pi
+        pi, chi, r = hp.draw_chain_noise(model, 98, 0, 4, dev)
+        step = make_sharded_traj_fn(model, mesh22)
+        th_k, st_k = step.given_noise(theta, pi, chi, r)
+        th_p, st_p = step.given_noise(theta.cpu(), pi.cpu(), chi.cpu(), r.cpu())
+        th_m, st_m = hp.trajectory_packed_given_noise(model, theta, pi, chi, r)
+        # the unpacked sampler without a mesh: its f32 solves are K6
+        k6_before = cg_eo.cg_solve_eo.launches
+        th_u, st_u = sampler.trajectory_given_noise(model, theta, pi, chi, r)
+        n_k6 = cg_eo.cg_solve_eo.launches - k6_before
+        ddH_u = (st_k.delta_H - st_u.delta_H).abs().max().item()
+        dth_u = (torch.remainder(th_k - th_u + math.pi, 2 * math.pi)
+                 - math.pi).abs().max().item()
+        check(n_k6 >= hmc.md_steps and bool(st_u.cg_converged.all()),
+              f"unpacked trajectory {label}: {n_k6} K6 launches")
+        check(ddH_u < 5e-3 and dth_u < 2e-4 and torch.equal(st_k.accepted, st_u.accepted),
+              f"mesh trajectory {label}: vs unpacked |ddH| {ddH_u}, |dtheta| {dth_u}")
+        ddH = (st_k.delta_H.cpu() - st_p.delta_H).abs().max().item()
+        dth = (th_k.cpu() - th_p).abs().max().item()
+        ddH_m = (st_k.delta_H - st_m.delta_H).abs().max().item()
+        # the packed path folds to [-pi, pi], the sampler wraps to [-pi, pi)
+        dth_m = (torch.remainder(th_k - th_m + math.pi, 2 * math.pi)
+                 - math.pi).abs().max().item()
+        check(bool(st_k.cg_converged.all()) and bool(st_p.cg_converged.all())
+              and bool(st_m.cg_converged.all()), f"mesh trajectory {label}: unconverged")
+        check(ddH < 5e-3 and dth < 2e-4,
+              f"mesh trajectory {label}: kernels vs twins |ddH| {ddH}, |dtheta| {dth}")
+        check(ddH_m < 5e-3 and dth_m < 2e-4,
+              f"mesh trajectory {label}: vs packed |ddH| {ddH_m}, |dtheta| {dth_m}")
+        check(torch.equal(st_k.accepted.cpu(), st_p.accepted)
+              and torch.equal(st_k.accepted, st_m.accepted),
+              f"mesh trajectory {label}: accept decisions differ")
+        print(f"phase 2: trajectory {label} {NX}x{NT} C=4 on 2x2 shards: kernels vs "
+              f"twins on the CPU max |ddH| {ddH:.3e}, max |dtheta'| {dth:.3e}; vs the "
+              f"packed path on the same noise max |ddH| {ddH_m:.3e}, max |dtheta'| "
+              f"{dth_m:.3e}; vs the unpacked sampler without a mesh ({n_k6} K6 launches) "
+              f"max |ddH| {ddH_u:.3e}, max |dtheta'| {dth_u:.3e}; dH "
+              f"{st_k.delta_H.tolist()}; CG iterations mesh kernels "
+              f"{st_k.cg_iters.tolist()} mesh twins {st_p.cg_iters.tolist()} packed "
+              f"{st_m.cg_iters.tolist()}", flush=True)
+
     # ---- phase 3: the main paths ----
     counters = {"force_step": tr.force_step, "solve_fused": tr.solve_fused,
                 "ratio_force": tr.ratio_force, "solve_refined": rs.solve_refined,
                 "solve_f64_cg_fallback": rs.solve_f64_cg_fallback,
-                "cg_solve_eo": cg_eo.cg_solve_eo, "residual_f64": rs.residual_f64}
+                "cg_solve_eo": cg_eo.cg_solve_eo, "residual_f64": rs.residual_f64,
+                "halo_normal": halo.halo_normal, "halo_force": halo.halo_force}
     launches = dict.fromkeys(counters, 0)
     variants = {}
 
@@ -486,7 +797,7 @@ def main() -> int:
     refined_k = ("solve_refined", "solve_f64_cg_fallback")
     rates = {}
 
-    def main_gates(label, res, wall):
+    def main_gates(label, res, wall, run=run):
         """The gates every main-path run passes; returns the measure phase's
         chain-trajectories per second."""
         check(res.all_converged and res.n_ill == 0, f"{label}: a solve did not converge")
@@ -632,6 +943,61 @@ def main() -> int:
           f"{mk.C_PP[0, :4].tolist()}; PCAC mass plateau (mean over t = {t0}..{t1}) "
           f"{plateau}; card {card}", flush=True)
 
+    # the lattice mesh: the demo on 2x2 shards under each contract
+    packed_of = {"(f)": "refined demo md=10", "(g)": "(a) --no-cg-refine md=10"}
+    run_mesh = dataclasses.replace(run, n_therm=4, n_meas=8)
+    for label, hmc in (("(f) refined demo on 2x2 shards", hmc_params()),
+                       ("(g) --no-cg-refine on 2x2 shards", hmc_params(refine=False))):
+        res, wall, got = counted(label, ("halo_normal", "halo_force"), lambda: run_hmc(
+            lattice, hmc, run_mesh, device=dev, mesh=mesh22))
+        rate = main_gates(label, res, wall, run_mesh)
+        for k in ("force_step", "solve_fused", "solve_refined", "solve_f64_cg_fallback",
+                  "ratio_force"):
+            check(got[k] == 0, f"{label}: {k} launched {got[k]} times on the mesh path")
+        n_traj = run_mesh.n_therm + run_mesh.n_meas
+        print(f"phase 3: {label}: per batch trajectory {got['halo_normal'] / n_traj:.1f} "
+              f"K7 and {got['halo_force'] / n_traj:.1f} K8 launches; measure phase "
+              f"{rate:.2f} chain-traj/s against {rates[packed_of[label[:3]]]:.2f} for the "
+              f"packed path; card {card}", flush=True)
+
+    # where the time goes (--profile): three batch trajectories of each path
+    # under torch.profiler
+    def profile(label, model, mesh):
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as torch_profile
+
+        step = (make_sharded_traj_fn(model, mesh) if mesh is not None else
+                lambda th, seed, i: hp.hmc_trajectory_packed(model, th, seed, i))
+        theta = torch.as_tensor(final_d)
+        theta, _ = step(theta, 7, 0)                       # warm-up
+        torch.cuda.synchronize()
+        n = 3
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(1, n + 1):
+                theta, st = step(theta, 7, i)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        ev = [(e.key, e.count, getattr(e, "self_device_time_total",
+                                       getattr(e, "self_cuda_time_total", 0.0)))
+              for e in prof.key_averages()]
+        dev_ev = sorted((e for e in ev if e[2] > 0), key=lambda e: -e[2])
+        busy = sum(e[2] for e in dev_ev) * 1e-6
+        top = ", ".join(f"{k[:48]} {1e-3 * t / n:.3f} ms ({c // n} launches)"
+                        for k, c, t in dev_ev[:5])
+        print(f"phase 3: profile {label}: {1e3 * wall / n:.2f} ms per batch trajectory "
+              f"of {C_MAIN} chains, {sum(e[1] for e in dev_ev) // n} device launches, "
+              f"device busy {100 * busy / wall:.1f}%, CG iterations per chain "
+              f"{st.cg_iters.double().mean().item():.1f}; top by device time per "
+              f"trajectory: {top}; card {card}", flush=True)
+
+    if "--profile" in sys.argv[1:]:
+        for label, hmc, mesh in (
+                ("packed refined demo", hmc_params(), None),
+                ("(f) refined on 2x2 shards", hmc_params(), mesh22),
+                ("(g) loose on 2x2 shards", hmc_params(refine=False), mesh22)):
+            profile(label, SchwingerModel(lattice=lattice, hmc=hmc), mesh)
+
     # ---- phase 4: report ----
     replaces = {
         "force_step": ("csrc/force_step.cu", "schwingermodel_tpu/ops/pallas_traj.py:339"),
@@ -642,15 +1008,22 @@ def main() -> int:
                                   "schwingermodel_tpu/ops/pallas_df.py:674"),
         "cg_solve_eo": ("csrc/cg_eo.cu", "schwingermodel_tpu/ops/pallas_eo.py:208"),
         "residual_f64": ("csrc/residual.cu", "schwingermodel_tpu/ops/pallas_df.py:145"),
+        "halo_normal": ("csrc/halo_normal.cu", "schwingermodel_tpu/ops/pallas_halo.py:48"),
+        "halo_force": ("csrc/halo_force.cu", "schwingermodel_tpu/ops/pallas_halo.py:178"),
     }
     kernels = [{"name": k, "route": "cuda",
                 "source": "schwingermodel_tpu_torch/" + src, "replaces": rep,
                 "launches": launches[k], "max_abs_err": errs[k],
-                "ms": times[k][0], "plain_ms": times[k][1]}
+                "ms": times[k][0], "plain_ms": times[k][1],
+                "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+                # no single PyTorch call computes a CG solve to a stop rule,
+                # a fused force step, an f64 true residual or a halo stencil
+                "library_ms": None}
                for k, (src, rep) in replaces.items()]
     kernels[0]["launches_by_variant"] = variants
     kernels[0]["ms_by_variant"] = {v: t[0] for v, t in k1_times.items()}
     kernels[0]["plain_ms_by_variant"] = {v: t[1] for v, t in k1_times.items()}
+    kernels[0]["bound_ms_by_variant"] = {v: t[0] for v, t in k1_bounds.items()}
     # K6a and K6b are one kernel
     kernels[5]["also_replaces"] = "schwingermodel_tpu/ops/pallas_eo.py:328"
     check(all(e["launches"] > 0 for e in kernels), "a kernel was never launched")

@@ -16,8 +16,21 @@ integrator and ``--hasenbusch-dm DM`` the two-pseudofermion split at the
 heavy mass m0+DM, in any combination; ``--condensate`` (with ``--n-noise``)
 measures the chiral condensate on every path. ``--mre-history >= 2`` is refused
 only where the JAX package would use it (refined, forecasting on, no
-Hasenbusch) and ignored elsewhere, as there. Flags that select something
-not ported yet exit with status 2 and a "not yet ported" message.
+Hasenbusch, no mesh) and ignored elsewhere, as there.
+
+``--ranks-x RX --ranks-t RT`` (or the first two prompts) cut the lattice
+into RX x RT shards and run the lattice-sharded trajectory
+(parallel/sharded.py) with the per-shard halo kernels. All shards live on
+the one device: this is the domain decomposition of a multi-GPU run
+without the GPUs, not a multi-GPU run. A lattice that the mesh does not
+divide (or an odd local Nt) exits with status 1, as the reference does;
+1 x 1 runs the packed main path.
+
+Flags that select something not ported yet exit with status 2 and a "not
+yet ported" message: ``--ranks-chain`` other than 1 (multi-GPU), a mesh
+together with ``--hasenbusch-dm``, ``--quenched``, ``--no-even-odd``, an
+odd lattice, ``--dtype float64``, ``--autotune``, ``--resume`` and
+``--checkpoint``.
 """
 
 from __future__ import annotations
@@ -56,9 +69,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="decorrelation sweeps between measurements")
     p.add_argument("--save-conf", action="store_true", default=None)
     p.add_argument("--ranks-x", type=int, default=None,
-                   help="device mesh extent in x (only 1 is ported)")
-    p.add_argument("--ranks-t", type=int, default=None)
-    p.add_argument("--ranks-chain", type=int, default=1)
+                   help="shards of the lattice mesh in x (all shards on the "
+                        "one device)")
+    p.add_argument("--ranks-t", type=int, default=None,
+                   help="shards of the lattice mesh in t")
+    p.add_argument("--ranks-chain", type=int, default=1,
+                   help="chain groups over devices (only 1 is ported)")
     p.add_argument("--cg-tol", type=float, default=None,
                    help="CG relative tolerance (default 1e-10; 1e-6 with "
                         "--no-cg-refine)")
@@ -104,18 +120,26 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _meshed(args) -> bool:
+    """A lattice mesh other than 1x1 is asked for (by what is known so far:
+    the prompts may still set the ranks)."""
+    return (args.ranks_x or 1) * (args.ranks_t or 1) > 1
+
+
 def _not_ported(args) -> list:
     """Names of the requested options that this port does not have yet."""
     asks = [
-        (args.ranks_chain != 1 or args.ranks_x not in (None, 1)
-         or args.ranks_t not in (None, 1), "a device mesh other than 1x1"),
+        (args.ranks_chain != 1, "--ranks-chain other than 1 (multi-GPU)"),
+        (_meshed(args) and args.hasenbusch_dm,
+         "--hasenbusch-dm on a lattice mesh"),
         (not args.even_odd, "--no-even-odd"),
         (args.quenched, "--quenched"),
-        # MRE runs only refined, forecasting, without Hasenbusch
-        # (schwingermodel_tpu/hmc/packed.py:219); elsewhere it is ignored
+        # MRE runs only on the packed path, refined, forecasting, without
+        # Hasenbusch (schwingermodel_tpu/hmc/packed.py:219); elsewhere it
+        # is ignored
         (args.mre_history >= 2 and args.cg_refine is not False
-         and args.cg_forecast and not args.hasenbusch_dm,
-         "--mre-history >= 2"),
+         and args.cg_forecast and not args.hasenbusch_dm
+         and not _meshed(args), "--mre-history >= 2"),
         (args.autotune, "--autotune"),
         # JAX runs an odd lattice on the full-D path (schwingermodel_tpu/
         # cli.py:260)
@@ -146,6 +170,7 @@ def main(argv=None) -> int:
         CGParams, HMCParams, LatticeParams, RunParams,
     )
     from schwingermodel_tpu_torch.io import ctxt
+    from schwingermodel_tpu_torch.parallel.mesh import lattice_mesh
     from schwingermodel_tpu_torch.runner import run_hmc
 
     # ---- parameters: flags, else reference-style stdin prompts ----
@@ -175,9 +200,10 @@ def main(argv=None) -> int:
         args.nsteps = get("Step (sweeps between measurements): ", int, args.nsteps)
         args.save_conf = bool(get("Save configurations yes/no (1 or 0): ", int,
                                   None if args.save_conf is None else int(args.save_conf)))
-        if args.ranks_x != 1 or args.ranks_t != 1:
-            print("error: not yet ported to schwingermodel_tpu_torch: a "
-                  "device mesh other than 1x1", file=sys.stderr)
+        missing = _not_ported(args)       # the ranks may have come by stdin
+        if missing:
+            print("error: not yet ported to schwingermodel_tpu_torch: "
+                  + ", ".join(missing), file=sys.stderr)
             return 2
 
     lattice = LatticeParams(Nx=args.nx, Nt=args.nt, real_dtype="float32")
@@ -192,9 +218,27 @@ def main(argv=None) -> int:
         cg=CGParams(tol=cg_tol, max_iter=args.cg_max_iter, refine=refine,
                     inner_tol=args.cg_inner_tol, force_tol=args.cg_force_tol),
     )
+    rx, rt = args.ranks_x, args.ranks_t
     run = RunParams(n_therm=args.ntherm, n_meas=args.nmeas,
                     n_steps=args.nsteps, save_conf=bool(args.save_conf),
-                    n_chains=args.chains, seed=args.seed, out_dir=args.out_dir)
+                    n_chains=args.chains, seed=args.seed, out_dir=args.out_dir,
+                    mesh_shape=(rx, rt))
+    mesh = None
+    if rx < 1 or rt < 1:
+        print(f"error: mesh {rx}x{rt}: extents must be positive", file=sys.stderr)
+        return 1
+    if rx * rt > 1:
+        if lattice.Nx % rx or lattice.Nt % rt:
+            # the reference exits the same way (mpi_setup.h:12-19)
+            print(f"error: lattice {lattice.Nx}x{lattice.Nt} not divisible "
+                  f"by mesh {rx}x{rt}", file=sys.stderr)
+            return 1
+        if (lattice.Nt // rt) % 2:
+            print(f"error: even-odd mode needs an even local Nt per shard; "
+                  f"Nt={lattice.Nt} over {rt} t-shards gives "
+                  f"{lattice.Nt // rt}", file=sys.stderr)
+            return 1
+        mesh = lattice_mesh((rx, rt))
 
     initial_theta = None
     if args.read_conf:
@@ -229,6 +273,7 @@ def main(argv=None) -> int:
         print(f"* CG force tolerance = {ftol:g} "
               f"(action solves at {hmc.cg.tol:g})")
     print(f"* Device = {args.device} ({device_name})")
+    print(f"* Device mesh = {rx}x{rt} shards on 1 device ({device_name})")
     print(f"* Chains = {run.n_chains}, dtype = {lattice.real_dtype}, "
           f"seed = {run.seed}")
     print("*" * 70)
@@ -236,7 +281,8 @@ def main(argv=None) -> int:
     result = run_hmc(lattice, hmc, run, device=args.device,
                      initial_theta=initial_theta, progress=print,
                      write_simdata=not args.no_simdata,
-                     measure_condensate=args.condensate, n_noise=args.n_noise)
+                     measure_condensate=args.condensate, n_noise=args.n_noise,
+                     mesh=mesh)
 
     print(f"Average plaquette value / volume: Ep = {result.Ep:.17g} "
           f"dEp = {result.dEp:.17g}")

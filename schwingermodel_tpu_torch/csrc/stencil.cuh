@@ -1,7 +1,8 @@
 // Even-odd Wilson stencil on one chain's checkerboard planes, for the
 // port's kernels (force_step.cu, solve_fused.cu, ratio_force.cu,
-// solve_ru.cu, cg_fallback.cu, cg_eo.cu, residual.cu), with the fermion
-// force stencil and the f32 CG loop that K1, K2 and K6 share.
+// solve_ru.cu, cg_fallback.cu, cg_eo.cu, residual.cu, halo_normal.cu,
+// halo_force.cu), with the fermion force stencil, the f32 CG loop that K1,
+// K2 and K6 share, and the stage of the per-shard halo kernels K7 and K8.
 //
 // Device counterpart of schwingermodel_tpu_torch/ops/eo.py (and of the
 // packed stencil of schwingermodel_tpu/ops/pallas_eo.py:118-181), templated
@@ -164,6 +165,53 @@ __device__ void hop_stage(const T* __restrict__ Ut, const T* __restrict__ Us,
     }
     st(out, 0, s, g.V2, h0);
     st(out, 1, s, g.V2, h1);
+  }
+}
+
+// The same stage on the width-extended block of one shard (K7, K8): the
+// block is plain periodic in both axes (the wrap-around garbage enters one
+// ring per hop and the crop removes it), and row x's even-parity offset
+// comes from off_e[x], built from the global row index; the odd-parity
+// offset is 1 - off_e[x].
+template <typename T, bool DAG>
+__device__ void hop_stage_ext(const T* __restrict__ Ut, const T* __restrict__ Us,
+                              const T* __restrict__ S, const int* __restrict__ off_e,
+                              int tgt_parity, T* __restrict__ out, const T* __restrict__ v, T a,
+                              T b, const Geo& g) {
+  for (int s = threadIdx.x; s < g.V2; s += blockDim.x) {
+    const int x = s / g.Nth;
+    const int k = s - x * g.Nth;
+    const Nbr n = neighbours(x, k, off_e[x] ^ tgt_parity, g);
+    Cx<T> h0, h1;
+    hop_site<T, DAG>(Ut, Us, S, s, n, g.V2, h0, h1);
+    if (v != nullptr) {
+      const Cx<T> v0 = ld(v, 0, s, g.V2), v1 = ld(v, 1, s, g.V2);
+      h0 = {a * v0.re + b * h0.re, a * v0.im + b * h0.im};
+      h1 = {a * v1.re + b * h1.re, a * v1.im + b * h1.im};
+    }
+    st(out, 0, s, g.V2, h0);
+    st(out, 1, s, g.V2, h1);
+  }
+}
+
+// Halo width of the extended block: Dhat Dhat^+ is four hops, each consumes
+// one ring (ops/eo_halo.py W).
+constexpr int kHaloW = 4;
+// Dynamic shared memory a halo kernel may ask for: the card's 227 KB per
+// block less the static part and a margin.
+constexpr int kHaloSharedMax = 220 * 1024;
+
+// Copy n floats from global to shared memory, 16 bytes a thread where the
+// count and both addresses allow.
+__device__ __forceinline__ void copy_in(float* __restrict__ dst, const float* __restrict__ src,
+                                        int n) {
+  if ((n & 3) == 0 && (reinterpret_cast<size_t>(src) & 15) == 0 &&
+      (reinterpret_cast<size_t>(dst) & 15) == 0) {
+    const float4* s4 = reinterpret_cast<const float4*>(src);
+    float4* d4 = reinterpret_cast<float4*>(dst);
+    for (int i = threadIdx.x; i < n / 4; i += blockDim.x) d4[i] = s4[i];
+  } else {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
   }
 }
 

@@ -35,14 +35,15 @@ from typing import NamedTuple
 
 import torch
 
-from schwingermodel_tpu_torch.hmc.sampler import TrajectoryStats, draw_noise
+from schwingermodel_tpu_torch.hmc.integrators import LAMBDA_2MN
+from schwingermodel_tpu_torch.hmc.sampler import (
+    TrajectoryStats, draw_chain_noise,
+)
 from schwingermodel_tpu_torch.models.schwinger import SchwingerModel
 from schwingermodel_tpu_torch.ops import eo
 from schwingermodel_tpu_torch.ops import refined as rs
 from schwingermodel_tpu_torch.ops import traj as tr
-from schwingermodel_tpu_torch.utils import prng
 
-LAMBDA_2MN = 0.1931833275037836      # hmc/integrators.py: Omelyan 2MN
 
 
 def packed_supported(model: SchwingerModel) -> None:
@@ -254,19 +255,6 @@ def trajectory_packed_given_noise(model: SchwingerModel, theta, pi, chi, r,
     return theta_new, TrajectoryStats(accepted=accept, delta_H=dH,
                                       exp_mdH=exp_mdH, cg_iters=iters,
                                       cg_converged=conv)
-
-
-def draw_chain_noise(model: SchwingerModel, seed: int, traj_index: int,
-                     n_chains: int, device):
-    """(pi, chi, r) for all chains of one trajectory, each chain from its
-    own generator (utils/prng.py)."""
-    shape = (2, model.lattice.Nx, model.lattice.Nt)
-    draws = [draw_noise(model, shape,
-                        prng.chain_generator(seed, traj_index, c, device),
-                        device)
-             for c in range(n_chains)]
-    pi, chi, r = (torch.stack(v) for v in zip(*draws))
-    return pi, chi, r
 
 
 def hmc_trajectory_packed(model: SchwingerModel, theta, seed: int,

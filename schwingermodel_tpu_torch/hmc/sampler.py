@@ -1,17 +1,27 @@
-"""Trajectory statistics and noise draws.
+"""One HMC trajectory of the unpacked sampler, statistics and noise draws.
 
-Counterpart of ``TrajectoryStats`` and ``draw_noise`` in
-``schwingermodel_tpu/hmc/sampler.py``. The unpacked sampler itself
-(full-D, quenched, f64) is not ported yet.
+Counterpart of ``schwingermodel_tpu/hmc/sampler.py`` (reference
+HMC::HMC_Update, src/hmc.cpp:151-181): ``trajectory_given_noise`` is the
+deterministic physics given pre-drawn noise, written against the model's
+geometry, so the same function runs one lattice per chain or the blocks of
+a mesh (parallel/sharded.py draws the noise on the global lattice and
+shards it); ``hmc_trajectory`` draws the noise and calls it. Ported: the
+even-odd f32 branch under either contract, leapfrog and Omelyan, with the
+exact initial fermion action S_f(old) = |chi|^2 summed in f64. Hasenbusch,
+full-D, quenched and f64 working precision are not ported here; without a
+mesh the CLI runs the packed path (hmc/packed.py).
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
-from schwingermodel_tpu_torch.models.schwinger import SchwingerModel
+from schwingermodel_tpu_torch.hmc.integrators import integrate
+from schwingermodel_tpu_torch.models.schwinger import SchwingerModel, SolveStats
+from schwingermodel_tpu_torch.ops.geometry import bcast
 from schwingermodel_tpu_torch.utils import prng
 
 
@@ -32,3 +42,62 @@ def draw_noise(model: SchwingerModel, shape, gen: torch.Generator, device):
     chi = prng.normal_complex(gen, model.chi_shape(shape), rdtype, device)
     r = prng.uniform_scalar(gen, rdtype, device)
     return pi, chi, r
+
+
+def draw_chain_noise(model: SchwingerModel, seed: int, traj_index: int,
+                     n_chains: int, device):
+    """(pi, chi, r) for all chains of one trajectory on the global lattice,
+    each chain from its own generator (utils/prng.py)."""
+    shape = (2, model.lattice.Nx, model.lattice.Nt)
+    draws = [draw_noise(model, shape,
+                        prng.chain_generator(seed, traj_index, c, device),
+                        device)
+             for c in range(n_chains)]
+    pi, chi, r = (torch.stack(v) for v in zip(*draws))
+    return pi, chi, r
+
+
+def trajectory_given_noise(model: SchwingerModel, theta, pi, chi, r, dt=None):
+    """Deterministic HMC update given pre-drawn noise, in the layout of the
+    model's geometry: theta, pi [batch.., 2, Nx, Nt] f32, chi complex64
+    [batch.., 2, Nx, Nt/2], r a chain scalar. Returns (theta' wrapped to
+    [-pi, pi), TrajectoryStats with [C] entries)."""
+    geom = model.geom
+    stats = SolveStats.zero(r)
+    phi, stats = model.pseudofermion_fields(theta, chi, stats)
+
+    # old Hamiltonian; Phi = Dhat chi, so S_f(old) = |chi|^2 exactly
+    if model.hmc.exact_initial_fermion_action:
+        sf_old = geom.gsum((chi.real.double() ** 2
+                            + chi.imag.double() ** 2).sum(dim=-3))
+    else:
+        sf_old, stats = model.fermion_action(theta, phi, stats)
+    H_old = model.kinetic(pi) + model.gauge_action(theta) + sf_old
+
+    theta_new, pi_new, stats, psi_last = integrate(model, theta, pi, phi,
+                                                   stats, dt)
+
+    x0 = psi_last if model.hmc.cg_forecast else None
+    sf_new, stats = model.fermion_action(theta_new, phi, stats, x0=x0)
+    H_new = model.kinetic(pi_new) + model.gauge_action(theta_new) + sf_new
+
+    dH = H_new - H_old
+    exp_mdH = torch.exp(-dH)
+    accept = r.double() <= exp_mdH                      # hmc.cpp:171
+    theta_next = torch.where(bcast(accept, theta), theta_new, theta)
+    # keep the angles bounded over long runs (exact gauge periodicity)
+    theta_next = torch.remainder(theta_next + math.pi, 2.0 * math.pi) - math.pi
+    C = theta.shape[0]
+    return theta_next, TrajectoryStats(
+        accepted=accept.reshape(C), delta_H=dH.reshape(C),
+        exp_mdH=exp_mdH.reshape(C), cg_iters=stats.iters.reshape(C),
+        cg_converged=stats.all_converged.reshape(C))
+
+
+def hmc_trajectory(model: SchwingerModel, theta, seed: int, traj_index: int,
+                   dt=None):
+    """One trajectory of theta [C, 2, Nx, Nt] (one lattice per chain) with
+    noise drawn from (seed, traj_index, chain)."""
+    pi, chi, r = draw_chain_noise(model, seed, traj_index, theta.shape[0],
+                                  theta.device)
+    return trajectory_given_noise(model, theta, pi, chi, r, dt)

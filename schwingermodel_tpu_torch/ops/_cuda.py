@@ -57,6 +57,11 @@ SIGNATURES = {
     "cg_eo_launch": [P, P, P, P, P, P, P, P, P, I, I, I, I, D, D, I, P],
     # thE, thO, b, x, r, rnorm2, scratch, C, B, Nx, Nth, m0, stream
     "residual_launch": [P, P, P, P, P, P, P, I, I, I, I, D, P],
+    # ue, uo, off, v, r, out, dots, scratch, n_blocks, Nxe, Nthe, m0,
+    # with_dots, stream
+    "halo_normal_launch": [P, P, P, P, P, P, P, P, I, I, I, D, I, P],
+    # ue, uo, off, psi, FE, FO, scratch, n_blocks, Nxe, Nthe, m0, beta, stream
+    "halo_force_launch": [P, P, P, P, P, P, P, I, I, I, D, D, P],
 }
 
 

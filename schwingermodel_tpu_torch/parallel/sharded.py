@@ -1,0 +1,66 @@
+"""The HMC trajectory on a mesh of lattice shards.
+
+Counterpart of ``schwingermodel_tpu/parallel/sharded.py`` (running the
+reference under ``mpirun -n ranks_x*ranks_t``): the trajectory of
+hmc/sampler.py runs with a ``ShardedGeometry``, so every shift exchanges a
+halo through the mesh's ``ppermute`` and every global reduction is a
+``psum`` (parallel/mesh.py); with blocks that take the wide halo the solves
+and the force run the per-shard kernels K7 and K8 (ops/halo.py).
+
+Determinism: the noise (pi, chi) and the Metropolis uniform are drawn on
+the global lattice outside the mesh and then sharded, so a sharded and an
+unsharded run consume identical fields.
+
+Chains are a batch axis: C chains over rx * rt shards each. Where the JAX
+package needs a ('chain', 'x', 't') mesh and ORs the CG's stop over the
+chain groups, here every solver decision reads only that chain's
+psum-reduced state.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from schwingermodel_tpu_torch.hmc import sampler
+from schwingermodel_tpu_torch.models.schwinger import SchwingerModel
+from schwingermodel_tpu_torch.ops.geometry import ShardedGeometry
+from schwingermodel_tpu_torch.parallel.mesh import (
+    T_AXIS_NAME, LatticeMesh, shard, unshard,
+)
+
+
+def sharded_model(model: SchwingerModel, mesh: LatticeMesh) -> SchwingerModel:
+    """The same model with the mesh's ppermute/psum geometry."""
+    return dataclasses.replace(model, geom=ShardedGeometry(mesh))
+
+
+def make_sharded_traj_fn(model: SchwingerModel, mesh: LatticeMesh):
+    """The sharded HMC step ``step(theta, seed, traj_index, dt=None) ->
+    (theta', stats)`` on the global theta [C, 2, Nx, Nt]; the noise is
+    that of the unsharded paths (``sampler.draw_chain_noise``).
+    ``step.given_noise(theta, pi, chi, r, dt=None)`` is the same update on
+    pre-drawn global noise."""
+    rx, rt = mesh.shape
+    lat = model.lattice
+    if lat.Nx % rx or lat.Nt % rt:
+        raise ValueError(f"lattice {lat.Nx}x{lat.Nt} not divisible by mesh "
+                         f"{rx}x{rt}")
+    if model.hmc.even_odd and (lat.Nt // rt) % 2:
+        raise ValueError(
+            f"even-odd mode needs an even local Nt per shard; Nt={lat.Nt} "
+            f"over {mesh.axis_size(T_AXIS_NAME)} t-shards gives {lat.Nt // rt}")
+    inner = sharded_model(model, mesh)
+
+    def given_noise(theta, pi, chi, r, dt=None):
+        theta_s, st = sampler.trajectory_given_noise(
+            inner, shard(theta, mesh), shard(pi, mesh), shard(chi, mesh),
+            r.reshape(-1, 1, 1), dt)
+        return unshard(theta_s, mesh), st
+
+    def step(theta, seed: int, traj_index: int, dt=None):
+        pi, chi, r = sampler.draw_chain_noise(model, seed, traj_index,
+                                              theta.shape[0], theta.device)
+        return given_noise(theta, pi, chi, r, dt)
+
+    step.given_noise = given_noise
+    return step

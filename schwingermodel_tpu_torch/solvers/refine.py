@@ -24,6 +24,15 @@ flags on the device, so a converged entry passes through.
 
 Host reads: one per pass (whether any entry is still active). The K4 call
 needs none.
+
+``cg_refine_geom`` is the same refinement for the unpacked sampler, on the
+fields of a geometry (ops/geometry.py), with or without a mesh: the
+counterpart of ``cg_refine`` with ``_f64_cg_finish`` as
+``models.schwinger._solve_eo_refined`` calls it. The caller supplies the
+f64 operator and the f32 inner solve (on a mesh the sharded K7 CG); the
+true residual and the fallback, a plain f64 CG, are PyTorch through the
+geometry, as JAX computes both outside any Pallas kernel. Both entry points
+run the passes of ``_refine_passes``.
 """
 
 from __future__ import annotations
@@ -33,6 +42,8 @@ from typing import Callable, NamedTuple
 import torch
 
 from schwingermodel_tpu_torch.ops import cg_eo
+from schwingermodel_tpu_torch.ops.geometry import bcast
+from schwingermodel_tpu_torch.solvers.cg import CGResult, rel_residual
 from schwingermodel_tpu_torch.ops import refined as rs
 from schwingermodel_tpu_torch.ops.refined import RefinedSolveResult
 
@@ -52,6 +63,34 @@ PLAIN = EOKernels(cg_eo.cg_solve_eo_reference, rs.residual_f64_reference,
                   rs.solve_f64_cg_fallback_reference)
 
 
+def _refine_passes(residual, inner, x, stop2, max_outer):
+    """The passes of the restart refinement, per entry.
+
+    residual(x) -> (r, rho): the f64 true residual of the f64 x and its
+    squared norm; inner(r) -> (d, iters): the f32 solve of A d = r from 0.
+    rho, stop2 and iters have one value per entry (any shape that
+    ``bcast`` extends to x). An entry is active while rho >= stop2, fewer
+    than max_outer passes ran and its last pass contracted rho at least
+    4x; one that stops keeps its state. One host read per pass. Returns
+    (x, r, rho, iters)."""
+    r, rho = residual(x)
+    rho_prev = torch.full_like(rho, float("inf"))
+    iters = torch.zeros(rho.shape, dtype=torch.int32, device=rho.device)
+    for k in range(max_outer):
+        active = rho >= stop2
+        if k:
+            active &= rho * 4.0 <= rho_prev      # stagnation: < 4x per pass
+        if not bool(active.any()):
+            break
+        d, it = inner(r)
+        x = torch.where(bcast(active, x), x + d, x)
+        r, rho_new = residual(x)
+        rho_prev = torch.where(active, rho, rho_prev)
+        rho = torch.where(active, rho_new, rho)
+        iters = iters + torch.where(active, it, 0)
+    return x, r, rho, iters
+
+
 def cg_refine(thE, thO, ue, uo, b, *, m0, tol, inner_tol, max_iter,
               max_outer, fallback=True, kernels=KERNELS) -> RefinedSolveResult:
     """(Dhat Dhat^+)^{-1} b to the f64 relative tolerance `tol`.
@@ -64,27 +103,19 @@ def cg_refine(thE, thO, ue, uo, b, *, m0, tol, inner_tol, max_iter,
     summed iterations, and converged = ||b - A x||^2 < tol^2 ||b||^2 on the
     f64 true residual."""
     C, B = b.shape[:2]
-    x = torch.zeros(b.shape, dtype=torch.float64, device=b.device)
     bnorm2 = (b.double() ** 2).sum(dim=(2, 3, 4, 5))
     stop2 = (tol * tol) * bnorm2
-    r, rho = kernels.residual(thE, thO, b, x, m0=m0)
-    rho_prev = torch.full_like(rho, float("inf"))
-    iters = torch.zeros((C, B), dtype=torch.int32, device=b.device)
     zero = torch.zeros_like(b)
-    for k in range(max_outer):
-        active = rho >= stop2
-        if k:
-            active &= rho * 4.0 <= rho_prev      # stagnation: < 4x per pass
-        if not bool(active.any()):
-            break
+
+    def inner(r):
         d = kernels.cg(ue, uo, r.float(), zero, m0=m0, tol=inner_tol,
                        max_iter=max_iter)
-        per_entry = active.reshape(C, B, 1, 1, 1, 1)
-        x = torch.where(per_entry, x + d.x.double(), x)
-        r, rho_new = kernels.residual(thE, thO, b, x, m0=m0)
-        rho_prev = torch.where(active, rho, rho_prev)
-        rho = torch.where(active, rho_new, rho)
-        iters = iters + torch.where(active, d.iters, 0)
+        return d.x.double(), d.iters
+
+    x, _, rho, iters = _refine_passes(
+        lambda x: kernels.residual(thE, thO, b, x, m0=m0), inner,
+        torch.zeros(b.shape, dtype=torch.float64, device=b.device), stop2,
+        max_outer)
     res = RefinedSolveResult(x=x.float(), x64=x, iters=iters,
                              converged=rho < stop2)
     if not fallback:
@@ -96,3 +127,68 @@ def cg_refine(thE, thO, ue, uo, b, *, m0, tol, inner_tol, max_iter,
                           b.reshape(C * B, *b.shape[2:]), flat, m0=m0,
                           tol=tol, max_iter=max_iter)
     return RefinedSolveResult(*(t.reshape(C, B, *t.shape[1:]) for t in fb))
+
+
+# ---------- the refinement on a geometry ----------
+
+def _f64_cg_finish(apply_A_hi, b_hi, x, r, rho, stop2, dot_re_hi, max_iter):
+    """Plain f64 CG continuation from (x, r) for the chains still above
+    stop2 (JAX ``_f64_cg_finish``): lifts the attainable residual from the
+    f32 inner solves' floor to f64's. A chain below stop2 never starts; a
+    chain that iterated is certified on its true residual afterwards. Per
+    chain by masking, as solvers/cg.py. Returns (x, rho, iters)."""
+    d = r
+    iters = torch.zeros(rho.shape, dtype=torch.int32, device=rho.device)
+    for _ in range(max_iter):
+        live = rho >= stop2
+        if not bool(live.any()):
+            break
+        Ad = apply_A_hi(d)
+        alpha = rho / dot_re_hi(d, Ad)
+        lv = bcast(live, x)
+        a = bcast(alpha, x)
+        x = torch.where(lv, x + a * d, x)
+        r = torch.where(lv, r - a * Ad, r)
+        rho_new = dot_re_hi(r, r)
+        d = torch.where(lv, r + bcast(rho_new / rho, x) * d, d)
+        rho = torch.where(live, rho_new, rho)
+        iters = iters + live.to(torch.int32)
+    ran = iters > 0
+    if bool(ran.any()):
+        r_true = b_hi - apply_A_hi(x)
+        rho = torch.where(ran, dot_re_hi(r_true, r_true), rho)
+    return x, rho, iters
+
+
+def cg_refine_geom(apply_A_hi, inner_solve, b, dot_re_hi, *, tol=1e-10,
+                   max_outer=8, x0=None, fallback_max_iter=0) -> CGResult:
+    """Solve A x = b per chain to the f64 relative tolerance `tol` (JAX
+    ``cg_refine``).
+
+    apply_A_hi: the operator on complex128 fields; inner_solve(rhs, x0) ->
+    (dx, iters): an f32 solver of A d = rhs (complex64) to its own loose
+    tolerance; b: any complex dtype; dot_re_hi: Re<x, y> over the global
+    lattice, a chain scalar; x0: the start (a forecast), default 0. Returns
+    CGResult with x complex128, iters the inner (and fallback) iterations,
+    converged and rel_residual on the f64 true residual."""
+    b_hi = b.to(torch.complex128)
+    x = torch.zeros_like(b_hi) if x0 is None else x0.to(torch.complex128)
+    b_norm2 = dot_re_hi(b_hi, b_hi)
+    stop2 = (tol * tol) * b_norm2
+
+    def residual(x):
+        r = b_hi - apply_A_hi(x)
+        return r, dot_re_hi(r, r)
+
+    def inner(r):
+        r_lo = r.to(torch.complex64)
+        d, it = inner_solve(r_lo, torch.zeros_like(r_lo))
+        return d.to(torch.complex128), it
+
+    x, r, rho, iters = _refine_passes(residual, inner, x, stop2, max_outer)
+    if fallback_max_iter > 0:
+        x, rho, it_fb = _f64_cg_finish(apply_A_hi, b_hi, x, r, rho, stop2,
+                                       dot_re_hi, fallback_max_iter)
+        iters = iters + it_fb
+    return CGResult(x=x, iters=iters, converged=rho < stop2,
+                    rel_residual=rel_residual(rho, b_norm2))

@@ -16,6 +16,7 @@ import torch
 
 from schwingermodel_tpu.ops import pallas_traj as pt
 from schwingermodel_tpu.ops.geometry import Geometry
+from schwingermodel_tpu_torch.ops import eo
 from schwingermodel_tpu_torch.ops import traj as tr
 
 torch.set_num_threads(1)
@@ -88,7 +89,7 @@ def test_force_step_is_minus_gradient_of_action(rng):
     thE, thO = tr.pack_planes(theta)
     ue, uo = gauge.links(thE, thO, torch.complex128)
     chi = eo.dhat_dag(ue, uo, psi, m0)
-    ffe, ffo = tr.fermion_force_planes(ue, uo, psi, chi, m0)
+    ffe, ffo = eo.fermion_force_planes(ue, uo, psi, chi, m0)
     gfe, gfo = gauge.gauge_force_planes(ue, uo, beta)
     F = eo.unpack(ffe + gfe, ffo + gfo)[0]
 

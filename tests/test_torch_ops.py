@@ -159,7 +159,7 @@ def test_f64_operators_match_oracle(rng, Nx, Nt):
     off_o = eo.row_offset(Nx, eo.ODD)
     a_o = eo.hop(uo, ue, chi, off_o)
     b_o = eo.hop_dag(uo, ue, vt, off_o)
-    FE, FO = tr.fermion_force_planes(ue, uo, vt, chi, m0)
+    FE, FO = eo.fermion_force_planes(ue, uo, vt, chi, m0)
     left = eo.unpack(vt, b_o)[0].numpy()
     right = eo.unpack(chi, a_o)[0].numpy()
     np.testing.assert_allclose(eo.unpack(FE, FO)[0].numpy(),

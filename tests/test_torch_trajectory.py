@@ -96,7 +96,11 @@ def test_package_imports_no_jax():
             " 'schwingermodel_tpu_torch.ops.refined', 'schwingermodel_tpu_torch.hmc.packed',"
             " 'schwingermodel_tpu_torch.ops.traj', 'schwingermodel_tpu_torch.hmc.sampler',"
             " 'schwingermodel_tpu_torch.models.schwinger', 'schwingermodel_tpu_torch.ops.cg_eo',"
-            " 'schwingermodel_tpu_torch.solvers.refine', 'schwingermodel_tpu_torch.observables']:\n"
+            " 'schwingermodel_tpu_torch.solvers.refine', 'schwingermodel_tpu_torch.observables',"
+            " 'schwingermodel_tpu_torch.ops.geometry', 'schwingermodel_tpu_torch.ops.dirac',"
+            " 'schwingermodel_tpu_torch.ops.eo_halo', 'schwingermodel_tpu_torch.ops.halo',"
+            " 'schwingermodel_tpu_torch.solvers.cg', 'schwingermodel_tpu_torch.hmc.integrators',"
+            " 'schwingermodel_tpu_torch.parallel.mesh', 'schwingermodel_tpu_torch.parallel.sharded']:\n"
             "    importlib.import_module(m)\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
             "assert not any(k.startswith('schwingermodel_tpu.') or k == 'schwingermodel_tpu'"
