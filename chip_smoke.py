@@ -7,7 +7,7 @@ Run from the repository root on a machine with one CUDA card:
 Phases (any failure raises, and the script exits non-zero):
 
 0. the card's name and power limit; no CUDA, no run;
-1. build the nine CUDA kernels from csrc/ with nvcc (sm_90a), one nvcc per
+1. build the ten CUDA kernels from csrc/ with nvcc (sm_90a), one nvcc per
    source, all started together;
 2. each kernel against its plain PyTorch twin on the card at m0=0.2,
    beta=4, random angles, on the main path's shape 64x64 C=32, on 64x64
@@ -17,6 +17,14 @@ Phases (any failure raises, and the script exits non-zero):
    K2 solve_fused       tol 1e-6 from x0 = b: equal flags, x to 2e-4, every
                         f64 true residual under 2e-6 ||b||, iteration
                         counts side by side;
+   K10 solve_fused_mxu  (K2 with its x-shifts as one-hot products on the
+                        tensor cores) against its twin and against K2, tol
+                        1e-6 from x0 = b: equal flags and iterations, x to
+                        2e-4 (max |dx| printed), every f64 true residual
+                        under 2e-6 ||b||; and its shifts alone, P+ a and P- a
+                        of random f32 planes across 30 binades, equal to
+                        torch.roll bit for bit (allow_tf32 is set False and
+                        asserted first: the twin's matmul must be exact);
    K5 ratio_force       m0=-0.19, m1=0.21: forces to 3e-5 * max(scale, 1);
    K3 solve_refined     certify=True at 1e-10 (cold start) and
                         certify=False at 1e-8 (forecast start): f64 true
@@ -52,7 +60,8 @@ Phases (any failure raises, and the script exits non-zero):
    C=32 (K6 and K9 with B=8; K7 and K8 on the 2x2 mesh), beside the kernel's
    bound: the larger of its bytes (inputs read once, outputs written once)
    over 3.35 TB/s and its operations (at the iteration counts these inputs
-   needed) over the card's f32 or f64 peak; then four 64x64 trajectories of C=4
+   needed) over the card's f32 or f64 peak (K10's products over the f64
+   tensor-core peak), and K10 and K2 in turns; then four 64x64 trajectories of C=4
    chains through the kernels against the same trajectories through the plain twins on the CPU, same
    noise (refined leapfrog, loose leapfrog, refined Hasenbusch Omelyan,
    loose Hasenbusch leapfrog): |ddH| < 5e-3, |dtheta'| < 2e-4, equal
@@ -76,12 +85,21 @@ Phases (any failure raises, and the script exits non-zero):
    PCAC plateau printed); then the lattice mesh, 4 + 8 trajectories: (f)
    the refined demo on 2x2 shards (K7 in every f32 solve, K8 in every
    force; the f64 true residual is plain PyTorch) and (g) the same loose,
-   with no K1, K2 or K3 launch. Every run has the kernels' launch counters set
+   with no K1, K2 or K3 launch; then K10's path and the rest of the sampler: the tool
+   tools/bench_mxu_stencil at full width (K2 against K10 on 50 right-hand
+   sides), and at 64x64 C=32 (h) the refined demo with --autotune (8 + 20
+   trajectories, n_tune 8: the warm-up on the packed path), (i) a quenched
+   run held to 0 < <P> < I1(4)/I0(4) + 0.05 with no solver launch at all,
+   (j) the refined demo on full-D pseudofermions, (k) the demo in f64
+   working precision (no K6 launch), (l) Hasenbusch dm=0.4 on 2x2 shards
+   (K7 launched, K8 not), 4 + 8 trajectories each, and (m) the refined
+   demo of 4 + 4 trajectories, a checkpoint, and 4 more from it against
+   the unbroken 4 + 8: equal bit for bit. Every run has the kernels' launch counters set
    to 0 just before it and read just after it, and fails if a kernel of its
    path was not launched. With --profile, three batch trajectories of the
    packed demo and of (f) and (g) then run under torch.profiler (launches,
    device-busy share and the top kernels by device time);
-4. the kernels line (nine entry points), the card line, and the last line
+4. the kernels line (ten entry points), the card line, and the last line
    {"ok": true, "device": {...}}.
 
 Imports nothing of jax or of the JAX package.
@@ -143,6 +161,9 @@ def in_turns(plain, kernel, reps_plain, reps_kernel):
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory
 # rate, f32 and f64 outside the tensor cores.
 PEAK_BYTES, PEAK_F32, PEAK_F64 = 3.35e12, 67e12, 34e12
+# f64 on the tensor cores (mma.m8n8k4.f64, the shape K10 uses): "FP64 Tensor
+# Core 67 teraFLOPS" on the same data sheet.
+PEAK_F64_TC = 67e12
 # Flops per site of the even-odd stencil, counted from csrc/stencil.cuh: one
 # hop to one target site is 7 complex products and 12 complex sums (66); a
 # Dhat or Dhat^+ on one even site is two hops and the a*v + b*h (140); a
@@ -153,11 +174,13 @@ F_PLAQ = 2 * 30 + 2 * 8   # both plaquette angles and the staple differences
 F_LINKS = 4 * 20          # sincos of the four angles of an even/odd site pair
 
 
-def roofline(bytes_, f32_ops=0.0, f64_ops=0.0):
+def roofline(bytes_, f32_ops=0.0, f64_ops=0.0, f64_tc_ops=0.0):
     """(bound_ms, bound_by): the least time the card could take: the larger
-    of the bytes over its memory rate and the operations over its peak."""
+    of the bytes over its memory rate and the operations over its peak. The
+    tensor cores run beside the other units, so their time is not added to
+    the others' but taken as a maximum with it."""
     t_bytes = bytes_ / PEAK_BYTES
-    t_ops = f32_ops / PEAK_F32 + f64_ops / PEAK_F64
+    t_ops = max(f32_ops / PEAK_F32 + f64_ops / PEAK_F64, f64_tc_ops / PEAK_F64_TC)
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -325,6 +348,7 @@ def main() -> int:
                                                  LatticeParams, RunParams)
     from schwingermodel_tpu_torch.hmc import packed as hp
     from schwingermodel_tpu_torch.hmc import sampler
+    from schwingermodel_tpu_torch.io import checkpoint
     from schwingermodel_tpu_torch.models.schwinger import SchwingerModel
     from schwingermodel_tpu_torch.ops import _cuda, cg_eo, eo, gauge, halo
     from schwingermodel_tpu_torch.ops import refined as rs
@@ -332,7 +356,9 @@ def main() -> int:
     from schwingermodel_tpu_torch.parallel.mesh import lattice_mesh
     from schwingermodel_tpu_torch.parallel.sharded import make_sharded_traj_fn
     from schwingermodel_tpu_torch.runner import run_hmc
+    from schwingermodel_tpu_torch.scan import exact_quenched_plaquette
     from schwingermodel_tpu_torch.solvers import refine
+    from schwingermodel_tpu_torch.tools import bench_mxu_stencil
 
     # the package under test is the checkout's own, beside this script
     check(Path(_cuda.__file__).resolve().parents[2] == Path(__file__).resolve().parent,
@@ -353,6 +379,12 @@ def main() -> int:
           f"{_cuda.KERNELS.build_seconds:.1f} s", flush=True)
 
     # ---- phase 2: kernels against their plain twins ----
+    # K10's twin shifts by a plain f32 matmul with a one-hot matrix, exact
+    # on the card only in full f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "f32 matmul is not in full precision")
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
     M0_HB, M1_HB = -0.19, 0.21
@@ -386,7 +418,7 @@ def main() -> int:
         _, rn = rs.residual_f64_reference(thE, thO, b, x.double(), m0=M0)
         return (rn / (b.double() ** 2).sum(dim=(2, 3, 4, 5))).sqrt()
 
-    errs = dict.fromkeys(("force_step", "solve_fused", "ratio_force",
+    errs = dict.fromkeys(("force_step", "solve_fused", "solve_fused_mxu", "ratio_force",
                           "solve_refined", "solve_f64_cg_fallback",
                           "cg_solve_eo", "residual_f64"), 0.0)
     RHS = {C_MAIN: 8, 1: 1, 3: 2}      # right-hand sides per configuration
@@ -479,6 +511,46 @@ def main() -> int:
               f"{rk.max().item():.3e} plain {rp.max().item():.3e}; max |x - x_plain| "
               f"{dx:.3e}; iterations kernel {k.iters[:8].tolist()} plain "
               f"{p.iters[:8].tolist()}", flush=True)
+
+        # K10 against its twin and against K2 (k, p: K2 and its twin above)
+        k10 = tr.solve_fused_mxu(thE, thO, b, b, m0=M0, tol=LOOSE_TOL,
+                                 max_iter=MAX_ITER)
+        p10 = tr.solve_fused_mxu_reference(thE, thO, b, b, m0=M0, tol=LOOSE_TOL,
+                                           max_iter=MAX_ITER)
+        r10 = rel_residual(thE, thO, b, k10.x)
+        dx_twin = (k10.x - p10.x).abs().max().item()
+        dx_k2 = (k10.x - k.x).abs().max().item()
+        check(torch.equal(k10.converged, p10.converged)
+              and torch.equal(k10.converged, k.converged) and bool(k10.converged.all()),
+              f"K10 C={C}: flags")
+        check(torch.equal(k10.iters, k.iters) and torch.equal(k10.iters, p10.iters),
+              f"K10 C={C}: iterations K10 {k10.iters.tolist()} K2 {k.iters.tolist()} "
+              f"twin {p10.iters.tolist()}")
+        check(dx_twin <= 2e-4 and dx_k2 <= 2e-4,
+              f"K10 C={C}: x differs by {dx_twin} from its twin, {dx_k2} from K2")
+        check(bool((r10 < 2 * LOOSE_TOL).all()),
+              f"K10 C={C}: true residual {r10.max().item()}")
+        errs["solve_fused_mxu"] = max(errs["solve_fused_mxu"], dx_twin)
+        print(f"phase 2: K10 tol={LOOSE_TOL:g} C={C}: flags and iterations equal to "
+              f"K2's and the twin's ({k10.iters[:8].tolist()}); f64 true residual "
+              f"{r10.max().item():.3e}; max |x - x_twin| {dx_twin:.3e}; max |x - x_K2| "
+              f"{dx_k2:.3e} (bit for bit: {torch.equal(k10.x, k.x)})", flush=True)
+        # the shifts alone: 16 planes of this shape across 30 binades
+        planes = (torch.randn((16, nx, nt // 2), generator=gen, device=dev)
+                  * torch.exp2(torch.randint(-15, 16, (16, nx, nt // 2), generator=gen,
+                                             device=dev).float()))
+        sp, sm_ = tr.shift_x_mxu(planes)
+        tp, tm = tr.shift_x_mxu_reference(planes)
+        torch.cuda.synchronize()
+        for got, want, twin, which in ((sp, torch.roll(planes, -1, dims=1), tp, "P+"),
+                                      (sm_, torch.roll(planes, 1, dims=1), tm, "P-")):
+            check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                  f"K10 shift {which} C={C}: not torch.roll bit for bit")
+            check(torch.equal(twin.view(torch.int32), want.view(torch.int32)),
+                  f"K10 twin shift {which} C={C}: the f32 matmul is not exact")
+        print(f"phase 2: K10 shifts at {nx}x{nt // 2}, 16 planes across 30 binades: "
+              f"P+ a and P- a equal torch.roll bit for bit (tensor cores and twin)",
+              flush=True)
 
         # K5 near the critical mass
         phi2 = torch.randn(b.shape, generator=gen, device=dev)
@@ -592,6 +664,11 @@ def main() -> int:
                                              max_iter=MAX_ITER),
             lambda: tr.solve_fused(thE, thO, b, b, m0=M0, tol=LOOSE_TOL,
                                    max_iter=MAX_ITER), 2, 20),
+        "solve_fused_mxu": in_turns(
+            lambda: tr.solve_fused_mxu_reference(thE, thO, b, b, m0=M0, tol=LOOSE_TOL,
+                                                 max_iter=MAX_ITER),
+            lambda: tr.solve_fused_mxu(thE, thO, b, b, m0=M0, tol=LOOSE_TOL,
+                                       max_iter=MAX_ITER), 2, 20),
         "ratio_force": in_turns(
             lambda: tr.ratio_force_reference(thE, thO, b, phi2, m0=M0_HB,
                                              m1=M1_HB, beta=BETA),
@@ -633,6 +710,18 @@ def main() -> int:
              - starved.iters).sum().item()
     it_k6 = cg_eo.cg_solve_eo(ue, uo, bb, zero, m0=M0, tol=1e-5,
                               max_iter=MAX_ITER).iters.sum().item()
+    it_k10 = tr.solve_fused_mxu(thE, thO, b, b, **kw).iters.sum().item()
+    check(it_k10 == it_k2, f"K10 ran {it_k10} iterations on the timed inputs, K2 {it_k2}")
+    # K10's products: 32 shifted planes per normal apply, 2 Nx Nx Nth flops
+    # each, one apply per iteration and one for the first residual
+    mxu_ops = 32 * 2 * NX * NX * (NT // 2) * (it_k2 + C_MAIN)
+    k2_vs_k10 = in_turns(
+        lambda: tr.solve_fused(thE, thO, b, b, **kw),
+        lambda: tr.solve_fused_mxu(thE, thO, b, b, **kw), 20, 20)
+    print(f"phase 2: K10 against K2 in turns at {NX}x{NT} C={C_MAIN} ({card}): K10 "
+          f"{k2_vs_k10[0]:.4f} ms, K2 {k2_vs_k10[1]:.4f} ms, K2 / K10 = "
+          f"{k2_vs_k10[1] / k2_vs_k10[0]:.3f}; {it_k2} iterations summed over the chains",
+          flush=True)
     force_ops = F_LINKS + F_DHAT + F_HOP + F_FORCE
     k1_bounds = {
         "with_solve=False,with_gauge=True": roofline(
@@ -650,6 +739,8 @@ def main() -> int:
         "force_step": k1_bounds["with_solve=False,with_gauge=True"],
         "solve_fused": roofline(C_MAIN * 64 * V2, V2 * (
             C_MAIN * (F_LINKS + F_NORMAL) + F_CG_ITER * it_k2)),
+        "solve_fused_mxu": roofline(C_MAIN * 64 * V2, V2 * (
+            C_MAIN * (F_LINKS + F_NORMAL) + F_CG_ITER * it_k2), 0.0, mxu_ops),
         "ratio_force": roofline(C_MAIN * 64 * V2, C_MAIN * V2 * (
             F_LINKS + F_DHAT + 2 * F_HOP + 2 * F_FORCE + F_PLAQ)),
         "solve_refined": roofline(C_MAIN * 96 * V2, V2 * F_CG_ITER * it_k3,
@@ -662,6 +753,7 @@ def main() -> int:
             E * (F_NORMAL + 8) + C_MAIN * F_LINKS)),
     }
     its = {"force_step with_solve=True": it_k1, "solve_fused": it_k2,
+           "solve_fused_mxu": it_k10,
            "solve_refined": it_k3, "solve_f64_cg_fallback": it_k4,
            "cg_solve_eo": it_k6}
     print(f"phase 2: CG iterations of the timed inputs, summed over the chains or "
@@ -672,6 +764,15 @@ def main() -> int:
         print(f"phase 2: time at {NX}x{NT} C={C_MAIN} ({card}): {k_name} kernel "
               f"{ms:.4f} ms, plain twin {plain_ms:.4f} ms, bound {b_ms:.5f} ms by "
               f"{b_by} ({100 * b_ms / ms:.2f}% of the roofline)", flush=True)
+    # K4 as the main path meets it: after a K3 that converged every chain it
+    # reads the flags and copies the solution through
+    done = rs.solve_refined(thE, thO, b, b, m0=M0, tol=1e-10)
+    check(bool(done.converged.all()), "K3 left a chain of the timed inputs unconverged")
+    k4_pass_ms = timed(lambda: rs.solve_f64_cg_fallback(thE, thO, b, done, m0=M0,
+                                                        tol=1e-10), 200)
+    print(f"phase 2: time at {NX}x{NT} C={C_MAIN} ({card}): solve_f64_cg_fallback after a "
+          f"converged K3 (the pass-through of the main path) {k4_pass_ms:.4f} ms",
+          flush=True)
     times.update(halo_times)
     bounds.update(halo_bounds)
 
@@ -761,7 +862,7 @@ def main() -> int:
 
     # ---- phase 3: the main paths ----
     counters = {"force_step": tr.force_step, "solve_fused": tr.solve_fused,
-                "ratio_force": tr.ratio_force, "solve_refined": rs.solve_refined,
+                "solve_fused_mxu": tr.solve_fused_mxu, "ratio_force": tr.ratio_force, "solve_refined": rs.solve_refined,
                 "solve_f64_cg_fallback": rs.solve_f64_cg_fallback,
                 "cg_solve_eo": cg_eo.cg_solve_eo, "residual_f64": rs.residual_f64,
                 "halo_normal": halo.halo_normal, "halo_force": halo.halo_force}
@@ -960,6 +1061,88 @@ def main() -> int:
               f"{rate:.2f} chain-traj/s against {rates[packed_of[label[:3]]]:.2f} for the "
               f"packed path; card {card}", flush=True)
 
+    # ---- K10's path, and the rest of the sampler ----
+    # the tool, as a user calls it: K2 against K10 at 64x64 C=32 on 50
+    # right-hand sides (it prints its two variant rows and the verdict row)
+    rc, wall, got = counted("tools/bench_mxu_stencil", ("solve_fused", "solve_fused_mxu"),
+                            lambda: bench_mxu_stencil.main(["--seed", "0"]))
+    check(rc == 0, f"bench_mxu_stencil exited {rc}")
+    print(f"phase 3: tools/bench_mxu_stencil at {NX}x{NT} C={C_MAIN}: exit 0 in "
+          f"{wall:.2f} s, {got['solve_fused_mxu']} K10 and {got['solve_fused']} K2 "
+          f"launches; card {card}", flush=True)
+
+    solver_kernels = ("force_step", "solve_fused", "solve_fused_mxu", "ratio_force",
+                      "solve_refined", "solve_f64_cg_fallback", "cg_solve_eo",
+                      "residual_f64", "halo_normal", "halo_force")
+    lattice64 = LatticeParams(Nx=NX, Nt=NT, real_dtype="float64")
+    f64_cg = CGParams(tol=1e-10, max_iter=MAX_ITER, refine=False)
+    p_exact = float(exact_quenched_plaquette(BETA))
+    for label, lat, hmc, run_, mesh, uses, unused in (
+            ("(h) refined demo --autotune --n-tune 8", lattice, hmc_params(),
+             dataclasses.replace(run, n_therm=8, n_meas=20, autotune=True, n_tune=8), None,
+             ("with_solve=False,with_gauge=True", *refined_k), ("cg_solve_eo",)),
+            ("(i) --quenched", lattice, hmc_params(quenched=True), run_mesh, None, (),
+             solver_kernels),
+            ("(j) refined demo --no-even-odd", lattice,
+             dataclasses.replace(hmc_params(), even_odd=False), run_mesh, None, (),
+             solver_kernels),
+            ("(k) demo --dtype float64", lattice64,
+             dataclasses.replace(hmc_params(), cg=f64_cg), run_mesh, None, (),
+             solver_kernels),
+            ("(l) --hasenbusch-dm 0.4 on 2x2 shards", lattice, hmc_params(hasenbusch_dm=0.4),
+             run_mesh, mesh22, ("halo_normal",),
+             ("halo_force", "force_step", "solve_fused", "solve_refined", "ratio_force",
+              "cg_solve_eo"))):
+        msgs = []
+        res, wall, got = counted(label, uses, lambda: run_hmc(
+            lat, hmc, run_, device=dev, mesh=mesh, progress=msgs.append))
+        rate = main_gates(label, res, wall, run_)
+        for k in unused:
+            check(got[k] == 0, f"{label}: {k} launched {got[k]} times")
+        extra = ""
+        if run_.autotune:
+            tune_lines = [m for m in msgs if m.startswith("autotune")]
+            check(len(tune_lines) == 1 and res.hmc.md_steps >= 2 and res.tuned_eps > 0,
+                  f"{label}: warm-up {tune_lines}, md_steps {res.hmc.md_steps}")
+            extra = f"; {tune_lines[0]}"
+        if hmc.quenched:
+            check(res.cg_iters_total == 0, f"{label}: {res.cg_iters_total} CG iterations")
+            check(res.Ep < p_exact + 0.05, f"{label}: <P> {res.Ep} above I1/I0 {p_exact}")
+            extra = (f"; no solver launch; <P> {res.Ep:.6f} on its way to I1(4)/I0(4) = "
+                     f"{p_exact:.6f} from a hot start")
+        print(f"phase 3: {label}: measure phase {rate:.2f} chain-traj/s against "
+              f"{rates['refined demo md=10']:.2f} for the packed refined demo{extra}; "
+              f"card {card}", flush=True)
+
+    # (m) checkpoint and resume: 4 + 4, a checkpoint, 4 more, against 4 + 8
+    def resumed():
+        first = run_hmc(lattice, hmc_params(), dataclasses.replace(run_mesh, n_meas=4),
+                        device=dev)
+        path = Path(_cuda.BUILD_DIR) / "chip_smoke_resume.npz"
+        checkpoint.save_checkpoint(
+            str(path), theta=first.theta, key=first.key, traj_index=first.traj_index,
+            lattice=lattice, hmc=first.hmc, run=run_mesh)
+        state = checkpoint.load_checkpoint(str(path))
+        path.unlink()
+        rest = run_hmc(state["lattice"], state["hmc"],
+                       dataclasses.replace(state["run"], n_therm=0, n_meas=4), device=dev,
+                       initial_theta=state["theta"], start_traj_index=state["traj_index"])
+        whole = run_hmc(lattice, hmc_params(), run_mesh, device=dev)
+        return first, rest, whole
+
+    (first, rest, whole), wall, _ = counted(
+        "(m) refined demo, checkpoint and resume",
+        ("with_solve=False,with_gauge=True", *refined_k), resumed)
+    check(rest.traj_index == whole.traj_index == 12, f"(m): counters {rest.traj_index}")
+    check(np.array_equal(rest.theta, whole.theta)
+          and np.array_equal(rest.chains["plaquette"], whole.chains["plaquette"][4:])
+          and np.array_equal(first.chains["plaquette"], whole.chains["plaquette"][:4]),
+          "(m): the resumed run differs from the unbroken one")
+    main_gates("(m) the unbroken run", whole, wall, run_mesh)
+    print(f"phase 3: (m) 4 + 4 trajectories, a checkpoint, 4 more from it: final "
+          f"configuration and plaquette chain equal the unbroken 4 + 8 run's bit for "
+          f"bit; card {card}", flush=True)
+
     # where the time goes (--profile): three batch trajectories of each path
     # under torch.profiler
     def profile(label, model, mesh):
@@ -1002,6 +1185,8 @@ def main() -> int:
     replaces = {
         "force_step": ("csrc/force_step.cu", "schwingermodel_tpu/ops/pallas_traj.py:339"),
         "solve_fused": ("csrc/solve_fused.cu", "schwingermodel_tpu/ops/pallas_traj.py:532"),
+        "solve_fused_mxu": ("csrc/solve_mxu.cu",
+                            "schwingermodel_tpu/tools/bench_mxu_stencil.py:54"),
         "ratio_force": ("csrc/ratio_force.cu", "schwingermodel_tpu/ops/pallas_traj.py:465"),
         "solve_refined": ("csrc/solve_ru.cu", "schwingermodel_tpu/ops/pallas_df.py:402"),
         "solve_f64_cg_fallback": ("csrc/cg_fallback.cu",
@@ -1016,8 +1201,9 @@ def main() -> int:
                 "launches": launches[k], "max_abs_err": errs[k],
                 "ms": times[k][0], "plain_ms": times[k][1],
                 "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
-                # no single PyTorch call computes a CG solve to a stop rule,
-                # a fused force step, an f64 true residual or a halo stencil
+                # no single PyTorch call computes a CG solve to a stop rule
+                # (with or without its shifts as products), a fused force
+                # step, an f64 true residual or a halo stencil
                 "library_ms": None}
                for k, (src, rep) in replaces.items()]
     kernels[0]["launches_by_variant"] = variants
@@ -1025,7 +1211,11 @@ def main() -> int:
     kernels[0]["plain_ms_by_variant"] = {v: t[1] for v, t in k1_times.items()}
     kernels[0]["bound_ms_by_variant"] = {v: t[0] for v, t in k1_bounds.items()}
     # K6a and K6b are one kernel
-    kernels[5]["also_replaces"] = "schwingermodel_tpu/ops/pallas_eo.py:328"
+    by_name = {e["name"]: e for e in kernels}
+    by_name["cg_solve_eo"]["also_replaces"] = "schwingermodel_tpu/ops/pallas_eo.py:328"
+    by_name["solve_f64_cg_fallback"]["ms_pass_through"] = k4_pass_ms
+    by_name["solve_fused_mxu"]["ms_k2_in_turns"] = k2_vs_k10[1]
+    by_name["solve_fused_mxu"]["ms_in_turns_with_k2"] = k2_vs_k10[0]
     check(all(e["launches"] > 0 for e in kernels), "a kernel was never launched")
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card}")

@@ -8,34 +8,43 @@ from stdin in the same order, so reference-style parameter pipes work:
         python -m schwingermodel_tpu_torch --nx 64 --nt 64 --device cuda
 
 ``--device {cuda,cpu}`` replaces ``--platform``. Both devices run the same
-path (f32 working precision, even-odd): on ``cuda`` through the CUDA
-kernels, on ``cpu`` through their plain PyTorch twins. The refined 1e-10
-contract is the default; ``--no-cg-refine`` selects the loose f32 contract
-(tol 1e-6 unless ``--cg-tol``), ``--integrator omelyan`` the Omelyan 2MN
-integrator and ``--hasenbusch-dm DM`` the two-pseudofermion split at the
-heavy mass m0+DM, in any combination; ``--condensate`` (with ``--n-noise``)
-measures the chiral condensate on every path. ``--mre-history >= 2`` is refused
-only where the JAX package would use it (refined, forecasting on, no
-Hasenbusch, no mesh) and ignored elsewhere, as there.
+paths: on ``cuda`` through the CUDA kernels, on ``cpu`` through their plain
+PyTorch twins. The default is the packed path: f32 working precision,
+even-odd pseudofermions, the refined 1e-10 contract; ``--no-cg-refine``
+selects the loose f32 contract (tol 1e-6 unless ``--cg-tol``),
+``--integrator omelyan`` the Omelyan 2MN integrator and ``--hasenbusch-dm
+DM`` the two-pseudofermion split at the heavy mass m0+DM, in any
+combination; ``--condensate`` (with ``--n-noise``) measures the chiral
+condensate on every path. Off the packed path the unpacked sampler
+(hmc/sampler.py) runs: ``--quenched`` (pure gauge, no solve),
+``--no-even-odd`` or an odd lattice extent (full-D pseudofermions) and
+``--dtype float64`` (f64 working precision: no refinement, native f64 CG at
+1e-10). ``--autotune`` (with ``--tune-target``, ``--n-tune``) tunes the step
+size over the first thermalization trajectories and re-quantizes md_steps.
+``--checkpoint CKPT`` writes the final state as one ``.npz``; ``--resume
+CKPT`` continues from one (its configuration, parameters and trajectory
+counter; ``--nmeas`` extends the run without thermalization), also from a
+checkpoint the JAX package wrote. ``--mre-history >= 2`` is refused only
+where the JAX package would use it (refined, forecasting on, no Hasenbusch,
+the packed path) and ignored elsewhere, as there.
 
 ``--ranks-x RX --ranks-t RT`` (or the first two prompts) cut the lattice
 into RX x RT shards and run the lattice-sharded trajectory
-(parallel/sharded.py) with the per-shard halo kernels. All shards live on
-the one device: this is the domain decomposition of a multi-GPU run
-without the GPUs, not a multi-GPU run. A lattice that the mesh does not
-divide (or an odd local Nt) exits with status 1, as the reference does;
-1 x 1 runs the packed main path.
+(parallel/sharded.py) with the per-shard halo kernels, with or without
+``--hasenbusch-dm``. All shards live on the one device: this is the domain
+decomposition of a multi-GPU run without the GPUs, not a multi-GPU run. A
+lattice that the mesh does not divide (or an odd local Nt in even-odd mode)
+exits with status 1, as the reference does; 1 x 1 runs without a mesh.
 
 Flags that select something not ported yet exit with status 2 and a "not
-yet ported" message: ``--ranks-chain`` other than 1 (multi-GPU), a mesh
-together with ``--hasenbusch-dm``, ``--quenched``, ``--no-even-odd``, an
-odd lattice, ``--dtype float64``, ``--autotune``, ``--resume`` and
-``--checkpoint``.
+yet ported" message: ``--ranks-chain`` other than 1 (multi-GPU) and
+``--mre-history >= 2`` on the path named above.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 
 import numpy as np
@@ -91,7 +100,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "(default 1e-8; the Metropolis action solves run at "
                         "--cg-tol)")
     p.add_argument("--mre-history", type=int, default=0)
-    p.add_argument("--dtype", choices=["float32", "float64"], default="float32")
+    p.add_argument("--dtype", choices=["float32", "float64"], default=None,
+                   help="working precision (default float32)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--chains", type=int, default=1,
                    help="independent chains advanced together")
@@ -120,44 +130,12 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _meshed(args) -> bool:
-    """A lattice mesh other than 1x1 is asked for (by what is known so far:
-    the prompts may still set the ranks)."""
-    return (args.ranks_x or 1) * (args.ranks_t or 1) > 1
-
-
-def _not_ported(args) -> list:
-    """Names of the requested options that this port does not have yet."""
-    asks = [
-        (args.ranks_chain != 1, "--ranks-chain other than 1 (multi-GPU)"),
-        (_meshed(args) and args.hasenbusch_dm,
-         "--hasenbusch-dm on a lattice mesh"),
-        (not args.even_odd, "--no-even-odd"),
-        (args.quenched, "--quenched"),
-        # MRE runs only on the packed path, refined, forecasting, without
-        # Hasenbusch (schwingermodel_tpu/hmc/packed.py:219); elsewhere it
-        # is ignored
-        (args.mre_history >= 2 and args.cg_refine is not False
-         and args.cg_forecast and not args.hasenbusch_dm
-         and not _meshed(args), "--mre-history >= 2"),
-        (args.autotune, "--autotune"),
-        # JAX runs an odd lattice on the full-D path (schwingermodel_tpu/
-        # cli.py:260)
-        (args.even_odd and (args.nx % 2 or args.nt % 2),
-         "full-D pseudofermions (odd lattice extents)"),
-        (args.resume, "--resume"),
-        (args.checkpoint, "--checkpoint"),
-        (args.dtype == "float64", "--dtype float64"),
-    ]
-    return [name for cond, name in asks if cond]
-
-
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    missing = _not_ported(args)
-    if missing:
+    args.dtype = args.dtype or "float32"
+    if args.ranks_chain != 1:
         print("error: not yet ported to schwingermodel_tpu_torch: "
-              + ", ".join(missing), file=sys.stderr)
+              "--ranks-chain other than 1 (multi-GPU)", file=sys.stderr)
         return 2
 
     import torch
@@ -169,15 +147,20 @@ def main(argv=None) -> int:
     from schwingermodel_tpu_torch.config import (
         CGParams, HMCParams, LatticeParams, RunParams,
     )
+    from schwingermodel_tpu_torch.hmc import packed as hp
     from schwingermodel_tpu_torch.io import ctxt
+    from schwingermodel_tpu_torch.io.checkpoint import (
+        load_checkpoint, save_checkpoint,
+    )
     from schwingermodel_tpu_torch.parallel.mesh import lattice_mesh
+    from schwingermodel_tpu_torch.models.schwinger import SchwingerModel
     from schwingermodel_tpu_torch.runner import run_hmc
 
     # ---- parameters: flags, else reference-style stdin prompts ----
     need_stdin = any(
         v is None for v in (args.ranks_x, args.ranks_t, args.m0, args.md_steps,
                             args.tau, args.beta, args.ntherm, args.nmeas,
-                            args.nsteps))
+                            args.nsteps)) and args.resume is None
     if not need_stdin and args.save_conf is None:
         args.save_conf = False
     interactive = sys.stdin.isatty()
@@ -200,29 +183,45 @@ def main(argv=None) -> int:
         args.nsteps = get("Step (sweeps between measurements): ", int, args.nsteps)
         args.save_conf = bool(get("Save configurations yes/no (1 or 0): ", int,
                                   None if args.save_conf is None else int(args.save_conf)))
-        missing = _not_ported(args)       # the ranks may have come by stdin
-        if missing:
-            print("error: not yet ported to schwingermodel_tpu_torch: "
-                  + ", ".join(missing), file=sys.stderr)
-            return 2
 
-    lattice = LatticeParams(Nx=args.nx, Nt=args.nt, real_dtype="float32")
-    refine = args.cg_refine is not False
-    cg_tol = args.cg_tol if args.cg_tol is not None else (
-        1e-10 if refine else 1e-6)
-    hmc = HMCParams(
-        beta=args.beta, m0=args.m0, md_steps=args.md_steps,
-        trajectory_length=args.tau, even_odd=True,
-        cg_forecast=args.cg_forecast, integrator=args.integrator,
-        mre_history=args.mre_history, hasenbusch_dm=args.hasenbusch_dm,
-        cg=CGParams(tol=cg_tol, max_iter=args.cg_max_iter, refine=refine,
-                    inner_tol=args.cg_inner_tol, force_tol=args.cg_force_tol),
-    )
-    rx, rt = args.ranks_x, args.ranks_t
-    run = RunParams(n_therm=args.ntherm, n_meas=args.nmeas,
-                    n_steps=args.nsteps, save_conf=bool(args.save_conf),
-                    n_chains=args.chains, seed=args.seed, out_dir=args.out_dir,
-                    mesh_shape=(rx, rt))
+    initial_theta = None
+    start_traj = 0
+    if args.resume:
+        ck = load_checkpoint(args.resume)
+        lattice, hmc, run = ck["lattice"], ck["hmc"], ck["run"]
+        initial_theta = ck["theta"]
+        start_traj = ck["traj_index"]
+        run = dataclasses.replace(run, out_dir=args.out_dir, autotune=False)
+        if args.nmeas is not None:                  # extend the run
+            run = dataclasses.replace(run, n_meas=args.nmeas, n_therm=0)
+    else:
+        # f64 working precision solves at full precision natively
+        refine = args.cg_refine is not False and args.dtype == "float32"
+        cg_tol = args.cg_tol if args.cg_tol is not None else (
+            1e-6 if (args.dtype == "float32" and not refine) else 1e-10)
+        lattice = LatticeParams(Nx=args.nx, Nt=args.nt, real_dtype=args.dtype)
+        # an odd lattice has no checkerboard: full-D pseudofermions
+        even_odd = args.even_odd and lattice.Nx % 2 == 0 and lattice.Nt % 2 == 0
+        hmc = HMCParams(
+            beta=args.beta, m0=args.m0, md_steps=args.md_steps,
+            trajectory_length=args.tau, quenched=args.quenched,
+            even_odd=even_odd, cg_forecast=args.cg_forecast,
+            integrator=args.integrator, mre_history=args.mre_history,
+            hasenbusch_dm=args.hasenbusch_dm,
+            cg=CGParams(tol=cg_tol, max_iter=args.cg_max_iter, refine=refine,
+                        inner_tol=args.cg_inner_tol,
+                        force_tol=args.cg_force_tol),
+        )
+        run = RunParams(n_therm=args.ntherm, n_meas=args.nmeas,
+                        n_steps=args.nsteps, save_conf=bool(args.save_conf),
+                        n_chains=args.chains, seed=args.seed,
+                        out_dir=args.out_dir,
+                        mesh_shape=(args.ranks_x, args.ranks_t),
+                        autotune=args.autotune, tune_target=args.tune_target,
+                        n_tune=args.n_tune)
+    # a checkpoint of the JAX package may carry a ('chain', 'x', 't') mesh
+    rx, rt = (run.mesh_shape or (1, 1))[-2:]
+    run = dataclasses.replace(run, mesh_shape=(rx, rt))
     mesh = None
     if rx < 1 or rt < 1:
         print(f"error: mesh {rx}x{rt}: extents must be positive", file=sys.stderr)
@@ -233,18 +232,25 @@ def main(argv=None) -> int:
             print(f"error: lattice {lattice.Nx}x{lattice.Nt} not divisible "
                   f"by mesh {rx}x{rt}", file=sys.stderr)
             return 1
-        if (lattice.Nt // rt) % 2:
+        if hmc.even_odd and (lattice.Nt // rt) % 2:
             print(f"error: even-odd mode needs an even local Nt per shard; "
                   f"Nt={lattice.Nt} over {rt} t-shards gives "
                   f"{lattice.Nt // rt}", file=sys.stderr)
             return 1
         mesh = lattice_mesh((rx, rt))
+    # MRE runs only on the packed path, refined, forecasting, without
+    # Hasenbusch (schwingermodel_tpu/hmc/packed.py:219); elsewhere it is
+    # ignored
+    model = SchwingerModel(lattice=lattice, hmc=hmc)
+    if mesh is None and hp.packed_eligible(model) and hp.uses_mre(model):
+        print("error: not yet ported to schwingermodel_tpu_torch: "
+              "--mre-history >= 2", file=sys.stderr)
+        return 2
 
-    initial_theta = None
     if args.read_conf:
         initial_theta = ctxt.theta_from_links(
             ctxt.read_conf(args.read_conf, lattice.Nx, lattice.Nt))
-    elif args.cold_start:
+    elif args.cold_start and initial_theta is None:
         initial_theta = np.zeros((2, lattice.Nx, lattice.Nt))
 
     device_name = (torch.cuda.get_device_name(0) if args.device == "cuda"
@@ -256,7 +262,7 @@ def main(argv=None) -> int:
     if hmc.hasenbusch_dm:
         print(f"* Hasenbusch split: auxiliary mass m1 = "
               f"{hmc.m0 + hmc.hasenbusch_dm:g} (dm = {hmc.hasenbusch_dm:g})")
-    print(f"* beta = {hmc.beta:g}")
+    print(f"* beta = {hmc.beta:g}" + ("  (quenched)" if hmc.quenched else ""))
     print(f"* Thermalization confs = {run.n_therm}")
     print(f"* Measurement confs = {run.n_meas}")
     print(f"* Decorrelation steps (confs dropped between measurements) = {run.n_steps}")
@@ -265,7 +271,8 @@ def main(argv=None) -> int:
           f"Integration step = {hmc.step_size:g}")
     refine_desc = (f" (mixed-precision: f32 recursion + f64 true residual, "
                    f"replacement every {hmc.cg.inner_tol:g})"
-                   if hmc.cg.refine else " (f32 CG)")
+                   if hmc.cg.refine else
+                   f" ({'f32' if lattice.real_dtype == 'float32' else 'f64'} CG)")
     print(f"* CG max iterations = {hmc.cg.max_iter}, "
           f"CG tolerance = {hmc.cg.tol:g}{refine_desc}")
     ftol = hmc.cg.resolved_force_tol()
@@ -279,7 +286,8 @@ def main(argv=None) -> int:
     print("*" * 70)
 
     result = run_hmc(lattice, hmc, run, device=args.device,
-                     initial_theta=initial_theta, progress=print,
+                     initial_theta=initial_theta, start_traj_index=start_traj,
+                     progress=print,
                      write_simdata=not args.no_simdata,
                      measure_condensate=args.condensate, n_noise=args.n_noise,
                      mesh=mesh)
@@ -299,6 +307,16 @@ def main(argv=None) -> int:
     print("-------------------------------")
     if result.n_ill:
         print(f"WARNING: {result.n_ill} ill (CG-failed) configurations dumped")
+    if args.checkpoint:
+        # result.hmc carries the tuned md_steps, so a resumed run goes on
+        # with the step it ended with
+        save_checkpoint(
+            args.checkpoint, theta=result.theta, key=result.key,
+            traj_index=result.traj_index, lattice=lattice, hmc=result.hmc,
+            run=run,
+            chains={k: v.reshape(len(v), -1).mean(axis=1)
+                    for k, v in result.chains.items()})
+        print(f"Checkpoint written to {args.checkpoint}")
     return 0
 
 

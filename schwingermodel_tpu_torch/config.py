@@ -138,9 +138,11 @@ def _copy_fields(cls, src, **override):
 
 def from_jax_config(lattice, hmc, run=None):
     """The port's (LatticeParams, HMCParams, RunParams) from the JAX
-    package's dataclasses, copied by field name. Fields the port does not
-    have (``refine_impl``) are dropped; the port's own (``cert_k``) keep
-    their defaults."""
+    package's dataclasses, copied by field name: every field the two share,
+    among them ``real_dtype``, ``quenched``, ``even_odd``, ``hasenbusch_dm``,
+    ``mesh_shape`` and the autotune fields. Fields the port does not have
+    (``refine_impl``) are dropped; the port's own (``cert_k``) keep their
+    defaults."""
     lat = _copy_fields(LatticeParams, lattice,
                        real_dtype=str(getattr(lattice, "real_dtype")))
     cg = _copy_fields(CGParams, hmc.cg)

@@ -1,8 +1,9 @@
 // Even-odd Wilson stencil on one chain's checkerboard planes, for the
-// port's kernels (force_step.cu, solve_fused.cu, ratio_force.cu,
-// solve_ru.cu, cg_fallback.cu, cg_eo.cu, residual.cu, halo_normal.cu,
-// halo_force.cu), with the fermion force stencil, the f32 CG loop that K1,
-// K2 and K6 share, and the stage of the per-shard halo kernels K7 and K8.
+// port's kernels (force_step.cu, solve_fused.cu, solve_mxu.cu,
+// ratio_force.cu, solve_ru.cu, cg_fallback.cu, cg_eo.cu, residual.cu,
+// halo_normal.cu, halo_force.cu), with the fermion force stencil, the f32 CG
+// loop that K1, K2, K6 and K10 share, and the stage of the per-shard halo
+// kernels K7 and K8.
 //
 // Device counterpart of schwingermodel_tpu_torch/ops/eo.py (and of the
 // packed stencil of schwingermodel_tpu/ops/pallas_eo.py:118-181), templated
@@ -115,6 +116,76 @@ __device__ void make_links(const float* __restrict__ th, int parity, T* __restri
   }
 }
 
+// Arithmetic with its roundings written out. Left to the compiler, a sum
+// of two products becomes a fused multiply-add of one product onto the
+// other, and which of the two is its choice per kernel. The hop below fixes
+// the choice, so that every kernel that computes a hop, in place or in
+// passes (solve_mxu.cu), gets the same bits.
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+__device__ __forceinline__ double fma_rn(double a, double b, double c) { return __fma_rn(a, b, c); }
+
+template <typename T>
+__device__ __forceinline__ Cx<T> xadd(Cx<T> a, Cx<T> b) {
+  return {add_rn(a.re, b.re), add_rn(a.im, b.im)};
+}
+template <typename T>
+__device__ __forceinline__ Cx<T> xsub(Cx<T> a, Cx<T> b) {
+  return {add_rn(a.re, -b.re), add_rn(a.im, -b.im)};
+}
+template <typename T>
+__device__ __forceinline__ Cx<T> xmul(Cx<T> a, Cx<T> b) {
+  return {fma_rn(a.re, b.re, -mul_rn(a.im, b.im)), fma_rn(a.re, b.im, mul_rn(a.im, b.re))};
+}
+// conj(a) * b
+template <typename T>
+__device__ __forceinline__ Cx<T> xmulc(Cx<T> a, Cx<T> b) {
+  return {fma_rn(a.re, b.re, mul_rn(a.im, b.im)), fma_rn(a.re, b.im, -mul_rn(a.im, b.re))};
+}
+// a v + b h, the mass term and the hop of one Dhat component
+template <typename T>
+__device__ __forceinline__ Cx<T> axpby(T a, Cx<T> v, T b, Cx<T> h) {
+  return {fma_rn(a, v.re, mul_rn(b, h.re)), fma_rn(a, v.im, mul_rn(b, h.im))};
+}
+
+// The x-backward products of a hop, formed at the source site from its link
+// u1s and spinor (s0, s1): conj(u1s) (s0 -+ i s1) and its partner.
+template <typename T, bool DAG>
+__device__ __forceinline__ void hop_bx(Cx<T> u1s, Cx<T> s0x, Cx<T> s1x, Cx<T>& bx0, Cx<T>& bx1) {
+  if (!DAG) {
+    bx0 = xmulc(u1s, xsub(s0x, cmuli(s1x)));
+    bx1 = xmulc(u1s, xadd(cmuli(s0x), s1x));
+  } else {
+    bx0 = xmulc(u1s, xadd(s0x, cmuli(s1x)));
+    bx1 = xmulc(u1s, xsub(s1x, cmuli(s0x)));
+  }
+}
+
+// The hop at one target site from its gathered operands: the target links,
+// the source spinor at t+1 (p*_pt) and x+1 (p*_px), the source link and
+// spinor at t-1 (u0s, s0t, s1t) and the x-backward products from x-1.
+template <typename T, bool DAG>
+__device__ __forceinline__ void hop_combine(Cx<T> u0t, Cx<T> u1t, Cx<T> p0_pt, Cx<T> p1_pt,
+                                            Cx<T> p0_px, Cx<T> p1_px, Cx<T> u0s, Cx<T> s0t,
+                                            Cx<T> s1t, Cx<T> bx0, Cx<T> bx1, Cx<T>& h0,
+                                            Cx<T>& h1) {
+  if (!DAG) {
+    const Cx<T> bt = xmulc(u0s, xadd(s0t, s1t));
+    h0 = xadd(xadd(xmul(u0t, xsub(p0_pt, p1_pt)), xmul(u1t, xadd(p0_px, cmuli(p1_px)))),
+              xadd(bt, bx0));
+    h1 = xadd(xadd(xmul(u0t, xsub(p1_pt, p0_pt)), xmul(u1t, xsub(p1_px, cmuli(p0_px)))),
+              xadd(bt, bx1));
+  } else {
+    const Cx<T> fwd_t = xmul(u0t, xadd(p0_pt, p1_pt));
+    const Cx<T> bt = xmulc(u0s, xsub(s0t, s1t));
+    h0 = xadd(xadd(bt, bx0), xadd(fwd_t, xmul(u1t, xsub(p0_px, cmuli(p1_px)))));
+    h1 = xadd(xadd(cneg(bt), bx1), xadd(fwd_t, xmul(u1t, xadd(p1_px, cmuli(p0_px)))));
+  }
+}
+
 // H (DAG=false) or H^+ (DAG=true) from the source parity to one target site
 // (ops/eo.py hop / hop_dag). Ut: target-parity links, Us: source-parity
 // links, S: source-parity spinor.
@@ -122,29 +193,12 @@ template <typename T, bool DAG>
 __device__ __forceinline__ void hop_site(const T* __restrict__ Ut, const T* __restrict__ Us,
                                          const T* __restrict__ S, int s, const Nbr& n,
                                          int V2, Cx<T>& h0, Cx<T>& h1) {
-  const Cx<T> u0t = ld(Ut, 0, s, V2), u1t = ld(Ut, 1, s, V2);
-  const Cx<T> p0_pt = ld(S, 0, n.pt, V2), p1_pt = ld(S, 1, n.pt, V2);
-  const Cx<T> p0_px = ld(S, 0, n.px, V2), p1_px = ld(S, 1, n.px, V2);
-  const Cx<T> u0s = ld(Us, 0, n.mt, V2);
-  const Cx<T> s0t = ld(S, 0, n.mt, V2), s1t = ld(S, 1, n.mt, V2);
-  const Cx<T> u1s = ld(Us, 1, n.mx, V2);
-  const Cx<T> s0x = ld(S, 0, n.mx, V2), s1x = ld(S, 1, n.mx, V2);
-  if (!DAG) {
-    const Cx<T> bt = cmulc(u0s, cadd(s0t, s1t));
-    const Cx<T> bx0 = cmulc(u1s, csub(s0x, cmuli(s1x)));
-    const Cx<T> bx1 = cmulc(u1s, cadd(cmuli(s0x), s1x));
-    h0 = cadd(cadd(cmul(u0t, csub(p0_pt, p1_pt)), cmul(u1t, cadd(p0_px, cmuli(p1_px)))),
-              cadd(bt, bx0));
-    h1 = cadd(cadd(cmul(u0t, csub(p1_pt, p0_pt)), cmul(u1t, csub(p1_px, cmuli(p0_px)))),
-              cadd(bt, bx1));
-  } else {
-    const Cx<T> fwd_t = cmul(u0t, cadd(p0_pt, p1_pt));
-    const Cx<T> bt = cmulc(u0s, csub(s0t, s1t));
-    const Cx<T> bx0 = cmulc(u1s, cadd(s0x, cmuli(s1x)));
-    const Cx<T> bx1 = cmulc(u1s, csub(s1x, cmuli(s0x)));
-    h0 = cadd(cadd(bt, bx0), cadd(fwd_t, cmul(u1t, csub(p0_px, cmuli(p1_px)))));
-    h1 = cadd(cadd(cneg(bt), bx1), cadd(fwd_t, cmul(u1t, cadd(p1_px, cmuli(p0_px)))));
-  }
+  Cx<T> bx0, bx1;
+  hop_bx<T, DAG>(ld(Us, 1, n.mx, V2), ld(S, 0, n.mx, V2), ld(S, 1, n.mx, V2), bx0, bx1);
+  hop_combine<T, DAG>(ld(Ut, 0, s, V2), ld(Ut, 1, s, V2), ld(S, 0, n.pt, V2),
+                      ld(S, 1, n.pt, V2), ld(S, 0, n.px, V2), ld(S, 1, n.px, V2),
+                      ld(Us, 0, n.mt, V2), ld(S, 0, n.mt, V2), ld(S, 1, n.mt, V2), bx0, bx1,
+                      h0, h1);
 }
 
 // out = hop(S) at every target site (v == nullptr), or out = a*v + b*hop(S).
@@ -159,9 +213,8 @@ __device__ void hop_stage(const T* __restrict__ Ut, const T* __restrict__ Us,
     Cx<T> h0, h1;
     hop_site<T, DAG>(Ut, Us, S, s, n, g.V2, h0, h1);
     if (v != nullptr) {
-      const Cx<T> v0 = ld(v, 0, s, g.V2), v1 = ld(v, 1, s, g.V2);
-      h0 = {a * v0.re + b * h0.re, a * v0.im + b * h0.im};
-      h1 = {a * v1.re + b * h1.re, a * v1.im + b * h1.im};
+      h0 = axpby(a, ld(v, 0, s, g.V2), b, h0);
+      h1 = axpby(a, ld(v, 1, s, g.V2), b, h1);
     }
     st(out, 0, s, g.V2, h0);
     st(out, 1, s, g.V2, h1);
@@ -185,9 +238,8 @@ __device__ void hop_stage_ext(const T* __restrict__ Ut, const T* __restrict__ Us
     Cx<T> h0, h1;
     hop_site<T, DAG>(Ut, Us, S, s, n, g.V2, h0, h1);
     if (v != nullptr) {
-      const Cx<T> v0 = ld(v, 0, s, g.V2), v1 = ld(v, 1, s, g.V2);
-      h0 = {a * v0.re + b * h0.re, a * v0.im + b * h0.im};
-      h1 = {a * v1.re + b * h1.re, a * v1.im + b * h1.im};
+      h0 = axpby(a, ld(v, 0, s, g.V2), b, h0);
+      h1 = axpby(a, ld(v, 1, s, g.V2), b, h1);
     }
     st(out, 0, s, g.V2, h0);
     st(out, 1, s, g.V2, h1);
@@ -279,15 +331,16 @@ __device__ __forceinline__ void fermion_force_site(const float* u, const float* 
        cmul(cconj(u1), cmul(cconj(xx), cadd(cneg(y0), cmuli(y1)))).im;
 }
 
-// Result of cg_f32, the same in every thread of the block.
+// Result of cg_f32_op, the same in every thread of the block.
 struct CgOut {
   int iters;    // iterations while the chain was active
   float rho;    // last recursive residual norm^2 (f32)
   float bnorm2; // ||b||^2 (f32)
 };
 
-// f32 CG on (Dhat Dhat^+) x = b for one chain, the loop of
-// pallas_traj._cg_planes run per chain (K2, and K1 with_solve): x starts at
+// f32 CG on A x = b for one chain with A = Dhat Dhat^+ given as
+// apply_A(v, out), which starts and ends with a barrier: the loop of
+// pallas_traj._cg_planes run per chain (K2, K10, and K1 with_solve): x starts at
 // x0 and r = b - A x0; the chain stays active while rho >= f32(tol^2)
 // ||b||^2 and fewer than max_iter iterations ran. Breakdown guards, checked
 // before the x/r update: dAd <= 0 or a non-finite alpha; then, after it, a
@@ -300,18 +353,17 @@ struct CgOut {
 // Dots are accumulated in f64 and rounded to f32, as the Pallas kernel's
 // f32 dots are. The lockstep jnp.any test of the Pallas loop becomes this
 // per-chain loop: a frozen chain does not change there either. Ends with a
-// barrier, so x may be read at any site afterwards. r, d, Ad, t1..t3:
-// scratch spinors.
-template <bool kGuards = true>
-__device__ inline CgOut cg_f32(const float* ue, const float* uo, const float* b, const float* x0,
-                               float* x, float* r, float* d, float* Ad, float* t1, float* t2,
-                               float* t3, float m, float c, double tol, int max_iter,
-                               const Geo& g, double* sh) {
+// barrier, so x may be read at any site afterwards. r, d, Ad: scratch
+// spinors.
+template <bool kGuards = true, typename Apply>
+__device__ inline CgOut cg_f32_op(const Apply& apply_A, const float* b, const float* x0, float* x,
+                                  float* r, float* d, float* Ad, double tol, int max_iter,
+                                  const Geo& g, double* sh) {
   const int n = 4 * g.V2;
   const float bnorm2 = static_cast<float>(block_dot(b, b, n, sh));
   const float stop2 = static_cast<float>(tol * tol) * bnorm2;
   for (int i = threadIdx.x; i < n; i += blockDim.x) x[i] = x0[i];
-  normal_apply<float>(ue, uo, x, Ad, t1, t2, t3, m, c, g);
+  apply_A(x, Ad);
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     r[i] = b[i] - Ad[i];
     d[i] = r[i];
@@ -319,7 +371,7 @@ __device__ inline CgOut cg_f32(const float* ue, const float* uo, const float* b,
   float rho = static_cast<float>(block_dot(r, r, n, sh));
   int iters = 0;
   for (int k = 0; k < max_iter && rho >= stop2; ++k) {
-    normal_apply<float>(ue, uo, d, Ad, t1, t2, t3, m, c, g);
+    apply_A(d, Ad);
     const float dAd = static_cast<float>(block_dot(d, Ad, n, sh));
     const float alpha = rho / dAd;
     if (kGuards && (!(dAd > 0.0f) || !isfinite(alpha))) break;
@@ -339,6 +391,28 @@ __device__ inline CgOut cg_f32(const float* ue, const float* uo, const float* b,
   }
   __syncthreads();
   return {iters, rho, bnorm2};
+}
+
+// out = (Dhat Dhat^+) v through normal_apply, as cg_f32_op takes its
+// operator: starts and ends with a barrier.
+struct NormalOp {
+  const float *ue, *uo;
+  float *t1, *t2, *t3;
+  float m, c;
+  Geo g;
+  __device__ __forceinline__ void operator()(const float* v, float* out) const {
+    normal_apply<float>(ue, uo, v, out, t1, t2, t3, m, c, g);
+  }
+};
+
+// cg_f32_op on the stencil of this header (K1, K2, K6).
+template <bool kGuards = true>
+__device__ inline CgOut cg_f32(const float* ue, const float* uo, const float* b, const float* x0,
+                               float* x, float* r, float* d, float* Ad, float* t1, float* t2,
+                               float* t3, float m, float c, double tol, int max_iter,
+                               const Geo& g, double* sh) {
+  return cg_f32_op<kGuards>(NormalOp{ue, uo, t1, t2, t3, m, c, g}, b, x0, x, r, d, Ad, tol,
+                            max_iter, g, sh);
 }
 
 }  // namespace sm

@@ -12,7 +12,8 @@ trajectory length. ``omelyan`` is the 2MN position version over the full
 length, two force evaluations per step with adjacent theta updates merged.
 
 Chronological forecasting (hmc.cg_forecast): every force solve but the
-first starts from the previous step's psi. (The packed path extrapolates
+first starts from the previous step's psi, a (psi1, psi2) pair under
+Hasenbusch; none in quenched mode, where phi is None and no solve runs. (The packed path extrapolates
 2 psi_1 - psi_2 instead; the trajectories agree, the iteration counts do
 not.) The `lax.scan` of the JAX module is a Python loop here.
 """
@@ -26,23 +27,32 @@ from schwingermodel_tpu_torch.models.schwinger import SchwingerModel, SolveStats
 LAMBDA_2MN = 0.1931833275037836
 
 
-def leapfrog(model: SchwingerModel, theta, pi, phi, stats: SolveStats, dt=None):
-    """One MD trajectory; returns (theta', pi', stats, psi_last)."""
+def _forecasting(model: SchwingerModel, phi) -> bool:
+    return bool(model.hmc.cg_forecast and not model.hmc.quenched
+                and phi is not None)
+
+
+def leapfrog(model: SchwingerModel, theta, pi, phi, stats: SolveStats, dt=None,
+             beta=None):
+    """One MD trajectory; returns (theta', pi', stats, psi_last). phi is a
+    field, the Hasenbusch pair, or None (quenched: psi_last is None). dt and
+    beta override the model's step size and coupling (autotuning, scans)."""
     dt = model.hmc.step_size if dt is None else dt
-    forecast = model.hmc.cg_forecast
+    forecast = _forecasting(model, phi)
     theta = theta + (0.5 * dt) * pi
-    F, stats, psi = model.force(theta, phi, stats)
+    F, stats, psi = model.force(theta, phi, stats, beta)
     for _ in range(model.hmc.md_steps - 2):
         pi = pi + dt * F
         theta = theta + dt * pi
-        F, stats, psi = model.force(theta, phi, stats,
+        F, stats, psi = model.force(theta, phi, stats, beta,
                                     x0=psi if forecast else None)
     pi = pi + dt * F
     theta = theta + (0.5 * dt) * pi
     return theta, pi, stats, psi
 
 
-def omelyan(model: SchwingerModel, theta, pi, phi, stats: SolveStats, dt=None):
+def omelyan(model: SchwingerModel, theta, pi, phi, stats: SolveStats, dt=None,
+            beta=None):
     """2MN position-version integrator; returns (theta', pi', stats, psi).
     One step of size dt:
 
@@ -51,14 +61,15 @@ def omelyan(model: SchwingerModel, theta, pi, phi, stats: SolveStats, dt=None):
     """
     dt = model.hmc.step_size if dt is None else dt
     lam = LAMBDA_2MN
-    forecast = model.hmc.cg_forecast
+    forecast = _forecasting(model, phi)
     n = model.hmc.md_steps
 
     def force(theta, stats, psi):
-        return model.force(theta, phi, stats, x0=psi if forecast else None)
+        return model.force(theta, phi, stats, beta,
+                           x0=psi if forecast else None)
 
     theta = theta + (lam * dt) * pi
-    F, stats, psi = model.force(theta, phi, stats)
+    F, stats, psi = model.force(theta, phi, stats, beta)
     for step in range(n):
         merge = step < n - 1
         pi = pi + (0.5 * dt) * F
@@ -71,11 +82,12 @@ def omelyan(model: SchwingerModel, theta, pi, phi, stats: SolveStats, dt=None):
     return theta, pi, stats, psi
 
 
-def integrate(model: SchwingerModel, theta, pi, phi, stats: SolveStats, dt=None):
+def integrate(model: SchwingerModel, theta, pi, phi, stats: SolveStats, dt=None,
+              beta=None):
     """Dispatch on hmc.integrator ("leapfrog" | "omelyan")."""
     name = model.hmc.integrator
     if name == "leapfrog":
-        return leapfrog(model, theta, pi, phi, stats, dt)
+        return leapfrog(model, theta, pi, phi, stats, dt, beta)
     if name == "omelyan":
-        return omelyan(model, theta, pi, phi, stats, dt)
+        return omelyan(model, theta, pi, phi, stats, dt, beta)
     raise ValueError(f"unknown integrator {name!r}")

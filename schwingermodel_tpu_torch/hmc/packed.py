@@ -46,24 +46,44 @@ from schwingermodel_tpu_torch.ops import traj as tr
 
 
 
-def packed_supported(model: SchwingerModel) -> None:
-    """Raise NotImplementedError, naming the missing slice, unless the
-    model is on the ported path."""
-    h, cg = model.hmc, model.hmc.cg
-    missing = []
+def _off_path(model: SchwingerModel) -> list:
+    """What keeps the model off the packed path (the unpacked sampler runs
+    each of these)."""
+    h = model.hmc
+    off = []
     if h.integrator not in ("leapfrog", "omelyan"):
-        missing.append(f"the {h.integrator} integrator")
+        off.append(f"the {h.integrator} integrator")
     if h.quenched:
-        missing.append("quenched mode (the unpacked sampler, K6)")
+        off.append("quenched mode")
     if not h.even_odd:
-        missing.append("full-D pseudofermions (the unpacked sampler, K6)")
+        off.append("full-D pseudofermions")
     if model.lattice.real_dtype != "float32":
-        missing.append("f64 working precision (the unpacked sampler, K6)")
-    if uses_mre(model):
-        missing.append("MRE forecasting (mre_history >= 2)")
-    if missing:
+        off.append("f64 working precision")
+    if model.geom.is_sharded:
+        off.append("a lattice mesh")
+    return off
+
+
+def packed_eligible(model: SchwingerModel) -> bool:
+    """True where the runner takes the packed path (JAX
+    ``packed_eligible``): even-odd f32 pseudofermions, not quenched, one
+    lattice per chain, and hmc.packed not False."""
+    return model.hmc.packed is not False and not _off_path(model)
+
+
+def packed_supported(model: SchwingerModel) -> None:
+    """Raise NotImplementedError unless the packed trajectory runs this
+    model: it is off the packed path, or it asks for MRE forecasting, which
+    is not ported yet."""
+    off = _off_path(model)
+    if off:
         raise NotImplementedError(
-            "not yet ported to schwingermodel_tpu_torch: " + "; ".join(missing))
+            "the packed trajectory does not run " + "; ".join(off)
+            + " (the unpacked sampler, hmc/sampler.py, does)")
+    if uses_mre(model):
+        raise NotImplementedError(
+            "not yet ported to schwingermodel_tpu_torch: MRE forecasting "
+            "(mre_history >= 2)")
 
 
 def uses_mre(model: SchwingerModel) -> bool:

@@ -5,11 +5,12 @@ HMC::HMC_Update, src/hmc.cpp:151-181): ``trajectory_given_noise`` is the
 deterministic physics given pre-drawn noise, written against the model's
 geometry, so the same function runs one lattice per chain or the blocks of
 a mesh (parallel/sharded.py draws the noise on the global lattice and
-shards it); ``hmc_trajectory`` draws the noise and calls it. Ported: the
-even-odd f32 branch under either contract, leapfrog and Omelyan, with the
-exact initial fermion action S_f(old) = |chi|^2 summed in f64. Hasenbusch,
-full-D, quenched and f64 working precision are not ported here; without a
-mesh the CLI runs the packed path (hmc/packed.py).
+shards it); ``hmc_trajectory`` draws the noise and calls it. Every mode of
+the JAX sampler on one device: even-odd or full-D pseudofermions, one field
+or the Hasenbusch pair, quenched, f32 under either contract or f64,
+leapfrog and Omelyan, ``dt=`` and ``beta=`` overrides, with the exact
+initial fermion action S_f(old) = |chi|^2 summed in f64. Without a mesh the
+CLI runs the packed path (hmc/packed.py) where that applies.
 """
 
 from __future__ import annotations
@@ -35,8 +36,9 @@ class TrajectoryStats(NamedTuple):
 
 def draw_noise(model: SchwingerModel, shape, gen: torch.Generator, device):
     """(pi, chi, r) of one chain for one trajectory: pi ~ N(0,1) of theta's
-    shape, chi the even-parity pseudofermion noise (complex, each part
-    N(0, 1/sqrt(2))), r ~ U[0,1) the Metropolis draw."""
+    shape, chi the pseudofermion noise of ``model.chi_shape`` (complex, each
+    part N(0, 1/sqrt(2)); drawn in quenched mode too, so that the streams do
+    not depend on the mode), r ~ U[0,1) the Metropolis draw."""
     rdtype = model.lattice.rdtype
     pi = prng.normal_real(gen, shape, rdtype, device)
     chi = prng.normal_complex(gen, model.chi_shape(shape), rdtype, device)
@@ -57,29 +59,43 @@ def draw_chain_noise(model: SchwingerModel, seed: int, traj_index: int,
     return pi, chi, r
 
 
-def trajectory_given_noise(model: SchwingerModel, theta, pi, chi, r, dt=None):
+def trajectory_given_noise(model: SchwingerModel, theta, pi, chi, r, dt=None,
+                           beta=None):
     """Deterministic HMC update given pre-drawn noise, in the layout of the
-    model's geometry: theta, pi [batch.., 2, Nx, Nt] f32, chi complex64
-    [batch.., 2, Nx, Nt/2], r a chain scalar. Returns (theta' wrapped to
-    [-pi, pi), TrajectoryStats with [C] entries)."""
+    model's geometry: theta, pi [batch.., 2, Nx, Nt] in the working real
+    dtype, chi complex of ``model.chi_shape`` (ignored in quenched mode), r
+    a chain scalar. dt and beta override the model's step size and coupling.
+    Returns (theta' wrapped to [-pi, pi), TrajectoryStats with [C]
+    entries)."""
     geom = model.geom
+    quenched = model.hmc.quenched
     stats = SolveStats.zero(r)
-    phi, stats = model.pseudofermion_fields(theta, chi, stats)
+    phi = None
+    if not quenched:
+        phi, stats = model.pseudofermion_fields(theta, chi, stats)
 
-    # old Hamiltonian; Phi = Dhat chi, so S_f(old) = |chi|^2 exactly
-    if model.hmc.exact_initial_fermion_action:
+    # old Hamiltonian; Phi = D chi, so S_f(old) = |chi|^2 exactly (both
+    # fields of a Hasenbusch pair)
+    if quenched:
+        sf_old = 0.0
+    elif model.hmc.exact_initial_fermion_action:
+        axes = (-4, -3) if model.hasenbusch_active else -3
         sf_old = geom.gsum((chi.real.double() ** 2
-                            + chi.imag.double() ** 2).sum(dim=-3))
+                            + chi.imag.double() ** 2).sum(dim=axes))
     else:
         sf_old, stats = model.fermion_action(theta, phi, stats)
-    H_old = model.kinetic(pi) + model.gauge_action(theta) + sf_old
+    H_old = model.kinetic(pi) + model.gauge_action(theta, beta) + sf_old
 
     theta_new, pi_new, stats, psi_last = integrate(model, theta, pi, phi,
-                                                   stats, dt)
+                                                   stats, dt, beta)
 
-    x0 = psi_last if model.hmc.cg_forecast else None
-    sf_new, stats = model.fermion_action(theta_new, phi, stats, x0=x0)
-    H_new = model.kinetic(pi_new) + model.gauge_action(theta_new) + sf_new
+    if quenched:
+        sf_new = 0.0
+    else:
+        x0 = psi_last if model.hmc.cg_forecast else None
+        sf_new, stats = model.fermion_action(theta_new, phi, stats, x0=x0)
+    H_new = (model.kinetic(pi_new) + model.gauge_action(theta_new, beta)
+             + sf_new)
 
     dH = H_new - H_old
     exp_mdH = torch.exp(-dH)
@@ -95,9 +111,9 @@ def trajectory_given_noise(model: SchwingerModel, theta, pi, chi, r, dt=None):
 
 
 def hmc_trajectory(model: SchwingerModel, theta, seed: int, traj_index: int,
-                   dt=None):
+                   dt=None, beta=None):
     """One trajectory of theta [C, 2, Nx, Nt] (one lattice per chain) with
     noise drawn from (seed, traj_index, chain)."""
     pi, chi, r = draw_chain_noise(model, seed, traj_index, theta.shape[0],
                                   theta.device)
-    return trajectory_given_noise(model, theta, pi, chi, r, dt)
+    return trajectory_given_noise(model, theta, pi, chi, r, dt, beta)

@@ -21,11 +21,18 @@ import torch
 
 from schwingermodel_tpu_torch.models.schwinger import SchwingerModel
 from schwingermodel_tpu_torch.ops import gauge
+from schwingermodel_tpu_torch.ops.geometry import LOCAL
 from schwingermodel_tpu_torch.ops.traj import pack_planes
 from schwingermodel_tpu_torch.utils import prng
 
 
 def _plaquettes(theta):
+    """The plaquettes anchored at the even and at the odd sites; on a
+    lattice with an odd extent, which has no checkerboard, all of them as
+    one field and an empty one."""
+    if theta.shape[-2] % 2 or theta.shape[-1] % 2:
+        P = gauge.plaquette_field(LOCAL, gauge.field_links(theta, torch.complex128))
+        return P, P[..., :0]
     thE, thO = pack_planes(theta)
     return gauge.plaquette_planes(*gauge.links(thE, thO, torch.complex128))
 

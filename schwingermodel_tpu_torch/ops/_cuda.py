@@ -42,6 +42,10 @@ SIGNATURES = {
     # thE, thO, b, x0, x, iters, rho, bnorm2, scratch,
     # C, Nx, Nth, m0, tol, max_iter, stream
     "solve_fused_launch": [P, P, P, P, P, P, P, P, P, I, I, I, D, D, I, P],
+    # the same arguments as solve_fused_launch
+    "solve_mxu_launch": [P, P, P, P, P, P, P, P, P, I, I, I, D, D, I, P],
+    # in, out_p, out_m, n_planes, Nx, Nth, stream
+    "shift_mxu_launch": [P, P, P, I, I, I, P],
     # thE, thO, psi, phi2, FE, FO, scratch, C, Nx, Nth, m0, m1, beta, stream
     "ratio_force_launch": [P, P, P, P, P, P, P, I, I, I, D, D, D, P],
     # thE, thO, b, x0, x, x64, iters, conv, scratch32, scratch64,

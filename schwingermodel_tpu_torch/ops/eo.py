@@ -134,25 +134,27 @@ def mass_terms(m0: float):
     return m, 1.0 / (4.0 * m)
 
 
-def dhat(ue, uo, v, m0):
-    """Dhat v = m v - c H_eo H_oe v, v on the even sublattice."""
+def dhat(ue, uo, v, m0, geom: Geometry = LOCAL):
+    """Dhat v = m v - c H_eo H_oe v, v on the even sublattice. geom: an
+    unsharded geometry (its shifts may be computed another way, as the
+    one-hot products of ops/traj.py)."""
     m, c = mass_terms(m0)
     Nx = v.shape[-2]
-    w = hop(uo, ue, v, row_offset(Nx, ODD, v.device))
-    return m * v - c * hop(ue, uo, w, row_offset(Nx, EVEN, v.device))
+    w = hop(uo, ue, v, row_offset(Nx, ODD, v.device), geom)
+    return m * v - c * hop(ue, uo, w, row_offset(Nx, EVEN, v.device), geom)
 
 
-def dhat_dag(ue, uo, v, m0):
+def dhat_dag(ue, uo, v, m0, geom: Geometry = LOCAL):
     """Dhat^+ v = m v - c (H_oe)^+ (H_eo)^+ v."""
     m, c = mass_terms(m0)
     Nx = v.shape[-2]
-    w = hop_dag(uo, ue, v, row_offset(Nx, ODD, v.device))
-    return m * v - c * hop_dag(ue, uo, w, row_offset(Nx, EVEN, v.device))
+    w = hop_dag(uo, ue, v, row_offset(Nx, ODD, v.device), geom)
+    return m * v - c * hop_dag(ue, uo, w, row_offset(Nx, EVEN, v.device), geom)
 
 
-def normal(ue, uo, v, m0):
+def normal(ue, uo, v, m0, geom: Geometry = LOCAL):
     """(Dhat Dhat^+) v, the CG operator."""
-    return dhat(ue, uo, dhat_dag(ue, uo, v, m0), m0)
+    return dhat(ue, uo, dhat_dag(ue, uo, v, m0, geom), m0, geom)
 
 
 class EOOperators:
@@ -228,6 +230,19 @@ def fermion_force_planes(ue, uo, psi, chi_p, m0, geom: Geometry = LOCAL,
     fe = _fermion_force_p(ue, psi, chi_p, b_o, a_o, off_e, geom)
     fo = _fermion_force_p(uo, b_o, a_o, psi, chi_p, off_o, geom)
     return two_c * fe, two_c * fo
+
+
+def eo_ratio_force(ops0: EOOperators, ops1: EOOperators, psi, chi_p, phi2,
+                   ) -> torch.Tensor:
+    """Force of the Hasenbusch ratio term
+    S2 = (Dhat_1 phi2)^+ (Dhat_0 Dhat_0^+)^{-1} (Dhat_1 phi2) at fixed
+    psi = (Dhat_0 Dhat_0^+)^{-1} Dhat_1 phi2 and chi_p = Dhat_0^+ psi, on
+    the full lattice (JAX ``eo_ratio_force``, there the autodiff gradient of
+    2 Re<psi, Dhat_0 chi_p> - 2 Re<psi, Dhat_1 phi2>). In closed form the
+    two bilinears are two force stencils on the same links that differ in
+    their Schur prefactor 1/(4 m_i): ops0 and ops1 are the operators of one
+    configuration at the light and the heavy mass."""
+    return eo_fermion_force(ops0, psi, chi_p) - eo_fermion_force(ops1, psi, phi2)
 
 
 def eo_fermion_force(ops: EOOperators, psi, chi_p) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Trajectory-state operations on the port layout, and kernels K1, K2, K5.
+"""Trajectory-state operations on the port layout, and kernels K1, K2, K5, K10.
 
 Counterpart of ``schwingermodel_tpu/ops/pallas_traj.py``. The TPU package
 keeps the state lane-packed, [A, Nx, C*Nt/2]; the port keeps it
@@ -16,6 +16,10 @@ The kernels, each with its plain twin that a CPU tensor runs:
 - ``solve_fused`` is K2 (``csrc/solve_fused.cu``, replacing
   ``pallas_traj._solve_kernel``), the loose-contract f32 solve; twin
   ``solve_fused_reference``.
+- ``solve_fused_mxu`` is K10 (``csrc/solve_mxu.cu``, replacing
+  ``tools/bench_mxu_stencil._solve_kernel_variant``): K2 with every x-shift
+  of the stencil as a product with a one-hot matrix on the tensor cores;
+  twin ``solve_fused_mxu_reference``, and ``shift_x_mxu`` the shifts alone.
 - ``ratio_force`` is K5 (``csrc/ratio_force.cu``, replacing
   ``pallas_traj._ratio_force_kernel``), the Hasenbusch ratio force with the
   staples; twin ``ratio_force_reference``.
@@ -35,6 +39,7 @@ import numpy as np
 import torch
 
 from schwingermodel_tpu_torch.ops import _cuda, eo, gauge
+from schwingermodel_tpu_torch.ops.geometry import X_AXIS, Geometry
 
 
 # ---------- layout conversions ----------
@@ -200,6 +205,28 @@ def solve_fused_reference(thE, thO, b, x0, *, m0, tol, max_iter) -> SolveResult:
     return _solve_result(to_planar(x), iters, rho, bnorm2, tol)
 
 
+def _launch_solve(entry, per_site, thE, thO, b, x0, m0, tol, max_iter):
+    """Launch K2 or K10 (the same C interface) with `per_site` f32 values of
+    scratch per half-lattice site; (x, iters, rho, bnorm2)."""
+    C, _, Nx, Nth = thE.shape
+    _cuda.check(thE, "thE", torch.float32, (C, 2, Nx, Nth))
+    _cuda.check(thO, "thO", torch.float32, (C, 2, Nx, Nth))
+    _cuda.check(b, "b", torch.float32, (C, 2, 2, Nx, Nth))
+    _cuda.check(x0, "x0", torch.float32, (C, 2, 2, Nx, Nth))
+    dev = b.device
+    x = torch.empty_like(b)
+    iters = torch.empty(C, dtype=torch.int32, device=dev)
+    rho = torch.empty(C, dtype=torch.float32, device=dev)
+    bnorm2 = torch.empty(C, dtype=torch.float32, device=dev)
+    scratch = torch.empty(C * per_site * Nx * Nth, dtype=torch.float32,
+                          device=dev)
+    p = _cuda.ptr
+    _cuda.KERNELS.call(entry, p(thE), p(thO), p(b), p(x0), p(x), p(iters),
+                       p(rho), p(bnorm2), p(scratch), C, Nx, Nth, float(m0),
+                       float(tol), int(max_iter))
+    return x, iters, rho, bnorm2
+
+
 _SOLVE_SCRATCH = 32      # f32 values per half-lattice site (solve_fused.cu)
 
 
@@ -212,27 +239,113 @@ def solve_fused(thE, thO, b, x0, *, m0, tol, max_iter) -> SolveResult:
     if not b.is_cuda:
         return solve_fused_reference(thE, thO, b, x0, m0=m0, tol=tol,
                                      max_iter=max_iter)
-    C, _, Nx, Nth = thE.shape
-    _cuda.check(thE, "thE", torch.float32, (C, 2, Nx, Nth))
-    _cuda.check(thO, "thO", torch.float32, (C, 2, Nx, Nth))
-    _cuda.check(b, "b", torch.float32, (C, 2, 2, Nx, Nth))
-    _cuda.check(x0, "x0", torch.float32, (C, 2, 2, Nx, Nth))
-    dev = b.device
-    x = torch.empty_like(b)
-    iters = torch.empty(C, dtype=torch.int32, device=dev)
-    rho = torch.empty(C, dtype=torch.float32, device=dev)
-    bnorm2 = torch.empty(C, dtype=torch.float32, device=dev)
-    scratch = torch.empty(C * _SOLVE_SCRATCH * Nx * Nth, dtype=torch.float32,
-                          device=dev)
-    p = _cuda.ptr
-    _cuda.KERNELS.call("solve_fused_launch", p(thE), p(thO), p(b), p(x0), p(x),
-                       p(iters), p(rho), p(bnorm2), p(scratch), C, Nx, Nth,
-                       float(m0), float(tol), int(max_iter))
+    x, iters, rho, bnorm2 = _launch_solve(
+        "solve_fused_launch", _SOLVE_SCRATCH, thE, thO, b, x0, m0, tol, max_iter)
     solve_fused.launches += 1
     return _solve_result(x, iters, rho, bnorm2, tol)
 
 
 solve_fused.launches = 0
+
+
+# ---------- K10: K2 with its x-shifts as one-hot products ----------
+
+def one_hot_shift_matrices(Nx: int, dtype=torch.float32, device=None):
+    """(P+, P-), one-hot [Nx, Nx]: (P+ a)[x] = a[x+1] and (P- a)[x] = a[x-1],
+    periodic (bench_mxu_stencil._mxu_roll_mats)."""
+    i = torch.arange(Nx, device=device).reshape(Nx, 1)
+    j = torch.arange(Nx, device=device).reshape(1, Nx)
+    return ((j == (i + 1) % Nx).to(dtype), (j == (i - 1 + Nx) % Nx).to(dtype))
+
+
+class OneHotShiftGeometry(Geometry):
+    """One lattice per chain whose x-shifts are products with the one-hot
+    matrices, a plain matmul on the real and the imaginary planes; the
+    t-shifts stay rolls. A product with a one-hot matrix is exact in any
+    float arithmetic that multiplies by 0 and 1 and adds zeros exactly: on
+    the CPU, and on the card only while
+    torch.backends.cuda.matmul.allow_tf32 is False."""
+
+    def shift(self, a, axis, delta):
+        if axis != X_AXIS or abs(delta) != 1:
+            return super().shift(a, axis, delta)
+        rdtype = a.real.dtype if a.is_complex() else a.dtype
+        P = one_hot_shift_matrices(a.shape[-2], rdtype, a.device)[0 if delta > 0 else 1]
+        if a.is_complex():
+            return torch.complex(P @ a.real, P @ a.imag)
+        return P @ a
+
+
+ONE_HOT = OneHotShiftGeometry()
+
+
+def _check_one_hot_fits(Nx: int) -> None:
+    """Raise unless the two f64 one-hot matrices of solve_mxu.cu fit the
+    220 KB of shared memory a block may ask for (Nx up to 112)."""
+    Nx8 = -(-Nx // 8) * 8
+    if 2 * Nx8 * (Nx8 + 4) * 8 > 220 * 1024:
+        raise ValueError(
+            f"Nx = {Nx}: the one-hot [Nx, Nx] matrices of the tensor-core "
+            "shifts do not fit in shared memory (Nx <= 112)")
+
+
+def shift_x_mxu_reference(a: torch.Tensor):
+    """Plain twin of the shift entry of K10's library: (P+ a, P- a) of real
+    planes [.., Nx, Nth] by matmul."""
+    return ONE_HOT.shift(a, X_AXIS, +1), ONE_HOT.shift(a, X_AXIS, -1)
+
+
+def shift_x_mxu(a: torch.Tensor):
+    """(P+ a, P- a) of f32 planes [n, Nx, Nth]: the tensor-core shifts of
+    csrc/solve_mxu.cu alone, (a[x+1], a[x-1]) bit for bit for finite input.
+    CPU tensors run shift_x_mxu_reference."""
+    if not a.is_cuda:
+        return shift_x_mxu_reference(a)
+    n, Nx, Nth = a.shape
+    _cuda.check(a, "a", torch.float32, (n, Nx, Nth))
+    _check_one_hot_fits(Nx)
+    out_p, out_m = torch.empty_like(a), torch.empty_like(a)
+    p = _cuda.ptr
+    _cuda.KERNELS.call("shift_mxu_launch", p(a), p(out_p), p(out_m), n, Nx, Nth)
+    shift_x_mxu.launches += 1
+    return out_p, out_m
+
+
+shift_x_mxu.launches = 0
+
+
+def solve_fused_mxu_reference(thE, thO, b, x0, *, m0, tol, max_iter) -> SolveResult:
+    """Plain twin of K10: the CG of K2's twin on the operator whose x-shifts
+    are products with explicit one-hot matrices."""
+    ue, uo = gauge.links(thE, thO)
+    x, iters, rho, bnorm2 = _cg_f32(
+        lambda v: eo.normal(ue, uo, v, m0, ONE_HOT), to_complex(b),
+        to_complex(x0), tol, max_iter)
+    return _solve_result(to_planar(x), iters, rho, bnorm2, tol)
+
+
+_SOLVE_MXU_SCRATCH = 44  # K2's 32 and W, XP, XM (solve_mxu.cu)
+
+
+def solve_fused_mxu(thE, thO, b, x0, *, m0, tol, max_iter) -> SolveResult:
+    """K10: K2's solve with every x-shift of the stencil computed as a
+    product with a one-hot [Nx, Nx] matrix on the tensor cores
+    (tools/bench_mxu_stencil of the JAX package, variant "mxu_xshift").
+    Arguments and result as solve_fused. CUDA tensors run
+    csrc/solve_mxu.cu, never K2 or a twin in its place; CPU tensors run
+    solve_fused_mxu_reference."""
+    if not b.is_cuda:
+        return solve_fused_mxu_reference(thE, thO, b, x0, m0=m0, tol=tol,
+                                         max_iter=max_iter)
+    _check_one_hot_fits(thE.shape[-2])
+    x, iters, rho, bnorm2 = _launch_solve(
+        "solve_mxu_launch", _SOLVE_MXU_SCRATCH, thE, thO, b, x0, m0, tol,
+        max_iter)
+    solve_fused_mxu.launches += 1
+    return _solve_result(x, iters, rho, bnorm2, tol)
+
+
+solve_fused_mxu.launches = 0
 
 
 # ---------- K1: the fused force step ----------

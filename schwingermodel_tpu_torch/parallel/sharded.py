@@ -35,11 +35,13 @@ def sharded_model(model: SchwingerModel, mesh: LatticeMesh) -> SchwingerModel:
 
 
 def make_sharded_traj_fn(model: SchwingerModel, mesh: LatticeMesh):
-    """The sharded HMC step ``step(theta, seed, traj_index, dt=None) ->
-    (theta', stats)`` on the global theta [C, 2, Nx, Nt]; the noise is
-    that of the unsharded paths (``sampler.draw_chain_noise``).
-    ``step.given_noise(theta, pi, chi, r, dt=None)`` is the same update on
-    pre-drawn global noise."""
+    """The sharded HMC step ``step(theta, seed, traj_index, dt=None,
+    beta=None) -> (theta', stats)`` on the global theta [C, 2, Nx, Nt]; the
+    noise is that of the unsharded paths (``sampler.draw_chain_noise``).
+    ``step.given_noise(theta, pi, chi, r, dt=None, beta=None)`` is the same
+    update on pre-drawn global noise. Every mode of the sampler runs here;
+    under Hasenbusch the heavy and the ratio solves go through K7's sharded
+    CG and the forces through the plain geometry."""
     rx, rt = mesh.shape
     lat = model.lattice
     if lat.Nx % rx or lat.Nt % rt:
@@ -51,16 +53,16 @@ def make_sharded_traj_fn(model: SchwingerModel, mesh: LatticeMesh):
             f"over {mesh.axis_size(T_AXIS_NAME)} t-shards gives {lat.Nt // rt}")
     inner = sharded_model(model, mesh)
 
-    def given_noise(theta, pi, chi, r, dt=None):
+    def given_noise(theta, pi, chi, r, dt=None, beta=None):
         theta_s, st = sampler.trajectory_given_noise(
             inner, shard(theta, mesh), shard(pi, mesh), shard(chi, mesh),
-            r.reshape(-1, 1, 1), dt)
+            r.reshape(-1, 1, 1), dt, beta)
         return unshard(theta_s, mesh), st
 
-    def step(theta, seed: int, traj_index: int, dt=None):
+    def step(theta, seed: int, traj_index: int, dt=None, beta=None):
         pi, chi, r = sampler.draw_chain_noise(model, seed, traj_index,
                                               theta.shape[0], theta.device)
-        return given_noise(theta, pi, chi, r, dt)
+        return given_noise(theta, pi, chi, r, dt, beta)
 
     step.given_noise = given_noise
     return step

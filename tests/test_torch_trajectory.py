@@ -3,6 +3,7 @@ the JAX sampler on the same noise, the package's independence from jax,
 and the CLI's reference-style run with its SimData file.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -82,11 +83,21 @@ def test_trajectory_stats_are_consistent(same_noise_pair):
 
 
 def test_unported_configurations_are_refused():
+    """The packed trajectory refuses what is off its path (the runner sends
+    those to the unpacked sampler), and nothing else is unported on one
+    device but MRE forecasting."""
     lat, hmc, _ = from_jax_config(
         LatticeParams(Nx=8, Nt=8),
         HMCParams(even_odd=True, quenched=True, cg=CGParams(refine=True)))
+    model = TorchModel(lattice=lat, hmc=hmc)
+    assert hmc.quenched and not hp.packed_eligible(model)
     with pytest.raises(NotImplementedError, match="quenched"):
-        hp.packed_supported(TorchModel(lattice=lat, hmc=hmc))
+        hp.packed_supported(model)
+    on_path = TorchModel(lattice=lat, hmc=dataclasses.replace(hmc, quenched=False))
+    assert hp.packed_eligible(on_path)
+    hp.packed_supported(on_path)
+    assert not hp.packed_eligible(TorchModel(lattice=lat, hmc=dataclasses.replace(
+        hmc, quenched=False, packed=False)))
 
 
 def test_package_imports_no_jax():
@@ -100,7 +111,10 @@ def test_package_imports_no_jax():
             " 'schwingermodel_tpu_torch.ops.geometry', 'schwingermodel_tpu_torch.ops.dirac',"
             " 'schwingermodel_tpu_torch.ops.eo_halo', 'schwingermodel_tpu_torch.ops.halo',"
             " 'schwingermodel_tpu_torch.solvers.cg', 'schwingermodel_tpu_torch.hmc.integrators',"
-            " 'schwingermodel_tpu_torch.parallel.mesh', 'schwingermodel_tpu_torch.parallel.sharded']:\n"
+            " 'schwingermodel_tpu_torch.parallel.mesh', 'schwingermodel_tpu_torch.parallel.sharded',"
+            " 'schwingermodel_tpu_torch.hmc.autotune', 'schwingermodel_tpu_torch.scan',"
+            " 'schwingermodel_tpu_torch.io.checkpoint', 'schwingermodel_tpu_torch.tools.betascan',"
+            " 'schwingermodel_tpu_torch.tools.bench_mxu_stencil']:\n"
             "    importlib.import_module(m)\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
             "assert not any(k.startswith('schwingermodel_tpu.') or k == 'schwingermodel_tpu'"
@@ -151,22 +165,40 @@ def test_cli_runs_reference_pipe_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--quenched"], "not yet ported"),
-    (["--no-even-odd"], "not yet ported"),
-    (["--dtype", "float64"], "not yet ported"),
-    (["--nx", "7", "--nt", "8"], "not yet ported"),
+    (["--quenched"], "(quenched)"),
+    (["--no-even-odd"], "all solves converged: True"),
+    (["--dtype", "float64"], "dtype = float64"),
+    (["--nx", "7", "--nt", "8"], "Nx = 7, Nt = 8"),
+    (["--ranks-chain", "2"], "not yet ported"),
     (["--device", "cuda"], "CUDA is not available"),
 ])
-def test_cli_refuses_what_it_cannot_run(argv, message):
-    """Unported options exit non-zero with "not yet ported"; --device cuda
-    without a card exits non-zero instead of falling back to the CPU."""
+def test_cli_refuses_what_it_cannot_run(argv, message, tmp_path):
+    """What the CLI refuses and what it no longer does: --ranks-chain 2
+    (multi-GPU) exits 2 with "not yet ported"; --device cuda without a card
+    exits non-zero instead of falling back to the CPU; --quenched,
+    --no-even-odd, --dtype float64 and an odd lattice, which used to be
+    refused, run the unpacked sampler to the end (exit 0, every solve
+    converged, a SimData file)."""
     args = [] if "--device" in argv else ["--device", "cpu"]
+    size = [] if "--nx" in argv else ["--nx", "8", "--nt", "8"]
     out = subprocess.run(
-        [sys.executable, "-m", "schwingermodel_tpu_torch", *args, *argv],
-        input="", cwd=REPO, capture_output=True, text=True, timeout=120)
-    assert out.returncode != 0
-    if message != "CUDA is not available" or not torch.cuda.is_available():
-        assert message in out.stderr
+        [sys.executable, "-m", "schwingermodel_tpu_torch", *args, *size, *argv,
+         "--out-dir", str(tmp_path)],
+        input="1\n1\n0.1\n4\n0.4\n2\n2\n2\n0\n0\n", cwd=REPO,
+        capture_output=True, text=True, timeout=300,
+        env={**os.environ, "OMP_NUM_THREADS": "1"})
+    if message == "not yet ported":
+        assert out.returncode == 2 and message in out.stderr
+    elif message == "CUDA is not available":
+        assert out.returncode != 0
+        if not torch.cuda.is_available():
+            assert message in out.stderr
+    else:
+        assert out.returncode == 0, out.stderr
+        assert message in out.stdout
+        assert "all solves converged: True" in out.stdout
+        assert "WARNING" not in out.stdout
+        assert list(tmp_path.glob("*SimData*"))
 
 
 def test_ctxt_matches_jax_and_reference_bytes(tmp_path):
