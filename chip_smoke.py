@@ -27,10 +27,25 @@ Phases (any failure raises, and the script exits non-zero):
                         asserted first: the twin's matmul must be exact);
    K5 ratio_force       m0=-0.19, m1=0.21: forces to 3e-5 * max(scale, 1);
    K3 solve_refined     certify=True at 1e-10 (cold start) and
-                        certify=False at 1e-8 (forecast start): f64 true
-                        residual under tol ||b|| for every chain, equal
-                        flags, iteration counts side by side;
-   K4 solve_f64_cg_fallback  from a starved K3: reaches 1e-10;
+                        certify=False at 1e-8 (forecast start), also at
+                        32x32 C=32 (everything in shared memory), 20x34 C=2
+                        (odd extents), 128x128 C=2 (too large for one
+                        block's shared memory: a cluster of 8 blocks a
+                        chain) and 126x128 C=2 (no cluster divides it: the
+                        global scratch), the path each shape takes printed: f64 true residual under
+                        tol ||b|| for every chain, equal flags, iteration
+                        counts side by side, and every chain alone equal to
+                        its chain of the batch bit for bit;
+   K4 the f64 fallback  from a K3 starved at 5 iterations, inside K3's launch
+                        (solve_refined(fallback=True)) and as a launch of
+                        its own (solve_f64_cg_fallback), at the same shapes:
+                        both reach 1e-10 with the flags and non-zero
+                        fallback iterations of the composed twins and equal
+                        each other bit for bit; a mixed batch under
+                        max_iter=5 at 1e-6 (half the chains from the
+                        certified solution, which K3 accepts at once, half
+                        from x0 = b) where only the second half falls back
+                        and the first half keeps K3's x bit for bit;
    K6 cg_solve_eo       on given links, B right-hand sides per
                         configuration (B=8 at C=32, 1 at C=1, 2 at C=3):
                         tol 1e-5 from x0 = 0 (the refinement's inner solve)
@@ -96,7 +111,10 @@ Phases (any failure raises, and the script exits non-zero):
    demo of 4 + 4 trajectories, a checkpoint, and 4 more from it against
    the unbroken 4 + 8: equal bit for bit. Every run has the kernels' launch counters set
    to 0 just before it and read just after it, and fails if a kernel of its
-   path was not launched. With --profile, three batch trajectories of the
+   path was not launched; the packed refined runs must launch K3 once per
+   solve and K4's own entry never (the fallback runs inside K3's launch; each
+   run prints how many chain solves took it), (d) and the mesons launch K4's
+   entry through the restart refinement. With --profile, three batch trajectories of the
    packed demo and of (f) and (g) then run under torch.profiler (launches,
    device-busy share and the top kernels by device time);
 4. the kernels line (ten entry points), the card line, and the last line
@@ -418,6 +436,121 @@ def main() -> int:
         _, rn = rs.residual_f64_reference(thE, thO, b, x.double(), m0=M0)
         return (rn / (b.double() ** 2).sum(dim=(2, 3, 4, 5))).sqrt()
 
+    def k3_checks(thE, thO, b, C):
+        """K3 against its twin on one system (C: the label of its shape):
+        both contracts, per-chain semantics bit for bit, the fallback in
+        K3's launch against the composition of the twins and of the
+        kernels, the mixed batch, and the stand-alone K4."""
+        nx, nth = thE.shape[-2:]
+        n_ch = thE.shape[0]
+        path = rs.ru_path_name(nx, nth, n_ch, _cuda.sm_count(dev))
+        exact = None
+        for certify, tol in ((True, 1e-10), (False, 1e-8)):
+            # the force contract is exercised from a forecast start, as on
+            # the main path: the certified solution, perturbed by 1e-3
+            x0 = b if certify else (
+                exact.x + 1e-3 * exact.x.abs().amax(dim=(1, 2, 3, 4), keepdim=True)
+                * torch.randn(b.shape, generator=gen, device=dev))
+            kw = dict(m0=M0, tol=tol, certify=certify)
+            k = rs.solve_refined(thE, thO, b, x0, **kw)
+            p = rs.solve_refined_reference(thE, thO, b, x0, **kw)
+            rk = rel_residual(thE, thO, b, k.x64)
+            rp = rel_residual(thE, thO, b, p.x64)
+            check(bool((rk < tol).all()), f"K3 certify={certify} C={C}: "
+                  f"kernel residual {rk.max().item()}")
+            check(bool((rp < tol).all()), f"K3 plain certify={certify} C={C}: "
+                  f"residual {rp.max().item()}")
+            check(torch.equal(k.converged, p.converged),
+                  f"K3 certify={certify} C={C}: flags differ")
+            check(bool(k.converged.all()), f"K3 certify={certify} C={C}: "
+                  "unconverged")
+            check(not bool(k.fb_iters.any()), f"K3 certify={certify} C={C}: fallback "
+                  "iterations without the fallback")
+            # per-chain semantics on the card: chain i alone is chain i of
+            # the batch, bit for bit
+            for i in range(n_ch):
+                one = rs.solve_refined(thE[i:i + 1], thO[i:i + 1], b[i:i + 1],
+                                       x0[i:i + 1], **kw)
+                check(torch.equal(one.x64[0], k.x64[i]) and int(one.iters[0]) == int(
+                    k.iters[i]), f"K3 certify={certify} C={C}: chain {i} alone differs "
+                    f"from chain {i} of the batch")
+            dx = (k.x64 - p.x64).abs().max().item()
+            if certify:
+                exact = k
+                errs["solve_refined"] = max(errs["solve_refined"], dx)
+            print(f"phase 2: K3 certify={certify} tol={tol:g} C={C} (path: {path}): "
+                  f"residual kernel {rk.max().item():.3e} plain {rp.max().item():.3e}; "
+                  f"max |x - x_plain| {dx:.3e}; iterations kernel "
+                  f"{k.iters[:8].tolist()} plain {p.iters[:8].tolist()}; each of the "
+                  f"{n_ch} chains alone equals its chain of the batch bit for bit",
+                  flush=True)
+
+        # the fallback in K3's launch: a K3 starved at 5 iterations
+        kw = dict(m0=M0, tol=1e-10, max_iter=5)
+        starved = rs.solve_refined(thE, thO, b, b, **kw)
+        check(not bool(starved.converged.any()), "starved K3 converged")
+        before = (rs.solve_refined.launches, rs.solve_f64_cg_fallback.launches)
+        folded = rs.solve_refined(thE, thO, b, b, fallback=True, fb_max_iter=MAX_ITER,
+                                  **kw)
+        check((rs.solve_refined.launches, rs.solve_f64_cg_fallback.launches)
+              == (before[0] + 1, before[1]), "the folded fallback is not one K3 launch")
+        fp = rs.solve_f64_cg_fallback_reference(
+            thE, thO, b, rs.solve_refined_reference(thE, thO, b, b, **kw), m0=M0,
+            tol=1e-10)
+        before = rs.solve_f64_cg_fallback.launches
+        fk = rs.solve_f64_cg_fallback(thE, thO, b, starved, m0=M0, tol=1e-10)
+        check(rs.solve_f64_cg_fallback.launches == before + 1, "K4 not launched")
+        for label, res in (("K3 with the fallback", folded), ("K4", fk)):
+            rk = rel_residual(thE, thO, b, res.x64)
+            check(bool((rk < 1e-10).all()) and bool(res.converged.all()),
+                  f"{label} C={C}: residual {rk.max().item()}")
+            check(torch.equal(res.converged, fp.converged), f"{label} C={C}: flags differ")
+            check(bool((res.fb_iters > 0).all()) and torch.equal(
+                res.iters, starved.iters + res.fb_iters),
+                f"{label} C={C}: fallback iterations {res.fb_iters.tolist()}")
+        same = all(torch.equal(a, b_) for a, b_ in zip(folded, fk))
+        check(same, f"K3 with the fallback C={C}: differs from K4 after K3")
+        dx = (fk.x64 - fp.x64).abs().max().item()
+        errs["solve_f64_cg_fallback"] = max(errs["solve_f64_cg_fallback"], dx)
+        print(f"phase 2: K4 C={C} from K3 starved at 5 iterations, in K3's launch and "
+              f"as a launch of its own (equal bit for bit): residual "
+              f"{rk.max().item():.3e}; max |x - x_plain| {dx:.3e}; fallback iterations "
+              f"kernel {fk.fb_iters[:8].tolist()} plain {fp.fb_iters[:8].tolist()}",
+              flush=True)
+
+        # a mixed batch under max_iter=5: the first half starts from the
+        # certified solution, whose f32 round has a residual near 1e-7 ||b||
+        # and which K3 accepts at once at 1e-6; the second half from x0 = b,
+        # which K3 cannot finish
+        half = n_ch // 2
+        if half:
+            x0 = b.clone()
+            x0[:half] = exact.x[:half]
+            kw = dict(m0=M0, tol=LOOSE_TOL, max_iter=5)
+            alone = rs.solve_refined(thE, thO, b, x0, **kw)
+            mixed = rs.solve_refined(thE, thO, b, x0, fallback=True,
+                                     fb_max_iter=MAX_ITER, **kw)
+            mp = rs.solve_refined_reference(thE, thO, b, x0, fallback=True,
+                                            fb_max_iter=MAX_ITER, **kw)
+            rk = rel_residual(thE, thO, b, mixed.x64)
+            check(alone.converged.tolist() == [True] * half + [False] * (n_ch - half),
+                  f"mixed batch C={C}: K3's flags {alone.converged.tolist()}")
+            check((mixed.fb_iters > 0).tolist() == (~alone.converged).tolist()
+                  and (mp.fb_iters > 0).tolist() == (~alone.converged).tolist(),
+                  f"mixed batch C={C}: fallback iterations {mixed.fb_iters.tolist()}")
+            check(torch.equal(mixed.x64[:half], alone.x64[:half])
+                  and torch.equal(mixed.iters[:half], alone.iters[:half]),
+                  f"mixed batch C={C}: a chain K3 converged was changed")
+            check(bool(mixed.converged.all()) and bool(mp.converged.all())
+                  and bool((rk < LOOSE_TOL).all()),
+                  f"mixed batch C={C}: residual {rk.max().item()}")
+            print(f"phase 2: K3 with the fallback, mixed batch C={C} under max_iter=5 at "
+                  f"tol {LOOSE_TOL:g}: the {half} chains started from the certified "
+                  f"solution keep K3's x bit for bit (fallback iterations 0), the other "
+                  f"{n_ch - half} fall back ({mixed.fb_iters[half:half + 4].tolist()}, "
+                  f"plain {mp.fb_iters[half:half + 4].tolist()}); residual "
+                  f"{rk.max().item():.3e}", flush=True)
+
     errs = dict.fromkeys(("force_step", "solve_fused", "solve_fused_mxu", "ratio_force",
                           "solve_refined", "solve_f64_cg_fallback",
                           "cg_solve_eo", "residual_f64"), 0.0)
@@ -560,53 +693,14 @@ def main() -> int:
         errs["ratio_force"] = max(errs["ratio_force"], force_err(
             FE, FO, RE, RO, f"K5 m0={M0_HB} m1={M1_HB} C={C}"))
 
-        exact = None
-        for certify, tol in ((True, 1e-10), (False, 1e-8)):
-            # the force contract is exercised from a forecast start, as on
-            # the main path: the certified solution, perturbed by 1e-3
-            x0 = b if certify else (
-                exact.x + 1e-3 * exact.x.abs().amax(dim=(1, 2, 3, 4), keepdim=True)
-                * torch.randn(b.shape, generator=gen, device=dev))
-            k = rs.solve_refined(thE, thO, b, x0, m0=M0, tol=tol, certify=certify)
-            p = rs.solve_refined_reference(thE, thO, b, x0, m0=M0, tol=tol,
-                                           certify=certify)
-            rk = rel_residual(thE, thO, b, k.x64)
-            rp = rel_residual(thE, thO, b, p.x64)
-            check(bool((rk < tol).all()), f"K3 certify={certify} C={C}: "
-                  f"kernel residual {rk.max().item()}")
-            check(bool((rp < tol).all()), f"K3 plain certify={certify} C={C}: "
-                  f"residual {rp.max().item()}")
-            check(torch.equal(k.converged, p.converged),
-                  f"K3 certify={certify} C={C}: flags differ")
-            check(bool(k.converged.all()), f"K3 certify={certify} C={C}: "
-                  "unconverged")
-            dx = (k.x64 - p.x64).abs().max().item()
-            if certify:
-                exact = k
-                errs["solve_refined"] = max(errs["solve_refined"], dx)
-            print(f"phase 2: K3 certify={certify} tol={tol:g} C={C}: residual "
-                  f"kernel {rk.max().item():.3e} plain {rp.max().item():.3e}; "
-                  f"max |x - x_plain| {dx:.3e}; iterations kernel "
-                  f"{k.iters[:8].tolist()} plain {p.iters[:8].tolist()}",
-                  flush=True)
+        k3_checks(thE, thO, b, C)
 
-        starved = rs.solve_refined(thE, thO, b, b, m0=M0, tol=1e-10, max_iter=5)
-        check(not bool(starved.converged.any()), "starved K3 converged")
-        before = rs.solve_f64_cg_fallback.launches
-        fk = rs.solve_f64_cg_fallback(thE, thO, b, starved, m0=M0, tol=1e-10)
-        check(rs.solve_f64_cg_fallback.launches == before + 1, "K4 not launched")
-        fp = rs.solve_f64_cg_fallback_reference(thE, thO, b, starved, m0=M0,
-                                                tol=1e-10)
-        rk = rel_residual(thE, thO, b, fk.x64)
-        check(bool((rk < 1e-10).all()) and bool(fk.converged.all()),
-              f"K4 C={C}: residual {rk.max().item()}")
-        check(torch.equal(fk.converged, fp.converged), f"K4 C={C}: flags differ")
-        dx = (fk.x64 - fp.x64).abs().max().item()
-        errs["solve_f64_cg_fallback"] = max(errs["solve_f64_cg_fallback"], dx)
-        print(f"phase 2: K4 C={C} from K3 starved at 5 iterations: residual "
-              f"{rk.max().item():.3e}; max |x - x_plain| {dx:.3e}; iterations "
-              f"kernel {fk.iters[:8].tolist()} plain {fp.iters[:8].tolist()}",
-              flush=True)
+    # K3 alone at the sizes that take its other paths: all resident, odd
+    # extents, a lattice too large for one block's shared memory (a cluster
+    # of blocks), and one that no cluster divides (the global scratch)
+    for nx, nt, C in ((32, 32, C_MAIN), (20, 34, 2), (128, 128, 2), (126, 128, 2)):
+        thE, thO, b = inputs(C, nx, nt)
+        k3_checks(thE, thO, b, f"{C} at {nx}x{nt}")
 
     # K7 and K8 on the blocks of a mesh of shards
     halo_errs, halo_times, halo_bounds = halo_kernel_checks(dev, gen, card)
@@ -764,15 +858,35 @@ def main() -> int:
         print(f"phase 2: time at {NX}x{NT} C={C_MAIN} ({card}): {k_name} kernel "
               f"{ms:.4f} ms, plain twin {plain_ms:.4f} ms, bound {b_ms:.5f} ms by "
               f"{b_by} ({100 * b_ms / ms:.2f}% of the roofline)", flush=True)
-    # K4 as the main path meets it: after a K3 that converged every chain it
-    # reads the flags and copies the solution through
-    done = rs.solve_refined(thE, thO, b, b, m0=M0, tol=1e-10)
+    # K4's entry after a solve that converged every chain, as the restart
+    # refinement meets it: it reads the flags and copies the solution through
+    clocks = torch.zeros((C_MAIN, 2), dtype=torch.int64, device=dev)
+    done = rs.solve_refined(thE, thO, b, b, m0=M0, tol=1e-10, clocks=clocks)
     check(bool(done.converged.all()), "K3 left a chain of the timed inputs unconverged")
     k4_pass_ms = timed(lambda: rs.solve_f64_cg_fallback(thE, thO, b, done, m0=M0,
                                                         tol=1e-10), 200)
     print(f"phase 2: time at {NX}x{NT} C={C_MAIN} ({card}): solve_f64_cg_fallback after a "
-          f"converged K3 (the pass-through of the main path) {k4_pass_ms:.4f} ms",
-          flush=True)
+          f"converged solve (the pass-through of the restart refinement) "
+          f"{k4_pass_ms:.4f} ms", flush=True)
+    # K3 in detail: per iteration of its slowest chain, the share of its
+    # clock cycles in the f64 true residuals (the kernel's own counters),
+    # with the fallback on (as the main path calls it), and at C=128
+    k3_ms = times["solve_refined"][0]
+    k3_path = rs.ru_path_name(NX, NT // 2, C_MAIN, _cuda.sm_count(dev))
+    k3_us_iter = 1e3 * k3_ms / done.iters.max().item()
+    k3_f64_share = (clocks[:, 1].double() / clocks[:, 0].double()).mean().item()
+    k3_fb_ms = timed(lambda: rs.solve_refined(thE, thO, b, b, m0=M0, tol=1e-10,
+                                              fallback=True), 20)
+    thE4, thO4, b4 = inputs(4 * C_MAIN)
+    k3_c128_ms = timed(lambda: rs.solve_refined(thE4, thO4, b4, b4, m0=M0, tol=1e-10), 20)
+    it_c128 = rs.solve_refined(thE4, thO4, b4, b4, m0=M0, tol=1e-10).iters
+    print(f"phase 2: K3 at {NX}x{NT} (path: {k3_path}; "
+          f"{card}): C={C_MAIN} {k3_ms:.4f} ms, {k3_us_iter:.3f} us per iteration of the "
+          f"slowest chain ({done.iters.max().item()} iterations), "
+          f"{100 * k3_f64_share:.1f}% of its cycles in the f64 true residuals; with the "
+          f"fallback on and every chain converged {k3_fb_ms:.4f} ms; C={4 * C_MAIN} "
+          f"{k3_c128_ms:.4f} ms ({it_c128.sum().item()} iterations summed, "
+          f"{it_c128.max().item()} in the slowest chain)", flush=True)
     times.update(halo_times)
     bounds.update(halo_bounds)
 
@@ -869,10 +983,10 @@ def main() -> int:
     launches = dict.fromkeys(counters, 0)
     variants = {}
 
-    def counted(label, uses, drive):
+    def counted(label, uses, drive, unused=()):
         """Run drive() with every launch counter set to 0 just before and
         read just after; fail unless each kernel in `uses` (an entry point,
-        or force_step's variant) was launched."""
+        or force_step's variant) was launched and none in `unused` was."""
         for fn in counters.values():
             fn.launches = 0
         tr.force_step.variants.clear()
@@ -888,6 +1002,8 @@ def main() -> int:
         for k in uses:
             n = by_variant.get(k, 0) if k.startswith("with_solve") else got[k]
             check(n > 0, f"{label}: {k} was not launched")
+        for k in unused:
+            check(got[k] == 0, f"{label}: {k} launched {got[k]} times")
         for k, n in got.items():
             launches[k] += n
         for k, n in by_variant.items():
@@ -895,7 +1011,10 @@ def main() -> int:
         return out, wall, got
 
     run = RunParams(n_therm=10, n_meas=20, n_steps=0, n_chains=C_MAIN, seed=0)
-    refined_k = ("solve_refined", "solve_f64_cg_fallback")
+    # the packed refined paths: one K3 launch per solve, the fallback inside
+    # it, and no launch of K4's own entry
+    refined_k = ("solve_refined",)
+    no_k4 = ("solve_f64_cg_fallback",)
     rates = {}
 
     def main_gates(label, res, wall, run=run):
@@ -932,9 +1051,17 @@ def main() -> int:
             ("(c) --integrator omelyan md=5", hmc_params(
                 md_steps=5, integrator="omelyan"),
              ("with_solve=False,with_gauge=True", *refined_k))):
-        res, wall, _ = counted(label, uses,
-                               lambda: run_hmc(lattice, hmc, run, device=dev))
+        res, wall, got = counted(
+            label, uses, lambda: run_hmc(lattice, hmc, run, device=dev),
+            no_k4 if hmc.cg.refine else ())
         rates[label] = main_gates(label, res, wall)
+        if hmc.cg.refine:
+            n_traj = run.n_therm + run.n_meas
+            print(f"phase 3: {label}: per batch trajectory "
+                  f"{got['solve_refined'] / n_traj:g} K3 and "
+                  f"{got['solve_f64_cg_fallback'] / n_traj:g} K4 launches; "
+                  f"{res.cg_fallback_solves} of {got['solve_refined'] * C_MAIN} chain "
+                  f"solves ran the fallback inside K3's launch", flush=True)
 
     # the near-critical Hasenbusch row (tools/bench_points.py:60-61)
     nc_lat = LatticeParams(Nx=32, Nt=32, real_dtype="float32")
@@ -955,7 +1082,7 @@ def main() -> int:
     stats, wall, _ = counted(
         "near-critical 32x32 beta=2 m0=-0.19 dm=0.4 md=26 tau=1", (
             "with_solve=False,with_gauge=False", "ratio_force", *refined_k),
-        near_critical)
+        near_critical, no_k4)
     dH = torch.stack([st.delta_H for st in stats])
     check(bool(torch.isfinite(dH).all()), "near-critical: non-finite dH")
     measured = stats[n_therm:]
@@ -970,8 +1097,10 @@ def main() -> int:
           f"measured, {iters:.1f} CG iterations per chain-trajectory, max |dH| "
           f"{dH[:n_therm].abs().max().item():.4g} over the thermalization and "
           f"{dH[n_therm:].abs().max().item():.4g} over the measured, "
-          f"{(n_therm + n_meas) * C_MAIN / wall:.2f} chain-traj/s; card {card}",
-          flush=True)
+          f"{(n_therm + n_meas) * C_MAIN / wall:.2f} chain-traj/s, "
+          f"{wall / (n_therm + n_meas):.4f} s per batch trajectory, "
+          f"{int(torch.stack([st.cg_fallbacks for st in stats]).sum())} chain solves "
+          f"ran the fallback; card {card}", flush=True)
 
     # the measurement path: the condensate on the refined and loose demos
     N_NOISE = 8
@@ -979,7 +1108,7 @@ def main() -> int:
     for label, hmc, uses, no_k9 in (
             ("(d) refined demo --condensate --n-noise 8", hmc_params(),
              ("with_solve=False,with_gauge=True", *refined_k, "cg_solve_eo",
-              "residual_f64"), False),
+              "residual_f64", "solve_f64_cg_fallback"), False),
             ("(e) --no-cg-refine --condensate --n-noise 8", hmc_params(refine=False),
              ("with_solve=True,with_gauge=True", "solve_fused", "cg_solve_eo"),
              True)):
@@ -1080,7 +1209,8 @@ def main() -> int:
     for label, lat, hmc, run_, mesh, uses, unused in (
             ("(h) refined demo --autotune --n-tune 8", lattice, hmc_params(),
              dataclasses.replace(run, n_therm=8, n_meas=20, autotune=True, n_tune=8), None,
-             ("with_solve=False,with_gauge=True", *refined_k), ("cg_solve_eo",)),
+             ("with_solve=False,with_gauge=True", *refined_k),
+             ("cg_solve_eo", *no_k4)),
             ("(i) --quenched", lattice, hmc_params(quenched=True), run_mesh, None, (),
              solver_kernels),
             ("(j) refined demo --no-even-odd", lattice,
@@ -1132,7 +1262,7 @@ def main() -> int:
 
     (first, rest, whole), wall, _ = counted(
         "(m) refined demo, checkpoint and resume",
-        ("with_solve=False,with_gauge=True", *refined_k), resumed)
+        ("with_solve=False,with_gauge=True", *refined_k), resumed, no_k4)
     check(rest.traj_index == whole.traj_index == 12, f"(m): counters {rest.traj_index}")
     check(np.array_equal(rest.theta, whole.theta)
           and np.array_equal(rest.chains["plaquette"], whole.chains["plaquette"][4:])
@@ -1214,6 +1344,10 @@ def main() -> int:
     by_name = {e["name"]: e for e in kernels}
     by_name["cg_solve_eo"]["also_replaces"] = "schwingermodel_tpu/ops/pallas_eo.py:328"
     by_name["solve_f64_cg_fallback"]["ms_pass_through"] = k4_pass_ms
+    by_name["solve_refined"].update(
+        path=k3_path, us_per_iteration=k3_us_iter,
+        f64_residual_share=k3_f64_share, ms_with_fallback_on=k3_fb_ms,
+        ms_at_4x_chains=k3_c128_ms)
     by_name["solve_fused_mxu"]["ms_k2_in_turns"] = k2_vs_k10[1]
     by_name["solve_fused_mxu"]["ms_in_turns_with_k2"] = k2_vs_k10[0]
     check(all(e["launches"] > 0 for e in kernels), "a kernel was never launched")

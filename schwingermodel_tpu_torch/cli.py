@@ -1,15 +1,18 @@
 """Command-line driver of the PyTorch port.
 
-Counterpart of ``schwingermodel_tpu/cli.py``: the same flags, and with
-parameters missing from the flags the same ten prompts on stderr, read
-from stdin in the same order, so reference-style parameter pipes work:
+Counterpart of ``schwingermodel_tpu/cli.py``: its flags, apart from the
+three named below as dropped, and with parameters missing from the flags
+the same ten prompts on stderr, read from stdin in the same order, so
+reference-style parameter pipes work:
 
     printf '1\\n1\\n0.2\\n10\\n0.1\\n4\\n10\\n10\\n10\\n0\\n' | \\
         python -m schwingermodel_tpu_torch --nx 64 --nt 64 --device cuda
 
 ``--device {cuda,cpu}`` replaces ``--platform``. Both devices run the same
 paths: on ``cuda`` through the CUDA kernels, on ``cpu`` through their plain
-PyTorch twins. The default is the packed path: f32 working precision,
+PyTorch twins. The working precision is float32 on both unless ``--dtype
+float64`` is given: ``--device cpu`` keeps float32, where the JAX package
+on the CPU takes float64. The default is the packed path: f32 working precision,
 even-odd pseudofermions, the refined 1e-10 contract; ``--no-cg-refine``
 selects the loose f32 contract (tol 1e-6 unless ``--cg-tol``),
 ``--integrator omelyan`` the Omelyan 2MN integrator and ``--hasenbusch-dm
@@ -23,8 +26,10 @@ condensate on every path. Off the packed path the unpacked sampler
 size over the first thermalization trajectories and re-quantizes md_steps.
 ``--checkpoint CKPT`` writes the final state as one ``.npz``; ``--resume
 CKPT`` continues from one (its configuration, parameters and trajectory
-counter; ``--nmeas`` extends the run without thermalization), also from a
-checkpoint the JAX package wrote. ``--mre-history >= 2`` is refused only
+counter; ``--nmeas`` extends the run without thermalization; the warm-up
+of ``--autotune`` is switched off, since the checkpoint carries the tuned
+md_steps), also from a checkpoint the JAX package wrote. ``--profile DIR``
+writes a ``torch.profiler`` trace of the run to ``DIR/trace.json``. ``--mre-history >= 2`` is refused only
 where the JAX package would use it (refined, forecasting on, no Hasenbusch,
 the packed path) and ignored elsewhere, as there.
 
@@ -37,8 +42,16 @@ lattice that the mesh does not divide (or an odd local Nt in even-odd mode)
 exits with status 1, as the reference does; 1 x 1 runs without a mesh.
 
 Flags that select something not ported yet exit with status 2 and a "not
-yet ported" message: ``--ranks-chain`` other than 1 (multi-GPU) and
-``--mre-history >= 2`` on the path named above.
+yet ported" message: ``--ranks-chain`` other than 1 (multi-GPU),
+``--coordinator``, ``--num-processes`` and ``--process-id`` (multi-host),
+and ``--mre-history >= 2`` on the path named above.
+
+Three flags of the JAX parser are dropped, parsed only to say so (status 2,
+"dropped in schwingermodel_tpu_torch" and what replaces the flag):
+``--cg-refine-impl`` (the card has native float64, which replaces the
+double-float pairs, so there is no implementation to choose), ``--platform``
+(``--device``) and ``--num-cpu-devices`` (a lattice mesh needs no virtual
+devices here: ``--ranks-x/--ranks-t`` put all shards on the one device).
 """
 
 from __future__ import annotations
@@ -59,6 +72,16 @@ def _prompt(question: str, cast, interactive: bool):
     if not line:
         raise SystemExit(f"missing input for: {question}")
     return cast(line.split()[0])
+
+
+# Flags of the JAX parser that the port answers with exit status 2.
+NOT_PORTED = {"--coordinator": "multi-host", "--num-processes": "multi-host",
+              "--process-id": "multi-host"}
+DROPPED = {
+    "--cg-refine-impl": "native float64 replaces the double-float pairs",
+    "--platform": "use --device {cuda,cpu}",
+    "--num-cpu-devices": "--ranks-x/--ranks-t put all shards on the one device",
+}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -127,7 +150,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint", default=None, metavar="CKPT")
     p.add_argument("--no-simdata", action="store_true")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the run to "
+                        "DIR/trace.json (view in chrome://tracing or Perfetto)")
+    for flag, what in NOT_PORTED.items():
+        p.add_argument(flag, default=None, help=f"not ported: {what}")
+    for flag, instead in DROPPED.items():
+        p.add_argument(flag, default=None, help=f"dropped: {instead}")
     return p
+
+
+def _dest(flag: str) -> str:
+    return flag[2:].replace("-", "_")
 
 
 def main(argv=None) -> int:
@@ -137,6 +171,16 @@ def main(argv=None) -> int:
         print("error: not yet ported to schwingermodel_tpu_torch: "
               "--ranks-chain other than 1 (multi-GPU)", file=sys.stderr)
         return 2
+    for flag, what in NOT_PORTED.items():
+        if getattr(args, _dest(flag)) is not None:
+            print(f"error: not yet ported to schwingermodel_tpu_torch: "
+                  f"{flag} ({what})", file=sys.stderr)
+            return 2
+    for flag, instead in DROPPED.items():
+        if getattr(args, _dest(flag)) is not None:
+            print(f"error: dropped in schwingermodel_tpu_torch: {flag} "
+                  f"({instead})", file=sys.stderr)
+            return 2
 
     import torch
 
@@ -155,6 +199,7 @@ def main(argv=None) -> int:
     from schwingermodel_tpu_torch.parallel.mesh import lattice_mesh
     from schwingermodel_tpu_torch.models.schwinger import SchwingerModel
     from schwingermodel_tpu_torch.runner import run_hmc
+    from schwingermodel_tpu_torch.utils.metrics import profiler_trace
 
     # ---- parameters: flags, else reference-style stdin prompts ----
     need_stdin = any(
@@ -285,12 +330,15 @@ def main(argv=None) -> int:
           f"seed = {run.seed}")
     print("*" * 70)
 
-    result = run_hmc(lattice, hmc, run, device=args.device,
-                     initial_theta=initial_theta, start_traj_index=start_traj,
-                     progress=print,
-                     write_simdata=not args.no_simdata,
-                     measure_condensate=args.condensate, n_noise=args.n_noise,
-                     mesh=mesh)
+    with profiler_trace(args.profile):
+        result = run_hmc(lattice, hmc, run, device=args.device,
+                         initial_theta=initial_theta,
+                         start_traj_index=start_traj, progress=print,
+                         write_simdata=not args.no_simdata,
+                         measure_condensate=args.condensate,
+                         n_noise=args.n_noise, mesh=mesh)
+    if args.profile:
+        print(f"Profiler trace written to {args.profile}")
 
     print(f"Average plaquette value / volume: Ep = {result.Ep:.17g} "
           f"dEp = {result.dEp:.17g}")

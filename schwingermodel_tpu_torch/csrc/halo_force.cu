@@ -108,10 +108,10 @@ extern "C" int halo_force_launch(const void* ue, const void* uo, const void* off
   size_t shared = 0;
   if (scratch == nullptr) {
     shared = sizeof(float) * 26 * Nxe * Nthe;
-    if (shared > sm::kHaloSharedMax) return static_cast<int>(cudaErrorInvalidValue);
+    if (shared > sm::kSharedMax) return static_cast<int>(cudaErrorInvalidValue);
     const cudaError_t e =
         cudaFuncSetAttribute(sm::halo_force_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             sm::kHaloSharedMax);
+                             sm::kSharedMax);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   sm::halo_force_kernel<<<n_blocks, sm::kThreads, shared, static_cast<cudaStream_t>(stream)>>>(

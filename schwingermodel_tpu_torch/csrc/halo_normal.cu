@@ -115,9 +115,9 @@ int launch_normal(const void* ue, const void* uo, const void* off, const void* v
   size_t shared = 0;
   if (scratch == nullptr) {
     shared = sizeof(float) * 20 * Nxe * Nthe;
-    if (shared > kHaloSharedMax) return static_cast<int>(cudaErrorInvalidValue);
+    if (shared > kSharedMax) return static_cast<int>(cudaErrorInvalidValue);
     const cudaError_t e = cudaFuncSetAttribute(
-        halo_normal_kernel<DOTS>, cudaFuncAttributeMaxDynamicSharedMemorySize, kHaloSharedMax);
+        halo_normal_kernel<DOTS>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSharedMax);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   halo_normal_kernel<DOTS><<<n_blocks, kThreads, shared, stream>>>(

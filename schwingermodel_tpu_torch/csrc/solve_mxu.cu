@@ -249,7 +249,7 @@ template <typename K>
 static int perm_shared(K kernel, int Nx, int* bytes) {
   const int Nx8 = (Nx + 7) / 8 * 8;
   *bytes = 2 * Nx8 * perm_stride(Nx8) * static_cast<int>(sizeof(double));
-  if (*bytes > kHaloSharedMax) return static_cast<int>(cudaErrorInvalidValue);
+  if (*bytes > kSharedMax) return static_cast<int>(cudaErrorInvalidValue);
   if (*bytes > 48 * 1024)
     return static_cast<int>(
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *bytes));

@@ -1,97 +1,118 @@
-// K3: reliable-update mixed-precision CG on (Dhat Dhat^+) x = b.
+// K3: reliable-update mixed-precision CG on (Dhat Dhat^+) x = b, with the
+// f64 fallback (K4's body) at the end of the same launch.
 //
 // Replaces schwingermodel_tpu/ops/pallas_df.py:_solve_ru_kernel
-// (solve_refined_fused, K = 1 history). The algorithm is kept and the
-// double-float half becomes native f64: one continuous f32 CG recursion;
+// (solve_refined_fused, K = 1 history) and, where the caller asks for the
+// fallback, the lax.cond around _df_cg_fb_kernel. The algorithm is kept and
+// the double-float half becomes native f64: one continuous f32 CG recursion;
 // x accumulated in f64 as x += (double)alpha * (double)d; each time the
 // recursive residual has contracted by tau it is replaced by the true
 // residual b - A x evaluated in f64 (links from sincos((double)theta)) and
 // rounded to f32. certify=false trusts the recursive exit for segments
 // shorter than cert_k iterations. Semantics are per chain: every decision
-// (inner target, replacement gate, stagnation test, iteration cap) reads
-// only that chain's state -- the reference's one-CG-per-chain semantics.
-// The MRE start (history depth >= 2) is not ported.
+// (inner target, replacement gate, stagnation test, iteration cap, whether
+// the fallback runs) reads only that chain's state -- the reference's
+// one-CG-per-chain semantics. The MRE start (history depth >= 2) is not
+// ported.
 //
 // What bounds it on the card: per iteration one normal apply (4 dependent
 // stencil stages of ~150 flops per site) and 2 block reductions on 2048
-// sites per chain at 64x64, i.e. latency of barriers and L2 round trips, not
-// bandwidth or flops. Design: one thread block per chain runs the whole
-// solve loop, so no host synchronisation or relaunch happens per iteration;
-// all vectors (f32 and f64 links, r, d, Ad, stencil temporaries, x in f64)
-// live in a per-chain global scratch of about 0.6 MB that stays in L2.
-// Dots are block reductions accumulated in f64 and rounded to f32.
-#include "stencil.cuh"
+// sites per chain at 64x64, i.e. the latency of barriers and of what a
+// thread waits for after each, not bandwidth or flops. One thread block of
+// 512 threads per chain (or one cluster of blocks) runs the whole solve, so
+// no host synchronisation or relaunch happens per iteration. Where the
+// vectors of the f32 recursion live is chosen by lattice size and chain
+// count before the launch (ops/refined.ru_path):
+//
+// - shared (up to 64x64: V2 = Nx Nt/2 <= 2048 sites): the f32 links of both
+//   parities, d, r and two stencil temporaries are six fields of 4 floats a
+//   site in the dynamic shared memory of one block, site-major, so that a
+//   neighbour's spinor is one 16-byte load: 96 V2 bytes, 192 KiB at 64x64
+//   (the third temporary takes the first one's place and Ad the second
+//   one's). A thread owns the sites tid + j * 512, j < 4: its x (f64) stays
+//   in registers, the fourth stencil stage forms the <d, Ad> partial where it
+//   holds Ad, and a block sum costs one barrier. 6 barriers an iteration,
+//   none followed by a trip to L2; the inner loop reads no vector from global
+//   memory and is bound by what one SM issues and by its shared-memory
+//   bandwidth (~10 thousand cycles an iteration at 128 bytes a cycle). The
+//   f64 true residual (2-3 a solve) runs through a global scratch of 20 V2
+//   doubles, x written out from the registers before it;
+// - all shared (up to 32x32 and a little above): the f64 links and the true
+//   residual's three fields (160 V2 bytes) lie in shared memory too;
+// - cluster (a lattice too large for one block, 128x128): the same
+//   recursion (RuCluster) on a thread-block cluster of 2, 4 or 8 blocks a
+//   chain, each with its rows of x between two halo rows, the neighbour
+//   blocks' edge rows, stored through distributed shared memory. A cluster.sync() costs ~0.7 us
+//   where __syncthreads() costs tens of ns, so where one block holds the
+//   lattice a cluster is the slower choice and is not taken;
+// - global (what no cluster holds): every vector in a per-chain global
+//   scratch of 28 V2 floats and 20 V2 doubles that stays in L2, 7 barriers
+//   an iteration, 5 of them followed by neighbour reads from L2.
+//
+// Dots are accumulated in f64 and rounded to f32. A chain that ends
+// unconverged runs cg_fallback_chain (cg_fallback.cuh) from its f64 x in the
+// same block when the caller asked for the fallback; a converged chain pays
+// nothing for it.
+#include <cooperative_groups.h>
+
+#include "cg_fallback.cuh"
 
 namespace sm {
 
-__global__ void __launch_bounds__(kThreads)
-solve_ru_kernel(const float* __restrict__ thE, const float* __restrict__ thO,
-                const float* __restrict__ b_all, const float* __restrict__ x0_all,
-                float* __restrict__ x_all, double* __restrict__ x64_all, int* __restrict__ iters_out,
-                int* __restrict__ conv_out, float* __restrict__ s32_all,
-                double* __restrict__ s64_all, int Nx, int Nth, double m0, double tol,
-                double tau, int max_iter, int max_outer, int certify, int cert_k) {
-  __shared__ double sh[33];
-  const Geo g{Nx, Nth, Nx * Nth};
-  const int V2 = g.V2, n = 4 * V2;
-  const int ch = blockIdx.x;
-  const float* the = thE + (size_t)ch * 2 * V2;
-  const float* tho = thO + (size_t)ch * 2 * V2;
-  const float* b = b_all + (size_t)ch * n;
-  const float* x0 = x0_all + (size_t)ch * n;
-  float* xo = x_all + (size_t)ch * n;
-  double* x = x64_all + (size_t)ch * n;
-  float* s32 = s32_all + (size_t)ch * 32 * V2;
-  float *ue = s32, *uo = s32 + 4 * V2, *r = s32 + 8 * V2, *d = s32 + 12 * V2;
-  float *Ad = s32 + 16 * V2, *t1 = s32 + 20 * V2, *t2 = s32 + 24 * V2, *t3 = s32 + 28 * V2;
-  double* s64 = s64_all + (size_t)ch * 24 * V2;
-  double *ue64 = s64, *uo64 = s64 + 4 * V2, *Ax = s64 + 8 * V2;
-  double *u1 = s64 + 12 * V2, *u2 = s64 + 16 * V2, *u3 = s64 + 20 * V2;
+namespace cg = cooperative_groups;
 
-  const float m = static_cast<float>(m0 + 2.0);
-  const float c = static_cast<float>(1.0 / (4.0 * (m0 + 2.0)));
-  const double m64 = m0 + 2.0, c64 = 1.0 / (4.0 * (m0 + 2.0));
+struct RuParams {
+  const float *thE, *thO, *b, *x0;
+  float* x;
+  double* x64;
+  int *iters, *fb_iters;
+  unsigned char* conv;
+  float* s32;
+  double* s64;
+  long long* clocks;  // [C, 2]: cycles of the solve and of its true residuals; may be null
+  int Nx, Nth;
+  double m0, tol, tau;
+  int max_iter, max_outer, certify, cert_k;
+  int fallback, fb_max_iter, fb_max_rounds;
+  int f64_shared;  // shared path only: the f64 set lies in shared memory too
+};
 
-  make_links<float>(the, 0, ue, g);
-  make_links<float>(tho, 1, uo, g);
-  make_links<double>(the, 0, ue64, g);
-  make_links<double>(tho, 1, uo64, g);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) x[i] = static_cast<double>(x0[i]);
+// f64 scratch values per half-lattice site and chain: the links and the true
+// residual's three planes unless they lie in shared memory, and the
+// fallback's planes, which take the place of the true residual's
+__host__ __device__ inline int ru_s64_values(bool f64_shared, bool fallback) {
+  const int links = f64_shared ? 0 : 8, res = f64_shared ? 0 : 12;
+  const int fb = fallback ? kFbScratch : 0;
+  return links + (fb > res ? fb : res);
+}
 
-  const float bnorm2 = static_cast<float>(block_dot(b, b, n, sh));
-  const float stop2 = static_cast<float>(tol * tol) * bnorm2;
-  const float tau2 = static_cast<float>(tau * tau);
+// The reliable-update loop of one chain on a store of its vectors: the
+// control flow of the solve, the same on every path. Returns the flag.
+template <class Store>
+__device__ __forceinline__ bool ru_loop(Store& S, const RuParams& p, int& iters) {
+  const float bnorm2 = S.bnorm2();
+  const float stop2 = static_cast<float>(p.tol * p.tol) * bnorm2;
+  const float tau2 = static_cast<float>(p.tau * p.tau);
 
-  // r = f32(b - A x) in f64; returns rho = <r, r>
-  auto true_residual = [&]() -> float {
-    normal_apply<double>(ue64, uo64, x, Ax, u1, u2, u3, m64, c64, g);
-    for (int i = threadIdx.x; i < n; i += blockDim.x)
-      r[i] = static_cast<float>(static_cast<double>(b[i]) - Ax[i]);
-    return static_cast<float>(block_dot(r, r, n, sh));
-  };
-
-  float rho = true_residual();
+  float rho = S.true_residual();
   // forecast sanitizer: a start worse than x = 0 restarts from x = 0,
   // whose residual is b exactly
   if (rho > bnorm2) {
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      x[i] = 0.0;
-      r[i] = b[i];
-    }
+    S.restart_from_zero();
     rho = bnorm2;
   }
-  for (int i = threadIdx.x; i < n; i += blockDim.x) d[i] = r[i];
+  S.d_from_r();
 
   float rho_df = rho, rho_df_prev = INFINITY;
-  int iters = 0, k_tot = 0, k_rep = 0, ko = 0;
-  while (rho_df >= stop2 && ko < max_outer && (ko == 0 || rho_df * 4.0f <= rho_df_prev) &&
-         k_tot < max_iter) {
+  int k_tot = 0, k_rep = 0, ko = 0;
+  iters = 0;
+  while (rho_df >= stop2 && ko < p.max_outer && (ko == 0 || rho_df * 4.0f <= rho_df_prev) &&
+         k_tot < p.max_iter) {
     // chase tau^2 below the certified residual, or the final target
     const float tgt = fmaxf(stop2, tau2 * rho_df);
     bool dead = false;
-    while (!dead && rho >= tgt && k_tot < max_iter) {
-      normal_apply<float>(ue, uo, d, Ad, t1, t2, t3, m, c, g);
-      const float dAd = static_cast<float>(block_dot(d, Ad, n, sh));
+    while (!dead && rho >= tgt && k_tot < p.max_iter) {
+      const float dAd = S.apply_dAd();
       const float alpha = rho / dAd;
       ++k_tot;
       // breakdown: non-positive curvature or alpha overflow freezes the
@@ -100,54 +121,835 @@ solve_ru_kernel(const float* __restrict__ thE, const float* __restrict__ thO,
         dead = true;
         break;
       }
-      double acc = 0.0;
-      for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        x[i] += static_cast<double>(alpha) * static_cast<double>(d[i]);
-        const float ri = r[i] + (-alpha) * Ad[i];
-        r[i] = ri;
-        acc += static_cast<double>(ri) * static_cast<double>(ri);
-      }
-      const float rho_c = static_cast<float>(block_sum(acc, sh));
+      const float rho_c = S.update_x_r(alpha);
       // overflow or runaway divergence: freeze with x and r as updated
       if (!isfinite(rho_c) || rho_c > 1e6f * bnorm2) {
         dead = true;
         break;
       }
-      const float beta = rho_c / rho;
-      for (int i = threadIdx.x; i < n; i += blockDim.x) d[i] = r[i] + beta * d[i];
+      S.update_d(rho_c / rho);
       rho = rho_c;
       ++iters;
     }
     // reliable update: always when certifying, otherwise only for a
     // multi-phase contraction or a segment of cert_k iterations or more
-    if (certify || tgt > stop2 || k_tot - k_rep >= cert_k) {
-      rho = true_residual();
+    if (p.certify || tgt > stop2 || k_tot - k_rep >= p.cert_k) {
+      rho = S.true_residual();
       k_rep = k_tot;
     }
     rho_df_prev = rho_df;
     rho_df = rho;
     ++ko;
   }
+  return rho_df < stop2;
+}
 
-  for (int i = threadIdx.x; i < n; i += blockDim.x) xo[i] = static_cast<float>(x[i]);
-  if (threadIdx.x == 0) {
-    iters_out[ch] = iters;
-    conv_out[ch] = rho_df < stop2 ? 1 : 0;
+// What both stores share: the f64 half and the chain's constants.
+struct RuF64 {
+  const float* b;
+  double* x64;  // the chain's f64 x in global memory (an output)
+  double *ue64, *uo64, *Ax, *u1, *u2;  // f64 links, A x, two stencil temporaries
+  Geo g;
+  float m, c;
+  double m64, c64;
+  // cycles in the true residuals. The clocks are read whether or not the
+  // caller takes them (one pair a true residual, 2-3 a solve): on the H100
+  // the kernel without them, by a flag of the launch or as an instantiation
+  // of its own, was 2-4% slower in turns.
+  long long t_res;
+};
+
+// Every vector in the global scratch; a thread owns the planar indices
+// tid + k * 512.
+struct RuGlobal : RuF64 {
+  float *ue, *uo, *r, *d, *Ad, *t1, *t2;
+  int n;
+  BlockSum& sum;
+
+  __device__ __forceinline__ float bnorm2() { return static_cast<float>(sum.dot(b, b, n)); }
+  // r = f32(b - A x) in f64; returns <r, r>
+  __device__ __forceinline__ float true_residual() {
+    const long long t0 = clock64();
+    normal_apply<double>(ue64, uo64, x64, Ax, u1, u2, u1, m64, c64, g);
+    double acc = 0.0;
+    for (int i = threadIdx.x; i < n; i += kThreads) {
+      const float ri = static_cast<float>(static_cast<double>(b[i]) - Ax[i]);
+      r[i] = ri;
+      acc += static_cast<double>(ri) * static_cast<double>(ri);
+    }
+    const float rho = static_cast<float>(sum(acc));
+    t_res += clock64() - t0;
+    return rho;
   }
+  __device__ __forceinline__ void restart_from_zero() {
+    for (int i = threadIdx.x; i < n; i += kThreads) {
+      x64[i] = 0.0;
+      r[i] = b[i];
+    }
+  }
+  __device__ __forceinline__ void d_from_r() {
+    for (int i = threadIdx.x; i < n; i += kThreads) d[i] = r[i];
+  }
+  __device__ __forceinline__ float apply_dAd() {
+    normal_apply<float>(ue, uo, d, Ad, t1, t2, t1, m, c, g);
+    return static_cast<float>(sum.dot(d, Ad, n));
+  }
+  __device__ __forceinline__ float update_x_r(float alpha) {
+    double acc = 0.0;
+    for (int i = threadIdx.x; i < n; i += kThreads) {
+      x64[i] = fma_rn(static_cast<double>(alpha), static_cast<double>(d[i]), x64[i]);
+      const float ri = fma_rn(-alpha, Ad[i], r[i]);
+      r[i] = ri;
+      acc += static_cast<double>(ri) * static_cast<double>(ri);
+    }
+    return static_cast<float>(sum(acc));
+  }
+  __device__ __forceinline__ void update_d(float beta) {
+    for (int i = threadIdx.x; i < n; i += kThreads) d[i] = fma_rn(beta, d[i], r[i]);
+  }
+};
+
+// Sites a thread owns on the shared path: tid + j * kThreads, j < kRuSites.
+constexpr int kRuSites = 4;
+
+__device__ __forceinline__ Cx<float> lo(float4 v) { return {v.x, v.y}; }
+__device__ __forceinline__ Cx<float> hi(float4 v) { return {v.z, v.w}; }
+__device__ __forceinline__ Cx<float> cx(float2 v) { return {v.x, v.y}; }
+
+// hop_site on the shared layout: a spinor is one float4 per site (spin 0
+// re, im, spin 1 re, im), so a neighbour is one 16-byte load where the
+// planar layout takes four loads; the arithmetic is hop_site's.
+template <bool DAG>
+__device__ __forceinline__ void hop_site_shared(const float2* Ut, const float2* Us,
+                                                const float4* S, int s, const Nbr& n, int V2,
+                                                Cx<float>& h0, Cx<float>& h1) {
+  const float4 mx = S[n.mx];
+  Cx<float> bx0, bx1;
+  hop_bx<float, DAG>(cx(Us[V2 + n.mx]), lo(mx), hi(mx), bx0, bx1);
+  const float4 pt = S[n.pt], px = S[n.px], mt = S[n.mt];
+  hop_combine<float, DAG>(cx(Ut[s]), cx(Ut[V2 + s]), lo(pt), hi(pt), lo(px), hi(px),
+                          cx(Us[n.mt]), lo(mt), hi(mt), bx0, bx1, h0, h1);
+}
+
+// One parity's f32 links in shared memory, site-major: u0 of the V2 sites,
+// then u1, each (re, im). The values of make_links<float>.
+__device__ __forceinline__ void make_links_shared(const float* __restrict__ th, int parity,
+                                                  float2* u, const Geo& g) {
+  for (int s = threadIdx.x; s < g.V2; s += kThreads) {
+    const int x = s / g.Nth;
+    const int k = s - x * g.Nth;
+    const bool flip = ((x + parity) & 1) && (k == g.Nth - 1);
+    for (int mu = 0; mu < 2; ++mu) {
+      float sn, cs;
+      sincosf(th[mu * g.V2 + s], &sn, &cs);
+      if (mu == 0 && flip) {
+        sn = -sn;
+        cs = -cs;
+      }
+      u[mu * g.V2 + s] = make_float2(cs, sn);
+    }
+  }
+}
+
+// The f32 recursion in one block's shared memory, site-major (a spinor is
+// one float4 a site, a link one float2); x (f64) of the thread's own sites
+// in registers. RuCluster below is the same recursion on a cluster of
+// blocks; run on one block it was 15-20% slower than this store in every
+// form tried (halo rows for the wrap, or the wrap by index under a
+// compile-time switch: 0.42-0.44 ms against 0.36 on the timed input, with
+// twice the register spills), so the two stay apart and share the loop
+// (ru_loop), the hop (hop_site_shared) and the f64 half (RuF64).
+struct RuShared : RuF64 {
+  float2 *ue, *uo;          // links of 2 V2 float2 each
+  float4 *d, *r, *t1, *t2;  // spinors of V2 float4 each
+  BlockSum& sum;
+  int sxk[kRuSites];        // row << 16 | packed column of each own site
+  double x[kRuSites][4];
+
+  __device__ __forceinline__ void init(const float* x0) {
+#pragma unroll
+    for (int j = 0; j < kRuSites; ++j) {
+      const int s = threadIdx.x + j * kThreads;
+      const int sx = s / g.Nth;
+      sxk[j] = (sx << 16) | (s - sx * g.Nth);
+      if (s < g.V2) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) x[j][q] = static_cast<double>(x0[q * g.V2 + s]);
+      }
+    }
+  }
+
+  __device__ __forceinline__ Nbr nbrs(int j, int tgt_parity) const {
+    const int sx = sxk[j] >> 16;
+    return neighbours(sx, sxk[j] & 0xffff, (sx + tgt_parity) & 1, g);
+  }
+
+  // out = hop(S) at the thread's sites, or a*v + b*hop(S): hop_stage on the
+  // shared layout
+  template <bool DAG, bool AXPBY>
+  __device__ __forceinline__ void stage(const float2* Ut, const float2* Us, const float4* S,
+                                        int tgt_parity, float4* out, const float4* v, float a,
+                                        float bb) const {
+#pragma unroll
+    for (int j = 0; j < kRuSites; ++j) {
+      const int s = threadIdx.x + j * kThreads;
+      if (s < g.V2) {
+        Cx<float> h0, h1;
+        hop_site_shared<DAG>(Ut, Us, S, s, nbrs(j, tgt_parity), g.V2, h0, h1);
+        if (AXPBY) {
+          const float4 vs = v[s];
+          h0 = axpby(a, lo(vs), bb, h0);
+          h1 = axpby(a, hi(vs), bb, h1);
+        }
+        out[s] = make_float4(h0.re, h0.im, h1.re, h1.im);
+      }
+    }
+  }
+
+  __device__ __forceinline__ float bnorm2() {
+    double acc = 0.0;
+#pragma unroll
+    for (int j = 0; j < kRuSites; ++j) {
+      const int s = threadIdx.x + j * kThreads;
+      if (s < g.V2) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const double bi = b[q * g.V2 + s];
+          acc += bi * bi;
+        }
+      }
+    }
+    return static_cast<float>(sum(acc));
+  }
+
+  // r = f32(b - A x) in f64, x written out from the registers first;
+  // returns <r, r>
+  __device__ __forceinline__ float true_residual() {
+    const long long t0 = clock64();
+    write_x64();
+    normal_apply<double>(ue64, uo64, x64, Ax, u1, u2, u1, m64, c64, g);
+    double acc = 0.0;
+#pragma unroll
+    for (int j = 0; j < kRuSites; ++j) {
+      const int s = threadIdx.x + j * kThreads;
+      if (s < g.V2) {
+        float ri[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int i = q * g.V2 + s;
+          ri[q] = static_cast<float>(static_cast<double>(b[i]) - Ax[i]);
+          acc += static_cast<double>(ri[q]) * static_cast<double>(ri[q]);
+        }
+        r[s] = make_float4(ri[0], ri[1], ri[2], ri[3]);
+      }
+    }
+    const float rho = static_cast<float>(sum(acc));
+    t_res += clock64() - t0;
+    return rho;
+  }
+
+  __device__ __forceinline__ void restart_from_zero() {
+#pragma unroll
+    for (int j = 0; j < kRuSites; ++j) {
+      const int s = threadIdx.x + j * kThreads;
+      if (s < g.V2) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) x[j][q] = 0.0;
+        r[s] = make_float4(b[s], b[g.V2 + s], b[2 * g.V2 + s], b[3 * g.V2 + s]);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void d_from_r() {
+#pragma unroll
+    for (int j = 0; j < kRuSites; ++j) {
+      const int s = threadIdx.x + j * kThreads;
+      if (s < g.V2) d[s] = r[s];
+    }
+  }
+
+  // Ad = (Dhat Dhat^+) d at the thread's sites, left in t2's place (the
+  // fourth stage reads t2 only at the thread's own site); returns <d, Ad>.
+  // The first barrier makes the d that update_d or d_from_r wrote visible;
+  // t1 holds (H_eo)^+ d and then H_oe t2.
+  __device__ __forceinline__ float apply_dAd() {
+    __syncthreads();
+    stage<true, false>(uo, ue, d, 1, t1, nullptr, 0.f, 0.f);
+    __syncthreads();
+    stage<true, true>(ue, uo, t1, 0, t2, d, m, -c);
+    __syncthreads();
+    stage<false, false>(uo, ue, t2, 1, t1, nullptr, 0.f, 0.f);
+    __syncthreads();
+    double acc = 0.0;
+#pragma unroll
+    for (int j = 0; j < kRuSites; ++j) {
+      const int s = threadIdx.x + j * kThreads;
+      if (s < g.V2) {
+        Cx<float> h0, h1;
+        hop_site_shared<false>(ue, uo, t1, s, nbrs(j, 0), g.V2, h0, h1);
+        const float4 vs = t2[s], ds = d[s];
+        h0 = axpby(m, lo(vs), -c, h0);
+        h1 = axpby(m, hi(vs), -c, h1);
+        t2[s] = make_float4(h0.re, h0.im, h1.re, h1.im);
+        acc += static_cast<double>(ds.x) * static_cast<double>(h0.re);
+        acc += static_cast<double>(ds.y) * static_cast<double>(h0.im);
+        acc += static_cast<double>(ds.z) * static_cast<double>(h1.re);
+        acc += static_cast<double>(ds.w) * static_cast<double>(h1.im);
+      }
+    }
+    return static_cast<float>(sum(acc));
+  }
+
+  __device__ __forceinline__ float update_x_r(float alpha) {
+    double acc = 0.0;
+#pragma unroll
+    for (int j = 0; j < kRuSites; ++j) {
+      const int s = threadIdx.x + j * kThreads;
+      if (s < g.V2) {
+        const float4 ds = d[s], as = t2[s], rs = r[s];
+        const float dq[4] = {ds.x, ds.y, ds.z, ds.w}, aq[4] = {as.x, as.y, as.z, as.w};
+        float rq[4] = {rs.x, rs.y, rs.z, rs.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          x[j][q] = fma_rn(static_cast<double>(alpha), static_cast<double>(dq[q]), x[j][q]);
+          rq[q] = fma_rn(-alpha, aq[q], rq[q]);
+          acc += static_cast<double>(rq[q]) * static_cast<double>(rq[q]);
+        }
+        r[s] = make_float4(rq[0], rq[1], rq[2], rq[3]);
+      }
+    }
+    return static_cast<float>(sum(acc));
+  }
+
+  // every thread is past both block sums of the iteration, so no thread
+  // still reads the old d at a neighbour
+  __device__ __forceinline__ void update_d(float beta) {
+#pragma unroll
+    for (int j = 0; j < kRuSites; ++j) {
+      const int s = threadIdx.x + j * kThreads;
+      if (s < g.V2) {
+        const float4 ds = d[s], rs = r[s];
+        d[s] = make_float4(fma_rn(beta, ds.x, rs.x), fma_rn(beta, ds.y, rs.y),
+                           fma_rn(beta, ds.z, rs.z), fma_rn(beta, ds.w, rs.w));
+      }
+    }
+  }
+
+  __device__ __forceinline__ void write_x64() {
+#pragma unroll
+    for (int j = 0; j < kRuSites; ++j) {
+      const int s = threadIdx.x + j * kThreads;
+      if (s < g.V2) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) x64[q * g.V2 + s] = x[j][q];
+      }
+    }
+  }
+};
+
+// Blocks of one chain's cluster at most.
+constexpr int kRuClusterMax = 8;
+
+// The same recursion on a thread-block cluster of N blocks a chain. Block
+// `rank` owns the rows [rank * rows, (rank + 1) * rows) of x of every field
+// and holds them, site-major as RuShared does, between two halo rows: row -1
+// and row `rows` are the neighbour blocks' edge rows, stored there through
+// distributed shared memory by the thread that computes them, so a stencil
+// stage reads local shared memory only and x needs no wrap. cluster.sync()
+// stands where one block has __syncthreads(), and a sum is the block's,
+// stored by N of its threads into every block's slots, a cluster.sync(), and
+// the N block sums added in rank order by every thread. The f64 true
+// residual runs through the global scratch, each block its own rows.
+struct RuCluster : RuF64 {
+  float* fields;            // the block's dynamic shared memory: 24 Vh floats
+  double* csum;             // 2 sets of kRuClusterMax block sums
+  BlockSum& sum;
+  int N, rank, rows, Vl, Vh;
+  int cset;
+  int sxk[kRuSites];        // local row << 16 | packed column of each own site
+  double x[kRuSites][4];
+
+  // links of 2 Vh float2 a parity, then four spinors of Vh float4 each; Vh
+  // sites a field: the block's rows and the two halo rows
+  __device__ __forceinline__ float2* ue() const { return reinterpret_cast<float2*>(fields); }
+  __device__ __forceinline__ float2* uo() const { return ue() + 2 * Vh; }
+  __device__ __forceinline__ float4* d() const {
+    return reinterpret_cast<float4*>(fields + 8 * Vh);
+  }
+  __device__ __forceinline__ float4* r() const { return d() + Vh; }
+  __device__ __forceinline__ float4* t1() const { return d() + 2 * Vh; }
+  __device__ __forceinline__ float4* t2() const { return d() + 3 * Vh; }
+
+  // own site j of the thread, sl = tid + j * kThreads < Vl, lies at index
+  // sl + halo() of a field: local row xl (-1 .. rows), packed column k at
+  // (xl + 1) * Nth + k
+  __device__ __forceinline__ int halo() const { return g.Nth; }
+  __device__ __forceinline__ int row0() const { return rank * rows; }
+
+  __device__ __forceinline__ void sync() const { cg::this_cluster().sync(); }
+  // the field f of block r of the cluster
+  template <typename T>
+  __device__ __forceinline__ T* of_block(T* f, int r) const {
+    return cg::this_cluster().map_shared_rank(f, r);
+  }
+
+  // the links of the block's rows and of its halo rows, from the angles
+  __device__ __forceinline__ void make_links_rows(const float* __restrict__ th, int parity,
+                                                  float2* u) const {
+    for (int h = threadIdx.x; h < Vh; h += kThreads) {
+      const int xl = h / g.Nth - 1;
+      const int k = h - (xl + 1) * g.Nth;
+      const int gx = (row0() + xl + g.Nx) % g.Nx;
+      const bool flip = ((gx + parity) & 1) && (k == g.Nth - 1);
+      for (int mu = 0; mu < 2; ++mu) {
+        float sn, cs;
+        sincosf(th[mu * g.V2 + gx * g.Nth + k], &sn, &cs);
+        if (mu == 0 && flip) {
+          sn = -sn;
+          cs = -cs;
+        }
+        u[mu * Vh + h] = make_float2(cs, sn);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void init(const float* x0) {
+#pragma unroll
+    for (int j = 0; j < kRuSites; ++j) {
+      const int sl = threadIdx.x + j * kThreads;
+      const int xl = sl / g.Nth;
+      sxk[j] = (xl << 16) | (sl - xl * g.Nth);
+      if (sl < Vl) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          x[j][q] = static_cast<double>(x0[q * g.V2 + row0() * g.Nth + sl]);
+      }
+    }
+  }
+
+  // sum over the chain's blocks, the same bits in every thread of each
+  __device__ __forceinline__ double cluster_sum(double v) {
+    const double tot = sum(v);
+    double* slot = csum + cset * kRuClusterMax;
+    cset ^= 1;
+    if (threadIdx.x < N) of_block(slot, threadIdx.x)[rank] = tot;
+    sync();
+    double all = 0.0;
+    for (int i = 0; i < N; ++i) all += slot[i];
+    return all;
+  }
+
+  // store own site sl of a field, and a site of an edge row also into the
+  // neighbour block's halo row: the first row is the previous block's row
+  // `rows`, the last row the next block's row -1
+  __device__ __forceinline__ void put(float4* f, int sl, float4 v) const {
+    const int h = sl + halo();
+    f[h] = v;
+    if (sl < g.Nth) of_block(f, (rank + N - 1) % N)[h + Vl] = v;
+    if (sl >= Vl - g.Nth) of_block(f, (rank + 1) % N)[h - Vl] = v;
+  }
+
+  // neighbours of own site j at index h
+  __device__ __forceinline__ Nbr nbrs(int j, int h, int tgt_parity) const {
+    const int k = sxk[j] & 0xffff;
+    const int off = (row0() + (sxk[j] >> 16) + tgt_parity) & 1;
+    Nbr n;
+    n.pt = off ? (k + 1 == g.Nth ? h - k : h + 1) : h;
+    n.mt = off ? h : (k == 0 ? h + g.Nth - 1 : h - 1);
+    n.px = h + g.Nth;
+    n.mx = h - g.Nth;
+    return n;
+  }
+
+  template <bool DAG, bool AXPBY>
+  __device__ __forceinline__ void stage(const float2* Ut, const float2* Us, const float4* S,
+                                        int tgt_parity, float4* out, const float4* v, float a,
+                                        float bb) const {
+#pragma unroll
+    for (int j = 0; j < kRuSites; ++j) {
+      const int sl = threadIdx.x + j * kThreads, h = sl + halo();
+      if (sl < Vl) {
+        Cx<float> h0, h1;
+        hop_site_shared<DAG>(Ut, Us, S, h, nbrs(j, h, tgt_parity), Vh, h0, h1);
+        if (AXPBY) {
+          const float4 vs = v[h];
+          h0 = axpby(a, lo(vs), bb, h0);
+          h1 = axpby(a, hi(vs), bb, h1);
+        }
+        put(out, sl, make_float4(h0.re, h0.im, h1.re, h1.im));
+      }
+    }
+  }
+
+  __device__ __forceinline__ float bnorm2() {
+    double acc = 0.0;
+#pragma unroll
+    for (int j = 0; j < kRuSites; ++j) {
+      const int sl = threadIdx.x + j * kThreads;
+      if (sl < Vl) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const double bi = b[q * g.V2 + row0() * g.Nth + sl];
+          acc += bi * bi;
+        }
+      }
+    }
+    return static_cast<float>(cluster_sum(acc));
+  }
+
+  __device__ __forceinline__ float true_residual() {
+    const long long t0 = clock64();
+    const int lo_s = row0() * g.Nth, hi_s = lo_s + Vl;
+    write_x64();
+    // normal_apply, each block its rows
+    sync();
+    hop_stage_range<double, true>(uo64, ue64, x64, 1, u1, nullptr, 0.0, 0.0, g, lo_s, hi_s);
+    sync();
+    hop_stage_range<double, true>(ue64, uo64, u1, 0, u2, x64, m64, -c64, g, lo_s, hi_s);
+    sync();
+    hop_stage_range<double, false>(uo64, ue64, u2, 1, u1, nullptr, 0.0, 0.0, g, lo_s, hi_s);
+    sync();
+    hop_stage_range<double, false>(ue64, uo64, u1, 0, Ax, u2, m64, -c64, g, lo_s, hi_s);
+    double acc = 0.0;
+#pragma unroll
+    for (int j = 0; j < kRuSites; ++j) {
+      const int sl = threadIdx.x + j * kThreads;
+      if (sl < Vl) {
+        float ri[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int i = q * g.V2 + lo_s + sl;
+          ri[q] = static_cast<float>(static_cast<double>(b[i]) - Ax[i]);
+          acc += static_cast<double>(ri[q]) * static_cast<double>(ri[q]);
+        }
+        r()[sl + halo()] = make_float4(ri[0], ri[1], ri[2], ri[3]);
+      }
+    }
+    const float rho = static_cast<float>(cluster_sum(acc));
+    t_res += clock64() - t0;
+    return rho;
+  }
+
+  __device__ __forceinline__ void restart_from_zero() {
+#pragma unroll
+    for (int j = 0; j < kRuSites; ++j) {
+      const int sl = threadIdx.x + j * kThreads;
+      if (sl < Vl) {
+        const int gs = row0() * g.Nth + sl;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) x[j][q] = 0.0;
+        r()[sl + halo()] =
+            make_float4(b[gs], b[g.V2 + gs], b[2 * g.V2 + gs], b[3 * g.V2 + gs]);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void d_from_r() {
+#pragma unroll
+    for (int j = 0; j < kRuSites; ++j) {
+      const int sl = threadIdx.x + j * kThreads;
+      if (sl < Vl) put(d(), sl, r()[sl + halo()]);
+    }
+  }
+
+  __device__ __forceinline__ float apply_dAd() {
+    sync();
+    stage<true, false>(uo(), ue(), d(), 1, t1(), nullptr, 0.f, 0.f);
+    sync();
+    stage<true, true>(ue(), uo(), t1(), 0, t2(), d(), m, -c);
+    sync();
+    stage<false, false>(uo(), ue(), t2(), 1, t1(), nullptr, 0.f, 0.f);
+    sync();
+    double acc = 0.0;
+#pragma unroll
+    for (int j = 0; j < kRuSites; ++j) {
+      const int h = threadIdx.x + j * kThreads + halo();
+      if (h < Vl + halo()) {
+        Cx<float> h0, h1;
+        hop_site_shared<false>(ue(), uo(), t1(), h, nbrs(j, h, 0), Vh, h0, h1);
+        const float4 vs = t2()[h], ds = d()[h];
+        h0 = axpby(m, lo(vs), -c, h0);
+        h1 = axpby(m, hi(vs), -c, h1);
+        t2()[h] = make_float4(h0.re, h0.im, h1.re, h1.im);
+        acc += static_cast<double>(ds.x) * static_cast<double>(h0.re);
+        acc += static_cast<double>(ds.y) * static_cast<double>(h0.im);
+        acc += static_cast<double>(ds.z) * static_cast<double>(h1.re);
+        acc += static_cast<double>(ds.w) * static_cast<double>(h1.im);
+      }
+    }
+    return static_cast<float>(cluster_sum(acc));
+  }
+
+  __device__ __forceinline__ float update_x_r(float alpha) {
+    double acc = 0.0;
+#pragma unroll
+    for (int j = 0; j < kRuSites; ++j) {
+      const int h = threadIdx.x + j * kThreads + halo();
+      if (h < Vl + halo()) {
+        const float4 ds = d()[h], as = t2()[h], rs = r()[h];
+        const float dq[4] = {ds.x, ds.y, ds.z, ds.w}, aq[4] = {as.x, as.y, as.z, as.w};
+        float rq[4] = {rs.x, rs.y, rs.z, rs.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          x[j][q] = fma_rn(static_cast<double>(alpha), static_cast<double>(dq[q]), x[j][q]);
+          rq[q] = fma_rn(-alpha, aq[q], rq[q]);
+          acc += static_cast<double>(rq[q]) * static_cast<double>(rq[q]);
+        }
+        r()[h] = make_float4(rq[0], rq[1], rq[2], rq[3]);
+      }
+    }
+    return static_cast<float>(cluster_sum(acc));
+  }
+
+  // every block is past both sums of the iteration, so none still reads
+  // the old d at a neighbour or in a halo row
+  __device__ __forceinline__ void update_d(float beta) {
+#pragma unroll
+    for (int j = 0; j < kRuSites; ++j) {
+      const int sl = threadIdx.x + j * kThreads, h = sl + halo();
+      if (sl < Vl) {
+        const float4 ds = d()[h], rs = r()[h];
+        put(d(), sl, make_float4(fma_rn(beta, ds.x, rs.x), fma_rn(beta, ds.y, rs.y),
+                                 fma_rn(beta, ds.z, rs.z), fma_rn(beta, ds.w, rs.w)));
+      }
+    }
+  }
+
+  __device__ __forceinline__ void write_x64() {
+#pragma unroll
+    for (int j = 0; j < kRuSites; ++j) {
+      const int sl = threadIdx.x + j * kThreads;
+      if (sl < Vl) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) x64[q * g.V2 + row0() * g.Nth + sl] = x[j][q];
+      }
+    }
+  }
+};
+
+// What follows the loop on every path: the chain's outputs and, for a chain
+// left unconverged when the caller asked for it, the f64 fallback from x64
+// (already written). fbw: the fallback's scratch.
+__device__ __forceinline__ void ru_finish(const RuParams& p, const RuF64& f, int ch, int iters,
+                                          bool conv, long long t_begin, double* fbw,
+                                          BlockSum& sum) {
+  const int n = 4 * f.g.V2;
+  float* xo = p.x + (size_t)ch * n;
+  for (int i = threadIdx.x; i < n; i += kThreads) xo[i] = static_cast<float>(f.x64[i]);
+  if (threadIdx.x == 0) {
+    p.iters[ch] = iters;
+    p.fb_iters[ch] = 0;
+    p.conv[ch] = conv ? 1 : 0;
+    if (p.clocks != nullptr) {
+      p.clocks[2 * ch] = clock64() - t_begin;
+      p.clocks[2 * ch + 1] = f.t_res;
+    }
+  }
+  if (conv || !p.fallback) return;
+  const FbOut fb = cg_fallback_chain(f.ue64, f.uo64, f.b, f.x64, xo, fbw, p.m0, p.tol, p.tau,
+                                     p.fb_max_iter, p.fb_max_rounds, f.g, sum);
+  if (threadIdx.x == 0) {
+    p.iters[ch] = iters + fb.iters;
+    p.fb_iters[ch] = fb.iters;
+    p.conv[ch] = fb.conv;
+  }
+}
+
+__device__ __forceinline__ RuF64 ru_f64(const RuParams& p, int ch, const Geo& g, double* f64) {
+  const int V2 = g.V2;
+  return {p.b + (size_t)ch * 4 * V2,
+          p.x64 + (size_t)ch * 4 * V2,
+          f64,
+          f64 + 4 * V2,
+          f64 + 8 * V2,
+          f64 + 12 * V2,
+          f64 + 16 * V2,
+          g,
+          static_cast<float>(p.m0 + 2.0),
+          static_cast<float>(1.0 / (4.0 * (p.m0 + 2.0))),
+          p.m0 + 2.0,
+          1.0 / (4.0 * (p.m0 + 2.0)),
+          0};
+}
+
+__global__ void __launch_bounds__(kThreads, 1) solve_ru_shared_kernel(const RuParams p) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ double sh[2 * (kThreads / 32)];
+  const long long t_begin = clock64();
+  const Geo g{p.Nx, p.Nth, p.Nx * p.Nth};
+  const int V2 = g.V2, ch = blockIdx.x;
+  BlockSum sum{sh, 0};
+  double* scratch = p.s64 + (size_t)ch * ru_s64_values(p.f64_shared, p.fallback) * V2;
+  double* f64 = p.f64_shared ? reinterpret_cast<double*>(smem + 24 * V2) : scratch;
+  float4* planes = reinterpret_cast<float4*>(smem + 8 * V2);
+  RuShared S{ru_f64(p, ch, g, f64),
+             reinterpret_cast<float2*>(smem),
+             reinterpret_cast<float2*>(smem + 4 * V2),
+             planes,
+             planes + V2,
+             planes + 2 * V2,
+             planes + 3 * V2,
+             sum};
+  make_links_shared(p.thE + (size_t)ch * 2 * V2, 0, S.ue, g);
+  make_links_shared(p.thO + (size_t)ch * 2 * V2, 1, S.uo, g);
+  make_links<double>(p.thE + (size_t)ch * 2 * V2, 0, S.ue64, g);
+  make_links<double>(p.thO + (size_t)ch * 2 * V2, 1, S.uo64, g);
+  S.init(p.x0 + (size_t)ch * 4 * V2);
+
+  int iters;
+  const bool conv = ru_loop(S, p, iters);
+  S.write_x64();
+  __syncthreads();
+  ru_finish(p, S, ch, iters, conv, t_begin, p.f64_shared ? scratch : scratch + 8 * V2, sum);
+}
+
+// One chain per cluster of N blocks (the launch's cluster dimension; N
+// divides Nx, and a block's rows hold at most kRuSites * kThreads sites).
+__global__ void __launch_bounds__(kThreads, 1) solve_ru_cluster_kernel(const RuParams p) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ double sh[2 * (kThreads / 32)];
+  __shared__ double csum[2 * kRuClusterMax];
+  const long long t_begin = clock64();
+  const int N = cg::this_cluster().num_blocks(), rank = cg::this_cluster().block_rank();
+  const Geo g{p.Nx, p.Nth, p.Nx * p.Nth};
+  const int V2 = g.V2, ch = blockIdx.x / N;
+  const int rows = p.Nx / N, Vl = rows * p.Nth, Vh = (rows + 2) * p.Nth;
+  BlockSum sum{sh, 0};
+  double* scratch = p.s64 + (size_t)ch * ru_s64_values(false, p.fallback) * V2;
+  RuCluster S{ru_f64(p, ch, g, scratch), smem, csum, sum, N, rank, rows, Vl, Vh, 0};
+  const float* thE = p.thE + (size_t)ch * 2 * V2;
+  const float* thO = p.thO + (size_t)ch * 2 * V2;
+  S.make_links_rows(thE, 0, S.ue());
+  S.make_links_rows(thO, 1, S.uo());
+  // the f64 links of the block's own rows; the other blocks' rows are
+  // visible after the first sync
+  make_links_range<double>(thE, 0, S.ue64, g, rank * Vl, (rank + 1) * Vl);
+  make_links_range<double>(thO, 1, S.uo64, g, rank * Vl, (rank + 1) * Vl);
+  S.init(p.x0 + (size_t)ch * 4 * V2);
+  // every block of the cluster runs before any writes into another's halo
+  S.sync();
+
+  int iters;
+  const bool conv = ru_loop(S, p, iters);
+  S.write_x64();
+  S.sync();
+  if (rank == 0) ru_finish(p, S, ch, iters, conv, t_begin, scratch + 8 * V2, sum);
+}
+
+__global__ void __launch_bounds__(kThreads) solve_ru_global_kernel(const RuParams p) {
+  __shared__ double sh[2 * (kThreads / 32)];
+  const long long t_begin = clock64();
+  const Geo g{p.Nx, p.Nth, p.Nx * p.Nth};
+  const int V2 = g.V2, n = 4 * V2, ch = blockIdx.x;
+  BlockSum sum{sh, 0};
+  double* scratch = p.s64 + (size_t)ch * ru_s64_values(false, p.fallback) * V2;
+  float* s32 = p.s32 + (size_t)ch * 28 * V2;
+  RuGlobal S{ru_f64(p, ch, g, scratch),
+             s32,
+             s32 + 4 * V2,
+             s32 + 8 * V2,
+             s32 + 12 * V2,
+             s32 + 16 * V2,
+             s32 + 20 * V2,
+             s32 + 24 * V2,
+             n,
+             sum};
+  make_links<float>(p.thE + (size_t)ch * 2 * V2, 0, S.ue, g);
+  make_links<float>(p.thO + (size_t)ch * 2 * V2, 1, S.uo, g);
+  make_links<double>(p.thE + (size_t)ch * 2 * V2, 0, S.ue64, g);
+  make_links<double>(p.thO + (size_t)ch * 2 * V2, 1, S.uo64, g);
+  const float* x0 = p.x0 + (size_t)ch * n;
+  for (int i = threadIdx.x; i < n; i += kThreads) S.x64[i] = static_cast<double>(x0[i]);
+
+  int iters;
+  const bool conv = ru_loop(S, p, iters);
+  ru_finish(p, S, ch, iters, conv, t_begin, scratch + 8 * V2, sum);
 }
 
 }  // namespace sm
 
+// thE, thO: f32 [C, 2, Nx, Nth]; b, x0, x: f32 and x64: f64 [C, 2, 2, Nx, Nth];
+// iters, fb_iters: int32 [C]; conv: one byte per chain; clocks: null or int64
+// [C, 2]. path 0: every vector in the scratch, s32 f32 [C, 28 V2] and s64 f64
+// [C, 20 V2] (32 V2 with the fallback); path 1: the f32 recursion in the
+// shared memory of one block (at most 2048 sites, 96 V2 bytes <= 220 KiB),
+// no s32, s64 as on path 0; path 2: the f64 set in shared memory too (160 V2
+// bytes more), s64 f64 [C, 24 V2] with the fallback and unused without it;
+// path 3: `cluster` blocks a chain (2 to 8, a divisor of Nx; a block's
+// Nx / cluster rows hold at most 2048 sites and, with two halo rows, 220
+// KiB), scratch as on path 1.
 extern "C" int solve_ru_launch(const void* thE, const void* thO, const void* b, const void* x0,
-                               void* x, void* x64, void* iters, void* conv, void* s32, void* s64,
-                               int C, int Nx, int Nth, double m0, double tol, double tau,
-                               int max_iter, int max_outer, int certify, int cert_k,
-                               void* stream) {
-  sm::solve_ru_kernel<<<C, sm::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(thE), static_cast<const float*>(thO),
-      static_cast<const float*>(b), static_cast<const float*>(x0), static_cast<float*>(x),
-      static_cast<double*>(x64), static_cast<int*>(iters), static_cast<int*>(conv),
-      static_cast<float*>(s32), static_cast<double*>(s64), Nx, Nth, m0, tol, tau, max_iter,
-      max_outer, certify, cert_k);
+                               void* x, void* x64, void* iters, void* fb_iters, void* conv,
+                               void* s32, void* s64, void* clocks, int C, int Nx, int Nth,
+                               double m0, double tol, double tau, int max_iter, int max_outer,
+                               int certify, int cert_k, int fallback, int fb_max_iter,
+                               int fb_max_rounds, int path, int cluster, void* stream) {
+  const sm::RuParams p{static_cast<const float*>(thE),
+                       static_cast<const float*>(thO),
+                       static_cast<const float*>(b),
+                       static_cast<const float*>(x0),
+                       static_cast<float*>(x),
+                       static_cast<double*>(x64),
+                       static_cast<int*>(iters),
+                       static_cast<int*>(fb_iters),
+                       static_cast<unsigned char*>(conv),
+                       static_cast<float*>(s32),
+                       static_cast<double*>(s64),
+                       static_cast<long long*>(clocks),
+                       Nx,
+                       Nth,
+                       m0,
+                       tol,
+                       tau,
+                       max_iter,
+                       max_outer,
+                       certify,
+                       cert_k,
+                       fallback,
+                       fb_max_iter,
+                       fb_max_rounds,
+                       path == 2 ? 1 : 0};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (path == 0) {
+    sm::solve_ru_global_kernel<<<C, sm::kThreads, 0, s>>>(p);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const size_t V2 = static_cast<size_t>(Nx) * Nth;
+  if (path == 1 || path == 2) {
+    const size_t bytes = sizeof(float) * 24 * V2 + (path == 2 ? sizeof(double) * 20 * V2 : 0);
+    if (V2 > sm::kRuSites * sm::kThreads || bytes > sm::kSharedMax)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const cudaError_t e = cudaFuncSetAttribute(
+        sm::solve_ru_shared_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sm::kSharedMax);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    sm::solve_ru_shared_kernel<<<C, sm::kThreads, bytes, s>>>(p);
+    return static_cast<int>(cudaGetLastError());
+  }
+  // a cluster of `cluster` blocks a chain, each with its rows of x and two
+  // halo rows in shared memory
+  if (path != 3 || cluster < 2 || cluster > sm::kRuClusterMax || Nx % cluster != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t rows = Nx / cluster;
+  const size_t bytes = sizeof(float) * 24 * (rows + 2) * Nth;
+  if (rows * Nth > sm::kRuSites * sm::kThreads || bytes > sm::kSharedMax)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaFuncSetAttribute(sm::solve_ru_cluster_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       sm::kSharedMax);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C * cluster);
+  cfg.blockDim = dim3(sm::kThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, sm::solve_ru_cluster_kernel, p);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,9 +1,10 @@
 // Even-odd Wilson stencil on one chain's checkerboard planes, for the
 // port's kernels (force_step.cu, solve_fused.cu, solve_mxu.cu,
-// ratio_force.cu, solve_ru.cu, cg_fallback.cu, cg_eo.cu, residual.cu,
-// halo_normal.cu, halo_force.cu), with the fermion force stencil, the f32 CG
-// loop that K1, K2, K6 and K10 share, and the stage of the per-shard halo
-// kernels K7 and K8.
+// ratio_force.cu, solve_ru.cu, cg_fallback.cu with cg_fallback.cuh, cg_eo.cu,
+// residual.cu, halo_normal.cu, halo_force.cu), with the fermion force
+// stencil, the f32 CG loop that K1, K2, K6 and K10 share, the stage of the
+// per-shard halo kernels K7 and K8, and the two block sums: block_sum (three
+// barriers; K1, K2, K5-K10) and BlockSum (one barrier; K3, K4).
 //
 // Device counterpart of schwingermodel_tpu_torch/ops/eo.py (and of the
 // packed stencil of schwingermodel_tpu/ops/pallas_eo.py:118-181), templated
@@ -18,7 +19,10 @@
 //
 // Execution model: one thread block per chain, the block's threads stride
 // over the V2 sites; a stencil stage reads neighbours that other threads
-// wrote, so stages are separated by __syncthreads().
+// wrote, so stages are separated by __syncthreads(). The fields lie where
+// the kernel puts them: a per-chain global scratch that stays in L2, or
+// shared memory (K7, K8; K3's f32 recursion, which keeps its own site-major
+// layout and calls hop_bx and hop_combine on it, solve_ru.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -97,9 +101,9 @@ __device__ __forceinline__ Nbr neighbours(int x, int k, int off, const Geo& g) {
 // the rows whose offset is 1). Angles are f32; T=double evaluates the
 // exponential in f64 from the exact f32 values.
 template <typename T>
-__device__ void make_links(const float* __restrict__ th, int parity, T* __restrict__ u,
-                           const Geo& g) {
-  for (int s = threadIdx.x; s < g.V2; s += blockDim.x) {
+__device__ void make_links_range(const float* __restrict__ th, int parity, T* __restrict__ u,
+                                 const Geo& g, int lo, int hi) {
+  for (int s = lo + threadIdx.x; s < hi; s += blockDim.x) {
     const int x = s / g.Nth;
     const int k = s - x * g.Nth;
     const bool flip = ((x + parity) & 1) && (k == g.Nth - 1);
@@ -114,6 +118,11 @@ __device__ void make_links(const float* __restrict__ th, int parity, T* __restri
       u[(2 * mu + 1) * g.V2 + s] = sn;
     }
   }
+}
+template <typename T>
+__device__ void make_links(const float* __restrict__ th, int parity, T* __restrict__ u,
+                           const Geo& g) {
+  make_links_range<T>(th, parity, u, g, 0, g.V2);
 }
 
 // Arithmetic with its roundings written out. Left to the compiler, a sum
@@ -201,12 +210,14 @@ __device__ __forceinline__ void hop_site(const T* __restrict__ Ut, const T* __re
                       h0, h1);
 }
 
-// out = hop(S) at every target site (v == nullptr), or out = a*v + b*hop(S).
+// out = hop(S) at the target sites [lo, hi) (v == nullptr), or
+// out = a*v + b*hop(S).
 template <typename T, bool DAG>
-__device__ void hop_stage(const T* __restrict__ Ut, const T* __restrict__ Us,
-                          const T* __restrict__ S, int tgt_parity, T* __restrict__ out,
-                          const T* __restrict__ v, T a, T b, const Geo& g) {
-  for (int s = threadIdx.x; s < g.V2; s += blockDim.x) {
+__device__ void hop_stage_range(const T* __restrict__ Ut, const T* __restrict__ Us,
+                                const T* __restrict__ S, int tgt_parity, T* __restrict__ out,
+                                const T* __restrict__ v, T a, T b, const Geo& g, int lo,
+                                int hi) {
+  for (int s = lo + threadIdx.x; s < hi; s += blockDim.x) {
     const int x = s / g.Nth;
     const int k = s - x * g.Nth;
     const Nbr n = neighbours(x, k, (x + tgt_parity) & 1, g);
@@ -219,6 +230,13 @@ __device__ void hop_stage(const T* __restrict__ Ut, const T* __restrict__ Us,
     st(out, 0, s, g.V2, h0);
     st(out, 1, s, g.V2, h1);
   }
+}
+// The same at every target site.
+template <typename T, bool DAG>
+__device__ void hop_stage(const T* __restrict__ Ut, const T* __restrict__ Us,
+                          const T* __restrict__ S, int tgt_parity, T* __restrict__ out,
+                          const T* __restrict__ v, T a, T b, const Geo& g) {
+  hop_stage_range<T, DAG>(Ut, Us, S, tgt_parity, out, v, a, b, g, 0, g.V2);
 }
 
 // The same stage on the width-extended block of one shard (K7, K8): the
@@ -249,9 +267,9 @@ __device__ void hop_stage_ext(const T* __restrict__ Ut, const T* __restrict__ Us
 // Halo width of the extended block: Dhat Dhat^+ is four hops, each consumes
 // one ring (ops/eo_halo.py W).
 constexpr int kHaloW = 4;
-// Dynamic shared memory a halo kernel may ask for: the card's 227 KB per
-// block less the static part and a margin.
-constexpr int kHaloSharedMax = 220 * 1024;
+// Dynamic shared memory a kernel may ask for: the card's 227 KB per block
+// less the static part and a margin (K3, K7, K8).
+constexpr int kSharedMax = 220 * 1024;
 
 // Copy n floats from global to shared memory, 16 bytes a thread where the
 // count and both addresses allow.
@@ -301,6 +319,37 @@ __device__ __forceinline__ double block_sum(double v, double* sh) {
   __syncthreads();
   return r;
 }
+
+// The same sum with one barrier (K3, K4): every warp writes its partial,
+// one __syncthreads(), and every thread adds the kThreads / 32 partials in
+// the same order, so all threads hold the same bits. Successive sums
+// alternate between two sets of slots: a set is written again only by a
+// thread that has passed the barrier of the sum in between, which no thread
+// passes before every thread has read the set. The block has kThreads
+// threads; sh holds 2 * (kThreads / 32) doubles of shared memory.
+struct BlockSum {
+  double* sh;
+  int set;
+  __device__ __forceinline__ double operator()(double v) {
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+    double* slot = sh + set * (kThreads / 32);
+    set ^= 1;
+    if ((threadIdx.x & 31) == 0) slot[threadIdx.x >> 5] = v;
+    __syncthreads();
+    double tot = 0.0;
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) tot += slot[w];
+    return tot;
+  }
+  // Re<a, b> over n planar values, accumulated in f64
+  template <typename T, typename U>
+  __device__ __forceinline__ double dot(const T* a, const U* b, int n) {
+    double acc = 0.0;
+    for (int i = threadIdx.x; i < n; i += kThreads)
+      acc += static_cast<double>(a[i]) * static_cast<double>(b[i]);
+    return (*this)(acc);
+  }
+};
 
 // Re<a, b> over n planar values, accumulated in f64.
 template <typename T>

@@ -7,8 +7,9 @@ precision, either solver contract, the leapfrog or the Omelyan 2MN
 integrator, one pseudofermion or the Hasenbusch split, the
 chronological forecast (or none).
 
-- Refined contract (cg.refine): every solve is K3 (+ K4 for the chains K3
-  left unconverged); MD force solves at the force tolerance with
+- Refined contract (cg.refine): every solve is one launch of K3, which
+  under cg.fallback ends with K4's f64 CG for the chains its f32 recursion
+  left unconverged; MD force solves at the force tolerance with
   certify=False, the heat-bath and action solves at cg.tol, certified. The
   force step is K1 with_solve=False.
 - Loose contract: the force step is K1 with_solve=True (the f32 CG in the
@@ -125,22 +126,22 @@ def trajectory_packed_given_noise(model: SchwingerModel, theta, pi, chi, r,
     cert_k = int(cg.cert_k) if cg.certify_forces else max_iter
 
     def solve(thE, thO, b, x0, tol_, certify, mass):
-        """Refined: K3 (+ K4); loose: K2 at cg.tol (the JAX loose branch
-        has no separate force tolerance and no fallback)."""
+        """Refined: K3 with the f64 fallback in the same launch; loose: K2
+        at cg.tol (the JAX loose branch has no separate force tolerance and
+        no fallback)."""
         if not refined:
             sol = tr.solve_fused(thE, thO, b, x0, m0=mass, tol=tol,
                                  max_iter=max_iter)
             return _Solved(sol.x, sol.x, sol.iters, sol.converged)
-        kw = dict(m0=mass, tol=tol_, tau=float(cg.inner_tol),
-                  max_iter=max_iter)
-        sol = rs.solve_refined(thE, thO, b, x0, max_outer=int(cg.max_outer),
-                               certify=certify, cert_k=cert_k, **kw)
-        if cg.fallback:
-            sol = rs.solve_f64_cg_fallback(thE, thO, b, sol, **kw)
+        sol = rs.solve_refined(
+            thE, thO, b, x0, m0=mass, tol=tol_, tau=float(cg.inner_tol),
+            max_iter=max_iter, max_outer=int(cg.max_outer), certify=certify,
+            cert_k=cert_k, fallback=bool(cg.fallback))
+        fell_back.append(sol.fb_iters)
         return _Solved(sol.x, sol.x64, sol.iters, sol.converged)
 
     def k1(thE, thO, phi_, x0, mass, with_gauge):
-        """K1 under the refined contract (psi solved first by K3 + K4) or
+        """K1 under the refined contract (psi solved first by K3) or
         the loose one (the CG inside K1). Returns (K1 result, psi, iters,
         converged)."""
         if refined:
@@ -160,6 +161,7 @@ def trajectory_packed_given_noise(model: SchwingerModel, theta, pi, chi, r,
     C = theta.shape[0]
     iters = torch.zeros(C, dtype=torch.int32, device=theta.device)
     conv = torch.ones(C, dtype=torch.bool, device=theta.device)
+    fell_back = []     # per refined solve, the fallback's iterations [C]
 
     # heat bath; S_f(old) = |chi|^2 exactly (f64)
     if hb:
@@ -272,9 +274,12 @@ def trajectory_packed_given_noise(model: SchwingerModel, theta, pi, chi, r,
     keep = accept.reshape(C, 1, 1, 1)
     theta_new = eo.unpack(tr.fold(torch.where(keep, thE, th0E)),
                           tr.fold(torch.where(keep, thO, th0O)))
+    fallbacks = ((torch.stack(fell_back) > 0).sum(dim=0) if fell_back
+                 else torch.zeros_like(iters))
     return theta_new, TrajectoryStats(accepted=accept, delta_H=dH,
                                       exp_mdH=exp_mdH, cg_iters=iters,
-                                      cg_converged=conv)
+                                      cg_converged=conv,
+                                      cg_fallbacks=fallbacks)
 
 
 def hmc_trajectory_packed(model: SchwingerModel, theta, seed: int,

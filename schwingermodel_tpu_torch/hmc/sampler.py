@@ -16,7 +16,7 @@ CLI runs the packed path (hmc/packed.py) where that applies.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -32,6 +32,9 @@ class TrajectoryStats(NamedTuple):
     exp_mdH: torch.Tensor       # f64 [C], exp(-dH)
     cg_iters: torch.Tensor      # int [C], CG iterations this trajectory
     cg_converged: torch.Tensor  # bool [C], every solve converged
+    # int [C], refined solves of the packed path that ran the f64 fallback;
+    # None where the path does not count them
+    cg_fallbacks: Optional[torch.Tensor] = None
 
 
 def draw_noise(model: SchwingerModel, shape, gen: torch.Generator, device):

@@ -15,6 +15,7 @@ No ``--use_fast_math``: the 1e-10 solver contract needs accurate
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -33,6 +34,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 P, I, F, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 
+# Dynamic shared memory a kernel may ask for (csrc/stencil.cuh kSharedMax):
+# the wrappers of K3, K7 and K8 choose a kernel's path by it before the launch.
+SHARED_MAX = 220 * 1024
+
 # C entry points: name -> argument types. Each returns cudaGetLastError().
 SIGNATURES = {
     # thE, thO, phi, x0, psi, FE, FO, iters, conv, scratch,
@@ -48,13 +53,14 @@ SIGNATURES = {
     "shift_mxu_launch": [P, P, P, I, I, I, P],
     # thE, thO, psi, phi2, FE, FO, scratch, C, Nx, Nth, m0, m1, beta, stream
     "ratio_force_launch": [P, P, P, P, P, P, P, I, I, I, D, D, D, P],
-    # thE, thO, b, x0, x, x64, iters, conv, scratch32, scratch64,
-    # C, Nx, Nth, m0, tol, tau, max_iter, max_outer, certify, cert_k, stream
-    "solve_ru_launch": [P, P, P, P, P, P, P, P, P, P,
-                        I, I, I, D, D, D, I, I, I, I, P],
-    # thE, thO, b, x64_in, conv_in, iters_in, x, x64, iters, conv, scratch64,
-    # C, Nx, Nth, m0, tol, tau, max_iter, max_rounds, stream
-    "cg_fallback_launch": [P, P, P, P, P, P, P, P, P, P, P,
+    # thE, thO, b, x0, x, x64, iters, fb_iters, conv, scratch32, scratch64,
+    # clocks, C, Nx, Nth, m0, tol, tau, max_iter, max_outer, certify, cert_k,
+    # fallback, fb_max_iter, fb_max_rounds, path, cluster, stream
+    "solve_ru_launch": [P, P, P, P, P, P, P, P, P, P, P, P,
+                        I, I, I, D, D, D, I, I, I, I, I, I, I, I, I, P],
+    # thE, thO, b, x64_in, conv_in, iters_in, x, x64, iters, fb_iters, conv,
+    # scratch64, C, Nx, Nth, m0, tol, tau, max_iter, max_rounds, stream
+    "cg_fallback_launch": [P, P, P, P, P, P, P, P, P, P, P, P,
                            I, I, I, D, D, D, I, I, P],
     # ue, uo, b, x0, x, iters, rho, bnorm2, scratch,
     # C, B, Nx, Nth, m0, tol, max_iter, stream
@@ -147,6 +153,12 @@ class KernelLibrary:
 
 
 KERNELS = KernelLibrary()
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Multiprocessors of the card `device` names."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def ptr(t: torch.Tensor):

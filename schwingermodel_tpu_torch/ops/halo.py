@@ -35,9 +35,8 @@ from schwingermodel_tpu_torch.ops.geometry import LOCAL, ShardedGeometry, bcast
 from schwingermodel_tpu_torch.ops.traj import to_complex, to_planar
 from schwingermodel_tpu_torch.solvers.cg import CGResult, rel_residual
 
-# dynamic shared memory a halo kernel may use (csrc/stencil.cuh
-# kHaloSharedMax); a larger block keeps its intermediates in a scratch
-_SHARED_MAX = 220 * 1024
+# a block too large for the shared memory a kernel may ask for
+# (_cuda.SHARED_MAX) keeps its intermediates in a scratch
 _NORMAL_PLANES, _NORMAL_SCRATCH = 20, 8     # halo_normal.cu, floats per site
 _FORCE_PLANES, _FORCE_SCRATCH = 26, 14      # halo_force.cu
 
@@ -77,7 +76,7 @@ def halo_normal_reference(ue_ext, uo_ext, off_ext, v_ext, r_loc=None, *, m0,
 def _scratch(lead_n, planes, per_site, V, device):
     """None where the block fits in shared memory, else the kernel's global
     scratch."""
-    if 4 * planes * V <= _SHARED_MAX:
+    if 4 * planes * V <= _cuda.SHARED_MAX:
         return None
     return torch.empty(lead_n * per_site * V, dtype=torch.float32, device=device)
 

@@ -9,10 +9,13 @@ algorithm and uses f64 for that half.
 - ``solve_refined`` is K3 (``csrc/solve_ru.cu``, replacing
   ``pallas_df._solve_ru_kernel``): an f32 CG recursion with the solution
   accumulated in f64 and reliable updates of the residual by the f64 true
-  residual.
-- ``solve_f64_cg_fallback`` is K4 (``csrc/cg_fallback.cu``, replacing
-  ``pallas_df._df_cg_fb_kernel``): an f64 CG continuation for the chains
-  K3 (or the restart refinement, ``solvers/refine.py``) left unconverged.
+  residual. With ``fallback=True`` the chains it leaves unconverged go on
+  as K4's f64 CG at the end of the same launch (the ``lax.cond`` of
+  ``solve_refined_fused``): one launch per refined solve.
+- ``solve_f64_cg_fallback`` is K4 as an entry of its own
+  (``csrc/cg_fallback.cu``, replacing ``pallas_df._df_cg_fb_kernel``): the
+  same f64 CG continuation (``csrc/cg_fallback.cuh``) for the entries the
+  restart refinement (``solvers/refine.py``) left unconverged.
 - ``residual_f64`` is K9 (``csrc/residual.cu``, replacing
   ``pallas_df._df_residual_kernel``): the f64 true residual
   r = b - (Dhat Dhat^+) x of the restart refinement, for C configurations
@@ -44,8 +47,9 @@ from schwingermodel_tpu_torch.ops.traj import to_complex, to_planar
 class RefinedSolveResult(NamedTuple):
     x: torch.Tensor          # f32 [C, 2, 2, Nx, Nth], the f32 round of x64
     x64: torch.Tensor        # f64 [C, 2, 2, Nx, Nth]
-    iters: torch.Tensor      # int32 [C], CG iterations
+    iters: torch.Tensor      # int32 [C], CG iterations, the fallback's included
     converged: torch.Tensor  # bool [C], ||b - A x|| < tol ||b||
+    fb_iters: torch.Tensor   # int32 [C], f64 fallback iterations (0: it did not run)
 
 
 _f32 = np.float32
@@ -114,8 +118,10 @@ def _solve_ru_chain(ue, uo, ue64, uo64, b, x0, m0, tol, tau, max_iter,
 
 def solve_refined_reference(thE, thO, b, x0, *, m0, tol, tau=1e-5,
                             max_iter=10000, max_outer=12, certify=True,
-                            cert_k=192) -> RefinedSolveResult:
-    """Plain twin of K3, chain by chain."""
+                            cert_k=192, fallback=False,
+                            fb_max_iter=None) -> RefinedSolveResult:
+    """Plain twin of K3, chain by chain; with the fallback, the plain twin
+    of K4 on its result."""
     ue, uo = gauge.links(thE, thO)
     ue64, uo64 = gauge.links(thE, thO, torch.complex128)
     bc, x0c = to_complex(b), to_complex(x0)
@@ -128,17 +134,82 @@ def solve_refined_reference(thE, thO, b, x0, *, m0, tol, tau=1e-5,
         its.append(it)
         cvs.append(cv)
     x64 = to_planar(torch.stack(xs))
-    return RefinedSolveResult(
+    res = RefinedSolveResult(
         x=x64.float(), x64=x64,
         iters=torch.tensor(its, dtype=torch.int32, device=b.device),
-        converged=torch.tensor(cvs, dtype=torch.bool, device=b.device))
+        converged=torch.tensor(cvs, dtype=torch.bool, device=b.device),
+        fb_iters=torch.zeros(len(its), dtype=torch.int32, device=b.device))
+    if not fallback:
+        return res
+    return solve_f64_cg_fallback_reference(
+        thE, thO, b, res, m0=m0, tol=tol, tau=tau,
+        max_iter=max_iter if fb_max_iter is None else fb_max_iter)
 
 
-_RU_S32, _RU_S64 = 32, 24   # scratch values per half-lattice site (solve_ru.cu)
+# Where K3 keeps its vectors, chosen by lattice size and chain count before
+# the launch (solve_ru.cu): bytes of dynamic shared memory per half-lattice
+# site of the f32 recursion and of the f64 set (a block may ask for
+# _cuda.SHARED_MAX), the sites the 512 threads of a block own on the shared
+# paths (4 a thread), and the multiprocessors of an H100 SXM, for callers
+# that name a path without a card at hand.
+_RU_SHARED_F32, _RU_SHARED_F64 = 96, 160
+_RU_SITES_MAX = 4 * 512
+H100_SMS = 132
+_FB_MAX_ROUNDS = 4   # solve_f64_cg_fallback's default max_rounds
+RU_GLOBAL, RU_SHARED, RU_ALL_SHARED, RU_CLUSTER = range(4)
+
+
+def _blocks_fit(Nx: int, Nth: int, n: int, f64_too: bool = False) -> bool:
+    """n blocks a chain hold the f32 recursion: n divides Nx, a block's rows
+    fit its threads and, with the two halo rows of a cluster (and with the
+    f64 set of the whole lattice, f64_too), its shared memory."""
+    if Nx % n:
+        return False
+    rows = Nx // n
+    shared = _RU_SHARED_F32 * (rows + (2 if n > 1 else 0)) * Nth
+    if f64_too:
+        shared += _RU_SHARED_F64 * Nx * Nth
+    return rows * Nth <= _RU_SITES_MAX and shared <= _cuda.SHARED_MAX
+
+
+def ru_path(Nx: int, Nth: int, C: int, sms: int = H100_SMS):
+    """K3's path for C chains of an Nx x 2 Nth lattice on a card of `sms`
+    multiprocessors: (path, blocks per chain). One block a chain wherever the f32 recursion fits its shared
+    memory: RU_ALL_SHARED where the f64 true residual fits too (up to 32x32
+    and a little above), RU_SHARED else (up to 64x64). A larger lattice
+    takes a thread-block cluster of 2, 4 or 8 blocks a chain, rows of x
+    split (RU_CLUSTER; 128x128): the largest that leaves all C clusters
+    running at once, else the smallest that holds the lattice. What no
+    cluster holds keeps every vector in the global scratch (RU_GLOBAL)."""
+    if _blocks_fit(Nx, Nth, 1, f64_too=True):
+        return RU_ALL_SHARED, 1
+    if _blocks_fit(Nx, Nth, 1):
+        return RU_SHARED, 1
+    fits = [n for n in (2, 4, 8) if _blocks_fit(Nx, Nth, n)]
+    if not fits:
+        return RU_GLOBAL, 1
+    at_once = [n for n in fits if n * C <= sms]
+    return RU_CLUSTER, (max(at_once) if at_once else min(fits))
+
+
+def ru_path_name(Nx: int, Nth: int, C: int, sms: int = H100_SMS) -> str:
+    path, n = ru_path(Nx, Nth, C, sms)
+    return ("global", "shared", "all shared", f"cluster of {n}")[path]
+
+
+def _ru_scratch(path: int, fallback: bool):
+    """(f32, f64) scratch values per half-lattice site and chain
+    (solve_ru.cu): the f32 planes on the global path; the f64 links (8)
+    and the larger of the true residual's planes (12) and the fallback's
+    (24, cg_fallback.cuh) unless the f64 set lies in shared memory."""
+    if path == RU_ALL_SHARED:
+        return 0, 24 if fallback else 0
+    return (28 if path == RU_GLOBAL else 0), 8 + (24 if fallback else 12)
 
 
 def solve_refined(thE, thO, b, x0, *, m0, tol, tau=1e-5, max_iter=10000,
-                  max_outer=12, certify=True, cert_k=192) -> RefinedSolveResult:
+                  max_outer=12, certify=True, cert_k=192, fallback=False,
+                  fb_max_iter=None, clocks=None) -> RefinedSolveResult:
     """K3: (Dhat Dhat^+)^{-1} b to relative tolerance `tol`, certified on
     the f64 true residual, from the start x0.
 
@@ -147,32 +218,49 @@ def solve_refined(thE, thO, b, x0, *, m0, tol, tau=1e-5, max_iter=10000,
     replacements. certify=False (the MD force solves) trusts the recursive
     exit for segments shorter than cert_k iterations. converged: the last
     replaced residual, or the recursive one where certify=False skipped the
-    replacement, is below tol^2 ||b||^2."""
+    replacement, is below tol^2 ||b||^2.
+
+    fallback=True continues each chain that ends unconverged as K4's f64
+    CG in the same launch (the same m0, tol and tau; at most fb_max_iter
+    iterations, by default max_iter, in K4's default of 4 rounds): the
+    result is that of ``solve_f64_cg_fallback`` on K3's, and fb_iters says
+    per chain how many iterations it added. clocks, on the card only: an
+    int64 [C, 2] tensor that receives each chain's clock cycles in K3 and,
+    of those, in its f64 true residuals. Where the kernel keeps its vectors
+    follows from the lattice size and C (``ru_path``)."""
+    kw = dict(m0=m0, tol=tol, tau=tau, max_iter=max_iter, max_outer=max_outer,
+              certify=certify, cert_k=cert_k, fallback=fallback,
+              fb_max_iter=fb_max_iter)
     if not b.is_cuda:
-        return solve_refined_reference(
-            thE, thO, b, x0, m0=m0, tol=tol, tau=tau, max_iter=max_iter,
-            max_outer=max_outer, certify=certify, cert_k=cert_k)
+        return solve_refined_reference(thE, thO, b, x0, **kw)
     C, _, Nx, Nth = thE.shape
     _cuda.check(thE, "thE", torch.float32, (C, 2, Nx, Nth))
     _cuda.check(thO, "thO", torch.float32, (C, 2, Nx, Nth))
     _cuda.check(b, "b", torch.float32, (C, 2, 2, Nx, Nth))
     _cuda.check(x0, "x0", torch.float32, (C, 2, 2, Nx, Nth))
+    if clocks is not None:
+        _cuda.check(clocks, "clocks", torch.int64, (C, 2))
     dev = b.device
+    path, cluster = ru_path(Nx, Nth, C, _cuda.sm_count(dev))
+    n32, n64 = _ru_scratch(path, bool(fallback))
     x = torch.empty_like(b)
     x64 = torch.empty(b.shape, dtype=torch.float64, device=dev)
-    iters = torch.empty(C, dtype=torch.int32, device=dev)
-    conv = torch.empty(C, dtype=torch.int32, device=dev)
-    s32 = torch.empty(C * _RU_S32 * Nx * Nth, dtype=torch.float32, device=dev)
-    s64 = torch.empty(C * _RU_S64 * Nx * Nth, dtype=torch.float64, device=dev)
+    counts = torch.empty((2, C), dtype=torch.int32, device=dev)
+    conv = torch.empty(C, dtype=torch.bool, device=dev)
+    s32 = torch.empty(C * n32 * Nx * Nth, dtype=torch.float32, device=dev)
+    s64 = torch.empty(C * n64 * Nx * Nth, dtype=torch.float64, device=dev)
     p = _cuda.ptr
     _cuda.KERNELS.call(
         "solve_ru_launch", p(thE), p(thO), p(b), p(x0), p(x), p(x64),
-        p(iters), p(conv), p(s32), p(s64), C, Nx, Nth, float(m0), float(tol),
-        float(tau), int(max_iter), int(max_outer), int(bool(certify)),
-        int(cert_k))
+        p(counts[0]), p(counts[1]), p(conv), p(s32), p(s64),
+        None if clocks is None else p(clocks), C, Nx, Nth, float(m0),
+        float(tol), float(tau), int(max_iter), int(max_outer),
+        int(bool(certify)), int(cert_k), int(bool(fallback)),
+        int(max_iter if fb_max_iter is None else fb_max_iter),
+        _FB_MAX_ROUNDS, path, cluster)
     solve_refined.launches += 1
-    return RefinedSolveResult(x=x, x64=x64, iters=iters,
-                              converged=conv.to(torch.bool))
+    return RefinedSolveResult(x=x, x64=x64, iters=counts[0], converged=conv,
+                              fb_iters=counts[1])
 
 
 solve_refined.launches = 0
@@ -241,36 +329,40 @@ def solve_f64_cg_fallback_reference(thE, thO, b, prev: RefinedSolveResult, *,
     """Plain twin of K4: chains that prev converged pass through."""
     conv = prev.converged.tolist()
     if all(conv):
-        return prev
+        return prev._replace(fb_iters=torch.zeros_like(prev.iters))
     ue64, uo64 = gauge.links(thE, thO, torch.complex128)
     bc = to_complex(b)
     xc = to_complex(prev.x64)
     its = prev.iters.tolist()
+    fb_its = [0] * len(its)
     xs = list(xc)
     for i, cv in enumerate(conv):
         if cv:
             continue
-        xs[i], it, conv[i] = _cg_fallback_chain(
+        xs[i], fb_its[i], conv[i] = _cg_fallback_chain(
             ue64[i], uo64[i], bc[i], xc[i], m0, tol, tau, max_iter, max_rounds)
-        its[i] += it
+        its[i] += fb_its[i]
     x64 = to_planar(torch.stack(xs))
     return RefinedSolveResult(
         x=x64.float(), x64=x64,
         iters=torch.tensor(its, dtype=torch.int32, device=b.device),
-        converged=torch.tensor(conv, dtype=torch.bool, device=b.device))
+        converged=torch.tensor(conv, dtype=torch.bool, device=b.device),
+        fb_iters=torch.tensor(fb_its, dtype=torch.int32, device=b.device))
 
 
-_FB_S64 = 36   # f64 scratch values per half-lattice site (cg_fallback.cu)
+_FB_S64 = 32   # f64 scratch values per half-lattice site (cg_fallback.cu)
 
 
 def solve_f64_cg_fallback(thE, thO, b, prev: RefinedSolveResult, *, m0, tol,
                           tau=1e-5, max_iter=10000, max_rounds=4
                           ) -> RefinedSolveResult:
-    """K4: continue the chains that ``prev`` (a K3 result for the same
+    """K4: continue the chains that ``prev`` (a refined result for the same
     system) left unconverged as an f64 CG, from prev.x64. A converged chain
-    passes through unchanged; iterations add to prev.iters. On CUDA the
-    flags are read on the device, so calling it after every K3 costs no
-    host synchronisation."""
+    passes through unchanged; iterations add to prev.iters, and fb_iters
+    holds this call's own. On CUDA the flags are read on the device, so the
+    caller needs no host synchronisation to decide. The packed trajectory
+    does not call it: ``solve_refined(fallback=True)`` runs the same body in
+    K3's launch."""
     if not b.is_cuda:
         return solve_f64_cg_fallback_reference(
             thE, thO, b, prev, m0=m0, tol=tol, tau=tau, max_iter=max_iter,
@@ -281,21 +373,22 @@ def solve_f64_cg_fallback(thE, thO, b, prev: RefinedSolveResult, *, m0, tol,
     _cuda.check(b, "b", torch.float32, (C, 2, 2, Nx, Nth))
     _cuda.check(prev.x64, "prev.x64", torch.float64, (C, 2, 2, Nx, Nth))
     _cuda.check(prev.iters, "prev.iters", torch.int32, (C,))
+    _cuda.check(prev.converged, "prev.converged", torch.bool, (C,))
     dev = b.device
-    conv_in = prev.converged.to(torch.int32)
     x = torch.empty_like(b)
     x64 = torch.empty_like(prev.x64)
-    iters = torch.empty(C, dtype=torch.int32, device=dev)
-    conv = torch.empty(C, dtype=torch.int32, device=dev)
+    counts = torch.empty((2, C), dtype=torch.int32, device=dev)
+    conv = torch.empty(C, dtype=torch.bool, device=dev)
     s64 = torch.empty(C * _FB_S64 * Nx * Nth, dtype=torch.float64, device=dev)
     p = _cuda.ptr
     _cuda.KERNELS.call(
-        "cg_fallback_launch", p(thE), p(thO), p(b), p(prev.x64), p(conv_in),
-        p(prev.iters), p(x), p(x64), p(iters), p(conv), p(s64), C, Nx, Nth,
-        float(m0), float(tol), float(tau), int(max_iter), int(max_rounds))
+        "cg_fallback_launch", p(thE), p(thO), p(b), p(prev.x64),
+        p(prev.converged), p(prev.iters), p(x), p(x64), p(counts[0]),
+        p(counts[1]), p(conv), p(s64), C, Nx, Nth, float(m0), float(tol),
+        float(tau), int(max_iter), int(max_rounds))
     solve_f64_cg_fallback.launches += 1
-    return RefinedSolveResult(x=x, x64=x64, iters=iters,
-                              converged=conv.to(torch.bool))
+    return RefinedSolveResult(x=x, x64=x64, iters=counts[0], converged=conv,
+                              fb_iters=counts[1])
 
 
 solve_f64_cg_fallback.launches = 0

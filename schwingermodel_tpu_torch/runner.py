@@ -93,6 +93,7 @@ class RunResult:
     ill_records: list = dataclasses.field(default_factory=list)
     condensate_converged: bool = True    # every condensate solve converged
     condensate_iters: int = 0            # CG iterations of the condensate solves
+    cg_fallback_solves: int = 0          # chain solves of the packed path that ran the f64 fallback
 
     def summary(self, name: str) -> dict:
         return statistics.binned_summary(np.asarray(self.chains[name]).reshape(-1))
@@ -119,6 +120,7 @@ class _Block:
         self.cg_iters = torch.zeros((), dtype=torch.int64, device=dev)
         self.converged = torch.ones((), dtype=torch.bool, device=dev)
         self.exp_mdH = torch.zeros((), dtype=torch.float64, device=dev)
+        self.fallbacks = torch.zeros((), dtype=torch.int64, device=dev)
         self.fail_theta = torch.zeros_like(theta)
         self.fail_seen = torch.zeros(C, dtype=torch.bool, device=dev)
         self.fail_index = torch.full((C,), -1, dtype=torch.int64, device=dev)
@@ -129,6 +131,8 @@ class _Block:
         self.cg_iters += st.cg_iters.sum()
         self.converged &= st.cg_converged.all()
         self.exp_mdH += st.exp_mdH.sum()
+        if st.cg_fallbacks is not None:
+            self.fallbacks += st.cg_fallbacks.sum()
         bad = ~st.cg_converged & ~self.fail_seen
         self.fail_theta = torch.where(bad.reshape(-1, 1, 1, 1), theta_before,
                                       self.fail_theta)
@@ -138,11 +142,13 @@ class _Block:
         self.updates += st.accepted.numel()
 
     def read(self):
-        """One host read: (accepted, cg_iters, all_converged, sum exp(-dH))."""
-        acc, it, cv, em = torch.stack([
+        """One host read: (accepted, cg_iters, all_converged, sum exp(-dH),
+        fallback solves)."""
+        acc, it, cv, em, fb = torch.stack([
             self.accepted.double(), self.cg_iters.double(),
-            self.converged.double(), self.exp_mdH]).tolist()
-        return int(acc), int(it), bool(cv), em
+            self.converged.double(), self.exp_mdH,
+            self.fallbacks.double()]).tolist()
+        return int(acc), int(it), bool(cv), em, int(fb)
 
 
 def run_hmc(
@@ -231,6 +237,7 @@ def run_hmc(
     traj_index = int(start_traj_index)
     n_ill = 0
     cg_iters_total = 0
+    fallback_solves = 0
     all_converged = True
     ill_records = []
 
@@ -247,9 +254,10 @@ def run_hmc(
         """Read the block's statistics once; dump the captured first-failure
         configurations (reference dumps from inside Force,
         src/hmc.cpp:48-56)."""
-        nonlocal n_ill, cg_iters_total, all_converged
-        acc, it, conv, em = blk.read()
+        nonlocal n_ill, cg_iters_total, all_converged, fallback_solves
+        acc, it, conv, em, fb = blk.read()
         cg_iters_total += it
+        fallback_solves += fb
         all_converged &= conv
         if not conv:
             seen = blk.fail_seen.tolist()
@@ -328,6 +336,8 @@ def run_hmc(
                  - sum(p.cg_iters for p in perf.phases.values()))
     for line in perf.report_lines():
         log("perf: " + line)
+    if fallback_solves:
+        log(f"{fallback_solves} chain solves ran the f64 fallback")
     elapsed = time.perf_counter() - t_begin
 
     # ---- summary (hmc.cpp:213-214: mean + 20-bin jackknife) ----
@@ -358,7 +368,7 @@ def run_hmc(
         all_converged=all_converged,
         exp_mdH_mean=exp_mdH_sum / max(updates_total, 1), perf=perf.summary(),
         ill_records=ill_records, condensate_converged=condensate_converged,
-        condensate_iters=condensate_iters)
+        condensate_iters=condensate_iters, cg_fallback_solves=fallback_solves)
     if simdata is not None:
         extra = ({"chiral_condensate": _jack("chiral_condensate")}
                  if measure_condensate else None)

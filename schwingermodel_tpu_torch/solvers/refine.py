@@ -117,7 +117,8 @@ def cg_refine(thE, thO, ue, uo, b, *, m0, tol, inner_tol, max_iter,
         torch.zeros(b.shape, dtype=torch.float64, device=b.device), stop2,
         max_outer)
     res = RefinedSolveResult(x=x.float(), x64=x, iters=iters,
-                             converged=rho < stop2)
+                             converged=rho < stop2,
+                             fb_iters=torch.zeros_like(iters))
     if not fallback:
         return res
     flat = RefinedSolveResult(*(t.reshape(C * B, *t.shape[2:]) for t in res))

@@ -5,8 +5,9 @@ The reference's only performance instrumentation is end-to-end MPI_Wtime
 (CMakeLists.txt:32). Here per-phase timing, CG-iteration throughput, and
 Dirac-apply GFLOP/s are first-class (SURVEY.md section 5).
 
-Counterpart of ``schwingermodel_tpu/utils/metrics.py``: ``PerfMonitor``
-and the FLOP accounting, without the jax profiler hook.
+Counterpart of ``schwingermodel_tpu/utils/metrics.py``: ``PerfMonitor``,
+the FLOP accounting and ``profiler_trace`` (the CLI's ``--profile``) as a
+``torch.profiler`` trace.
 
 FLOP accounting (documented so the GFLOP/s metric is well-defined):
 
@@ -32,6 +33,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import time
 from typing import Dict, Optional
 
@@ -121,3 +123,24 @@ class PerfMonitor:
                 parts.append(f"{d['cg_gflops']:.2f} GFLOP/s (CG)")
             lines.append("  ".join(parts))
         return lines
+
+
+@contextlib.contextmanager
+def profiler_trace(trace_dir: Optional[str]):
+    """Wrap a block in a torch.profiler trace when trace_dir is set (CLI
+    --profile); no-op otherwise. The trace of the host and, where there is
+    one, of the card is written to ``trace_dir/trace.json`` in Chrome's
+    format (view in chrome://tracing or Perfetto)."""
+    if not trace_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(trace_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))

@@ -214,3 +214,131 @@ def test_fallback_passes_converged_chains_through(rng):
     sol = rs.solve_refined(thE, thO, bp, bp, m0=M0, tol=TOL)
     fb = rs.solve_f64_cg_fallback(thE, thO, bp, sol, m0=M0, tol=TOL)
     assert torch.equal(fb.x64, sol.x64) and torch.equal(fb.iters, sol.iters)
+
+
+# ---------- the fallback in K3's call ----------
+
+def _mixed_system(rng, C=3):
+    """A batch whose chains meet K3 differently under max_iter=5 at
+    MIXED_TOL: chain 0 starts from the certified solution (its f32 round
+    has a residual near 1e-7 ||b||, so K3 accepts it at once at a
+    tolerance above that), chain 1 from x0 = b (starved), chain 2 from a
+    start worse than x = 0 (poisoned: zero-restarted, then starved)."""
+    theta, b, thE, thO, bp = _system(rng, C)
+    exact = rs.solve_refined(thE, thO, bp, bp, m0=M0, tol=TOL)
+    x0 = bp.clone()
+    x0[0] = exact.x64[0].float()
+    x0[2] = 1e3 * bp[2]
+    return theta, b, thE, thO, bp, x0, exact
+
+
+MIXED_TOL = 1e-6
+
+
+@pytest.mark.parametrize("certify", [True, False])
+def test_one_call_equals_two_call_composition(rng, certify, tol=MIXED_TOL):
+    """solve_refined(fallback=True) is solve_f64_cg_fallback on
+    solve_refined's result, bit for bit, for converged, starved and
+    poisoned chains; the fallback's own iteration count is 0 exactly where
+    K3 converged."""
+    theta, b, thE, thO, bp, x0, exact = _mixed_system(rng)
+    kw = dict(m0=M0, tol=tol, max_iter=5, certify=certify)
+    k3 = rs.solve_refined(thE, thO, bp, x0, **kw)
+    assert k3.converged.tolist() == [True, False, False]
+    assert not bool(k3.fb_iters.any())
+    two = rs.solve_f64_cg_fallback(thE, thO, bp, k3, m0=M0, tol=tol,
+                                   max_iter=10000)
+    one = rs.solve_refined(thE, thO, bp, x0, fallback=True, fb_max_iter=10000,
+                           **kw)
+    for got, want in zip(one, two):
+        assert torch.equal(got, want)
+    assert bool(one.converged.all())
+    assert (one.fb_iters > 0).tolist() == (~k3.converged).tolist()
+    assert torch.equal(one.iters, k3.iters + one.fb_iters)
+    # the chain K3 converged is K3's own x
+    assert torch.equal(one.x64[0], k3.x64[0])
+    assert (_rel_residual(theta, b, one.x64) < tol).all()
+
+
+def test_one_call_fallback_shares_max_iter_by_default(rng):
+    """Without fb_max_iter the fallback runs under K3's max_iter, as the
+    packed trajectory calls it: a budget of 5 starves both."""
+    theta, b, thE, thO, bp = _system(rng, 2)
+    one = rs.solve_refined(thE, thO, bp, bp, m0=M0, tol=TOL, max_iter=5,
+                           fallback=True)
+    two = rs.solve_f64_cg_fallback(
+        thE, thO, bp, rs.solve_refined(thE, thO, bp, bp, m0=M0, tol=TOL,
+                                       max_iter=5),
+        m0=M0, tol=TOL, max_iter=5)
+    assert not bool(one.converged.any())
+    assert (one.fb_iters == 5).all()
+    for got, want in zip(one, two):
+        assert torch.equal(got, want)
+
+
+def test_one_call_per_chain_semantics(rng):
+    """With the fallback on, chain i of the mixed batch is chain i solved
+    alone, bit for bit: no decision of K3 or of the fallback couples the
+    chains."""
+    theta, b, thE, thO, bp, x0, _ = _mixed_system(rng)
+    kw = dict(m0=M0, tol=MIXED_TOL, max_iter=5, fallback=True,
+              fb_max_iter=10000)
+    batch = rs.solve_refined(thE, thO, bp, x0, **kw)
+    assert (batch.fb_iters > 0).tolist() == [False, True, True]
+    for c in range(3):
+        one = rs.solve_refined(thE[c:c + 1], thO[c:c + 1], bp[c:c + 1],
+                               x0[c:c + 1], **kw)
+        for got, want in zip(one, batch):
+            assert torch.equal(got[0], want[c])
+
+
+def test_fallback_off_reports_no_fallback_iterations(rng):
+    theta, b, thE, thO, bp = _system(rng, 2)
+    sol = rs.solve_refined(thE, thO, bp, bp, m0=M0, tol=TOL, max_iter=5)
+    assert not bool(sol.converged.any()) and not bool(sol.fb_iters.any())
+    done = rs.solve_refined(thE, thO, bp, bp, m0=M0, tol=TOL, fallback=True)
+    assert bool(done.converged.all()) and not bool(done.fb_iters.any())
+
+
+@pytest.mark.parametrize("Nx,Nt,C,path,scratch", [
+    (8, 12, 3, "all shared", ((0, 0), (0, 24))),
+    (32, 32, 32, "all shared", ((0, 0), (0, 24))),
+    (20, 34, 2, "all shared", ((0, 0), (0, 24))),
+    (48, 72, 4, "shared", ((0, 20), (0, 32))),
+    (64, 64, 1, "shared", ((0, 20), (0, 32))),
+    (64, 64, 128, "shared", ((0, 20), (0, 32))),
+    (128, 128, 2, "cluster of 8", ((0, 20), (0, 32))),
+    (128, 128, 32, "cluster of 4", ((0, 20), (0, 32))),
+    (128, 128, 128, "cluster of 4", ((0, 20), (0, 32))),
+    (64, 128, 8, "cluster of 8", ((0, 20), (0, 32))),
+    (64, 128, 64, "cluster of 2", ((0, 20), (0, 32))),
+    (126, 128, 2, "global", ((28, 20), (28, 32))),
+    (127, 128, 2, "global", ((28, 20), (28, 32))),
+    (256, 256, 2, "global", ((28, 20), (28, 32)))])
+def test_ru_path_by_lattice_size(Nx, Nt, C, path, scratch):
+    """Where K3 keeps its vectors follows from the lattice size and the
+    chain count alone, within what a block's shared memory (220 KiB) and
+    threads (4 sites each) hold, and the scratch the wrapper allocates
+    follows the path."""
+    Nth = Nt // 2
+    assert rs.ru_path_name(Nx, Nth, C) == path
+    idx, n = rs.ru_path(Nx, Nth, C)
+    V2, halo = Nx * Nth, 96 * (Nx // n + (2 if n > 1 else 0)) * Nth
+    if path == "all shared":
+        assert halo + 160 * V2 <= 220 * 1024
+    elif path == "shared":
+        assert halo <= 220 * 1024 < halo + 160 * V2 and V2 <= 2048
+    elif idx == rs.RU_CLUSTER:
+        assert Nx % n == 0 and Nx // n * Nth <= 2048 and halo <= 220 * 1024
+    assert (rs._ru_scratch(idx, False), rs._ru_scratch(idx, True)) == scratch
+
+
+@pytest.mark.parametrize("sms,C,path", [
+    (132, 16, "cluster of 8"), (114, 16, "cluster of 4"),
+    (132, 33, "cluster of 4"), (114, 28, "cluster of 4"),
+    (114, 29, "cluster of 4"), (60, 32, "cluster of 4")])
+def test_ru_cluster_follows_the_cards_multiprocessors(sms, C, path):
+    """At 128x128 the cluster is the largest whose C clusters all run at
+    once on the card's multiprocessors, else the smallest that holds the
+    lattice."""
+    assert rs.ru_path_name(128, 64, C, sms) == path

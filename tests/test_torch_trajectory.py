@@ -171,16 +171,40 @@ def test_cli_runs_reference_pipe_on_cpu(tmp_path):
     (["--nx", "7", "--nt", "8"], "Nx = 7, Nt = 8"),
     (["--ranks-chain", "2"], "not yet ported"),
     (["--device", "cuda"], "CUDA is not available"),
+    (["--coordinator", "localhost:1234"],
+     "error: not yet ported to schwingermodel_tpu_torch: --coordinator "
+     "(multi-host)\n"),
+    (["--num-processes", "2"],
+     "error: not yet ported to schwingermodel_tpu_torch: --num-processes "
+     "(multi-host)\n"),
+    (["--process-id", "0"],
+     "error: not yet ported to schwingermodel_tpu_torch: --process-id "
+     "(multi-host)\n"),
+    (["--cg-refine-impl", "x64"],
+     "error: dropped in schwingermodel_tpu_torch: --cg-refine-impl (native "
+     "float64 replaces the double-float pairs)\n"),
+    (["--platform", "cpu"],
+     "error: dropped in schwingermodel_tpu_torch: --platform (use --device "
+     "{cuda,cpu})\n"),
+    (["--num-cpu-devices", "8"],
+     "error: dropped in schwingermodel_tpu_torch: --num-cpu-devices "
+     "(--ranks-x/--ranks-t put all shards on the one device)\n"),
+    (["--profile", "trace"], "Profiler trace written to"),
 ])
 def test_cli_refuses_what_it_cannot_run(argv, message, tmp_path):
     """What the CLI refuses and what it no longer does: --ranks-chain 2
-    (multi-GPU) exits 2 with "not yet ported"; --device cuda without a card
-    exits non-zero instead of falling back to the CPU; --quenched,
+    (multi-GPU) and the multi-host flags exit 2 with "not yet ported"; the
+    three flags of the JAX parser that the port drops exit 2 and name what
+    replaces them (exact messages); --device cuda without a card
+    exits non-zero instead of falling back to the CPU; --profile DIR runs
+    and leaves a trace file in DIR; --quenched,
     --no-even-odd, --dtype float64 and an odd lattice, which used to be
     refused, run the unpacked sampler to the end (exit 0, every solve
     converged, a SimData file)."""
     args = [] if "--device" in argv else ["--device", "cpu"]
     size = [] if "--nx" in argv else ["--nx", "8", "--nt", "8"]
+    if argv[0] == "--profile":
+        argv = ["--profile", str(tmp_path / argv[1])]
     out = subprocess.run(
         [sys.executable, "-m", "schwingermodel_tpu_torch", *args, *size, *argv,
          "--out-dir", str(tmp_path)],
@@ -189,6 +213,9 @@ def test_cli_refuses_what_it_cannot_run(argv, message, tmp_path):
         env={**os.environ, "OMP_NUM_THREADS": "1"})
     if message == "not yet ported":
         assert out.returncode == 2 and message in out.stderr
+    elif message.startswith("error: "):
+        assert out.returncode == 2 and out.stderr == message
+        assert out.stdout == ""
     elif message == "CUDA is not available":
         assert out.returncode != 0
         if not torch.cuda.is_available():
@@ -199,6 +226,8 @@ def test_cli_refuses_what_it_cannot_run(argv, message, tmp_path):
         assert "all solves converged: True" in out.stdout
         assert "WARNING" not in out.stdout
         assert list(tmp_path.glob("*SimData*"))
+    if argv[0] == "--profile":
+        assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
 
 
 def test_ctxt_matches_jax_and_reference_bytes(tmp_path):
