@@ -13,7 +13,10 @@ Phases (any failure raises, and the script exits non-zero):
    beta=4, random angles, on the main path's shape 64x64 C=32, on 64x64
    C=1 and on 8x12 C=3:
    K1 force_step        all four variants: forces to atol
-                        3e-5 * max(scale, 1), psi to 2e-4 (with_solve);
+                        3e-5 * max(scale, 1), psi to 2e-4 and equal flags
+                        (with_solve); also at K3's other shapes below, so
+                        on every path K1 and K2 have (one block's shared
+                        memory, several blocks a chain, the global scratch);
    K2 solve_fused       tol 1e-6 from x0 = b: equal flags, x to 2e-4, every
                         f64 true residual under 2e-6 ||b||, iteration
                         counts side by side;
@@ -72,11 +75,15 @@ Phases (any failure raises, and the script exits non-zero):
                         unsharded again, against K1's (with_solve=False) to
                         3e-5 * max(scale, 1);
    each kernel and its twin are timed in turns with CUDA events at 64x64
-   C=32 (K6 and K9 with B=8; K7 and K8 on the 2x2 mesh), beside the kernel's
+   C=32 (K6 and K9 with B=8; K7 and K8 on the 2x2 mesh) as the main path
+   issues them, each kernel also with its calls queued behind a spin of the
+   card, which leaves the host-side launch out (device_ms), beside the kernel's
    bound: the larger of its bytes (inputs read once, outputs written once)
    over 3.35 TB/s and its operations (at the iteration counts these inputs
    needed) over the card's f32 or f64 peak (K10's products over the f64
-   tensor-core peak), and K10 and K2 in turns; then four 64x64 trajectories of C=4
+   tensor-core peak), and K10 and K2 in turns; K1's and K2's path (one
+   block's shared memory, several blocks a chain, or the global scratch:
+   ops/traj.cg_path) and microseconds per CG iteration; then four 64x64 trajectories of C=4
    chains through the kernels against the same trajectories through the plain twins on the CPU, same
    noise (refined leapfrog, loose leapfrog, refined Hasenbusch Omelyan,
    loose Hasenbusch leapfrog): |ddH| < 5e-3, |dtheta'| < 2e-4, equal
@@ -115,8 +122,9 @@ Phases (any failure raises, and the script exits non-zero):
    solve and K4's own entry never (the fallback runs inside K3's launch; each
    run prints how many chain solves took it), (d) and the mesons launch K4's
    entry through the restart refinement. With --profile, three batch trajectories of the
-   packed demo and of (f) and (g) then run under torch.profiler (launches,
-   device-busy share and the top kernels by device time);
+   packed demo, of the packed loose (a), and of (f) and (g) then run under
+   torch.profiler (launches, device-busy share, the top kernels by device
+   time, and K1's and K2's device time);
 4. the kernels line (ten entry points), the card line, and the last line
    {"ok": true, "device": {...}}.
 
@@ -168,12 +176,17 @@ def timed(fn, reps):
 
 
 def in_turns(plain, kernel, reps_plain, reps_kernel):
-    """Times in the order plain, kernel, kernel, plain; means of each."""
+    """Times by `timed` in the order plain, kernel, kernel, plain: the means
+    of each; then the kernel's time with its launches queued behind a spin of
+    the card (utils.metrics.device_ms), which leaves the host's launch cost
+    out."""
+    from schwingermodel_tpu_torch.utils.metrics import device_ms
+
     p1 = timed(plain, reps_plain)
     k1 = timed(kernel, reps_kernel)
     k2 = timed(kernel, reps_kernel)
     p2 = timed(plain, reps_plain)
-    return (k1 + k2) / 2, (p1 + p2) / 2
+    return (k1 + k2) / 2, (p1 + p2) / 2, device_ms(kernel, reps_kernel)
 
 
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory
@@ -349,7 +362,8 @@ def halo_kernel_checks(dev, gen, card):
           flush=True)
     for k in times:
         print(f"phase 2: time at {NX}x{NT} over 2x2 C={C_MAIN} ({n_blk} blocks; {card}): "
-              f"{k} kernel {times[k][0]:.4f} ms, plain twin {times[k][1]:.4f} ms, bound "
+              f"{k} kernel {times[k][0]:.4f} ms ({times[k][2]:.4f} ms queued behind a "
+              f"spin), plain twin {times[k][1]:.4f} ms, bound "
               f"{bounds[k][0]:.5f} ms by {bounds[k][1]}", flush=True)
     print(f"phase 2: time at the same shape: halo_normal without the dots "
           f"{t_nodots:.4f} ms; eo_halo.extend of one spinor (4 ppermutes as rolls, 2 "
@@ -551,6 +565,52 @@ def main() -> int:
                   f"plain {mp.fb_iters[half:half + 4].tolist()}); residual "
                   f"{rk.max().item():.3e}", flush=True)
 
+    def k1_k2_checks(thE, thO, b, C):
+        """K1 in its four variants and K2 against their twins on one system
+        (C: the label of its shape), on the path its size takes; returns K2's
+        result and its twin's."""
+        def path(*a):
+            return tr.cg_path_name(*thE.shape[-2:], thE.shape[0], _cuda.sm_count(dev), *a)
+
+        # K1, every variant; with_solve from x0 = phi = b at the loose tol
+        for with_solve in (False, True):
+            for with_gauge in (True, False):
+                kw = dict(m0=M0, beta=BETA, tol=LOOSE_TOL, max_iter=MAX_ITER,
+                          with_solve=with_solve, with_gauge=with_gauge)
+                k = tr.force_step(thE, thO, b, b, **kw)
+                p = tr.force_step_reference(thE, thO, b, b, **kw)
+                label = (f"K1 with_solve={with_solve} with_gauge={with_gauge} "
+                         f"C={C} (path: {path(with_solve, with_gauge)})")
+                err = force_err(k.FE, k.FO, p.FE, p.FO, label)
+                errs["force_step"] = max(errs["force_step"], err)
+                if with_solve:
+                    dpsi = (k.psi - p.psi).abs().max().item()
+                    check(dpsi <= 2e-4, f"{label}: psi differs by {dpsi}")
+                    check(torch.equal(k.converged, p.converged)
+                          and bool(k.converged.all()), f"{label}: flags")
+                    print(f"phase 2: {label}: max |psi - psi_plain| {dpsi:.3e}; "
+                          f"iterations kernel {k.iters[:8].tolist()} plain "
+                          f"{p.iters[:8].tolist()}", flush=True)
+
+        # K2 at the loose tolerance, cold start
+        k = tr.solve_fused(thE, thO, b, b, m0=M0, tol=LOOSE_TOL, max_iter=MAX_ITER)
+        p = tr.solve_fused_reference(thE, thO, b, b, m0=M0, tol=LOOSE_TOL,
+                                     max_iter=MAX_ITER)
+        rk, rp = rel_residual(thE, thO, b, k.x), rel_residual(thE, thO, b, p.x)
+        dx = (k.x - p.x).abs().max().item()
+        check(torch.equal(k.converged, p.converged) and bool(k.converged.all()),
+              f"K2 C={C}: flags")
+        check(dx <= 2e-4, f"K2 C={C}: x differs by {dx}")
+        check(bool((rk < 2 * LOOSE_TOL).all()) and bool((rp < 2 * LOOSE_TOL).all()),
+              f"K2 C={C}: true residual kernel {rk.max().item()} plain "
+              f"{rp.max().item()}")
+        errs["solve_fused"] = max(errs["solve_fused"], dx)
+        print(f"phase 2: K2 tol={LOOSE_TOL:g} C={C} (path: {path()}): f64 true residual kernel "
+              f"{rk.max().item():.3e} plain {rp.max().item():.3e}; max |x - x_plain| "
+              f"{dx:.3e}; iterations kernel {k.iters[:8].tolist()} plain "
+              f"{p.iters[:8].tolist()}", flush=True)
+        return k, p
+
     errs = dict.fromkeys(("force_step", "solve_fused", "solve_fused_mxu", "ratio_force",
                           "solve_refined", "solve_f64_cg_fallback",
                           "cg_solve_eo", "residual_f64"), 0.0)
@@ -607,43 +667,7 @@ def main() -> int:
         print(f"phase 2: K9 C={C} B={B}: max |r - r_plain| {dr:.3e} (bound "
               f"{bound:.3e}); max rel. difference of ||r||^2 {dn:.3e}", flush=True)
 
-        # K1, every variant; with_solve from x0 = phi = b at the loose tol
-        for with_solve in (False, True):
-            for with_gauge in (True, False):
-                kw = dict(m0=M0, beta=BETA, tol=LOOSE_TOL, max_iter=MAX_ITER,
-                          with_solve=with_solve, with_gauge=with_gauge)
-                k = tr.force_step(thE, thO, b, b, **kw)
-                p = tr.force_step_reference(thE, thO, b, b, **kw)
-                label = (f"K1 with_solve={with_solve} with_gauge={with_gauge} "
-                         f"C={C}")
-                err = force_err(k.FE, k.FO, p.FE, p.FO, label)
-                errs["force_step"] = max(errs["force_step"], err)
-                if with_solve:
-                    dpsi = (k.psi - p.psi).abs().max().item()
-                    check(dpsi <= 2e-4, f"{label}: psi differs by {dpsi}")
-                    check(torch.equal(k.converged, p.converged)
-                          and bool(k.converged.all()), f"{label}: flags")
-                    print(f"phase 2: {label}: max |psi - psi_plain| {dpsi:.3e}; "
-                          f"iterations kernel {k.iters[:8].tolist()} plain "
-                          f"{p.iters[:8].tolist()}", flush=True)
-
-        # K2 at the loose tolerance, cold start
-        k = tr.solve_fused(thE, thO, b, b, m0=M0, tol=LOOSE_TOL, max_iter=MAX_ITER)
-        p = tr.solve_fused_reference(thE, thO, b, b, m0=M0, tol=LOOSE_TOL,
-                                     max_iter=MAX_ITER)
-        rk, rp = rel_residual(thE, thO, b, k.x), rel_residual(thE, thO, b, p.x)
-        dx = (k.x - p.x).abs().max().item()
-        check(torch.equal(k.converged, p.converged) and bool(k.converged.all()),
-              f"K2 C={C}: flags")
-        check(dx <= 2e-4, f"K2 C={C}: x differs by {dx}")
-        check(bool((rk < 2 * LOOSE_TOL).all()) and bool((rp < 2 * LOOSE_TOL).all()),
-              f"K2 C={C}: true residual kernel {rk.max().item()} plain "
-              f"{rp.max().item()}")
-        errs["solve_fused"] = max(errs["solve_fused"], dx)
-        print(f"phase 2: K2 tol={LOOSE_TOL:g} C={C}: f64 true residual kernel "
-              f"{rk.max().item():.3e} plain {rp.max().item():.3e}; max |x - x_plain| "
-              f"{dx:.3e}; iterations kernel {k.iters[:8].tolist()} plain "
-              f"{p.iters[:8].tolist()}", flush=True)
+        k, p = k1_k2_checks(thE, thO, b, C)
 
         # K10 against its twin and against K2 (k, p: K2 and its twin above)
         k10 = tr.solve_fused_mxu(thE, thO, b, b, m0=M0, tol=LOOSE_TOL,
@@ -695,12 +719,15 @@ def main() -> int:
 
         k3_checks(thE, thO, b, C)
 
-    # K3 alone at the sizes that take its other paths: all resident, odd
-    # extents, a lattice too large for one block's shared memory (a cluster
-    # of blocks), and one that no cluster divides (the global scratch)
+    # K3 at the sizes that take its other paths: all resident, odd extents,
+    # a lattice too large for one block's shared memory (a cluster of
+    # blocks), and one that no cluster divides (the global scratch); K1 and
+    # K2 there too (one block a chain, 2 blocks a chain for the force alone,
+    # and the global scratch with the CG)
     for nx, nt, C in ((32, 32, C_MAIN), (20, 34, 2), (128, 128, 2), (126, 128, 2)):
         thE, thO, b = inputs(C, nx, nt)
         k3_checks(thE, thO, b, f"{C} at {nx}x{nt}")
+        k1_k2_checks(thE, thO, b, f"{C} at {nx}x{nt}")
 
     # K7 and K8 on the blocks of a mesh of shards
     halo_errs, halo_times, halo_bounds = halo_kernel_checks(dev, gen, card)
@@ -797,8 +824,11 @@ def main() -> int:
     V2 = NX * NT // 2
     E = C_MAIN * RHS[C_MAIN]
     kw = dict(m0=M0, tol=LOOSE_TOL, max_iter=MAX_ITER)
-    it_k1 = tr.force_step(thE, thO, b, b, beta=BETA, **kw).iters.sum().item()
-    it_k2 = tr.solve_fused(thE, thO, b, b, **kw).iters.sum().item()
+    k1_solved = {g: tr.force_step(thE, thO, b, b, beta=BETA, with_gauge=g, **kw).iters
+                 for g in (True, False)}
+    k2_iters = tr.solve_fused(thE, thO, b, b, **kw).iters
+    it_k1 = k1_solved[True].sum().item()
+    it_k2 = k2_iters.sum().item()
     it_k3 = rs.solve_refined(thE, thO, b, b, m0=M0, tol=1e-10).iters.sum().item()
     it_k4 = (rs.solve_f64_cg_fallback(thE, thO, b, starved, m0=M0, tol=1e-10).iters
              - starved.iters).sum().item()
@@ -852,12 +882,32 @@ def main() -> int:
            "cg_solve_eo": it_k6}
     print(f"phase 2: CG iterations of the timed inputs, summed over the chains or "
           f"entries: {its}", flush=True)
-    for k_name, (ms, plain_ms), (b_ms, b_by) in [
+    for k_name, (ms, plain_ms, dev_ms), (b_ms, b_by) in [
             *((k, times[k], bounds[k]) for k in times),
             *(("force_step " + v, k1_times[v], k1_bounds[v]) for v in k1_times)]:
         print(f"phase 2: time at {NX}x{NT} C={C_MAIN} ({card}): {k_name} kernel "
-              f"{ms:.4f} ms, plain twin {plain_ms:.4f} ms, bound {b_ms:.5f} ms by "
-              f"{b_by} ({100 * b_ms / ms:.2f}% of the roofline)", flush=True)
+              f"{ms:.4f} ms ({dev_ms:.4f} ms queued behind a spin), plain twin "
+              f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms by {b_by} "
+              f"({100 * b_ms / ms:.2f}% of the roofline)", flush=True)
+    # K1 and K2 in detail: the path the lattice size and chain count take
+    # (ops/traj.cg_path) and, with a CG, microseconds per iteration of the
+    # slowest chain
+    sms = _cuda.sm_count(dev)
+    k12_detail = {"solve_fused": dict(
+        path=tr.cg_path_name(NX, NT // 2, C_MAIN, sms),
+        us_per_iteration=1e3 * times["solve_fused"][0] / k2_iters.max().item())}
+    for v in k1_times:
+        s_, g_ = (part.endswith("True") for part in v.split(","))
+        k12_detail["force_step " + v] = dict(path=tr.cg_path_name(NX, NT // 2, C_MAIN, sms,
+                                                                  s_, g_))
+        if s_:
+            k12_detail["force_step " + v]["us_per_iteration"] = (
+                1e3 * k1_times[v][0] / k1_solved[g_].max().item())
+    for k_name, d in k12_detail.items():
+        us = (f", {d['us_per_iteration']:.3f} us per iteration of the slowest chain"
+              if "us_per_iteration" in d else "")
+        print(f"phase 2: {k_name} at {NX}x{NT} C={C_MAIN} ({card}): path {d['path']}{us}",
+              flush=True)
     # K4's entry after a solve that converged every chain, as the restart
     # refinement meets it: it reads the flags and copies the solution through
     clocks = torch.zeros((C_MAIN, 2), dtype=torch.int64, device=dev)
@@ -1298,6 +1348,12 @@ def main() -> int:
         busy = sum(e[2] for e in dev_ev) * 1e-6
         top = ", ".join(f"{k[:48]} {1e-3 * t / n:.3f} ms ({c // n} launches)"
                         for k, c, t in dev_ev[:5])
+        # K1 and K2 by their kernels' names, on every path
+        for kname, names in (("K1", ("force_step_kernel", "force_shared_kernel")),
+                             ("K2", ("solve_fused_kernel", "solve_shared_kernel"))):
+            mine = [(c, t) for k, c, t in dev_ev if any(m in k for m in names)]
+            top += (f"; {kname} {1e-3 * sum(t for _, t in mine) / n:.3f} ms "
+                    f"({sum(c for c, _ in mine) // n} launches)")
         print(f"phase 3: profile {label}: {1e3 * wall / n:.2f} ms per batch trajectory "
               f"of {C_MAIN} chains, {sum(e[1] for e in dev_ev) // n} device launches, "
               f"device busy {100 * busy / wall:.1f}%, CG iterations per chain "
@@ -1307,6 +1363,7 @@ def main() -> int:
     if "--profile" in sys.argv[1:]:
         for label, hmc, mesh in (
                 ("packed refined demo", hmc_params(), None),
+                ("(a) packed loose", hmc_params(refine=False), None),
                 ("(f) refined on 2x2 shards", hmc_params(), mesh22),
                 ("(g) loose on 2x2 shards", hmc_params(refine=False), mesh22)):
             profile(label, SchwingerModel(lattice=lattice, hmc=hmc), mesh)
@@ -1330,6 +1387,9 @@ def main() -> int:
                 "source": "schwingermodel_tpu_torch/" + src, "replaces": rep,
                 "launches": launches[k], "max_abs_err": errs[k],
                 "ms": times[k][0], "plain_ms": times[k][1],
+                # the kernel's calls queued behind a spin of the card, so
+                # that the host's launch cost is left out
+                "device_ms": times[k][2],
                 "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
                 # no single PyTorch call computes a CG solve to a stop rule
                 # (with or without its shifts as products), a fused force
@@ -1339,7 +1399,13 @@ def main() -> int:
     kernels[0]["launches_by_variant"] = variants
     kernels[0]["ms_by_variant"] = {v: t[0] for v, t in k1_times.items()}
     kernels[0]["plain_ms_by_variant"] = {v: t[1] for v, t in k1_times.items()}
+    kernels[0]["device_ms_by_variant"] = {v: t[2] for v, t in k1_times.items()}
     kernels[0]["bound_ms_by_variant"] = {v: t[0] for v, t in k1_bounds.items()}
+    kernels[0]["path_by_variant"] = {v: k12_detail["force_step " + v]["path"]
+                                     for v in k1_times}
+    kernels[0]["us_per_iteration_by_variant"] = {
+        v: k12_detail["force_step " + v]["us_per_iteration"] for v in k1_times
+        if "us_per_iteration" in k12_detail["force_step " + v]}
     # K6a and K6b are one kernel
     by_name = {e["name"]: e for e in kernels}
     by_name["cg_solve_eo"]["also_replaces"] = "schwingermodel_tpu/ops/pallas_eo.py:328"
@@ -1348,6 +1414,7 @@ def main() -> int:
         path=k3_path, us_per_iteration=k3_us_iter,
         f64_residual_share=k3_f64_share, ms_with_fallback_on=k3_fb_ms,
         ms_at_4x_chains=k3_c128_ms)
+    by_name["solve_fused"].update(k12_detail["solve_fused"])
     by_name["solve_fused_mxu"]["ms_k2_in_turns"] = k2_vs_k10[1]
     by_name["solve_fused_mxu"]["ms_in_turns_with_k2"] = k2_vs_k10[0]
     check(all(e["launches"] > 0 for e in kernels), "a kernel was never launched")

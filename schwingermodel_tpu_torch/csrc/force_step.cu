@@ -2,7 +2,7 @@
 //
 // Replaces schwingermodel_tpu/ops/pallas_traj.py:_force_step_kernel
 // (force_step_fused) in its four variants. From the angle planes it builds
-// the links; with_solve runs the f32 CG (stencil.cuh cg_f32) on
+// the links; with_solve runs the f32 CG of cg_f32_op on
 // (Dhat Dhat^+) psi = phi from x0 in the same launch, otherwise psi = x0 was
 // solved outside; then chi' = Dhat^+ psi, the checkerboard fermion force
 // 2c f(x = psi (+) b, y = a (+) chi') with a = H_oe chi', b = (H_eo)^+ psi,
@@ -11,16 +11,34 @@
 // heavy term, whose staples the ratio kernel (K5) adds.
 //
 // What bounds it on the card: nothing of the arithmetic (a few hundred
-// flops per site); one chain is 2048 sites at 64x64, so the kernel is a
-// short chain of dependent stencil stages (with the CG, ~8 barriers per
-// iteration) whose cost is barrier and L2 latency. Design: one thread block
-// per chain and one launch per force step, with every intermediate (links,
-// b, chi', a, plaquette angles, and with the CG r, d, Ad) in a per-chain
-// global scratch that stays in L2; the CG's three stencil temporaries reuse
-// the b, chi' and a planes, which are free until the force stage. Stages
-// are separated by __syncthreads(). At C=32 this fills 32 of the 132 SMs;
-// spreading a chain over a cluster is later work.
-#include "stencil.cuh"
+// flops per site) or of the bytes (0.94 us at 64x64 C=32 without the solve):
+// a chain is 2048 sites at 64x64, so the kernel is a short chain of
+// dependent stencil stages, and with the CG a loop of them, whose cost is
+// what a thread waits for after each barrier. Design: every field in shared
+// memory (shared_stencil.cuh), site-major, one 16-byte load a neighbour's
+// spinor, no trip to L2 between stages. Where the kernel keeps its fields
+// is chosen by lattice size and chain count before the launch
+// (ops/traj.cg_path):
+//
+// - shared, with the solve (up to 64x64): one block a chain; the CG store of
+//   shared_stencil.cuh (links, d, r, two temporaries: 96 bytes a site; x in
+//   registers, 6 barriers an iteration), then the force stages on the same
+//   buffers: psi from the registers into d's place, b, chi' and a into r's
+//   and the temporaries', the plaquette angles 8 bytes a site more (104 in
+//   all, 208 KiB at 64x64);
+// - shared, without the solve: psi read into shared memory, then four
+//   stages and four barriers. n blocks a chain (n from the chain count, to
+//   fill the card's multiprocessors where one block a chain leaves most of
+//   them idle): each holds its Nx / n rows between kHaloW rows of the
+//   neighbouring rows on either side, read from the angles and psi and
+//   computed again, so the blocks share nothing and a barrier is a
+//   __syncthreads(): each stage spoils one row at either edge, and the four
+//   rows left the force exact on the block's own rows;
+// - global (a lattice no block holds, e.g. 128x128): one block a chain with
+//   every intermediate (links, b, chi', a, plaquette angles, and with the CG
+//   r, d, Ad) in a per-chain global scratch that stays in L2; the CG's three
+//   stencil temporaries reuse the b, chi' and a planes.
+#include "shared_stencil.cuh"
 
 namespace sm {
 
@@ -79,10 +97,10 @@ force_step_kernel(const float* __restrict__ thE, const float* __restrict__ thO,
       // P(n) = u0(n) u1(n+t) conj(u0(n+x) u1(n)), anchored at both parities
       const Nbr ne = neighbours(x, k, x & 1, g);
       const Nbr no = neighbours(x, k, (x + 1) & 1, g);
-      se[s] = cmul(cmul(ld(ue, 0, s, V2), ld(uo, 1, ne.pt, V2)),
-                   cconj(cmul(ld(uo, 0, ne.px, V2), ld(ue, 1, s, V2)))).im;
-      so[s] = cmul(cmul(ld(uo, 0, s, V2), ld(ue, 1, no.pt, V2)),
-                   cconj(cmul(ld(ue, 0, no.px, V2), ld(uo, 1, s, V2)))).im;
+      se[s] = plaq_im(ld(ue, 0, s, V2), ld(uo, 1, ne.pt, V2), ld(uo, 0, ne.px, V2),
+                      ld(ue, 1, s, V2));
+      so[s] = plaq_im(ld(uo, 0, s, V2), ld(ue, 1, no.pt, V2), ld(ue, 0, no.px, V2),
+                      ld(uo, 1, s, V2));
     }
   }
   __syncthreads();
@@ -117,43 +135,211 @@ force_step_kernel(const float* __restrict__ thE, const float* __restrict__ thO,
   }
 }
 
+// The force at one even and one odd site of the shared layout: the fermion
+// force of fermion_force_site and, with_gauge, the staples from the
+// plaquette angles (Im P even, Im P odd) of each site.
+template <bool WITH_GAUGE>
+__device__ __forceinline__ void force_pair_shared(const float2* ue, const float2* uo,
+                                                  const float4* P, const float4* B,
+                                                  const float4* X, const float4* A,
+                                                  const float2* plaq, int s, const Nbr& ne,
+                                                  const Nbr& no, int V2, float two_c,
+                                                  float beta, float fe[2], float fo[2]) {
+  float f0, f1;
+  // even sites: x = psi, y = chi'; the odd operands are b and a
+  {
+    const float4 xp = P[s], yp = X[s], xt = B[ne.pt], yt = A[ne.pt], xx = B[ne.px],
+                 yx = A[ne.px];
+    fermion_force_ops(cx(ue[s]), cx(ue[V2 + s]), lo(xp), hi(xp), lo(yp), hi(yp), lo(xt),
+                      hi(xt), lo(yt), hi(yt), lo(xx), hi(xx), lo(yx), hi(yx), f0, f1);
+    if (WITH_GAUGE) {
+      const float se = plaq[s].x;
+      fe[0] = two_c * f0 + (-beta * (se - plaq[ne.mx].y));
+      fe[1] = two_c * f1 + beta * (se - plaq[ne.mt].y);
+    } else {
+      fe[0] = two_c * f0;
+      fe[1] = two_c * f1;
+    }
+  }
+  // odd sites: x = b, y = a; the even operands are psi and chi'
+  {
+    const float4 xp = B[s], yp = A[s], xt = P[no.pt], yt = X[no.pt], xx = P[no.px],
+                 yx = X[no.px];
+    fermion_force_ops(cx(uo[s]), cx(uo[V2 + s]), lo(xp), hi(xp), lo(yp), hi(yp), lo(xt),
+                      hi(xt), lo(yt), hi(yt), lo(xx), hi(xx), lo(yx), hi(yx), f0, f1);
+    if (WITH_GAUGE) {
+      const float so = plaq[s].y;
+      fo[0] = two_c * f0 + (-beta * (so - plaq[no.mx].x));
+      fo[1] = two_c * f1 + beta * (so - plaq[no.mt].x);
+    } else {
+      fo[0] = two_c * f0;
+      fo[1] = two_c * f1;
+    }
+  }
+}
+
+// K1 on the shared path: `blocks` blocks a chain (1 with the solve), block
+// `rank` owning the rows [rank * rows, (rank + 1) * rows) and holding them
+// between kHaloW rows on either side when blocks > 1. Shared memory: the CG
+// store's links and four spinors (psi, b, chi', a in d's, r's and the two
+// temporaries' places), with_gauge the plaquette angles of each site after
+// them.
+template <bool WITH_SOLVE, bool WITH_GAUGE>
+__global__ void __launch_bounds__(kThreads)
+force_shared_kernel(const float* __restrict__ thE, const float* __restrict__ thO,
+                    const float* __restrict__ phi_all, const float* __restrict__ x0_all,
+                    float* __restrict__ psi_all, float* __restrict__ FE_all,
+                    float* __restrict__ FO_all, int* __restrict__ iters_out,
+                    unsigned char* __restrict__ conv_out, int Nx, int Nth, float m, float c,
+                    float beta, double tol, int max_iter, int blocks) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ double sh[2 * (kThreads / 32)];
+  const Geo g{Nx, Nth, Nx * Nth};
+  const int V2 = g.V2;
+  const int ch = blockIdx.x / blocks, rank = blockIdx.x - ch * blocks;
+  const int rows = Nx / blocks, halo = blocks > 1 ? kHaloW : 0;
+  // the block's rows: global row first + xl at local row xl
+  const int first = rank * rows - halo;
+  const Geo lg{rows + 2 * halo, Nth, (rows + 2 * halo) * Nth};
+  const int par = first & 1;
+  CgShared S = cg_shared(smem, sh, lg, m, c);
+  float4 *P = S.d, *B = S.r, *X = S.t1, *A = S.t2;
+  const float2* plaq = reinterpret_cast<float2*>(smem + 24 * lg.V2);
+  make_links_rows(thE + (size_t)ch * 2 * V2, 0, S.ue, lg, first, g);
+  make_links_rows(thO + (size_t)ch * 2 * V2, 1, S.uo, lg, first, g);
+  const float* x0 = x0_all + (size_t)ch * 4 * V2;
+  if (WITH_SOLVE) {
+    // one block: the links are visible after the CG's first barrier
+    const CgOut o = S.solve(phi_all + (size_t)ch * 4 * V2, x0, tol, max_iter);
+    S.write_x(psi_all + (size_t)ch * 4 * V2);
+#pragma unroll
+    for (int j = 0; j < kOwnSites; ++j)
+      if (S.mine(j))
+        P[threadIdx.x + j * kThreads] = make_float4(S.x[j][0], S.x[j][1], S.x[j][2], S.x[j][3]);
+    if (threadIdx.x == 0) {
+      iters_out[ch] = o.iters;
+      conv_out[ch] = o.rho < static_cast<float>(tol * tol) * o.bnorm2;
+    }
+  } else {
+    for (int s = threadIdx.x; s < lg.V2; s += kThreads) {
+      const int xl = s / Nth;
+      const int gs = ((first + xl) % Nx + Nx) % Nx * Nth + (s - xl * Nth);
+      P[s] = make_float4(x0[gs], x0[V2 + gs], x0[2 * V2 + gs], x0[3 * V2 + gs]);
+    }
+    if (rank == 0 && threadIdx.x == 0) {
+      iters_out[ch] = 0;
+      conv_out[ch] = 1;
+    }
+  }
+  __syncthreads();
+  S.own.stage<true, false>(S.uo, S.ue, P, 1 ^ par, B, nullptr, 0.f, 0.f, lg);  // b
+  __syncthreads();
+  S.own.stage<true, true>(S.ue, S.uo, B, par, X, P, m, -c, lg);  // chi'
+  if (WITH_GAUGE) {
+    float2* pl = reinterpret_cast<float2*>(smem + 24 * lg.V2);
+#pragma unroll
+    for (int j = 0; j < kOwnSites; ++j) {
+      const int s = threadIdx.x + j * kThreads;
+      if (s < lg.V2) {
+        const Nbr ne = S.own.nbrs(j, par, lg), no = S.own.nbrs(j, 1 ^ par, lg);
+        const float2 *ue = S.ue, *uo = S.uo;
+        pl[s] = make_float2(
+            plaq_im(cx(ue[s]), cx(uo[lg.V2 + ne.pt]), cx(uo[ne.px]), cx(ue[lg.V2 + s])),
+            plaq_im(cx(uo[s]), cx(ue[lg.V2 + no.pt]), cx(ue[no.px]), cx(uo[lg.V2 + s])));
+      }
+    }
+  }
+  __syncthreads();
+  S.own.stage<false, false>(S.uo, S.ue, X, 1 ^ par, A, nullptr, 0.f, 0.f, lg);  // a
+  __syncthreads();
+
+  float* FE = FE_all + (size_t)ch * 2 * V2;
+  float* FO = FO_all + (size_t)ch * 2 * V2;
+  const float two_c = 2.0f * c;
+#pragma unroll
+  for (int j = 0; j < kOwnSites; ++j) {
+    const int s = threadIdx.x + j * kThreads;
+    const int xl = S.own.sxk[j] >> 16;
+    if (s < lg.V2 && xl >= halo && xl < halo + rows) {
+      float fe[2], fo[2];
+      force_pair_shared<WITH_GAUGE>(S.ue, S.uo, P, B, X, A, plaq, s, S.own.nbrs(j, par, lg),
+                                    S.own.nbrs(j, 1 ^ par, lg), lg.V2, two_c, beta, fe, fo);
+      const int gs = s + first * Nth;
+      FE[gs] = fe[0];
+      FE[V2 + gs] = fe[1];
+      FO[gs] = fo[0];
+      FO[V2 + gs] = fo[1];
+    }
+  }
+}
+
+// Shared memory of the shared path a site: the CG store, and with_gauge the
+// plaquette angles.
+constexpr int force_shared_bytes(bool with_gauge) {
+  return kCgSharedBytes + (with_gauge ? 8 : 0);
+}
+
 template <bool S, bool G>
-void launch(const void* thE, const void* thO, const void* phi, const void* x0, void* psi,
-            void* FE, void* FO, void* iters, void* conv, void* scratch, int C,
-            int Nx, int Nth, float m, float c, float beta, double tol, int max_iter,
-            cudaStream_t stream) {
-  force_step_kernel<S, G><<<C, kThreads, 0, stream>>>(
-      static_cast<const float*>(thE), static_cast<const float*>(thO),
-      static_cast<const float*>(phi), static_cast<const float*>(x0), static_cast<float*>(psi),
-      static_cast<float*>(FE), static_cast<float*>(FO), static_cast<int*>(iters),
-      static_cast<unsigned char*>(conv), static_cast<float*>(scratch), Nx, Nth, m, c, beta,
-      tol, max_iter);
+int launch(const void* thE, const void* thO, const void* phi, const void* x0, void* psi,
+           void* FE, void* FO, void* iters, void* conv, void* scratch, int C, int Nx, int Nth,
+           float m, float c, float beta, double tol, int max_iter, int path, int blocks,
+           cudaStream_t stream) {
+  const float* th_e = static_cast<const float*>(thE);
+  const float* th_o = static_cast<const float*>(thO);
+  if (path == 0) {
+    force_step_kernel<S, G><<<C, kThreads, 0, stream>>>(
+        th_e, th_o, static_cast<const float*>(phi), static_cast<const float*>(x0),
+        static_cast<float*>(psi), static_cast<float*>(FE), static_cast<float*>(FO),
+        static_cast<int*>(iters), static_cast<unsigned char*>(conv),
+        static_cast<float*>(scratch), Nx, Nth, m, c, beta, tol, max_iter);
+    return static_cast<int>(cudaGetLastError());
+  }
+  // one block a chain with the solve; without it, blocks dividing Nx, each
+  // with its rows and kHaloW rows on either side within its threads' sites
+  const int rows = blocks > 0 ? Nx / blocks : 0;
+  const size_t sites = static_cast<size_t>(rows + (blocks > 1 ? 2 * kHaloW : 0)) * Nth;
+  const size_t bytes = force_shared_bytes(G) * sites;
+  if (path != 1 || blocks < 1 || (S && blocks != 1) || Nx % blocks != 0 ||
+      sites > kOwnSites * kThreads || bytes > kSharedMax)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = cudaFuncSetAttribute(
+      force_shared_kernel<S, G>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSharedMax);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  force_shared_kernel<S, G><<<C * blocks, kThreads, bytes, stream>>>(
+      th_e, th_o, static_cast<const float*>(phi), static_cast<const float*>(x0),
+      static_cast<float*>(psi), static_cast<float*>(FE), static_cast<float*>(FO),
+      static_cast<int*>(iters), static_cast<unsigned char*>(conv), Nx, Nth, m, c, beta, tol,
+      max_iter, blocks);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace sm
 
 // phi and psi are read or written only with_solve; iters and conv (bool)
-// are written in every variant (0 and true without the solve).
+// are written in every variant (0 and true without the solve). path 0: the
+// global scratch, f32 [C, 34 V2] with the solve and [C, 22 V2] without;
+// path 1: shared memory, `blocks` blocks a chain (1 with the solve; without
+// it a divisor of Nx whose rows, with kHaloW rows on either side, hold at
+// most 2048 sites), no scratch.
 extern "C" int force_step_launch(const void* thE, const void* thO, const void* phi,
                                  const void* x0, void* psi, void* FE, void* FO, void* iters,
                                  void* conv, void* scratch, int C, int Nx, int Nth,
                                  double m0, double beta, double tol, int max_iter,
-                                 int with_solve, int with_gauge, void* stream) {
+                                 int with_solve, int with_gauge, int path, int blocks,
+                                 void* stream) {
   const float m = static_cast<float>(m0 + 2.0);
   const float c = static_cast<float>(1.0 / (4.0 * (m0 + 2.0)));
   const float b = static_cast<float>(beta);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (with_solve && with_gauge)
-    sm::launch<true, true>(thE, thO, phi, x0, psi, FE, FO, iters, conv, scratch, C, Nx,
-                           Nth, m, c, b, tol, max_iter, s);
-  else if (with_solve)
-    sm::launch<true, false>(thE, thO, phi, x0, psi, FE, FO, iters, conv, scratch, C, Nx,
-                            Nth, m, c, b, tol, max_iter, s);
-  else if (with_gauge)
-    sm::launch<false, true>(thE, thO, phi, x0, psi, FE, FO, iters, conv, scratch, C, Nx,
-                            Nth, m, c, b, tol, max_iter, s);
-  else
-    sm::launch<false, false>(thE, thO, phi, x0, psi, FE, FO, iters, conv, scratch, C,
-                             Nx, Nth, m, c, b, tol, max_iter, s);
-  return static_cast<int>(cudaGetLastError());
+    return sm::launch<true, true>(thE, thO, phi, x0, psi, FE, FO, iters, conv, scratch, C, Nx,
+                                  Nth, m, c, b, tol, max_iter, path, blocks, s);
+  if (with_solve)
+    return sm::launch<true, false>(thE, thO, phi, x0, psi, FE, FO, iters, conv, scratch, C,
+                                   Nx, Nth, m, c, b, tol, max_iter, path, blocks, s);
+  if (with_gauge)
+    return sm::launch<false, true>(thE, thO, phi, x0, psi, FE, FO, iters, conv, scratch, C,
+                                   Nx, Nth, m, c, b, tol, max_iter, path, blocks, s);
+  return sm::launch<false, false>(thE, thO, phi, x0, psi, FE, FO, iters, conv, scratch, C, Nx,
+                                  Nth, m, c, b, tol, max_iter, path, blocks, s);
 }

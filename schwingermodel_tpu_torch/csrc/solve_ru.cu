@@ -56,6 +56,7 @@
 #include <cooperative_groups.h>
 
 #include "cg_fallback.cuh"
+#include "shared_stencil.cuh"
 
 namespace sm {
 
@@ -209,48 +210,6 @@ struct RuGlobal : RuF64 {
   }
 };
 
-// Sites a thread owns on the shared path: tid + j * kThreads, j < kRuSites.
-constexpr int kRuSites = 4;
-
-__device__ __forceinline__ Cx<float> lo(float4 v) { return {v.x, v.y}; }
-__device__ __forceinline__ Cx<float> hi(float4 v) { return {v.z, v.w}; }
-__device__ __forceinline__ Cx<float> cx(float2 v) { return {v.x, v.y}; }
-
-// hop_site on the shared layout: a spinor is one float4 per site (spin 0
-// re, im, spin 1 re, im), so a neighbour is one 16-byte load where the
-// planar layout takes four loads; the arithmetic is hop_site's.
-template <bool DAG>
-__device__ __forceinline__ void hop_site_shared(const float2* Ut, const float2* Us,
-                                                const float4* S, int s, const Nbr& n, int V2,
-                                                Cx<float>& h0, Cx<float>& h1) {
-  const float4 mx = S[n.mx];
-  Cx<float> bx0, bx1;
-  hop_bx<float, DAG>(cx(Us[V2 + n.mx]), lo(mx), hi(mx), bx0, bx1);
-  const float4 pt = S[n.pt], px = S[n.px], mt = S[n.mt];
-  hop_combine<float, DAG>(cx(Ut[s]), cx(Ut[V2 + s]), lo(pt), hi(pt), lo(px), hi(px),
-                          cx(Us[n.mt]), lo(mt), hi(mt), bx0, bx1, h0, h1);
-}
-
-// One parity's f32 links in shared memory, site-major: u0 of the V2 sites,
-// then u1, each (re, im). The values of make_links<float>.
-__device__ __forceinline__ void make_links_shared(const float* __restrict__ th, int parity,
-                                                  float2* u, const Geo& g) {
-  for (int s = threadIdx.x; s < g.V2; s += kThreads) {
-    const int x = s / g.Nth;
-    const int k = s - x * g.Nth;
-    const bool flip = ((x + parity) & 1) && (k == g.Nth - 1);
-    for (int mu = 0; mu < 2; ++mu) {
-      float sn, cs;
-      sincosf(th[mu * g.V2 + s], &sn, &cs);
-      if (mu == 0 && flip) {
-        sn = -sn;
-        cs = -cs;
-      }
-      u[mu * g.V2 + s] = make_float2(cs, sn);
-    }
-  }
-}
-
 // The f32 recursion in one block's shared memory, site-major (a spinor is
 // one float4 a site, a link one float2); x (f64) of the thread's own sites
 // in registers. RuCluster below is the same recursion on a cluster of
@@ -263,15 +222,14 @@ struct RuShared : RuF64 {
   float2 *ue, *uo;          // links of 2 V2 float2 each
   float4 *d, *r, *t1, *t2;  // spinors of V2 float4 each
   BlockSum& sum;
-  int sxk[kRuSites];        // row << 16 | packed column of each own site
-  double x[kRuSites][4];
+  OwnSites own;
+  double x[kOwnSites][4];
 
   __device__ __forceinline__ void init(const float* x0) {
+    own.init(g);
 #pragma unroll
-    for (int j = 0; j < kRuSites; ++j) {
+    for (int j = 0; j < kOwnSites; ++j) {
       const int s = threadIdx.x + j * kThreads;
-      const int sx = s / g.Nth;
-      sxk[j] = (sx << 16) | (s - sx * g.Nth);
       if (s < g.V2) {
 #pragma unroll
         for (int q = 0; q < 4; ++q) x[j][q] = static_cast<double>(x0[q * g.V2 + s]);
@@ -279,37 +237,17 @@ struct RuShared : RuF64 {
     }
   }
 
-  __device__ __forceinline__ Nbr nbrs(int j, int tgt_parity) const {
-    const int sx = sxk[j] >> 16;
-    return neighbours(sx, sxk[j] & 0xffff, (sx + tgt_parity) & 1, g);
-  }
-
-  // out = hop(S) at the thread's sites, or a*v + b*hop(S): hop_stage on the
-  // shared layout
   template <bool DAG, bool AXPBY>
   __device__ __forceinline__ void stage(const float2* Ut, const float2* Us, const float4* S,
                                         int tgt_parity, float4* out, const float4* v, float a,
                                         float bb) const {
-#pragma unroll
-    for (int j = 0; j < kRuSites; ++j) {
-      const int s = threadIdx.x + j * kThreads;
-      if (s < g.V2) {
-        Cx<float> h0, h1;
-        hop_site_shared<DAG>(Ut, Us, S, s, nbrs(j, tgt_parity), g.V2, h0, h1);
-        if (AXPBY) {
-          const float4 vs = v[s];
-          h0 = axpby(a, lo(vs), bb, h0);
-          h1 = axpby(a, hi(vs), bb, h1);
-        }
-        out[s] = make_float4(h0.re, h0.im, h1.re, h1.im);
-      }
-    }
+    own.stage<DAG, AXPBY>(Ut, Us, S, tgt_parity, out, v, a, bb, g);
   }
 
   __device__ __forceinline__ float bnorm2() {
     double acc = 0.0;
 #pragma unroll
-    for (int j = 0; j < kRuSites; ++j) {
+    for (int j = 0; j < kOwnSites; ++j) {
       const int s = threadIdx.x + j * kThreads;
       if (s < g.V2) {
 #pragma unroll
@@ -330,7 +268,7 @@ struct RuShared : RuF64 {
     normal_apply<double>(ue64, uo64, x64, Ax, u1, u2, u1, m64, c64, g);
     double acc = 0.0;
 #pragma unroll
-    for (int j = 0; j < kRuSites; ++j) {
+    for (int j = 0; j < kOwnSites; ++j) {
       const int s = threadIdx.x + j * kThreads;
       if (s < g.V2) {
         float ri[4];
@@ -350,7 +288,7 @@ struct RuShared : RuF64 {
 
   __device__ __forceinline__ void restart_from_zero() {
 #pragma unroll
-    for (int j = 0; j < kRuSites; ++j) {
+    for (int j = 0; j < kOwnSites; ++j) {
       const int s = threadIdx.x + j * kThreads;
       if (s < g.V2) {
 #pragma unroll
@@ -362,7 +300,7 @@ struct RuShared : RuF64 {
 
   __device__ __forceinline__ void d_from_r() {
 #pragma unroll
-    for (int j = 0; j < kRuSites; ++j) {
+    for (int j = 0; j < kOwnSites; ++j) {
       const int s = threadIdx.x + j * kThreads;
       if (s < g.V2) d[s] = r[s];
     }
@@ -382,11 +320,11 @@ struct RuShared : RuF64 {
     __syncthreads();
     double acc = 0.0;
 #pragma unroll
-    for (int j = 0; j < kRuSites; ++j) {
+    for (int j = 0; j < kOwnSites; ++j) {
       const int s = threadIdx.x + j * kThreads;
       if (s < g.V2) {
         Cx<float> h0, h1;
-        hop_site_shared<false>(ue, uo, t1, s, nbrs(j, 0), g.V2, h0, h1);
+        hop_site_shared<false>(ue, uo, t1, s, own.nbrs(j, 0, g), g.V2, h0, h1);
         const float4 vs = t2[s], ds = d[s];
         h0 = axpby(m, lo(vs), -c, h0);
         h1 = axpby(m, hi(vs), -c, h1);
@@ -403,7 +341,7 @@ struct RuShared : RuF64 {
   __device__ __forceinline__ float update_x_r(float alpha) {
     double acc = 0.0;
 #pragma unroll
-    for (int j = 0; j < kRuSites; ++j) {
+    for (int j = 0; j < kOwnSites; ++j) {
       const int s = threadIdx.x + j * kThreads;
       if (s < g.V2) {
         const float4 ds = d[s], as = t2[s], rs = r[s];
@@ -425,7 +363,7 @@ struct RuShared : RuF64 {
   // still reads the old d at a neighbour
   __device__ __forceinline__ void update_d(float beta) {
 #pragma unroll
-    for (int j = 0; j < kRuSites; ++j) {
+    for (int j = 0; j < kOwnSites; ++j) {
       const int s = threadIdx.x + j * kThreads;
       if (s < g.V2) {
         const float4 ds = d[s], rs = r[s];
@@ -437,7 +375,7 @@ struct RuShared : RuF64 {
 
   __device__ __forceinline__ void write_x64() {
 #pragma unroll
-    for (int j = 0; j < kRuSites; ++j) {
+    for (int j = 0; j < kOwnSites; ++j) {
       const int s = threadIdx.x + j * kThreads;
       if (s < g.V2) {
 #pragma unroll
@@ -466,8 +404,8 @@ struct RuCluster : RuF64 {
   BlockSum& sum;
   int N, rank, rows, Vl, Vh;
   int cset;
-  int sxk[kRuSites];        // local row << 16 | packed column of each own site
-  double x[kRuSites][4];
+  int sxk[kOwnSites];        // local row << 16 | packed column of each own site
+  double x[kOwnSites][4];
 
   // links of 2 Vh float2 a parity, then four spinors of Vh float4 each; Vh
   // sites a field: the block's rows and the two halo rows
@@ -515,7 +453,7 @@ struct RuCluster : RuF64 {
 
   __device__ __forceinline__ void init(const float* x0) {
 #pragma unroll
-    for (int j = 0; j < kRuSites; ++j) {
+    for (int j = 0; j < kOwnSites; ++j) {
       const int sl = threadIdx.x + j * kThreads;
       const int xl = sl / g.Nth;
       sxk[j] = (xl << 16) | (sl - xl * g.Nth);
@@ -566,7 +504,7 @@ struct RuCluster : RuF64 {
                                         int tgt_parity, float4* out, const float4* v, float a,
                                         float bb) const {
 #pragma unroll
-    for (int j = 0; j < kRuSites; ++j) {
+    for (int j = 0; j < kOwnSites; ++j) {
       const int sl = threadIdx.x + j * kThreads, h = sl + halo();
       if (sl < Vl) {
         Cx<float> h0, h1;
@@ -584,7 +522,7 @@ struct RuCluster : RuF64 {
   __device__ __forceinline__ float bnorm2() {
     double acc = 0.0;
 #pragma unroll
-    for (int j = 0; j < kRuSites; ++j) {
+    for (int j = 0; j < kOwnSites; ++j) {
       const int sl = threadIdx.x + j * kThreads;
       if (sl < Vl) {
 #pragma unroll
@@ -612,7 +550,7 @@ struct RuCluster : RuF64 {
     hop_stage_range<double, false>(ue64, uo64, u1, 0, Ax, u2, m64, -c64, g, lo_s, hi_s);
     double acc = 0.0;
 #pragma unroll
-    for (int j = 0; j < kRuSites; ++j) {
+    for (int j = 0; j < kOwnSites; ++j) {
       const int sl = threadIdx.x + j * kThreads;
       if (sl < Vl) {
         float ri[4];
@@ -632,7 +570,7 @@ struct RuCluster : RuF64 {
 
   __device__ __forceinline__ void restart_from_zero() {
 #pragma unroll
-    for (int j = 0; j < kRuSites; ++j) {
+    for (int j = 0; j < kOwnSites; ++j) {
       const int sl = threadIdx.x + j * kThreads;
       if (sl < Vl) {
         const int gs = row0() * g.Nth + sl;
@@ -646,7 +584,7 @@ struct RuCluster : RuF64 {
 
   __device__ __forceinline__ void d_from_r() {
 #pragma unroll
-    for (int j = 0; j < kRuSites; ++j) {
+    for (int j = 0; j < kOwnSites; ++j) {
       const int sl = threadIdx.x + j * kThreads;
       if (sl < Vl) put(d(), sl, r()[sl + halo()]);
     }
@@ -662,7 +600,7 @@ struct RuCluster : RuF64 {
     sync();
     double acc = 0.0;
 #pragma unroll
-    for (int j = 0; j < kRuSites; ++j) {
+    for (int j = 0; j < kOwnSites; ++j) {
       const int h = threadIdx.x + j * kThreads + halo();
       if (h < Vl + halo()) {
         Cx<float> h0, h1;
@@ -683,7 +621,7 @@ struct RuCluster : RuF64 {
   __device__ __forceinline__ float update_x_r(float alpha) {
     double acc = 0.0;
 #pragma unroll
-    for (int j = 0; j < kRuSites; ++j) {
+    for (int j = 0; j < kOwnSites; ++j) {
       const int h = threadIdx.x + j * kThreads + halo();
       if (h < Vl + halo()) {
         const float4 ds = d()[h], as = t2()[h], rs = r()[h];
@@ -705,7 +643,7 @@ struct RuCluster : RuF64 {
   // the old d at a neighbour or in a halo row
   __device__ __forceinline__ void update_d(float beta) {
 #pragma unroll
-    for (int j = 0; j < kRuSites; ++j) {
+    for (int j = 0; j < kOwnSites; ++j) {
       const int sl = threadIdx.x + j * kThreads, h = sl + halo();
       if (sl < Vl) {
         const float4 ds = d()[h], rs = r()[h];
@@ -717,7 +655,7 @@ struct RuCluster : RuF64 {
 
   __device__ __forceinline__ void write_x64() {
 #pragma unroll
-    for (int j = 0; j < kRuSites; ++j) {
+    for (int j = 0; j < kOwnSites; ++j) {
       const int sl = threadIdx.x + j * kThreads;
       if (sl < Vl) {
 #pragma unroll
@@ -804,7 +742,7 @@ __global__ void __launch_bounds__(kThreads, 1) solve_ru_shared_kernel(const RuPa
 }
 
 // One chain per cluster of N blocks (the launch's cluster dimension; N
-// divides Nx, and a block's rows hold at most kRuSites * kThreads sites).
+// divides Nx, and a block's rows hold at most kOwnSites * kThreads sites).
 __global__ void __launch_bounds__(kThreads, 1) solve_ru_cluster_kernel(const RuParams p) {
   extern __shared__ __align__(16) float smem[];
   __shared__ double sh[2 * (kThreads / 32)];
@@ -917,7 +855,7 @@ extern "C" int solve_ru_launch(const void* thE, const void* thO, const void* b, 
   const size_t V2 = static_cast<size_t>(Nx) * Nth;
   if (path == 1 || path == 2) {
     const size_t bytes = sizeof(float) * 24 * V2 + (path == 2 ? sizeof(double) * 20 * V2 : 0);
-    if (V2 > sm::kRuSites * sm::kThreads || bytes > sm::kSharedMax)
+    if (V2 > sm::kOwnSites * sm::kThreads || bytes > sm::kSharedMax)
       return static_cast<int>(cudaErrorInvalidValue);
     const cudaError_t e = cudaFuncSetAttribute(
         sm::solve_ru_shared_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sm::kSharedMax);
@@ -931,7 +869,7 @@ extern "C" int solve_ru_launch(const void* thE, const void* thO, const void* b, 
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t rows = Nx / cluster;
   const size_t bytes = sizeof(float) * 24 * (rows + 2) * Nth;
-  if (rows * Nth > sm::kRuSites * sm::kThreads || bytes > sm::kSharedMax)
+  if (rows * Nth > sm::kOwnSites * sm::kThreads || bytes > sm::kSharedMax)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaFuncSetAttribute(sm::solve_ru_cluster_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,

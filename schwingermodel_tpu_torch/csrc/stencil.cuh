@@ -2,9 +2,12 @@
 // port's kernels (force_step.cu, solve_fused.cu, solve_mxu.cu,
 // ratio_force.cu, solve_ru.cu, cg_fallback.cu with cg_fallback.cuh, cg_eo.cu,
 // residual.cu, halo_normal.cu, halo_force.cu), with the fermion force
-// stencil, the f32 CG loop that K1, K2, K6 and K10 share, the stage of the
-// per-shard halo kernels K7 and K8, and the two block sums: block_sum (three
-// barriers; K1, K2, K5-K10) and BlockSum (one barrier; K3, K4).
+// stencil, the f32 CG loop (cg_f32_op) of K6, K10 and of K1's and K2's
+// global paths, the stage of the per-shard halo kernels K7 and K8, and two
+// block sums: block_sum (three barriers; K5-K10 and the global paths of K1
+// and K2) and BlockSum (one barrier; K3, K4). The shared-memory layout, its
+// one-barrier sum with block_sum's bits and the f32 CG on it (K1 and K2 up
+// to 64x64) are in shared_stencil.cuh.
 //
 // Device counterpart of schwingermodel_tpu_torch/ops/eo.py (and of the
 // packed stencil of schwingermodel_tpu/ops/pallas_eo.py:118-181), templated
@@ -17,12 +20,14 @@
 // u1 re, u1 im), angles 2 (theta0, theta1). Site s = x*Nth + k holds
 // t = 2k + off(x), with off = (x + parity) & 1.
 //
-// Execution model: one thread block per chain, the block's threads stride
-// over the V2 sites; a stencil stage reads neighbours that other threads
-// wrote, so stages are separated by __syncthreads(). The fields lie where
-// the kernel puts them: a per-chain global scratch that stays in L2, or
-// shared memory (K7, K8; K3's f32 recursion, which keeps its own site-major
-// layout and calls hop_bx and hop_combine on it, solve_ru.cu).
+// Execution model: one thread block per chain (or per chain and shard), the
+// block's threads stride over the V2 sites; a stencil stage reads neighbours
+// that other threads wrote, so stages are separated by __syncthreads(). The
+// fields lie where the kernel puts them: a per-chain global scratch that
+// stays in L2 (K4-K6, K9, K10; K1, K2 and K3 on a lattice no block holds),
+// or shared memory (K7, K8 in these planes; K1, K2 and K3's f32 recursion in
+// the site-major layout of shared_stencil.cuh, which calls hop_bx and
+// hop_combine).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -360,24 +365,44 @@ __device__ double block_dot(const T* __restrict__ a, const T* __restrict__ b, in
   return block_sum(acc, sh);
 }
 
-// Reference force stencil f_mu at one parity-p site: left operand x, right
-// operand y; *_p on-site (parity p), *_q the opposite parity gathered at
-// n+t and n+x (pallas_traj._fermion_force_p). Used by K1 and K5.
-__device__ __forceinline__ void fermion_force_site(const float* u, const float* xp,
-                                                   const float* yp, const float* xq,
-                                                   const float* yq, int s, const Nbr& n,
-                                                   int V2, float& f0, float& f1) {
-  const Cx<float> u0 = ld(u, 0, s, V2), u1 = ld(u, 1, s, V2);
-  const Cx<float> x0 = ld(xp, 0, s, V2), x1 = ld(xp, 1, s, V2);
-  const Cx<float> y0 = ld(yp, 0, s, V2), y1 = ld(yp, 1, s, V2);
-  const Cx<float> yt = csub(ld(yq, 0, n.pt, V2), ld(yq, 1, n.pt, V2));
-  const Cx<float> xt = cadd(ld(xq, 0, n.pt, V2), ld(xq, 1, n.pt, V2));
-  const Cx<float> yx = cadd(ld(yq, 0, n.px, V2), cmuli(ld(yq, 1, n.px, V2)));
-  const Cx<float> xx = csub(ld(xq, 0, n.px, V2), cmuli(ld(xq, 1, n.px, V2)));
+// Reference force stencil f_mu at one parity-p site from its gathered
+// operands: the site's links u0, u1, left operand x and right operand y
+// on-site (x0, x1, y0, y1, parity p), and the opposite parity's x and y at
+// n+t (*t) and n+x (*x) (pallas_traj._fermion_force_p).
+__device__ __forceinline__ void fermion_force_ops(Cx<float> u0, Cx<float> u1, Cx<float> x0,
+                                                  Cx<float> x1, Cx<float> y0, Cx<float> y1,
+                                                  Cx<float> x0t, Cx<float> x1t,
+                                                  Cx<float> y0t, Cx<float> y1t,
+                                                  Cx<float> x0x, Cx<float> x1x,
+                                                  Cx<float> y0x, Cx<float> y1x, float& f0,
+                                                  float& f1) {
+  const Cx<float> yt = csub(y0t, y1t);
+  const Cx<float> xt = cadd(x0t, x1t);
+  const Cx<float> yx = cadd(y0x, cmuli(y1x));
+  const Cx<float> xx = csub(x0x, cmuli(x1x));
   f0 = cmul(u0, cmul(cconj(csub(x0, x1)), yt)).im -
        cmul(cconj(u0), cmul(cconj(xt), cadd(y0, y1))).im;
   f1 = cmul(u1, cmul(cconj(cadd(x0, cmuli(x1))), yx)).im +
        cmul(cconj(u1), cmul(cconj(xx), cadd(cneg(y0), cmuli(y1)))).im;
+}
+
+// The same on planar fields at site s: *_p on-site, *_q the opposite parity.
+// Used by K1's global path and K5.
+__device__ __forceinline__ void fermion_force_site(const float* u, const float* xp,
+                                                   const float* yp, const float* xq,
+                                                   const float* yq, int s, const Nbr& n,
+                                                   int V2, float& f0, float& f1) {
+  fermion_force_ops(ld(u, 0, s, V2), ld(u, 1, s, V2), ld(xp, 0, s, V2), ld(xp, 1, s, V2),
+                    ld(yp, 0, s, V2), ld(yp, 1, s, V2), ld(xq, 0, n.pt, V2),
+                    ld(xq, 1, n.pt, V2), ld(yq, 0, n.pt, V2), ld(yq, 1, n.pt, V2),
+                    ld(xq, 0, n.px, V2), ld(xq, 1, n.px, V2), ld(yq, 0, n.px, V2),
+                    ld(yq, 1, n.px, V2), f0, f1);
+}
+
+// Im P(n) of the plaquette u0(n) u1(n+t) conj(u0(n+x) u1(n)) from its links.
+__device__ __forceinline__ float plaq_im(Cx<float> u0, Cx<float> u1t, Cx<float> u0x,
+                                         Cx<float> u1) {
+  return cmul(cmul(u0, u1t), cconj(cmul(u0x, u1))).im;
 }
 
 // Result of cg_f32_op, the same in every thread of the block.

@@ -35,19 +35,26 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 P, I, F, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 
 # Dynamic shared memory a kernel may ask for (csrc/stencil.cuh kSharedMax):
-# the wrappers of K3, K7 and K8 choose a kernel's path by it before the launch.
+# the wrappers of K1, K2, K3, K7 and K8 choose a kernel's path by it before
+# the launch.
 SHARED_MAX = 220 * 1024
+# Sites one block holds on a shared path: its 512 threads own 4 each
+# (csrc/shared_stencil.cuh kOwnSites).
+BLOCK_SITES = 4 * 512
+# Multiprocessors of an H100 SXM, for callers that name a path without a card
+# at hand.
+H100_SMS = 132
 
 # C entry points: name -> argument types. Each returns cudaGetLastError().
 SIGNATURES = {
-    # thE, thO, phi, x0, psi, FE, FO, iters, conv, scratch,
-    # C, Nx, Nth, m0, beta, tol, max_iter, with_solve, with_gauge, stream
+    # thE, thO, phi, x0, psi, FE, FO, iters, conv, scratch, C, Nx, Nth,
+    # m0, beta, tol, max_iter, with_solve, with_gauge, path, blocks, stream
     "force_step_launch": [P, P, P, P, P, P, P, P, P, P,
-                          I, I, I, D, D, D, I, I, I, P],
+                          I, I, I, D, D, D, I, I, I, I, I, P],
     # thE, thO, b, x0, x, iters, rho, bnorm2, scratch,
-    # C, Nx, Nth, m0, tol, max_iter, stream
-    "solve_fused_launch": [P, P, P, P, P, P, P, P, P, I, I, I, D, D, I, P],
-    # the same arguments as solve_fused_launch
+    # C, Nx, Nth, m0, tol, max_iter, path, stream
+    "solve_fused_launch": [P, P, P, P, P, P, P, P, P, I, I, I, D, D, I, I, P],
+    # the arguments of solve_fused_launch without the path
     "solve_mxu_launch": [P, P, P, P, P, P, P, P, P, I, I, I, D, D, I, P],
     # in, out_p, out_m, n_planes, Nx, Nth, stream
     "shift_mxu_launch": [P, P, P, I, I, I, P],

@@ -149,12 +149,8 @@ def solve_refined_reference(thE, thO, b, x0, *, m0, tol, tau=1e-5,
 # Where K3 keeps its vectors, chosen by lattice size and chain count before
 # the launch (solve_ru.cu): bytes of dynamic shared memory per half-lattice
 # site of the f32 recursion and of the f64 set (a block may ask for
-# _cuda.SHARED_MAX), the sites the 512 threads of a block own on the shared
-# paths (4 a thread), and the multiprocessors of an H100 SXM, for callers
-# that name a path without a card at hand.
+# _cuda.SHARED_MAX and holds _cuda.BLOCK_SITES sites).
 _RU_SHARED_F32, _RU_SHARED_F64 = 96, 160
-_RU_SITES_MAX = 4 * 512
-H100_SMS = 132
 _FB_MAX_ROUNDS = 4   # solve_f64_cg_fallback's default max_rounds
 RU_GLOBAL, RU_SHARED, RU_ALL_SHARED, RU_CLUSTER = range(4)
 
@@ -169,10 +165,10 @@ def _blocks_fit(Nx: int, Nth: int, n: int, f64_too: bool = False) -> bool:
     shared = _RU_SHARED_F32 * (rows + (2 if n > 1 else 0)) * Nth
     if f64_too:
         shared += _RU_SHARED_F64 * Nx * Nth
-    return rows * Nth <= _RU_SITES_MAX and shared <= _cuda.SHARED_MAX
+    return rows * Nth <= _cuda.BLOCK_SITES and shared <= _cuda.SHARED_MAX
 
 
-def ru_path(Nx: int, Nth: int, C: int, sms: int = H100_SMS):
+def ru_path(Nx: int, Nth: int, C: int, sms: int = _cuda.H100_SMS):
     """K3's path for C chains of an Nx x 2 Nth lattice on a card of `sms`
     multiprocessors: (path, blocks per chain). One block a chain wherever the f32 recursion fits its shared
     memory: RU_ALL_SHARED where the f64 true residual fits too (up to 32x32
@@ -192,7 +188,7 @@ def ru_path(Nx: int, Nth: int, C: int, sms: int = H100_SMS):
     return RU_CLUSTER, (max(at_once) if at_once else min(fits))
 
 
-def ru_path_name(Nx: int, Nth: int, C: int, sms: int = H100_SMS) -> str:
+def ru_path_name(Nx: int, Nth: int, C: int, sms: int = _cuda.H100_SMS) -> str:
     path, n = ru_path(Nx, Nth, C, sms)
     return ("global", "shared", "all shared", f"cluster of {n}")[path]
 

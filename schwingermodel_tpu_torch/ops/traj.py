@@ -15,7 +15,9 @@ The kernels, each with its plain twin that a CPU tensor runs:
   ``with_solve`` and ``with_gauge``; twin ``force_step_reference``.
 - ``solve_fused`` is K2 (``csrc/solve_fused.cu``, replacing
   ``pallas_traj._solve_kernel``), the loose-contract f32 solve; twin
-  ``solve_fused_reference``.
+  ``solve_fused_reference``. Where K1 and K2 keep their fields (one
+  block's shared memory, several blocks a chain, or a global scratch)
+  follows from the lattice size and the chain count: ``cg_path``.
 - ``solve_fused_mxu`` is K10 (``csrc/solve_mxu.cu``, replacing
   ``tools/bench_mxu_stencil._solve_kernel_variant``): K2 with every x-shift
   of the stencil as a product with a one-hot matrix on the tensor cores;
@@ -125,14 +127,15 @@ def _dot32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             + a.imag.double() * b.imag.double()).sum(dim=dims).float()
 
 
-def _tol2(tol, device):
-    """f32(tol^2) as a 0-dim f32 tensor, so that f32(tol^2) * ||b||^2 is
-    an f32 product, as in the kernels."""
-    return torch.tensor(np.float32(tol * tol), device=device)
+def _tol2(tol) -> float:
+    """f32(tol^2) as a Python float: times an f32 tensor ||b||^2 it is an f32
+    product, as in the kernels, and unlike a tensor made from it on the card
+    it costs no copy from the host, which would wait for the card."""
+    return float(np.float32(tol * tol))
 
 
 def _converged(rho, bnorm2, tol):
-    return rho < _tol2(tol, rho.device) * bnorm2
+    return rho < _tol2(tol) * bnorm2
 
 
 def _cg_f32(apply_A, b, x0, tol, max_iter, guards=True):
@@ -144,7 +147,7 @@ def _cg_f32(apply_A, b, x0, tol, max_iter, guards=True):
     bnorm2 f32), all per chain."""
     C = b.shape[0]
     bnorm2 = _dot32(b, b)
-    stop2 = _tol2(tol, b.device) * bnorm2
+    stop2 = _tol2(tol) * bnorm2
     x = x0.clone()
     r = b - apply_A(x)
     d = r
@@ -181,6 +184,56 @@ def _cg_f32(apply_A, b, x0, tol, max_iter, guards=True):
     return x, iters, rho, bnorm2
 
 
+# ---------- where K1 and K2 keep their fields ----------
+
+# Bytes of dynamic shared memory per half-lattice site on the shared path
+# (csrc/shared_stencil.cuh, force_step.cu): the CG store, and K1's
+# plaquette angles with the gauge force; the rows K1 without the solve holds
+# on either side of its own when a chain spans several blocks (kHaloW).
+_CG_SHARED_BYTES, _PLAQ_BYTES = 96, 8
+_HALO_ROWS = 4
+CG_GLOBAL, CG_SHARED = range(2)
+
+
+def _rows_fit(Nx: int, Nth: int, n: int, per_site: int) -> bool:
+    """n blocks a chain hold the fields: n divides Nx, and a block's Nx/n
+    rows, with _HALO_ROWS rows on either side when n > 1, fit its threads
+    and its shared memory; a block of several owns at least as many rows as
+    it computes again (32x32: 4 blocks a chain beat 8 on the card)."""
+    if Nx % n or (n > 1 and Nx // n < 2 * _HALO_ROWS):
+        return False
+    sites = (Nx // n + (2 * _HALO_ROWS if n > 1 else 0)) * Nth
+    return sites <= _cuda.BLOCK_SITES and per_site * sites <= _cuda.SHARED_MAX
+
+
+def cg_path(Nx: int, Nth: int, C: int, sms: int = _cuda.H100_SMS, solve=True,
+            gauge=False):
+    """Where K2 (solve=True, gauge=False) or K1 (its with_solve and
+    with_gauge) keeps its fields for C chains of an Nx x 2 Nth lattice on a
+    card of `sms` multiprocessors: (path, blocks per chain). CG_SHARED with
+    one block a chain wherever the fields fit one block's shared memory and
+    threads (up to 64x64). K1 without the solve spreads a chain over n
+    blocks, each with its rows and _HALO_ROWS rows on either side: the
+    largest n that leaves all C chains' blocks running at once, else the
+    smallest that holds the lattice (128x128: 8 blocks a chain). What no
+    block holds keeps every field in a global scratch (CG_GLOBAL)."""
+    per_site = _CG_SHARED_BYTES + (_PLAQ_BYTES if gauge else 0)
+    fits = [n for n in ((1,) if solve else (1, 2, 4, 8))
+            if _rows_fit(Nx, Nth, n, per_site)]
+    if not fits:
+        return CG_GLOBAL, 1
+    at_once = [n for n in fits if n * C <= sms]
+    return CG_SHARED, (max(at_once) if at_once else min(fits))
+
+
+def cg_path_name(Nx: int, Nth: int, C: int, sms: int = _cuda.H100_SMS,
+                 solve=True, gauge=False) -> str:
+    path, n = cg_path(Nx, Nth, C, sms, solve, gauge)
+    if path == CG_GLOBAL:
+        return "global"
+    return "shared" if n == 1 else f"shared, {n} blocks a chain"
+
+
 # ---------- K2: the loose-contract solve ----------
 
 class SolveResult(NamedTuple):
@@ -205,9 +258,10 @@ def solve_fused_reference(thE, thO, b, x0, *, m0, tol, max_iter) -> SolveResult:
     return _solve_result(to_planar(x), iters, rho, bnorm2, tol)
 
 
-def _launch_solve(entry, per_site, thE, thO, b, x0, m0, tol, max_iter):
-    """Launch K2 or K10 (the same C interface) with `per_site` f32 values of
-    scratch per half-lattice site; (x, iters, rho, bnorm2)."""
+def _launch_solve(entry, per_site, thE, thO, b, x0, m0, tol, max_iter, *path):
+    """Launch K2 or K10 (the same C interface; K2 also takes its path) with
+    `per_site` f32 values of scratch per half-lattice site, none where
+    per_site is 0; (x, iters, rho, bnorm2)."""
     C, _, Nx, Nth = thE.shape
     _cuda.check(thE, "thE", torch.float32, (C, 2, Nx, Nth))
     _cuda.check(thO, "thO", torch.float32, (C, 2, Nx, Nth))
@@ -222,8 +276,8 @@ def _launch_solve(entry, per_site, thE, thO, b, x0, m0, tol, max_iter):
                           device=dev)
     p = _cuda.ptr
     _cuda.KERNELS.call(entry, p(thE), p(thO), p(b), p(x0), p(x), p(iters),
-                       p(rho), p(bnorm2), p(scratch), C, Nx, Nth, float(m0),
-                       float(tol), int(max_iter))
+                       p(rho), p(bnorm2), p(scratch) if per_site else None, C,
+                       Nx, Nth, float(m0), float(tol), int(max_iter), *path)
     return x, iters, rho, bnorm2
 
 
@@ -234,13 +288,17 @@ def solve_fused(thE, thO, b, x0, *, m0, tol, max_iter) -> SolveResult:
     """K2: (Dhat Dhat^+)^{-1} b by f32 CG from x0, links built in-kernel
     (pallas_traj.solve_fused). thE/thO f32 [C, 2, Nx, Nth]; b, x0 f32
     [C, 2, 2, Nx, Nth]. converged: the recursive f32 residual is below
-    tol ||b||. CUDA tensors run csrc/solve_fused.cu; CPU tensors run
+    tol ||b||. CUDA tensors run csrc/solve_fused.cu, in shared memory or
+    through a global scratch as ``cg_path`` says; CPU tensors run
     solve_fused_reference."""
     if not b.is_cuda:
         return solve_fused_reference(thE, thO, b, x0, m0=m0, tol=tol,
                                      max_iter=max_iter)
+    C, _, Nx, Nth = thE.shape
+    path, _ = cg_path(Nx, Nth, C, _cuda.sm_count(b.device))
     x, iters, rho, bnorm2 = _launch_solve(
-        "solve_fused_launch", _SOLVE_SCRATCH, thE, thO, b, x0, m0, tol, max_iter)
+        "solve_fused_launch", _SOLVE_SCRATCH if path == CG_GLOBAL else 0, thE,
+        thO, b, x0, m0, tol, max_iter, path)
     solve_fused.launches += 1
     return _solve_result(x, iters, rho, bnorm2, tol)
 
@@ -392,7 +450,8 @@ def force_step(thE, thO, phi, x0, *, m0, beta, tol, max_iter, with_solve=True,
     with_solve the f32 CG on (Dhat Dhat^+) psi = phi from x0 in the same
     launch (else psi = x0, solved outside), chi' = Dhat^+ psi, the fermion
     force, and with_gauge the staple force. CUDA tensors run the kernel of
-    csrc/force_step.cu; CPU tensors run force_step_reference."""
+    csrc/force_step.cu, in shared memory or through a global scratch as
+    ``cg_path`` says; CPU tensors run force_step_reference."""
     if not x0.is_cuda:
         return force_step_reference(thE, thO, phi, x0, m0=m0, beta=beta,
                                     tol=tol, max_iter=max_iter,
@@ -413,14 +472,18 @@ def force_step(thE, thO, phi, x0, *, m0, beta, tol, max_iter, with_solve=True,
         phi_ptr, psi_ptr = p(phi), p(psi)
     else:
         psi, phi_ptr, psi_ptr = x0, None, None
-    per_site = _FORCE_SOLVE_SCRATCH if with_solve else _FORCE_SCRATCH
+    path, blocks = cg_path(Nx, Nth, C, _cuda.sm_count(dev), with_solve, with_gauge)
+    per_site = 0
+    if path == CG_GLOBAL:
+        per_site = _FORCE_SOLVE_SCRATCH if with_solve else _FORCE_SCRATCH
     scratch = torch.empty(C * per_site * Nx * Nth, dtype=torch.float32,
                           device=dev)
     _cuda.KERNELS.call("force_step_launch", p(thE), p(thO), phi_ptr, p(x0),
-                       psi_ptr, p(FE), p(FO), p(iters), p(conv), p(scratch),
+                       psi_ptr, p(FE), p(FO), p(iters), p(conv),
+                       p(scratch) if per_site else None,
                        C, Nx, Nth, float(m0), float(beta), float(tol),
                        int(max_iter), int(bool(with_solve)),
-                       int(bool(with_gauge)))
+                       int(bool(with_gauge)), path, blocks)
     force_step.launches += 1
     force_step.variants[f"with_solve={bool(with_solve)},"
                         f"with_gauge={bool(with_gauge)}"] += 1

@@ -1,0 +1,160 @@
+"""Times of the force step (K1, all four variants) and of the loose solve
+(K2) on the card.
+
+    python -m schwingermodel_tpu_torch.tools.bench_force_solve \\
+        [--shapes 64x64:32,64x64:128,32x32:32,128x128:8] [--out PATH]
+
+For each lattice and chain count it makes random angles and a right-hand
+side from ``--seed`` at m0 = 0.2, beta = 4, and runs K2 (tol 1e-6 from
+x0 = b, as the loose action solve) and K1 in its four variants of
+``with_solve`` and ``with_gauge`` (tol 1e-6 from x0 = phi = b where it
+solves). It prints one JSON row per (kernel, variant, shape) with the
+kernel's milliseconds by CUDA events in two turns of ``--reps`` launches,
+``ms`` as the launches are issued (the yardstick of ``chip_smoke.py``'s
+kernels line) and ``device_ms`` with them queued behind a spin of the card,
+which leaves the host's launch cost out (``utils.metrics.device_ms``); the
+CG iterations summed over the chains and of the slowest chain,
+microseconds per iteration of the slowest chain, whether every chain
+converged, and the path the lattice size and chain count take on this card
+(``ops/traj.cg_path``). For K1 without the solve it also times every other
+number of blocks a chain that holds the lattice (and the global path) in
+turns with the one ``cg_path`` takes, through the kernel's C entry, in
+queued device time (the host's cost is the same for every block count):
+the measurement behind that choice.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import sys
+
+import torch
+
+from schwingermodel_tpu_torch.ops import _cuda
+from schwingermodel_tpu_torch.ops import traj as tr
+from schwingermodel_tpu_torch.tools.bench_mxu_stencil import _card
+from schwingermodel_tpu_torch.tools.bench_refined_solve import _timed
+from schwingermodel_tpu_torch.utils.metrics import device_ms
+
+M0, BETA, TOL, MAX_ITER = 0.2, 4.0, 1e-6, 10000
+VARIANTS = [(s, g) for s in (False, True) for g in (True, False)]
+
+
+def _shapes(text: str):
+    """'64x64:32,32x32:32' -> [(64, 64, 32), (32, 32, 32)]"""
+    out = []
+    for item in text.split(","):
+        lat, C = item.split(":")
+        nx, nt = lat.split("x")
+        out.append((int(nx), int(nt), int(C)))
+    return out
+
+
+def _k1_blocks(thE, thO, b, g, blocks):
+    """K1 without the solve through its C entry: `blocks` blocks a chain on
+    the shared path, or the global path where blocks is 0."""
+    C, _, Nx, Nth = thE.shape
+    FE, FO = torch.empty_like(thE), torch.empty_like(thO)
+    iters = torch.empty(C, dtype=torch.int32, device=b.device)
+    conv = torch.empty(C, dtype=torch.bool, device=b.device)
+    scratch = torch.empty(C * tr._FORCE_SCRATCH * Nx * Nth if blocks == 0 else 0,
+                          device=b.device)
+    p = _cuda.ptr
+    _cuda.KERNELS.call("force_step_launch", p(thE), p(thO), None, p(b), None, p(FE), p(FO),
+                       p(iters), p(conv), p(scratch) if blocks == 0 else None, C, Nx, Nth,
+                       M0, BETA, TOL, MAX_ITER, 0,
+                       int(g), tr.CG_GLOBAL if blocks == 0 else tr.CG_SHARED,
+                       max(blocks, 1))
+    return FE, FO
+
+
+def _turns(first, second, reps):
+    """first, second, second, first in queued device time: the means of
+    each."""
+    f1, s1, s2, f2 = (device_ms(f, reps) for f in (first, second, second, first))
+    return (f1 + f2) / 2, (s1 + s2) / 2
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(
+        prog="python -m schwingermodel_tpu_torch.tools.bench_force_solve",
+        description="K1 and K2 on the card: times, iterations, the path")
+    p.add_argument("--shapes", default="64x64:32,64x64:128,32x32:32,128x128:8",
+                   help="NXxNT:C items, comma-separated")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--reps", type=int, default=20, help="launches per timing")
+    p.add_argument("--out", default=None, metavar="PATH", help="also write the rows as JSON")
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("error: CUDA is not available", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    card = _card(dev)
+    sms = _cuda.sm_count(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    rows = []
+
+    def emit(row):
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+
+    for nx, nt, C in _shapes(args.shapes):
+        th = (2.0 * torch.rand((C, 2, nx, nt), generator=gen, device=dev) - 1.0) * math.pi
+        thE, thO = tr.pack_planes(th)
+        b = torch.randn((C, 2, 2, nx, nt // 2), generator=gen, device=dev)
+        shape = f"{nx}x{nt} C={C}"
+        kw = dict(m0=M0, tol=TOL, max_iter=MAX_ITER)
+        for kernel, s, g in [("K2", True, False)] + [("K1", s, g) for s, g in VARIANTS]:
+            if kernel == "K2":
+                def run():
+                    return tr.solve_fused(thE, thO, b, b, **kw)
+                variant, path = None, tr.cg_path_name(nx, nt // 2, C, sms)
+            else:
+                def run(s=s, g=g):
+                    return tr.force_step(thE, thO, b, b, beta=BETA, with_solve=s,
+                                         with_gauge=g, **kw)
+                variant = f"with_solve={s},with_gauge={g}"
+                path = tr.cg_path_name(nx, nt // 2, C, sms, s, g)
+            reps = args.reps if s else 10 * args.reps
+            res = run()
+            ms = [_timed(run, reps) for _ in range(2)]
+            dev_ms = [device_ms(run, reps) for _ in range(2)]
+            row = {"metric": "ms", "kernel": kernel, "variant": variant, "shape": shape,
+                   "path": path, "card": card, "ms": sum(ms) / 2, "turns_ms": ms,
+                   "device_ms": sum(dev_ms) / 2, "turns_device_ms": dev_ms}
+            if s:
+                it_max = int(res.iters.max())
+                row.update(iters_sum=int(res.iters.sum()), iters_max=it_max,
+                           us_per_iter=1e3 * row["ms"] / max(it_max, 1),
+                           all_converged=bool(res.converged.all()))
+            emit(row)
+            if kernel == "K1" and not s:
+                # every other number of blocks a chain, against cg_path's
+                per_site = tr._CG_SHARED_BYTES + (tr._PLAQ_BYTES if g else 0)
+                k1_path, taken = tr.cg_path(nx, nt // 2, C, sms, False, g)
+                taken = taken if k1_path == tr.CG_SHARED else 0
+                ref = _k1_blocks(thE, thO, b, g, taken)
+                for n in (0, 1, 2, 4, 8):
+                    if n == taken or (n and not tr._rows_fit(nx, nt // 2, n, per_site)):
+                        continue
+                    same = all(torch.equal(x, y)
+                               for x, y in zip(_k1_blocks(thE, thO, b, g, n), ref))
+                    taken_ms, n_ms = _turns(lambda: _k1_blocks(thE, thO, b, g, taken),
+                                            lambda: _k1_blocks(thE, thO, b, g, n), reps)
+                    emit({"metric": "device_ms", "kernel": "K1", "variant": variant,
+                          "shape": shape, "card": card, "blocks_a_chain": n or "global",
+                          "taken": taken or "global", "taken_device_ms": taken_ms,
+                          "device_ms": n_ms, "over_taken": n_ms / taken_ms,
+                          "bit_for_bit_with_taken": same})
+
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(rows, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

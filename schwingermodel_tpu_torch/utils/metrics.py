@@ -144,3 +144,37 @@ def profiler_trace(trace_dir: Optional[str]):
     with profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+
+
+# Cycles a second the card's spin (torch.cuda._sleep) is reckoned at: at
+# least the H100's highest SM clock, 1.98 GHz, so the spin lasts at least the
+# time asked of it.
+_SPIN_HZ = 2.0e9
+_SPIN_MAX_S = 0.1
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean milliseconds of the card per call of fn over `reps` calls, by
+    CUDA events, after a warm-up call. The calls are queued behind a spin of
+    the card as long as the host takes to issue them (at most 0.1 s), so
+    that a kernel shorter than its host-side launch is timed by its own
+    length and not by the host's; a call the host cannot issue that fast
+    (a plain twin of thousands of small launches) is timed as the host
+    issues it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    issue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(_SPIN_HZ * min(1.5 * reps * issue_s, _SPIN_MAX_S)))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
