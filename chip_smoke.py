@@ -28,7 +28,12 @@ Phases (any failure raises, and the script exits non-zero):
                         of random f32 planes across 30 binades, equal to
                         torch.roll bit for bit (allow_tf32 is set False and
                         asserted first: the twin's matmul must be exact);
-   K5 ratio_force       m0=-0.19, m1=0.21: forces to 3e-5 * max(scale, 1);
+   K5 ratio_force       m0=-0.19, m1=0.21: forces to 3e-5 * max(scale, 1),
+                        on every path its size takes (K1's no-solve body
+                        with the bilinears folded: 4 blocks a chain at
+                        64x64 C=32 and 32x32 C=32, 1 at C=128, 8 at 64x64
+                        C=1 and 128x128 C=2 and C=8; the global scratch at
+                        126x128), the path printed;
    K3 solve_refined     certify=True at 1e-10 (cold start) and
                         certify=False at 1e-8 (forecast start), also at
                         32x32 C=32 (everything in shared memory), 20x34 C=2
@@ -50,12 +55,23 @@ Phases (any failure raises, and the script exits non-zero):
                         from x0 = b) where only the second half falls back
                         and the first half keeps K3's x bit for bit;
    K6 cg_solve_eo       on given links, B right-hand sides per
-                        configuration (B=8 at C=32, 1 at C=1, 2 at C=3):
+                        configuration (B=8 at C=32, 1 at C=1, 2 at C=3, and
+                        at K3's other shapes below: B=8 at 32x32, 2 else):
                         tol 1e-5 from x0 = 0 (the refinement's inner solve)
                         and 1e-6 from x0 = b (the loose solve): equal flags,
                         x to 2e-4, every f64 true residual under
                         2 tol ||b||, iteration counts side by side; a
                         starved max_iter=3 solve unconverged in both, finite;
+                        the path (one block's shared memory up to 64x64,
+                        the global scratch beyond) and the blocks an SM
+                        runs at once printed; on the shared path where V2 is
+                        a multiple of 512 (64x64, 32x32) x, iterations and
+                        flags equal to the global path's (through the C
+                        entry) bit for bit; a batch with one zero
+                        right-hand side (no guards): iterations, flags and
+                        the non-finite pattern of the twin (1 iteration,
+                        unconverged, NaN x), the other entries bit for bit
+                        the global path's;
    K9 residual_f64      on random f64 x: |r - r_plain| <= 1e-12 (max|b| +
                         max|A x|);
    the refined dirac_inverse (K6 + K9 + K4) at 64x64 C=2 B=4 against the
@@ -83,7 +99,9 @@ Phases (any failure raises, and the script exits non-zero):
    needed) over the card's f32 or f64 peak (K10's products over the f64
    tensor-core peak), and K10 and K2 in turns; K1's and K2's path (one
    block's shared memory, several blocks a chain, or the global scratch:
-   ops/traj.cg_path) and microseconds per CG iteration; then four 64x64 trajectories of C=4
+   ops/traj.cg_path) and microseconds per CG iteration, K6's path, blocks an
+   SM, waves and microseconds per iteration of a wave's slowest entry, and
+   K5's blocks a chain; then four 64x64 trajectories of C=4
    chains through the kernels against the same trajectories through the plain twins on the CPU, same
    noise (refined leapfrog, loose leapfrog, refined Hasenbusch Omelyan,
    loose Hasenbusch leapfrog): |ddH| < 5e-3, |dtheta'| < 2e-4, equal
@@ -124,7 +142,8 @@ Phases (any failure raises, and the script exits non-zero):
    entry through the restart refinement. With --profile, three batch trajectories of the
    packed demo, of the packed loose (a), and of (f) and (g) then run under
    torch.profiler (launches, device-busy share, the top kernels by device
-   time, and K1's and K2's device time);
+   time, and K1's and K2's device time), then one K6 launch (C=32, B=8) and
+   one K5 launch at 64x64, whose shared kernels must appear by name;
 4. the kernels line (ten entry points), the card line, and the last line
    {"ok": true, "device": {...}}.
 
@@ -611,22 +630,30 @@ def main() -> int:
               f"{p.iters[:8].tolist()}", flush=True)
         return k, p
 
-    errs = dict.fromkeys(("force_step", "solve_fused", "solve_fused_mxu", "ratio_force",
-                          "solve_refined", "solve_f64_cg_fallback",
-                          "cg_solve_eo", "residual_f64"), 0.0)
-    RHS = {C_MAIN: 8, 1: 1, 3: 2}      # right-hand sides per configuration
-    # the main path's shapes, and a small non-square lattice
-    for nx, nt, C in ((NX, NT, C_MAIN), (NX, NT, 1), (8, 12, 3)):
-        thE, thO, b = inputs(C, nx, nt)
-        B = RHS[C]
-        ue, uo = SchwingerModel.fermion_links(thE, thO)
-        bb = torch.randn((C, B, 2, 2, nx, nt // 2), generator=gen, device=dev)
-        C = f"{C} at {nx}x{nt}"
+    def k6_global(ue, uo, bb, x0, tol):
+        """K6's launch on the global path: (x, iters, rho, bnorm2)."""
+        return cg_eo._launch(ue, uo, bb, x0, M0, tol, MAX_ITER, _cuda.sm_count(dev),
+                             tr.CG_GLOBAL)
 
-        # K6 on given links: the refinement's inner solve and the loose solve
+    def k6_path(nx, nth, entries):
+        """K6's path name and its blocks a multiprocessor runs at once."""
+        path, _ = tr.cg_path(nx, nth, entries, _cuda.sm_count(dev))
+        per_sm = _cuda.KERNELS.query("cg_eo_blocks_per_sm", nx, nth, path)
+        return tr.cg_path_name(nx, nth, entries, _cuda.sm_count(dev)), per_sm
+
+    def k6_checks(thE, thO, ue, uo, bb, C):
+        """K6 against its twin on [C, B] systems (C: the label of its shape),
+        from x0 = 0 at 1e-5 (the refinement's inner solve) and from x0 = b at
+        the loose tol, and starved; on the shared path where V2 is a multiple
+        of 512, against the global path through the C entry: x, iterations,
+        rho and ||b||^2 (so the flags) bit for bit."""
+        n_c, B, _, _, nx, nth = bb.shape
+        path, per_sm = k6_path(nx, nth, n_c * B)
+        against_global = path == "shared" and (nx * nth) % 512 == 0
         for tol, cold in ((1e-5, True), (LOOSE_TOL, False)):
             x0 = torch.zeros_like(bb) if cold else bb
-            label = f"K6 tol={tol:g} from x0={'0' if cold else 'b'} C={C} B={B}"
+            label = (f"K6 tol={tol:g} from x0={'0' if cold else 'b'} C={C} B={B} (path: "
+                     f"{path}, {per_sm} block(s) an SM)")
             k = cg_eo.cg_solve_eo(ue, uo, bb, x0, m0=M0, tol=tol, max_iter=MAX_ITER)
             p = cg_eo.cg_solve_eo_reference(ue, uo, bb, x0, m0=M0, tol=tol,
                                             max_iter=MAX_ITER)
@@ -640,10 +667,17 @@ def main() -> int:
                   f"{label}: true residual kernel {rk.max().item()} plain "
                   f"{rp.max().item()}")
             errs["cg_solve_eo"] = max(errs["cg_solve_eo"], dx)
+            same = ""
+            if against_global:
+                gx, gi, grho, gbn = k6_global(ue, uo, bb, x0, tol)
+                check(torch.equal(k.x, gx) and torch.equal(k.iters, gi)
+                      and torch.equal(k.converged, tr._converged(grho, gbn, tol)),
+                      f"{label}: the shared path differs from the global path")
+                same = "; x, iterations and flags equal the global path's bit for bit"
             print(f"phase 2: {label}: f64 true residual kernel {rk.max().item():.3e} "
                   f"plain {rp.max().item():.3e}; max |x - x_plain| {dx:.3e}; "
                   f"iterations kernel {k.iters.flatten()[:8].tolist()} plain "
-                  f"{p.iters.flatten()[:8].tolist()}", flush=True)
+                  f"{p.iters.flatten()[:8].tolist()}{same}", flush=True)
         k = cg_eo.cg_solve_eo(ue, uo, bb, bb, m0=M0, tol=LOOSE_TOL, max_iter=3)
         p = cg_eo.cg_solve_eo_reference(ue, uo, bb, bb, m0=M0, tol=LOOSE_TOL,
                                         max_iter=3)
@@ -653,6 +687,32 @@ def main() -> int:
         print(f"phase 2: K6 starved max_iter=3 C={C} B={B}: unconverged and "
               f"finite in both; iterations kernel {k.iters.flatten()[:4].tolist()}",
               flush=True)
+
+    def k5_check(thE, thO, b, C):
+        """K5 near the critical mass against its twin (C: the label of its
+        shape), on the path and blocks a chain its size takes."""
+        nx, nth = thE.shape[-2:]
+        phi2 = torch.randn(b.shape, generator=gen, device=dev)
+        FE, FO = tr.ratio_force(thE, thO, b, phi2, m0=M0_HB, m1=M1_HB, beta=BETA)
+        RE, RO = tr.ratio_force_reference(thE, thO, b, phi2, m0=M0_HB, m1=M1_HB,
+                                          beta=BETA)
+        path = tr.cg_path_name(nx, nth, thE.shape[0], _cuda.sm_count(dev), False, True)
+        errs["ratio_force"] = max(errs["ratio_force"], force_err(
+            FE, FO, RE, RO, f"K5 m0={M0_HB} m1={M1_HB} C={C} (path: {path})"))
+
+    errs = dict.fromkeys(("force_step", "solve_fused", "solve_fused_mxu", "ratio_force",
+                          "solve_refined", "solve_f64_cg_fallback",
+                          "cg_solve_eo", "residual_f64"), 0.0)
+    RHS = {C_MAIN: 8, 1: 1, 3: 2}      # right-hand sides per configuration
+    # the main path's shapes, and a small non-square lattice
+    for nx, nt, C in ((NX, NT, C_MAIN), (NX, NT, 1), (8, 12, 3)):
+        thE, thO, b = inputs(C, nx, nt)
+        B = RHS[C]
+        ue, uo = SchwingerModel.fermion_links(thE, thO)
+        bb = torch.randn((C, B, 2, 2, nx, nt // 2), generator=gen, device=dev)
+        C = f"{C} at {nx}x{nt}"
+
+        k6_checks(thE, thO, ue, uo, bb, C)
 
         # K9 on a random f64 x
         x64 = torch.randn(bb.shape, generator=gen, device=dev, dtype=torch.float64)
@@ -709,13 +769,7 @@ def main() -> int:
               f"P+ a and P- a equal torch.roll bit for bit (tensor cores and twin)",
               flush=True)
 
-        # K5 near the critical mass
-        phi2 = torch.randn(b.shape, generator=gen, device=dev)
-        FE, FO = tr.ratio_force(thE, thO, b, phi2, m0=M0_HB, m1=M1_HB, beta=BETA)
-        RE, RO = tr.ratio_force_reference(thE, thO, b, phi2, m0=M0_HB, m1=M1_HB,
-                                          beta=BETA)
-        errs["ratio_force"] = max(errs["ratio_force"], force_err(
-            FE, FO, RE, RO, f"K5 m0={M0_HB} m1={M1_HB} C={C}"))
+        k5_check(thE, thO, b, C)
 
         k3_checks(thE, thO, b, C)
 
@@ -724,10 +778,51 @@ def main() -> int:
     # blocks), and one that no cluster divides (the global scratch); K1 and
     # K2 there too (one block a chain, 2 blocks a chain for the force alone,
     # and the global scratch with the CG)
+    # K6 and K5 there too (K6 with B=8 at C=32, else 2; its shared path, with
+    # odd extents, and its global path; K5 on 4 and 8 blocks a chain, and
+    # the global path)
     for nx, nt, C in ((32, 32, C_MAIN), (20, 34, 2), (128, 128, 2), (126, 128, 2)):
         thE, thO, b = inputs(C, nx, nt)
         k3_checks(thE, thO, b, f"{C} at {nx}x{nt}")
         k1_k2_checks(thE, thO, b, f"{C} at {nx}x{nt}")
+        ue, uo = SchwingerModel.fermion_links(thE, thO)
+        bb = torch.randn((C, 8 if C == C_MAIN else 2, 2, 2, nx, nt // 2), generator=gen,
+                         device=dev)
+        k6_checks(thE, thO, ue, uo, bb, f"{C} at {nx}x{nt}")
+        k5_check(thE, thO, b, f"{C} at {nx}x{nt}")
+    # K5 on one block a chain (C=128) and on 8 (128x128 C=8)
+    for nx, nt, C in ((NX, NT, 4 * C_MAIN), (128, 128, 8)):
+        k5_check(*inputs(C, nx, nt), f"{C} at {nx}x{nt}")
+    # K6 without guards: a zero right-hand side among random ones runs one
+    # iteration to a NaN x, unconverged, as its twin (and the Pallas loop)
+    # does; every other entry as if alone
+    thE, thO, _ = inputs(2)
+    ue, uo = SchwingerModel.fermion_links(thE, thO)
+    bb = torch.randn((2, 4, 2, 2, NX, NT // 2), generator=gen, device=dev)
+    bb[1, 2] = 0
+    zero = torch.zeros_like(bb)
+    k = cg_eo.cg_solve_eo(ue, uo, bb, zero, m0=M0, tol=1e-5, max_iter=MAX_ITER)
+    p = cg_eo.cg_solve_eo_reference(ue, uo, bb, zero, m0=M0, tol=1e-5, max_iter=MAX_ITER)
+    g = k6_global(ue, uo, bb, zero, 1e-5)
+
+    def finite(x):
+        return torch.isfinite(x).flatten(2).all(dim=2)
+
+    want = torch.ones((2, 4), dtype=torch.bool, device=dev)
+    want[1, 2] = False
+    check(torch.equal(k.iters, p.iters) and torch.equal(k.iters, g[1])
+          and int(k.iters[1, 2]) == 1, f"K6 zero entry: iterations kernel "
+          f"{k.iters.tolist()} plain {p.iters.tolist()} global {g[1].tolist()}")
+    check(torch.equal(k.converged, want) and torch.equal(p.converged, want),
+          f"K6 zero entry: flags kernel {k.converged.tolist()} plain {p.converged.tolist()}")
+    check(torch.equal(finite(k.x), want) and torch.equal(finite(p.x), want)
+          and torch.equal(finite(g[0]), want), "K6 zero entry: the non-finite pattern")
+    check(torch.equal(k.x[want], g[0][want]), "K6 zero entry: the finite entries differ "
+          "from the global path")
+    print(f"phase 2: K6 zero entry at {NX}x{NT} C=2 B=4 (path: {k6_path(NX, NT // 2, 8)[0]}): "
+          f"iterations {k.iters.tolist()} equal the twin's and the global path's, flags "
+          f"{k.converged.tolist()} the twin's, x non-finite only in the zero entry (all "
+          f"three), the other entries bit for bit the global path's", flush=True)
 
     # K7 and K8 on the blocks of a mesh of shards
     halo_errs, halo_times, halo_bounds = halo_kernel_checks(dev, gen, card)
@@ -832,8 +927,8 @@ def main() -> int:
     it_k3 = rs.solve_refined(thE, thO, b, b, m0=M0, tol=1e-10).iters.sum().item()
     it_k4 = (rs.solve_f64_cg_fallback(thE, thO, b, starved, m0=M0, tol=1e-10).iters
              - starved.iters).sum().item()
-    it_k6 = cg_eo.cg_solve_eo(ue, uo, bb, zero, m0=M0, tol=1e-5,
-                              max_iter=MAX_ITER).iters.sum().item()
+    k6_iters = cg_eo.cg_solve_eo(ue, uo, bb, zero, m0=M0, tol=1e-5, max_iter=MAX_ITER).iters
+    it_k6 = k6_iters.sum().item()
     it_k10 = tr.solve_fused_mxu(thE, thO, b, b, **kw).iters.sum().item()
     check(it_k10 == it_k2, f"K10 ran {it_k10} iterations on the timed inputs, K2 {it_k2}")
     # K10's products: 32 shifted planes per normal apply, 2 Nx Nx Nth flops
@@ -903,9 +998,23 @@ def main() -> int:
         if s_:
             k12_detail["force_step " + v]["us_per_iteration"] = (
                 1e3 * k1_times[v][0] / k1_solved[g_].max().item())
+    # K6 on its path: the entries run in waves of the card's multiprocessors
+    # times the blocks each runs at once, so per iteration of the slowest
+    # entry of a wave; K5's blocks a chain
+    k6_path_name, k6_per_sm = k6_path(NX, NT // 2, E)
+    k6_waves = -(-E // (sms * k6_per_sm))
+    k12_detail["cg_solve_eo"] = dict(
+        path=k6_path_name, blocks_per_sm=k6_per_sm, waves=k6_waves,
+        us_per_iteration=1e3 * times["cg_solve_eo"][0] / (k6_waves * k6_iters.max().item()))
+    k12_detail["ratio_force"] = dict(
+        path=tr.cg_path_name(NX, NT // 2, C_MAIN, sms, False, True),
+        blocks_a_chain=tr.ratio_force_path(NX, NT // 2, C_MAIN, sms)[1])
     for k_name, d in k12_detail.items():
         us = (f", {d['us_per_iteration']:.3f} us per iteration of the slowest chain"
               if "us_per_iteration" in d else "")
+        if "waves" in d:
+            us += (f" (entry) of a wave; B={RHS[C_MAIN]}, {d['blocks_per_sm']} block(s) an "
+                   f"SM, {d['waves']} waves")
         print(f"phase 2: {k_name} at {NX}x{NT} C={C_MAIN} ({card}): path {d['path']}{us}",
               flush=True)
     # K4's entry after a solve that converged every chain, as the restart
@@ -1367,6 +1476,32 @@ def main() -> int:
                 ("(f) refined on 2x2 shards", hmc_params(), mesh22),
                 ("(g) loose on 2x2 shards", hmc_params(refine=False), mesh22)):
             profile(label, SchwingerModel(lattice=lattice, hmc=hmc), mesh)
+        # K6 as the condensate calls it (B=8) and K5 as the Hasenbusch
+        # force does, at 64x64 C=32: their kernels by name
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as torch_profile
+
+        thE, thO, b = inputs(C_MAIN)
+        ue, uo = SchwingerModel.fermion_links(thE, thO)
+        bb = torch.randn((C_MAIN, RHS[C_MAIN], 2, 2, NX, NT // 2), generator=gen,
+                         device=dev)
+        phi2 = torch.randn(b.shape, generator=gen, device=dev)
+        zero = torch.zeros_like(bb)
+        torch.cuda.synchronize()
+        # three of each: the trace may miss the first kernel of its window
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                cg_eo.cg_solve_eo(ue, uo, bb, zero, m0=M0, tol=1e-5, max_iter=MAX_ITER)
+                tr.ratio_force(thE, thO, b, phi2, m0=M0_HB, m1=M1_HB, beta=BETA)
+            torch.cuda.synchronize()
+        names = {e.key: e.count for e in prof.key_averages()
+                 if "cg_eo" in e.key or "force_shared_kernel" in e.key}
+        check(any("cg_eo_shared_kernel" in k for k in names)
+              and any("force_shared_kernel" in k for k in names),
+              f"profile: K6's or K5's shared kernel missing from {names}")
+        print(f"phase 3: profile K6 (C={C_MAIN} B={RHS[C_MAIN]}) and K5 (C={C_MAIN}, "
+              f"{tr.ratio_force_path(NX, NT // 2, C_MAIN, sms)[1]} blocks a chain) at "
+              f"{NX}x{NT}: device kernels {names}", flush=True)
 
     # ---- phase 4: report ----
     replaces = {
@@ -1415,6 +1550,8 @@ def main() -> int:
         f64_residual_share=k3_f64_share, ms_with_fallback_on=k3_fb_ms,
         ms_at_4x_chains=k3_c128_ms)
     by_name["solve_fused"].update(k12_detail["solve_fused"])
+    by_name["cg_solve_eo"].update(k12_detail["cg_solve_eo"])
+    by_name["ratio_force"].update(k12_detail["ratio_force"])
     by_name["solve_fused_mxu"]["ms_k2_in_turns"] = k2_vs_k10[1]
     by_name["solve_fused_mxu"]["ms_in_turns_with_k2"] = k2_vs_k10[0]
     check(all(e["launches"] > 0 for e in kernels), "a kernel was never launched")

@@ -15,8 +15,9 @@
 // a chain is 2048 sites at 64x64, so the kernel is a short chain of
 // dependent stencil stages, and with the CG a loop of them, whose cost is
 // what a thread waits for after each barrier. Design: every field in shared
-// memory (shared_stencil.cuh), site-major, one 16-byte load a neighbour's
-// spinor, no trip to L2 between stages. Where the kernel keeps its fields
+// memory (shared_stencil.cuh; the force stages in force_shared.cuh, whose
+// body K5 runs too), site-major, one 16-byte load a neighbour's spinor, no
+// trip to L2 between stages. Where the kernel keeps its fields
 // is chosen by lattice size and chain count before the launch
 // (ops/traj.cg_path):
 //
@@ -38,7 +39,7 @@
 //   every intermediate (links, b, chi', a, plaquette angles, and with the CG
 //   r, d, Ad) in a per-chain global scratch that stays in L2; the CG's three
 //   stencil temporaries reuse the b, chi' and a planes.
-#include "shared_stencil.cuh"
+#include "force_shared.cuh"
 
 namespace sm {
 
@@ -135,150 +136,6 @@ force_step_kernel(const float* __restrict__ thE, const float* __restrict__ thO,
   }
 }
 
-// The force at one even and one odd site of the shared layout: the fermion
-// force of fermion_force_site and, with_gauge, the staples from the
-// plaquette angles (Im P even, Im P odd) of each site.
-template <bool WITH_GAUGE>
-__device__ __forceinline__ void force_pair_shared(const float2* ue, const float2* uo,
-                                                  const float4* P, const float4* B,
-                                                  const float4* X, const float4* A,
-                                                  const float2* plaq, int s, const Nbr& ne,
-                                                  const Nbr& no, int V2, float two_c,
-                                                  float beta, float fe[2], float fo[2]) {
-  float f0, f1;
-  // even sites: x = psi, y = chi'; the odd operands are b and a
-  {
-    const float4 xp = P[s], yp = X[s], xt = B[ne.pt], yt = A[ne.pt], xx = B[ne.px],
-                 yx = A[ne.px];
-    fermion_force_ops(cx(ue[s]), cx(ue[V2 + s]), lo(xp), hi(xp), lo(yp), hi(yp), lo(xt),
-                      hi(xt), lo(yt), hi(yt), lo(xx), hi(xx), lo(yx), hi(yx), f0, f1);
-    if (WITH_GAUGE) {
-      const float se = plaq[s].x;
-      fe[0] = two_c * f0 + (-beta * (se - plaq[ne.mx].y));
-      fe[1] = two_c * f1 + beta * (se - plaq[ne.mt].y);
-    } else {
-      fe[0] = two_c * f0;
-      fe[1] = two_c * f1;
-    }
-  }
-  // odd sites: x = b, y = a; the even operands are psi and chi'
-  {
-    const float4 xp = B[s], yp = A[s], xt = P[no.pt], yt = X[no.pt], xx = P[no.px],
-                 yx = X[no.px];
-    fermion_force_ops(cx(uo[s]), cx(uo[V2 + s]), lo(xp), hi(xp), lo(yp), hi(yp), lo(xt),
-                      hi(xt), lo(yt), hi(yt), lo(xx), hi(xx), lo(yx), hi(yx), f0, f1);
-    if (WITH_GAUGE) {
-      const float so = plaq[s].y;
-      fo[0] = two_c * f0 + (-beta * (so - plaq[no.mx].x));
-      fo[1] = two_c * f1 + beta * (so - plaq[no.mt].x);
-    } else {
-      fo[0] = two_c * f0;
-      fo[1] = two_c * f1;
-    }
-  }
-}
-
-// K1 on the shared path: `blocks` blocks a chain (1 with the solve), block
-// `rank` owning the rows [rank * rows, (rank + 1) * rows) and holding them
-// between kHaloW rows on either side when blocks > 1. Shared memory: the CG
-// store's links and four spinors (psi, b, chi', a in d's, r's and the two
-// temporaries' places), with_gauge the plaquette angles of each site after
-// them.
-template <bool WITH_SOLVE, bool WITH_GAUGE>
-__global__ void __launch_bounds__(kThreads)
-force_shared_kernel(const float* __restrict__ thE, const float* __restrict__ thO,
-                    const float* __restrict__ phi_all, const float* __restrict__ x0_all,
-                    float* __restrict__ psi_all, float* __restrict__ FE_all,
-                    float* __restrict__ FO_all, int* __restrict__ iters_out,
-                    unsigned char* __restrict__ conv_out, int Nx, int Nth, float m, float c,
-                    float beta, double tol, int max_iter, int blocks) {
-  extern __shared__ __align__(16) float smem[];
-  __shared__ double sh[2 * (kThreads / 32)];
-  const Geo g{Nx, Nth, Nx * Nth};
-  const int V2 = g.V2;
-  const int ch = blockIdx.x / blocks, rank = blockIdx.x - ch * blocks;
-  const int rows = Nx / blocks, halo = blocks > 1 ? kHaloW : 0;
-  // the block's rows: global row first + xl at local row xl
-  const int first = rank * rows - halo;
-  const Geo lg{rows + 2 * halo, Nth, (rows + 2 * halo) * Nth};
-  const int par = first & 1;
-  CgShared S = cg_shared(smem, sh, lg, m, c);
-  float4 *P = S.d, *B = S.r, *X = S.t1, *A = S.t2;
-  const float2* plaq = reinterpret_cast<float2*>(smem + 24 * lg.V2);
-  make_links_rows(thE + (size_t)ch * 2 * V2, 0, S.ue, lg, first, g);
-  make_links_rows(thO + (size_t)ch * 2 * V2, 1, S.uo, lg, first, g);
-  const float* x0 = x0_all + (size_t)ch * 4 * V2;
-  if (WITH_SOLVE) {
-    // one block: the links are visible after the CG's first barrier
-    const CgOut o = S.solve(phi_all + (size_t)ch * 4 * V2, x0, tol, max_iter);
-    S.write_x(psi_all + (size_t)ch * 4 * V2);
-#pragma unroll
-    for (int j = 0; j < kOwnSites; ++j)
-      if (S.mine(j))
-        P[threadIdx.x + j * kThreads] = make_float4(S.x[j][0], S.x[j][1], S.x[j][2], S.x[j][3]);
-    if (threadIdx.x == 0) {
-      iters_out[ch] = o.iters;
-      conv_out[ch] = o.rho < static_cast<float>(tol * tol) * o.bnorm2;
-    }
-  } else {
-    for (int s = threadIdx.x; s < lg.V2; s += kThreads) {
-      const int xl = s / Nth;
-      const int gs = ((first + xl) % Nx + Nx) % Nx * Nth + (s - xl * Nth);
-      P[s] = make_float4(x0[gs], x0[V2 + gs], x0[2 * V2 + gs], x0[3 * V2 + gs]);
-    }
-    if (rank == 0 && threadIdx.x == 0) {
-      iters_out[ch] = 0;
-      conv_out[ch] = 1;
-    }
-  }
-  __syncthreads();
-  S.own.stage<true, false>(S.uo, S.ue, P, 1 ^ par, B, nullptr, 0.f, 0.f, lg);  // b
-  __syncthreads();
-  S.own.stage<true, true>(S.ue, S.uo, B, par, X, P, m, -c, lg);  // chi'
-  if (WITH_GAUGE) {
-    float2* pl = reinterpret_cast<float2*>(smem + 24 * lg.V2);
-#pragma unroll
-    for (int j = 0; j < kOwnSites; ++j) {
-      const int s = threadIdx.x + j * kThreads;
-      if (s < lg.V2) {
-        const Nbr ne = S.own.nbrs(j, par, lg), no = S.own.nbrs(j, 1 ^ par, lg);
-        const float2 *ue = S.ue, *uo = S.uo;
-        pl[s] = make_float2(
-            plaq_im(cx(ue[s]), cx(uo[lg.V2 + ne.pt]), cx(uo[ne.px]), cx(ue[lg.V2 + s])),
-            plaq_im(cx(uo[s]), cx(ue[lg.V2 + no.pt]), cx(ue[no.px]), cx(uo[lg.V2 + s])));
-      }
-    }
-  }
-  __syncthreads();
-  S.own.stage<false, false>(S.uo, S.ue, X, 1 ^ par, A, nullptr, 0.f, 0.f, lg);  // a
-  __syncthreads();
-
-  float* FE = FE_all + (size_t)ch * 2 * V2;
-  float* FO = FO_all + (size_t)ch * 2 * V2;
-  const float two_c = 2.0f * c;
-#pragma unroll
-  for (int j = 0; j < kOwnSites; ++j) {
-    const int s = threadIdx.x + j * kThreads;
-    const int xl = S.own.sxk[j] >> 16;
-    if (s < lg.V2 && xl >= halo && xl < halo + rows) {
-      float fe[2], fo[2];
-      force_pair_shared<WITH_GAUGE>(S.ue, S.uo, P, B, X, A, plaq, s, S.own.nbrs(j, par, lg),
-                                    S.own.nbrs(j, 1 ^ par, lg), lg.V2, two_c, beta, fe, fo);
-      const int gs = s + first * Nth;
-      FE[gs] = fe[0];
-      FE[V2 + gs] = fe[1];
-      FO[gs] = fo[0];
-      FO[V2 + gs] = fo[1];
-    }
-  }
-}
-
-// Shared memory of the shared path a site: the CG store, and with_gauge the
-// plaquette angles.
-constexpr int force_shared_bytes(bool with_gauge) {
-  return kCgSharedBytes + (with_gauge ? 8 : 0);
-}
-
 template <bool S, bool G>
 int launch(const void* thE, const void* thO, const void* phi, const void* x0, void* psi,
            void* FE, void* FO, void* iters, void* conv, void* scratch, int C, int Nx, int Nth,
@@ -294,23 +151,12 @@ int launch(const void* thE, const void* thO, const void* phi, const void* x0, vo
         static_cast<float*>(scratch), Nx, Nth, m, c, beta, tol, max_iter);
     return static_cast<int>(cudaGetLastError());
   }
-  // one block a chain with the solve; without it, blocks dividing Nx, each
-  // with its rows and kHaloW rows on either side within its threads' sites
-  const int rows = blocks > 0 ? Nx / blocks : 0;
-  const size_t sites = static_cast<size_t>(rows + (blocks > 1 ? 2 * kHaloW : 0)) * Nth;
-  const size_t bytes = force_shared_bytes(G) * sites;
-  if (path != 1 || blocks < 1 || (S && blocks != 1) || Nx % blocks != 0 ||
-      sites > kOwnSites * kThreads || bytes > kSharedMax)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t e = cudaFuncSetAttribute(
-      force_shared_kernel<S, G>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSharedMax);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  force_shared_kernel<S, G><<<C * blocks, kThreads, bytes, stream>>>(
-      th_e, th_o, static_cast<const float*>(phi), static_cast<const float*>(x0),
-      static_cast<float*>(psi), static_cast<float*>(FE), static_cast<float*>(FO),
-      static_cast<int*>(iters), static_cast<unsigned char*>(conv), Nx, Nth, m, c, beta, tol,
-      max_iter, blocks);
-  return static_cast<int>(cudaGetLastError());
+  if (path != 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_shared<S, G>(th_e, th_o, static_cast<const float*>(phi),
+                             static_cast<const float*>(x0), static_cast<float*>(psi),
+                             static_cast<float*>(FE), static_cast<float*>(FO),
+                             static_cast<int*>(iters), static_cast<unsigned char*>(conv), C, Nx,
+                             Nth, m, c, 0.f, beta, tol, max_iter, blocks, stream);
 }
 
 }  // namespace sm

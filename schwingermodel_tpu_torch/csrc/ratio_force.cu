@@ -10,11 +10,23 @@
 // and only here: the heavy term's K1 runs with_gauge=false.
 //
 // What bounds it on the card: as K1 without the CG, a few dependent
-// stencil stages per chain, so barrier and L2 latency. Design: one thread
-// block per chain, one launch per force evaluation, intermediates (links,
-// b, chi', H_oe chi', H_oe phi2, plaquette angles: 26 f32 values per
-// half-lattice site) in a per-chain global scratch that stays in L2.
-#include "stencil.cuh"
+// stencil stages per chain, so latency (the launch, the first reads,
+// sincosf, four barriers), not bytes or flops. Where its fields live is
+// chosen by lattice size and chain count before the launch
+// (ops/traj.ratio_force_path, K1's rule without the solve, with staples):
+//
+// - shared (up to 64x64 on one block, 128x128 on 8): K1's shared kernel body
+//   (force_shared.cuh) with the two bilinears folded into one,
+//   2 f(psi (+) b, Y (+) H_oe Y) with Y = c0 chi' - c1 phi2 (f is real-linear
+//   in y): the store, the stages and the blocks a chain of K1 without the
+//   solve, phi2 read at the block's sites where chi' is formed. The fold
+//   rounds in another order than the two bilinears, so the forces are not
+//   the global path's bit for bit;
+// - global (a lattice no split holds, e.g. 256x256): one thread block per
+//   chain, the two bilinears as written above, intermediates (links, b,
+//   chi', H_oe chi', H_oe phi2, plaquette angles: 26 f32 values per
+//   half-lattice site) in a per-chain global scratch that stays in L2.
+#include "force_shared.cuh"
 
 namespace sm {
 
@@ -84,17 +96,27 @@ ratio_force_kernel(const float* __restrict__ thE, const float* __restrict__ thO,
 
 }  // namespace sm
 
+// path 0: the global scratch, f32 [C, 26 V2]; path 1: K1's shared kernel
+// body, `blocks` blocks a chain (a divisor of Nx whose rows, with kHaloW rows
+// on either side, hold at most 2048 sites), no scratch.
 extern "C" int ratio_force_launch(const void* thE, const void* thO, const void* psi,
                                   const void* phi2, void* FE, void* FO, void* scratch, int C,
-                                  int Nx, int Nth, double m0, double m1, double beta,
-                                  void* stream) {
+                                  int Nx, int Nth, double m0, double m1, double beta, int path,
+                                  int blocks, void* stream) {
   const float m0f = static_cast<float>(m0 + 2.0);
   const float c0 = static_cast<float>(1.0 / (4.0 * (m0 + 2.0)));
   const float c1 = static_cast<float>(1.0 / (4.0 * (m1 + 2.0)));
-  sm::ratio_force_kernel<<<C, sm::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(thE), static_cast<const float*>(thO),
-      static_cast<const float*>(psi), static_cast<const float*>(phi2), static_cast<float*>(FE),
-      static_cast<float*>(FO), static_cast<float*>(scratch), Nx, Nth, m0f, c0, c1,
-      static_cast<float>(beta));
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float *th_e = static_cast<const float*>(thE), *th_o = static_cast<const float*>(thO);
+  const float *ps = static_cast<const float*>(psi), *p2 = static_cast<const float*>(phi2);
+  if (path == 0) {
+    sm::ratio_force_kernel<<<C, sm::kThreads, 0, s>>>(
+        th_e, th_o, ps, p2, static_cast<float*>(FE), static_cast<float*>(FO),
+        static_cast<float*>(scratch), Nx, Nth, m0f, c0, c1, static_cast<float>(beta));
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (path != 1) return static_cast<int>(cudaErrorInvalidValue);
+  return sm::launch_shared<false, true, true>(
+      th_e, th_o, p2, ps, nullptr, static_cast<float*>(FE), static_cast<float*>(FO), nullptr,
+      nullptr, C, Nx, Nth, m0f, c0, c1, static_cast<float>(beta), 0.0, 0, blocks, s);
 }

@@ -1,5 +1,6 @@
 // The even-odd stencil on one block's shared memory, and the f32 CG that runs
-// on it (K1, K2; K3's f32 recursion uses the layout, the hop and the links).
+// on it (K1, K2, K6; K3's f32 recursion uses the layout, the hop and the
+// links; K5 runs K1's force stages on it).
 //
 // Layout: site-major. A spinor is one float4 a site (spin 0 re, im, spin 1
 // re, im), so a neighbour is one 16-byte load where the planar layout of
@@ -64,6 +65,16 @@ __device__ __forceinline__ void make_links_rows(const float* __restrict__ th, in
 __device__ __forceinline__ void make_links_shared(const float* __restrict__ th, int parity,
                                                   float2* u, const Geo& g) {
   make_links_rows(th, parity, u, g, 0, g);
+}
+
+// One parity's given links, planar [2(dir)][2(re/im)][V2] in global memory
+// (stencil.cuh's layout, as make_links<float> writes it), into the shared
+// layout: the values as they are, nothing built.
+__device__ __forceinline__ void load_links_shared(const float* __restrict__ pl, float2* u,
+                                                  const Geo& g) {
+  for (int s = threadIdx.x; s < g.V2; s += kThreads)
+    for (int mu = 0; mu < 2; ++mu)
+      u[mu * g.V2 + s] = make_float2(pl[(2 * mu) * g.V2 + s], pl[(2 * mu + 1) * g.V2 + s]);
 }
 
 // The sites a thread owns in a block's geometry g, and the stencil stage on
@@ -134,9 +145,10 @@ struct BlockSumTree {
   }
 };
 
-// The f32 CG of cg_f32_op (stencil.cuh) with its guards, on one block's
-// shared memory: both parities' links, d, r and two stencil temporaries, 96
-// bytes a site, x (f32) of the thread's own sites in registers. Ad takes the
+// The f32 CG of cg_f32_op (stencil.cuh), with or without its guards, on one
+// block's shared memory: both parities' links, d, r and two stencil
+// temporaries, 96 bytes a site, x (f32) of the thread's own sites in
+// registers. Ad takes the
 // second temporary's place: the fourth stage reads that temporary only at the
 // thread's own site, and forms the <d, Ad> partial there. 6 barriers an
 // iteration (4 stages, 2 sums). A thread adds its products component by
@@ -279,9 +291,12 @@ struct CgShared {
   }
 
   // The loop of cg_f32_op: the chain stays active while rho >= f32(tol^2)
-  // ||b||^2 and fewer than max_iter iterations ran; a non-positive dAd or a
-  // non-finite alpha freezes it before the update, a non-finite rho_c after
-  // it. Ends with a barrier.
+  // ||b||^2 and fewer than max_iter iterations ran; with kGuards (K1, K2) a
+  // non-positive dAd or a non-finite alpha freezes it before the update, a
+  // non-finite rho_c after it. Without them (K6, as the Pallas loop) only
+  // the stop rule ends it: a zero b runs one iteration to a NaN x and rho.
+  // Ends with a barrier.
+  template <bool kGuards = true>
   __device__ __forceinline__ CgOut solve(const float* b, const float* x0, double tol,
                                          int max_iter) {
     float bnorm2, rho;
@@ -292,9 +307,9 @@ struct CgShared {
     for (int k = 0; k < max_iter && rho >= stop2; ++k) {
       const float dAd = apply(a);
       const float alpha = rho / dAd;
-      if (!(dAd > 0.0f) || !isfinite(alpha)) break;
+      if (kGuards && (!(dAd > 0.0f) || !isfinite(alpha))) break;
       const float rho_c = update_x_r(alpha);
-      if (!isfinite(rho_c)) break;
+      if (kGuards && !isfinite(rho_c)) break;
       update_d(rho_c / rho);
       rho = rho_c;
       ++iters;

@@ -2,10 +2,10 @@
 // port's kernels (force_step.cu, solve_fused.cu, solve_mxu.cu,
 // ratio_force.cu, solve_ru.cu, cg_fallback.cu with cg_fallback.cuh, cg_eo.cu,
 // residual.cu, halo_normal.cu, halo_force.cu), with the fermion force
-// stencil, the f32 CG loop (cg_f32_op) of K6, K10 and of K1's and K2's
+// stencil, the f32 CG loop (cg_f32_op) of K10 and of K1's, K2's and K6's
 // global paths, the stage of the per-shard halo kernels K7 and K8, and two
-// block sums: block_sum (three barriers; K5-K10 and the global paths of K1
-// and K2) and BlockSum (one barrier; K3, K4). The shared-memory layout, its
+// block sums: block_sum (three barriers; K7-K10 and the global paths of K1,
+// K2, K5 and K6) and BlockSum (one barrier; K3, K4). The shared-memory layout, its
 // one-barrier sum with block_sum's bits and the f32 CG on it (K1 and K2 up
 // to 64x64) are in shared_stencil.cuh.
 //
@@ -24,10 +24,10 @@
 // block's threads stride over the V2 sites; a stencil stage reads neighbours
 // that other threads wrote, so stages are separated by __syncthreads(). The
 // fields lie where the kernel puts them: a per-chain global scratch that
-// stays in L2 (K4-K6, K9, K10; K1, K2 and K3 on a lattice no block holds),
-// or shared memory (K7, K8 in these planes; K1, K2 and K3's f32 recursion in
-// the site-major layout of shared_stencil.cuh, which calls hop_bx and
-// hop_combine).
+// stays in L2 (K4, K9, K10; K1, K2, K3, K5 and K6 on a lattice no block
+// holds), or shared memory (K7, K8 in these planes; K1, K2, K5, K6 and K3's
+// f32 recursion in the site-major layout of shared_stencil.cuh, which calls
+// hop_bx and hop_combine).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -387,7 +387,7 @@ __device__ __forceinline__ void fermion_force_ops(Cx<float> u0, Cx<float> u1, Cx
 }
 
 // The same on planar fields at site s: *_p on-site, *_q the opposite parity.
-// Used by K1's global path and K5.
+// Used by the global paths of K1 and K5.
 __device__ __forceinline__ void fermion_force_site(const float* u, const float* xp,
                                                    const float* yp, const float* xq,
                                                    const float* yq, int s, const Nbr& n,
@@ -420,7 +420,8 @@ struct CgOut {
 // before the x/r update: dAd <= 0 or a non-finite alpha; then, after it, a
 // non-finite rho_c. Either freezes the chain (the loop exits, rho keeps its
 // last finite value, so converged = rho < stop2 is false). kGuards=false
-// drops both, as the loop of pallas_eo._cg_kernel has none (K6): a
+// drops both, as the loop of pallas_eo._cg_kernel has none (K6; its
+// shared path drops them from CgShared::solve the same way): a
 // breakdown then runs its iteration to the end, a NaN rho fails the stop
 // test and the loop exits with converged = false and x as the arithmetic
 // left it. A NaN in b makes rho NaN and the loop never starts: x = x0.
@@ -479,7 +480,7 @@ struct NormalOp {
   }
 };
 
-// cg_f32_op on the stencil of this header (K1, K2, K6).
+// cg_f32_op on the stencil of this header (the global paths of K1, K2, K6).
 template <bool kGuards = true>
 __device__ inline CgOut cg_f32(const float* ue, const float* uo, const float* b, const float* x0,
                                float* x, float* r, float* d, float* Ad, float* t1, float* t2,

@@ -45,7 +45,8 @@ BLOCK_SITES = 4 * 512
 # at hand.
 H100_SMS = 132
 
-# C entry points: name -> argument types. Each returns cudaGetLastError().
+# C entry points: name -> argument types. Each launch returns
+# cudaGetLastError(); each query (QUERIES) returns its answer.
 SIGNATURES = {
     # thE, thO, phi, x0, psi, FE, FO, iters, conv, scratch, C, Nx, Nth,
     # m0, beta, tol, max_iter, with_solve, with_gauge, path, blocks, stream
@@ -58,8 +59,9 @@ SIGNATURES = {
     "solve_mxu_launch": [P, P, P, P, P, P, P, P, P, I, I, I, D, D, I, P],
     # in, out_p, out_m, n_planes, Nx, Nth, stream
     "shift_mxu_launch": [P, P, P, I, I, I, P],
-    # thE, thO, psi, phi2, FE, FO, scratch, C, Nx, Nth, m0, m1, beta, stream
-    "ratio_force_launch": [P, P, P, P, P, P, P, I, I, I, D, D, D, P],
+    # thE, thO, psi, phi2, FE, FO, scratch, C, Nx, Nth, m0, m1, beta, path,
+    # blocks, stream
+    "ratio_force_launch": [P, P, P, P, P, P, P, I, I, I, D, D, D, I, I, P],
     # thE, thO, b, x0, x, x64, iters, fb_iters, conv, scratch32, scratch64,
     # clocks, C, Nx, Nth, m0, tol, tau, max_iter, max_outer, certify, cert_k,
     # fallback, fb_max_iter, fb_max_rounds, path, cluster, stream
@@ -70,8 +72,8 @@ SIGNATURES = {
     "cg_fallback_launch": [P, P, P, P, P, P, P, P, P, P, P, P,
                            I, I, I, D, D, D, I, I, P],
     # ue, uo, b, x0, x, iters, rho, bnorm2, scratch,
-    # C, B, Nx, Nth, m0, tol, max_iter, stream
-    "cg_eo_launch": [P, P, P, P, P, P, P, P, P, I, I, I, I, D, D, I, P],
+    # C, B, Nx, Nth, m0, tol, max_iter, path, stream
+    "cg_eo_launch": [P, P, P, P, P, P, P, P, P, I, I, I, I, D, D, I, I, P],
     # thE, thO, b, x, r, rnorm2, scratch, C, B, Nx, Nth, m0, stream
     "residual_launch": [P, P, P, P, P, P, P, I, I, I, I, D, P],
     # ue, uo, off, v, r, out, dots, scratch, n_blocks, Nxe, Nthe, m0,
@@ -79,7 +81,10 @@ SIGNATURES = {
     "halo_normal_launch": [P, P, P, P, P, P, P, P, I, I, I, D, I, P],
     # ue, uo, off, psi, FE, FO, scratch, n_blocks, Nxe, Nthe, m0, beta, stream
     "halo_force_launch": [P, P, P, P, P, P, P, I, I, I, D, D, P],
+    # Nx, Nth, path -> K6's blocks a multiprocessor runs at once (no stream)
+    "cg_eo_blocks_per_sm": [I, I, I],
 }
+QUERIES = ("cg_eo_blocks_per_sm",)
 
 
 class KernelLibrary:
@@ -157,6 +162,15 @@ class KernelLibrary:
         err = getattr(lib, name)(*args, stream)
         if err != 0:
             raise RuntimeError(f"{name}: CUDA error {err}")
+
+    def query(self, name: str, *args) -> int:
+        """A query's answer; raise where it returns minus a CUDA error."""
+        if name not in QUERIES:
+            raise ValueError(f"{name} is not a query of the kernel library")
+        out = getattr(self.build(), name)(*args)
+        if out < 0:
+            raise RuntimeError(f"{name}: CUDA error {-out}")
+        return out
 
 
 KERNELS = KernelLibrary()

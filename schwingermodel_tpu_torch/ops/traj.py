@@ -24,7 +24,9 @@ The kernels, each with its plain twin that a CPU tensor runs:
   twin ``solve_fused_mxu_reference``, and ``shift_x_mxu`` the shifts alone.
 - ``ratio_force`` is K5 (``csrc/ratio_force.cu``, replacing
   ``pallas_traj._ratio_force_kernel``), the Hasenbusch ratio force with the
-  staples; twin ``ratio_force_reference``.
+  staples; twin ``ratio_force_reference``. On the shared path it runs K1's
+  kernel body without the solve, with its two bilinears folded into one,
+  on the blocks a chain ``ratio_force_path`` gives.
 
 ``from_jax_packed`` and ``to_jax_packed`` convert the JAX package's
 lane-packed numpy planes (any leading axes, the pair axis included) to and
@@ -34,6 +36,7 @@ from this layout: the parameter bridge between the two packages.
 from __future__ import annotations
 
 import collections
+import functools
 import math
 from typing import NamedTuple
 
@@ -184,7 +187,7 @@ def _cg_f32(apply_A, b, x0, tol, max_iter, guards=True):
     return x, iters, rho, bnorm2
 
 
-# ---------- where K1 and K2 keep their fields ----------
+# ---------- where K1, K2 (and K5, K6) keep their fields ----------
 
 # Bytes of dynamic shared memory per half-lattice site on the shared path
 # (csrc/shared_stencil.cuh, force_step.cu): the CG store, and K1's
@@ -206,10 +209,12 @@ def _rows_fit(Nx: int, Nth: int, n: int, per_site: int) -> bool:
     return sites <= _cuda.BLOCK_SITES and per_site * sites <= _cuda.SHARED_MAX
 
 
+@functools.lru_cache(maxsize=None)
 def cg_path(Nx: int, Nth: int, C: int, sms: int = _cuda.H100_SMS, solve=True,
             gauge=False):
-    """Where K2 (solve=True, gauge=False) or K1 (its with_solve and
-    with_gauge) keeps its fields for C chains of an Nx x 2 Nth lattice on a
+    """Where K2 (solve=True, gauge=False; K6 too, C its entries) or K1 (its
+    with_solve and with_gauge; K5 as K1 without the solve, with staples)
+    keeps its fields for C chains of an Nx x 2 Nth lattice on a
     card of `sms` multiprocessors: (path, blocks per chain). CG_SHARED with
     one block a chain wherever the fields fit one block's shared memory and
     threads (up to 64x64). K1 without the solve spreads a chain over n
@@ -511,12 +516,42 @@ def ratio_force_reference(thE, thO, psi, phi2, *, m0, m1, beta):
 _RATIO_SCRATCH = 26      # f32 values per half-lattice site (ratio_force.cu)
 
 
+def ratio_force_path(Nx: int, Nth: int, C: int, sms: int = _cuda.H100_SMS):
+    """Where K5 keeps its fields: K1's rule without the solve, with the
+    staples (``cg_path``), since its shared path is that kernel body on the
+    same store. (path, blocks per chain)."""
+    return cg_path(Nx, Nth, C, sms, solve=False, gauge=True)
+
+
+def _launch_ratio(thE, thO, psi, phi2, m0, m1, beta, sms, path=None, blocks=1):
+    """K5's launch on psi's device, on the path and blocks a chain
+    ``ratio_force_path`` gives, or on `path` and `blocks` where the caller
+    names them (the tools time every block count): a scratch only on the
+    global path; (FE, FO)."""
+    C, _, Nx, Nth = thE.shape
+    if path is None:
+        path, blocks = ratio_force_path(Nx, Nth, C, sms)
+    FE = torch.empty_like(thE)
+    FO = torch.empty_like(thO)
+    scratch = None
+    if path == CG_GLOBAL:
+        scratch = torch.empty(C * _RATIO_SCRATCH * Nx * Nth,
+                              dtype=torch.float32, device=psi.device)
+    p = _cuda.ptr
+    _cuda.KERNELS.call("ratio_force_launch", p(thE), p(thO), p(psi), p(phi2),
+                       p(FE), p(FO), None if scratch is None else p(scratch),
+                       C, Nx, Nth, float(m0), float(m1), float(beta), path,
+                       blocks)
+    return FE, FO
+
+
 def ratio_force(thE, thO, psi, phi2, *, m0, m1, beta):
     """K5: the force of the Hasenbusch ratio term
     (Dhat1 phi2)^+ (Dhat0 Dhat0^+)^{-1} (Dhat1 phi2) at the solved
     psi = (Dhat0 Dhat0^+)^{-1} Dhat1 phi2, plus the staple force
-    (pallas_traj.ratio_force_fused). CUDA tensors run csrc/ratio_force.cu;
-    CPU tensors run ratio_force_reference."""
+    (pallas_traj.ratio_force_fused). CUDA tensors run csrc/ratio_force.cu,
+    on the path ``ratio_force_path`` says; CPU tensors run
+    ratio_force_reference."""
     if not psi.is_cuda:
         return ratio_force_reference(thE, thO, psi, phi2, m0=m0, m1=m1,
                                      beta=beta)
@@ -525,14 +560,8 @@ def ratio_force(thE, thO, psi, phi2, *, m0, m1, beta):
     _cuda.check(thO, "thO", torch.float32, (C, 2, Nx, Nth))
     _cuda.check(psi, "psi", torch.float32, (C, 2, 2, Nx, Nth))
     _cuda.check(phi2, "phi2", torch.float32, (C, 2, 2, Nx, Nth))
-    FE = torch.empty_like(thE)
-    FO = torch.empty_like(thO)
-    scratch = torch.empty(C * _RATIO_SCRATCH * Nx * Nth, dtype=torch.float32,
-                          device=psi.device)
-    p = _cuda.ptr
-    _cuda.KERNELS.call("ratio_force_launch", p(thE), p(thO), p(psi), p(phi2),
-                       p(FE), p(FO), p(scratch), C, Nx, Nth, float(m0),
-                       float(m1), float(beta))
+    FE, FO = _launch_ratio(thE, thO, psi, phi2, m0, m1, beta,
+                           _cuda.sm_count(psi.device))
     ratio_force.launches += 1
     return FE, FO
 

@@ -1,26 +1,36 @@
-"""Times of the force step (K1, all four variants) and of the loose solve
-(K2) on the card.
+"""Times of the force step (K1, all four variants), the loose solve (K2),
+the Hasenbusch ratio force (K5) and the f32 CG on given links (K6) on the
+card.
 
     python -m schwingermodel_tpu_torch.tools.bench_force_solve \\
-        [--shapes 64x64:32,64x64:128,32x32:32,128x128:8] [--out PATH]
+        [--shapes 64x64:32,64x64:128,32x32:32,128x128:8] \\
+        [--k6-shapes 64x64:32:8,64x64:32:1,64x64:128:8,32x32:32:8,128x128:2:8] \\
+        [--out PATH]
 
-For each lattice and chain count it makes random angles and a right-hand
-side from ``--seed`` at m0 = 0.2, beta = 4, and runs K2 (tol 1e-6 from
-x0 = b, as the loose action solve) and K1 in its four variants of
+For each lattice and chain count of ``--shapes`` it makes random angles and
+a right-hand side from ``--seed`` at m0 = 0.2, beta = 4, and runs K2 (tol
+1e-6 from x0 = b, as the loose action solve), K1 in its four variants of
 ``with_solve`` and ``with_gauge`` (tol 1e-6 from x0 = phi = b where it
-solves). It prints one JSON row per (kernel, variant, shape) with the
-kernel's milliseconds by CUDA events in two turns of ``--reps`` launches,
-``ms`` as the launches are issued (the yardstick of ``chip_smoke.py``'s
-kernels line) and ``device_ms`` with them queued behind a spin of the card,
-which leaves the host's launch cost out (``utils.metrics.device_ms``); the
-CG iterations summed over the chains and of the slowest chain,
-microseconds per iteration of the slowest chain, whether every chain
-converged, and the path the lattice size and chain count take on this card
-(``ops/traj.cg_path``). For K1 without the solve it also times every other
-number of blocks a chain that holds the lattice (and the global path) in
-turns with the one ``cg_path`` takes, through the kernel's C entry, in
-queued device time (the host's cost is the same for every block count):
-the measurement behind that choice.
+solves) and K5 (psi = b, a random phi2, m0 = -0.19, m1 = 0.21, as the
+near-critical Hasenbusch row); for each ``NXxNT:C:B`` of ``--k6-shapes``
+random angles' folded links and B right-hand sides per configuration, and
+K6 at tol 1e-5 from x0 = 0 (the refinement's inner solve). It prints one
+JSON row per (kernel, variant, shape) with the kernel's milliseconds by
+CUDA events in two turns of ``--reps`` launches, ``ms`` as the launches are
+issued (the yardstick of ``chip_smoke.py``'s kernels line) and
+``device_ms`` with them queued behind a spin of the card, which leaves the
+host's launch cost out (``utils.metrics.device_ms``); for the solves the CG
+iterations summed and of the slowest chain or entry, microseconds per
+iteration of the slowest (for K6 per wave of entries: the card runs
+``blocks_per_sm`` of its blocks on each multiprocessor at once, read from
+the CUDA occupancy calculator), whether everything converged, and the path
+the lattice size and chain count take on this card (``ops/traj.cg_path``).
+For K1 without the solve and for K5 it also times every other number of
+blocks a chain that holds the lattice (and the global path) in turns with
+the one ``cg_path`` takes, through the kernel's C entry, in queued device
+time (the host's cost is the same for every block count): the measurement
+behind that choice. For K6 on the shared path it times the global path in
+turns with it the same way, and says whether the two agree bit for bit.
 """
 
 from __future__ import annotations
@@ -32,23 +42,28 @@ import sys
 
 import torch
 
-from schwingermodel_tpu_torch.ops import _cuda
+from schwingermodel_tpu_torch.models.schwinger import SchwingerModel
+from schwingermodel_tpu_torch.ops import _cuda, cg_eo
 from schwingermodel_tpu_torch.ops import traj as tr
 from schwingermodel_tpu_torch.tools.bench_mxu_stencil import _card
 from schwingermodel_tpu_torch.tools.bench_refined_solve import _timed
 from schwingermodel_tpu_torch.utils.metrics import device_ms
 
 M0, BETA, TOL, MAX_ITER = 0.2, 4.0, 1e-6, 10000
+M0_HB, M1_HB, K6_TOL = -0.19, 0.21, 1e-5
 VARIANTS = [(s, g) for s in (False, True) for g in (True, False)]
 
 
-def _shapes(text: str):
-    """'64x64:32,32x32:32' -> [(64, 64, 32), (32, 32, 32)]"""
+def _shapes(text: str, fields: int = 1):
+    """'64x64:32,32x32:32' -> [(64, 64, 32), (32, 32, 32)]; with fields=2,
+    '64x64:32:8' -> [(64, 64, 32, 8)]."""
     out = []
     for item in text.split(","):
-        lat, C = item.split(":")
+        lat, *counts = item.split(":")
         nx, nt = lat.split("x")
-        out.append((int(nx), int(nt), int(C)))
+        if len(counts) != fields:
+            raise ValueError(f"{item!r}: expected NXxNT and {fields} count(s)")
+        out.append((int(nx), int(nt), *(int(n) for n in counts)))
     return out
 
 
@@ -70,6 +85,28 @@ def _k1_blocks(thE, thO, b, g, blocks):
     return FE, FO
 
 
+def _k5_blocks(thE, thO, psi, phi2, blocks):
+    """K5's launch on `blocks` blocks a chain of the shared path, or on the
+    global path where blocks is 0."""
+    return tr._launch_ratio(thE, thO, psi, phi2, M0_HB, M1_HB, BETA,
+                            _cuda.sm_count(psi.device),
+                            tr.CG_GLOBAL if blocks == 0 else tr.CG_SHARED, max(blocks, 1))
+
+
+def _k6_path(ue, uo, b, x0, path):
+    """K6's launch on `path`: (x, iters, rho, bnorm2)."""
+    return cg_eo._launch(ue, uo, b, x0, M0, K6_TOL, MAX_ITER, _cuda.sm_count(b.device), path)
+
+
+def _both_timers(run, reps):
+    """`ms` as the launches are issued and `device_ms` queued behind a spin,
+    two turns each: their means and the turns."""
+    ms = [_timed(run, reps) for _ in range(2)]
+    dev_ms = [device_ms(run, reps) for _ in range(2)]
+    return {"ms": sum(ms) / 2, "turns_ms": ms, "device_ms": sum(dev_ms) / 2,
+            "turns_device_ms": dev_ms}
+
+
 def _turns(first, second, reps):
     """first, second, second, first in queued device time: the means of
     each."""
@@ -80,9 +117,12 @@ def _turns(first, second, reps):
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="python -m schwingermodel_tpu_torch.tools.bench_force_solve",
-        description="K1 and K2 on the card: times, iterations, the path")
-    p.add_argument("--shapes", default="64x64:32,64x64:128,32x32:32,128x128:8",
-                   help="NXxNT:C items, comma-separated")
+        description="K1, K2, K5 and K6 on the card: times, iterations, the path")
+    p.add_argument("--shapes", type=_shapes, default="64x64:32,64x64:128,32x32:32,128x128:8",
+                   help="NXxNT:C items for K1, K2 and K5, comma-separated")
+    p.add_argument("--k6-shapes", type=lambda t: _shapes(t, 2),
+                   default="64x64:32:8,64x64:32:1,64x64:128:8,32x32:32:8,128x128:2:8",
+                   help="NXxNT:C:B items for K6 (B right-hand sides per configuration)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--reps", type=int, default=20, help="launches per timing")
     p.add_argument("--out", default=None, metavar="PATH", help="also write the rows as JSON")
@@ -101,10 +141,11 @@ def main(argv=None) -> int:
         rows.append(row)
         print(json.dumps(row), flush=True)
 
-    for nx, nt, C in _shapes(args.shapes):
+    for nx, nt, C in args.shapes:
         th = (2.0 * torch.rand((C, 2, nx, nt), generator=gen, device=dev) - 1.0) * math.pi
         thE, thO = tr.pack_planes(th)
         b = torch.randn((C, 2, 2, nx, nt // 2), generator=gen, device=dev)
+        phi2 = torch.randn(b.shape, generator=gen, device=dev)
         shape = f"{nx}x{nt} C={C}"
         kw = dict(m0=M0, tol=TOL, max_iter=MAX_ITER)
         for kernel, s, g in [("K2", True, False)] + [("K1", s, g) for s, g in VARIANTS]:
@@ -120,11 +161,8 @@ def main(argv=None) -> int:
                 path = tr.cg_path_name(nx, nt // 2, C, sms, s, g)
             reps = args.reps if s else 10 * args.reps
             res = run()
-            ms = [_timed(run, reps) for _ in range(2)]
-            dev_ms = [device_ms(run, reps) for _ in range(2)]
             row = {"metric": "ms", "kernel": kernel, "variant": variant, "shape": shape,
-                   "path": path, "card": card, "ms": sum(ms) / 2, "turns_ms": ms,
-                   "device_ms": sum(dev_ms) / 2, "turns_device_ms": dev_ms}
+                   "path": path, "card": card, **_both_timers(run, reps)}
             if s:
                 it_max = int(res.iters.max())
                 row.update(iters_sum=int(res.iters.sum()), iters_max=it_max,
@@ -149,6 +187,63 @@ def main(argv=None) -> int:
                           "taken": taken or "global", "taken_device_ms": taken_ms,
                           "device_ms": n_ms, "over_taken": n_ms / taken_ms,
                           "bit_for_bit_with_taken": same})
+        k5_path, taken = tr.ratio_force_path(nx, nt // 2, C, sms)
+        taken = taken if k5_path == tr.CG_SHARED else 0
+
+        def run():
+            return tr.ratio_force(thE, thO, b, phi2, m0=M0_HB, m1=M1_HB, beta=BETA)
+        reps = 10 * args.reps
+        emit({"metric": "ms", "kernel": "K5", "variant": None, "shape": shape,
+              "path": tr.cg_path_name(nx, nt // 2, C, sms, False, True), "card": card,
+              **_both_timers(run, reps)})
+        # every other number of blocks a chain, and the global path (the
+        # two bilinears unfolded: not bit for bit)
+        ref = _k5_blocks(thE, thO, b, phi2, taken)
+        for n in (0, 1, 2, 4, 8):
+            if n == taken or (n and not tr._rows_fit(
+                    nx, nt // 2, n, tr._CG_SHARED_BYTES + tr._PLAQ_BYTES)):
+                continue
+            out = _k5_blocks(thE, thO, b, phi2, n)
+            diff = max((x - y).abs().max().item() for x, y in zip(out, ref))
+            taken_ms, n_ms = _turns(lambda: _k5_blocks(thE, thO, b, phi2, taken),
+                                    lambda: _k5_blocks(thE, thO, b, phi2, n), reps)
+            emit({"metric": "device_ms", "kernel": "K5", "shape": shape, "card": card,
+                  "blocks_a_chain": n or "global", "taken": taken or "global",
+                  "taken_device_ms": taken_ms, "device_ms": n_ms,
+                  "over_taken": n_ms / taken_ms, "max_abs_diff_from_taken": diff,
+                  "bit_for_bit_with_taken": diff == 0.0})
+
+    for nx, nt, C, B in args.k6_shapes:
+        th = (2.0 * torch.rand((C, 2, nx, nt), generator=gen, device=dev) - 1.0) * math.pi
+        ue, uo = SchwingerModel.fermion_links(*tr.pack_planes(th))
+        bb = torch.randn((C, B, 2, 2, nx, nt // 2), generator=gen, device=dev)
+        zero = torch.zeros_like(bb)
+        path, _ = tr.cg_path(nx, nt // 2, C * B, sms)
+        per_sm = _cuda.KERNELS.query("cg_eo_blocks_per_sm", nx, nt // 2, path)
+        waves = -(-C * B // (sms * per_sm))
+
+        def run():
+            return cg_eo.cg_solve_eo(ue, uo, bb, zero, m0=M0, tol=K6_TOL, max_iter=MAX_ITER)
+        res = run()
+        it_max = int(res.iters.max())
+        row = {"metric": "ms", "kernel": "K6", "variant": None,
+               "shape": f"{nx}x{nt} C={C} B={B}", "card": card,
+               "path": tr.cg_path_name(nx, nt // 2, C * B, sms), "blocks_per_sm": per_sm,
+               "waves": waves, **_both_timers(run, args.reps)}
+        row.update(iters_sum=int(res.iters.sum()), iters_max=it_max,
+                   us_per_iter=1e3 * row["device_ms"] / (waves * max(it_max, 1)),
+                   all_converged=bool(res.converged.all()))
+        emit(row)
+        if path == tr.CG_SHARED:
+            same = all(torch.equal(x, y) for x, y in zip(
+                _k6_path(ue, uo, bb, zero, tr.CG_GLOBAL), _k6_path(ue, uo, bb, zero, path)))
+            taken_ms, g_ms = _turns(lambda: _k6_path(ue, uo, bb, zero, path),
+                                    lambda: _k6_path(ue, uo, bb, zero, tr.CG_GLOBAL),
+                                    args.reps)
+            emit({"metric": "device_ms", "kernel": "K6", "shape": row["shape"], "card": card,
+                  "path": "global", "taken": row["path"], "taken_device_ms": taken_ms,
+                  "device_ms": g_ms, "over_taken": g_ms / taken_ms,
+                  "bit_for_bit_with_taken": same})
 
     if args.out:
         with open(args.out, "w") as f:

@@ -6,7 +6,9 @@ alone, one block's shared memory, several blocks a chain (K1 without the
 solve) or the global scratch; its byte reckoning is held against the
 kernels' (csrc/shared_stencil.cuh, force_step.cu): 96 bytes a site for the
 CG store, 8 more for K1's plaquette angles, 4 sites a thread of 512, 220
-KiB a block, 4 halo rows on either side of a block's own rows.
+KiB a block, 4 halo rows on either side of a block's own rows. The
+timing tool ``tools/bench_force_solve.py`` (K1, K2, K5, K6 on the card)
+has its arguments checked here.
 
 The port's counterparts of ``tests/test_balance.py:96,121,203`` and
 ``tests/test_hasenbusch.py:133`` (|dH| falls as dt^2; leapfrog, Omelyan and
@@ -25,6 +27,7 @@ from schwingermodel_tpu_torch.hmc import sampler
 from schwingermodel_tpu_torch.hmc.integrators import leapfrog, omelyan
 from schwingermodel_tpu_torch.models.schwinger import SchwingerModel, SolveStats
 from schwingermodel_tpu_torch.ops import traj as tr
+from schwingermodel_tpu_torch.tools import bench_force_solve
 
 torch.set_num_threads(1)
 
@@ -96,6 +99,33 @@ def test_the_solves_never_split_a_chain():
         for C in (1, 8, 128):
             for gauge in (False, True):
                 assert tr.cg_path(Nx, Nth, C, 132, True, gauge)[1] == 1
+
+
+# ---------- the tool's arguments ----------
+
+def test_bench_tool_parses_its_shapes():
+    """--shapes takes NXxNT:C items (K1, K2, K5), --k6-shapes NXxNT:C:B
+    (K6, B right-hand sides per configuration)."""
+    assert bench_force_solve._shapes("64x64:32,128x128:8") == [(64, 64, 32), (128, 128, 8)]
+    assert bench_force_solve._shapes("64x64:32:8,20x34:2:1", 2) == [(64, 64, 32, 8),
+                                                                   (20, 34, 2, 1)]
+
+
+@pytest.mark.parametrize("argv", [
+    ["--k6-shapes", "64x64:32"], ["--shapes", "64x64:32:8"],
+    ["--k6-shapes", "64x64:32:8:1"], ["--shapes", "64:32"]])
+def test_bench_tool_refuses_malformed_arguments(argv):
+    with pytest.raises(SystemExit) as exc:
+        bench_force_solve.main(argv)
+    assert exc.value.code == 2
+
+
+def test_bench_tool_refuses_to_time_without_a_card(capsys):
+    """Parsed arguments, no card: exit 1 and no row, never a CPU time."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the tool would time it")
+    assert bench_force_solve.main(["--shapes", "16x16:2", "--k6-shapes", "32x32:4:2"]) == 1
+    assert "CUDA is not available" in capsys.readouterr().err
 
 
 # ---------- the integrator gates of the JAX suite, f64 on the CPU ----------
