@@ -81,9 +81,16 @@ Phases (any failure raises, and the script exits non-zero):
    K8 halo_force        on the blocks of a mesh of shards: 64x64 over 2x2
                         (the demo mesh), 4x1 and 1x4 at C=32, 16x16 over 2x2
                         at C=3, and 128x128 over 2x2 at C=2 (a block too
-                        large for shared memory: the kernels' global-scratch
-                        path): out and forces to atol 3e-5 * max(scale, 1),
-                        partials to 1e-5 of the block's largest; the sharded
+                        large for one block's shared memory: 8 blocks a
+                        shard), each shape's path and blocks a shard
+                        (ops/halo.halo_path) printed: out and forces to atol
+                        3e-5 * max(scale, 1), partials to 1e-5 of the
+                        block's largest, two launches of K7 on the same
+                        inputs equal bit for bit; at 64x64 and 128x128
+                        over 2x2 the global-scratch kernels (taken only
+                        where no split holds a block) as well, launched by
+                        route, to the same tolerances, two launches of each
+                        equal bit for bit; the sharded
                         K7 CG against the unsharded K2 on the same theta and b
                         (tol 1e-6:
                         flags, f64 true residuals under 2e-6 ||b||, x to
@@ -91,8 +98,9 @@ Phases (any failure raises, and the script exits non-zero):
                         unsharded again, against K1's (with_solve=False) to
                         3e-5 * max(scale, 1);
    each kernel and its twin are timed in turns with CUDA events at 64x64
-   C=32 (K6 and K9 with B=8; K7 and K8 on the 2x2 mesh) as the main path
-   issues them, each kernel also with its calls queued behind a spin of the
+   C=32 (K6 and K9 with B=8; K7 and K8 on the 2x2 mesh, through the sharded
+   CG's operator and the force's call, and through the public wrappers) as
+   the main path issues them, each kernel also with its calls queued behind a spin of the
    card, which leaves the host-side launch out (device_ms), beside the kernel's
    bound: the larger of its bytes (inputs read once, outputs written once)
    over 3.35 TB/s and its operations (at the iteration counts these inputs
@@ -240,7 +248,7 @@ def halo_kernel_checks(dev, gen, card):
     bounds. Returns (errs, times, bounds)."""
     from schwingermodel_tpu_torch.config import HMCParams, LatticeParams
     from schwingermodel_tpu_torch.models.schwinger import SchwingerModel
-    from schwingermodel_tpu_torch.ops import eo, gauge, halo
+    from schwingermodel_tpu_torch.ops import _cuda, eo, gauge, halo
     from schwingermodel_tpu_torch.ops import traj as tr
     from schwingermodel_tpu_torch.ops.eo_halo import W, extend
     from schwingermodel_tpu_torch.ops.geometry import ShardedGeometry
@@ -248,6 +256,7 @@ def halo_kernel_checks(dev, gen, card):
 
     errs = {"halo_normal": 0.0, "halo_force": 0.0}
     times, bounds = {}, {}
+    sms = _cuda.sm_count(dev)
 
     def setup(nx, nt, shape, C):
         mesh = lattice_mesh(shape)
@@ -278,30 +287,63 @@ def halo_kernel_checks(dev, gen, card):
                      for _ in range(3))
         v_ext, psi_ext = extend(geom, v), extend(geom, psi)
         planes = (op.ue_ext, op.uo_ext, op.off_ext)
-        in_shared = 4 * 26 * v_ext.shape[-2] * v_ext.shape[-1] <= 220 * 1024
+        ext, n_ent = v_ext.shape[-2:], C * shape[0] * shape[1]
+        paths = {k: halo.halo_path_name(*ext, n_ent, sms, b) for k, b in
+                 (("K7", halo._NORMAL_BYTES), ("K8", halo._FORCE_BYTES))}
         out_k, dots_k = halo.halo_normal(*planes, v_ext, r, m0=M0, with_dots=True)
+        out_2, dots_2 = halo.halo_normal(*planes, v_ext, r, m0=M0, with_dots=True)
         out_p, dots_p = halo.halo_normal_reference(*planes, v_ext, r, m0=M0,
                                                    with_dots=True)
         out_n = halo.halo_normal(*planes, v_ext, m0=M0)
         err, scale = close(out_k, out_p, f"K7 {label}")
         check(torch.equal(out_k, out_n), f"K7 {label}: out differs without the dots")
+        # no atomics: the same launch twice gives the same bits
+        check(torch.equal(out_k, out_2) and torch.equal(dots_k, dots_2),
+              f"K7 {label}: two launches on the same inputs differ")
         # relative to the block's largest partial: <r,Ad> of a random r is a
         # cancelling sum
         drel = ((dots_k - dots_p).abs()
                 / dots_p.abs().amax(dim=-1, keepdim=True)).max().item()
         check(drel <= 1e-5, f"K7 {label}: partials differ by {drel} relative")
         errs["halo_normal"] = max(errs["halo_normal"], err)
-        print(f"phase 2: K7 {label} ({'shared memory' if in_shared else 'global scratch'}"
-              f"): max |out - out_plain| = {err:.3e} (scale {scale:.3f}, atol "
-              f"{3e-5 * max(scale, 1.0):.3e}); partials max rel. difference "
-              f"{drel:.3e}; equal with and without the dots", flush=True)
+        print(f"phase 2: K7 {label} (path: {paths['K7']}): max |out - out_plain| = "
+              f"{err:.3e} (scale {scale:.3f}, atol {3e-5 * max(scale, 1.0):.3e}); partials "
+              f"max rel. difference {drel:.3e}; equal with and without the dots; two "
+              f"launches equal bit for bit", flush=True)
         FE, FO = halo.halo_force(*planes, psi_ext, m0=M0, beta=BETA)
         RE, RO = halo.halo_force_reference(*planes, psi_ext, m0=M0, beta=BETA)
         err = max(close(FE, RE, f"K8 {label} even")[0],
                   close(FO, RO, f"K8 {label} odd")[0])
         errs["halo_force"] = max(errs["halo_force"], err)
-        print(f"phase 2: K8 {label}: max |F - F_plain| = {err:.3e} (scale "
-              f"{RE.abs().max().item():.3f})", flush=True)
+        print(f"phase 2: K8 {label} (path: {paths['K8']}): max |F - F_plain| = {err:.3e} "
+              f"(scale {RE.abs().max().item():.3f})", flush=True)
+        if shape == (2, 2) and nx in (NX, 128):
+            # the global-scratch kernels, which the rule keeps for blocks no
+            # split holds, held against the twins where they fit as well
+            k7g = halo._NormalLaunch(*planes, M0, route=(tr.CG_GLOBAL, 1))
+            out_g, dots_g = k7g(v_ext, r)
+            out_g2, dots_g2 = k7g(v_ext, r)
+            err_g, _ = close(out_g, out_p, f"K7 global {label}")
+            check(torch.equal(k7g(v_ext), out_g), f"K7 global {label}: out differs without "
+                  "the dots")
+            check(torch.equal(out_g, out_g2) and torch.equal(dots_g, dots_g2),
+                  f"K7 global {label}: two launches on the same inputs differ")
+            drel_g = ((dots_g - dots_p).abs()
+                      / dots_p.abs().amax(dim=-1, keepdim=True)).max().item()
+            check(drel_g <= 1e-5, f"K7 global {label}: partials differ by {drel_g} relative")
+            k8g = halo._ForceLaunch(*planes, route=(tr.CG_GLOBAL, 1))
+            GE, GO = k8g(psi_ext, M0, BETA)
+            GE2, GO2 = k8g(psi_ext, M0, BETA)
+            err8_g = max(close(GE, RE, f"K8 global {label} even")[0],
+                         close(GO, RO, f"K8 global {label} odd")[0])
+            check(torch.equal(GE, GE2) and torch.equal(GO, GO2),
+                  f"K8 global {label}: two launches on the same inputs differ")
+            errs["halo_normal"] = max(errs["halo_normal"], err_g)
+            errs["halo_force"] = max(errs["halo_force"], err8_g)
+            print(f"phase 2: K7 {label} (path: global, by route): max |out - out_plain| = "
+                  f"{err_g:.3e}; partials max rel. difference {drel_g:.3e}; K8 (path: "
+                  f"global, by route): max |F - F_plain| = {err8_g:.3e}; each equal with and "
+                  f"without the dots, two launches equal bit for bit", flush=True)
         if (nx, nt) == (128, 128):
             continue
 
@@ -351,19 +393,31 @@ def halo_kernel_checks(dev, gen, card):
     planes = (op.ue_ext, op.uo_ext, op.off_ext)
     V_ext, V_loc = v_ext.shape[-2] * v_ext.shape[-1], nxl * nthl
     ext_bytes = 4 * (12 * V_ext) + 4 * (nxl + 2 * W)      # links, spinor, offsets
+    # as the main path issues them: the sharded CG's apply on its operator
+    # (constant planes checked once), and the force's call
     times["halo_normal"] = in_turns(
         lambda: halo.halo_normal_reference(*planes, v_ext, r, m0=M0, with_dots=True),
-        lambda: halo.halo_normal(*planes, v_ext, r, m0=M0, with_dots=True), 20, 200)
+        lambda: op.normal_ext(v_ext, r), 20, 200)
     bounds["halo_normal"] = roofline(
         n_blk * (ext_bytes + 4 * (8 * V_loc + 4)),          # + r in, out and dots
         n_blk * ((3 * F_HOP + 8) * V_ext + (F_HOP + 8 + 32) * V_loc))
     times["halo_force"] = in_turns(
         lambda: halo.halo_force_reference(*planes, psi_ext, m0=M0, beta=BETA),
-        lambda: halo.halo_force(*planes, psi_ext, m0=M0, beta=BETA), 20, 200)
+        lambda: op.force_planes(psi_ext, BETA), 20, 200)
     bounds["halo_force"] = roofline(
         n_blk * (ext_bytes + 4 * 4 * V_loc),
         n_blk * ((3 * F_HOP + 8 + 60) * V_ext + (F_FORCE + 16) * V_loc))
-    t_nodots = timed(lambda: halo.halo_normal(*planes, v_ext, m0=M0), 200)
+    t_nodots = timed(lambda: op.normal_ext(v_ext), 200)
+    # the public wrappers check every plane and work out the path at each call
+    t_public = {"halo_normal": timed(lambda: halo.halo_normal(
+        *planes, v_ext, r, m0=M0, with_dots=True), 200), "halo_force": timed(
+        lambda: halo.halo_force(*planes, psi_ext, m0=M0, beta=BETA), 200)}
+    detail = {k: {"path": halo.halo_path_name(*v_ext.shape[-2:], n_blk, sms, b),
+                  "blocks_a_shard": halo.halo_path(*v_ext.shape[-2:], n_blk, sms, b)[1],
+                  "ms_public_wrapper": t_public[k]}
+              for k, b in (("halo_normal", halo._NORMAL_BYTES),
+                           ("halo_force", halo._FORCE_BYTES))}
+    detail["halo_normal"]["ms_without_dots"] = t_nodots
     t_ext = timed(lambda: extend(geom, v), 200)
     # one sharded solve: 4 ppermutes, one K7 launch, one psum and one host
     # read per iteration
@@ -380,14 +434,15 @@ def halo_kernel_checks(dev, gen, card):
           f"x0 = b: {timed(solve, 10):.3f} ms with {n_k7} K7 launches; card {card}",
           flush=True)
     for k in times:
-        print(f"phase 2: time at {NX}x{NT} over 2x2 C={C_MAIN} ({n_blk} blocks; {card}): "
-              f"{k} kernel {times[k][0]:.4f} ms ({times[k][2]:.4f} ms queued behind a "
-              f"spin), plain twin {times[k][1]:.4f} ms, bound "
+        print(f"phase 2: time at {NX}x{NT} over 2x2 C={C_MAIN} ({n_blk} shards, path "
+              f"{detail[k]['path']}; {card}): {k} kernel {times[k][0]:.4f} ms "
+              f"({times[k][2]:.4f} ms queued behind a spin; through the public wrapper "
+              f"{t_public[k]:.4f} ms), plain twin {times[k][1]:.4f} ms, bound "
               f"{bounds[k][0]:.5f} ms by {bounds[k][1]}", flush=True)
     print(f"phase 2: time at the same shape: halo_normal without the dots "
           f"{t_nodots:.4f} ms; eo_halo.extend of one spinor (4 ppermutes as rolls, 2 "
           f"cats) {t_ext:.4f} ms", flush=True)
-    return errs, times, bounds
+    return errs, times, bounds, detail
 
 
 def main() -> int:
@@ -825,7 +880,7 @@ def main() -> int:
           f"three), the other entries bit for bit the global path's", flush=True)
 
     # K7 and K8 on the blocks of a mesh of shards
-    halo_errs, halo_times, halo_bounds = halo_kernel_checks(dev, gen, card)
+    halo_errs, halo_times, halo_bounds, halo_detail = halo_kernel_checks(dev, gen, card)
     errs.update(halo_errs)
 
     # the refined dirac_inverse (K6 + K9 + K4) against the plain twins on
@@ -1552,6 +1607,8 @@ def main() -> int:
     by_name["solve_fused"].update(k12_detail["solve_fused"])
     by_name["cg_solve_eo"].update(k12_detail["cg_solve_eo"])
     by_name["ratio_force"].update(k12_detail["ratio_force"])
+    by_name["halo_normal"].update(halo_detail["halo_normal"])
+    by_name["halo_force"].update(halo_detail["halo_force"])
     by_name["solve_fused_mxu"]["ms_k2_in_turns"] = k2_vs_k10[1]
     by_name["solve_fused_mxu"]["ms_in_turns_with_k2"] = k2_vs_k10[0]
     check(all(e["launches"] > 0 for e in kernels), "a kernel was never launched")

@@ -95,13 +95,8 @@ force_step_kernel(const float* __restrict__ thE, const float* __restrict__ thO,
     for (int s = threadIdx.x; s < V2; s += blockDim.x) {
       const int x = s / Nth;
       const int k = s - x * Nth;
-      // P(n) = u0(n) u1(n+t) conj(u0(n+x) u1(n)), anchored at both parities
-      const Nbr ne = neighbours(x, k, x & 1, g);
-      const Nbr no = neighbours(x, k, (x + 1) & 1, g);
-      se[s] = plaq_im(ld(ue, 0, s, V2), ld(uo, 1, ne.pt, V2), ld(uo, 0, ne.px, V2),
-                      ld(ue, 1, s, V2));
-      so[s] = plaq_im(ld(uo, 0, s, V2), ld(ue, 1, no.pt, V2), ld(ue, 0, no.px, V2),
-                      ld(uo, 1, s, V2));
+      plaq_pair_planar(ue, uo, s, neighbours(x, k, x & 1, g),
+                       neighbours(x, k, (x + 1) & 1, g), V2, se, so);
     }
   }
   __syncthreads();
@@ -112,27 +107,9 @@ force_step_kernel(const float* __restrict__ thE, const float* __restrict__ thO,
   for (int s = threadIdx.x; s < V2; s += blockDim.x) {
     const int x = s / Nth;
     const int k = s - x * Nth;
-    const Nbr ne = neighbours(x, k, x & 1, g);
-    const Nbr no = neighbours(x, k, (x + 1) & 1, g);
-    float f0, f1;
-    // even sites: x = psi, y = chi'; the odd operands are b and a
-    fermion_force_site(ue, psi, chi, bo, ao, s, ne, V2, f0, f1);
-    if (WITH_GAUGE) {
-      FE[s] = two_c * f0 + (-beta * (se[s] - so[ne.mx]));
-      FE[V2 + s] = two_c * f1 + beta * (se[s] - so[ne.mt]);
-    } else {
-      FE[s] = two_c * f0;
-      FE[V2 + s] = two_c * f1;
-    }
-    // odd sites: x = b, y = a; the even operands are psi and chi'
-    fermion_force_site(uo, bo, ao, psi, chi, s, no, V2, f0, f1);
-    if (WITH_GAUGE) {
-      FO[s] = two_c * f0 + (-beta * (so[s] - se[no.mx]));
-      FO[V2 + s] = two_c * f1 + beta * (so[s] - se[no.mt]);
-    } else {
-      FO[s] = two_c * f0;
-      FO[V2 + s] = two_c * f1;
-    }
+    force_pair_planar<WITH_GAUGE>(ue, uo, psi, chi, bo, ao, se, so, s,
+                                  neighbours(x, k, x & 1, g), neighbours(x, k, (x + 1) & 1, g),
+                                  V2, two_c, beta, FE, FO, s, V2);
   }
 }
 

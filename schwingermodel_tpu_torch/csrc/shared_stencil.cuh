@@ -1,6 +1,7 @@
 // The even-odd stencil on one block's shared memory, and the f32 CG that runs
 // on it (K1, K2, K6; K3's f32 recursion uses the layout, the hop and the
-// links; K5 runs K1's force stages on it).
+// links; K5 and K8 run K1's force stages on it; K7 its stages, its loads of
+// given planes and the four-value block sum).
 //
 // Layout: site-major. A spinor is one float4 a site (spin 0 re, im, spin 1
 // re, im), so a neighbour is one 16-byte load where the planar layout of
@@ -67,14 +68,65 @@ __device__ __forceinline__ void make_links_shared(const float* __restrict__ th, 
   make_links_rows(th, parity, u, g, 0, g);
 }
 
-// One parity's given links, planar [2(dir)][2(re/im)][V2] in global memory
-// (stencil.cuh's layout, as make_links<float> writes it), into the shared
-// layout: the values as they are, nothing built.
+// Whether planes of stride V holding a block's sites [site0, site0 + n) can
+// be read 16 bytes at a time.
+__device__ __forceinline__ bool quads(const float* p, size_t site0, int n, int V) {
+  return ((site0 | static_cast<size_t>(n) | static_cast<size_t>(V)) & 3) == 0 &&
+         (reinterpret_cast<size_t>(p) & 15) == 0;
+}
+
+// One parity's given links, planar [2(dir)][2(re/im)][V] in global memory
+// (stencil.cuh's layout, as make_links<float> writes it), sites [site0,
+// site0 + lg.V2) of it into the shared layout of a block of geometry lg:
+// the values as they are, nothing built. Four sites a thread where the
+// planes allow.
+__device__ __forceinline__ void load_links_rows(const float* __restrict__ pl, float2* u,
+                                                const Geo& lg, size_t site0, int V) {
+  const int n = lg.V2;
+  if (quads(pl, site0, n, V)) {
+    for (int i = threadIdx.x; i < n / 4; i += kThreads)
+      for (int mu = 0; mu < 2; ++mu) {
+        const float4 re = reinterpret_cast<const float4*>(pl + (2 * mu) * V + site0)[i];
+        const float4 im = reinterpret_cast<const float4*>(pl + (2 * mu + 1) * V + site0)[i];
+        float4* d = reinterpret_cast<float4*>(u + mu * n + 4 * i);
+        d[0] = make_float4(re.x, im.x, re.y, im.y);
+        d[1] = make_float4(re.z, im.z, re.w, im.w);
+      }
+    return;
+  }
+  for (int s = threadIdx.x; s < n; s += kThreads)
+    for (int mu = 0; mu < 2; ++mu)
+      u[mu * n + s] =
+          make_float2(pl[(2 * mu) * V + site0 + s], pl[(2 * mu + 1) * V + site0 + s]);
+}
+
+// The whole lattice's given links of one parity.
 __device__ __forceinline__ void load_links_shared(const float* __restrict__ pl, float2* u,
                                                   const Geo& g) {
-  for (int s = threadIdx.x; s < g.V2; s += kThreads)
-    for (int mu = 0; mu < 2; ++mu)
-      u[mu * g.V2 + s] = make_float2(pl[(2 * mu) * g.V2 + s], pl[(2 * mu + 1) * g.V2 + s]);
+  load_links_rows(pl, u, g, 0, g.V2);
+}
+
+// A planar spinor [4][V] in global memory, sites [site0, site0 + lg.V2) of
+// it into the shared layout (one float4 a site). Four sites a thread where
+// the planes allow.
+__device__ __forceinline__ void load_spinor_rows(const float* __restrict__ p, float4* S,
+                                                 const Geo& lg, size_t site0, int V) {
+  const int n = lg.V2;
+  if (quads(p, site0, n, V)) {
+    for (int i = threadIdx.x; i < n / 4; i += kThreads) {
+      float4 q[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) q[c] = reinterpret_cast<const float4*>(p + c * V + site0)[i];
+      S[4 * i] = make_float4(q[0].x, q[1].x, q[2].x, q[3].x);
+      S[4 * i + 1] = make_float4(q[0].y, q[1].y, q[2].y, q[3].y);
+      S[4 * i + 2] = make_float4(q[0].z, q[1].z, q[2].z, q[3].z);
+      S[4 * i + 3] = make_float4(q[0].w, q[1].w, q[2].w, q[3].w);
+    }
+    return;
+  }
+  for (int s = threadIdx.x; s < n; s += kThreads)
+    S[s] = make_float4(p[site0 + s], p[V + site0 + s], p[2 * V + site0 + s],
+                       p[3 * V + site0 + s]);
 }
 
 // The sites a thread owns in a block's geometry g, and the stencil stage on
@@ -121,29 +173,48 @@ struct OwnSites {
   }
 };
 
+// The kThreads / 32 warp partials s[] added in the order of block_sum's
+// second shuffle tree (partial w with w + 8, then + 4, + 2, + 1).
+__device__ __forceinline__ double warp_partials_sum(const double* s) {
+  static_assert(kThreads / 32 == 16, "the tree below adds 16 warp partials");
+  // written out: as an array in a loop the tree went to local memory
+  const double a0 = s[0] + s[8], a1 = s[1] + s[9], a2 = s[2] + s[10], a3 = s[3] + s[11];
+  const double a4 = s[4] + s[12], a5 = s[5] + s[13], a6 = s[6] + s[14], a7 = s[7] + s[15];
+  const double b0 = a0 + a4, b1 = a1 + a5, b2 = a2 + a6, b3 = a3 + a7;
+  return (b0 + b2) + (b1 + b3);
+}
+
 // block_sum's result with one barrier (K1, K2): every warp writes its
 // partial, one __syncthreads(), and every thread adds the kThreads / 32
-// partials in the order of block_sum's second shuffle tree (partial w with
-// w + 8, then + 4, + 2, + 1), so the sum has block_sum's bits and every
+// partials by warp_partials_sum, so the sum has block_sum's bits and every
 // thread holds them. Slots alternate between two sets as in BlockSum.
 struct BlockSumTree {
   double* sh;  // 2 * (kThreads / 32) doubles of shared memory
   int set;
   __device__ __forceinline__ double operator()(double v) {
-    static_assert(kThreads / 32 == 16, "the tree below adds 16 warp partials");
     for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
     double* slot = sh + set * (kThreads / 32);
     set ^= 1;
     if ((threadIdx.x & 31) == 0) slot[threadIdx.x >> 5] = v;
     __syncthreads();
-    // written out: as an array in a loop the tree went to local memory
-    const double* s = slot;
-    const double a0 = s[0] + s[8], a1 = s[1] + s[9], a2 = s[2] + s[10], a3 = s[3] + s[11];
-    const double a4 = s[4] + s[12], a5 = s[5] + s[13], a6 = s[6] + s[14], a7 = s[7] + s[15];
-    const double b0 = a0 + a4, b1 = a1 + a5, b2 = a2 + a6, b3 = a3 + a7;
-    return (b0 + b2) + (b1 + b3);
+    return warp_partials_sum(slot);
   }
 };
+
+// Four block sums with one barrier (K7's CG partials): each value as
+// BlockSumTree adds it, the four warp trees side by side; the sums are
+// returned to every thread. Once a launch: the slots are not reused.
+__device__ __forceinline__ void block_sum4(double (&v)[4], double* sh /* 4 * 16 */) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    for (int o = 16; o > 0; o >>= 1) v[q] += __shfl_down_sync(0xffffffffu, v[q], o);
+  if ((threadIdx.x & 31) == 0)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) sh[q * (kThreads / 32) + (threadIdx.x >> 5)] = v[q];
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < 4; ++q) v[q] = warp_partials_sum(sh + q * (kThreads / 32));
+}
 
 // The f32 CG of cg_f32_op (stencil.cuh), with or without its guards, on one
 // block's shared memory: both parities' links, d, r and two stencil

@@ -3,9 +3,10 @@
 // ratio_force.cu, solve_ru.cu, cg_fallback.cu with cg_fallback.cuh, cg_eo.cu,
 // residual.cu, halo_normal.cu, halo_force.cu), with the fermion force
 // stencil, the f32 CG loop (cg_f32_op) of K10 and of K1's, K2's and K6's
-// global paths, the stage of the per-shard halo kernels K7 and K8, and two
-// block sums: block_sum (three barriers; K7-K10 and the global paths of K1,
-// K2, K5 and K6) and BlockSum (one barrier; K3, K4). The shared-memory layout, its
+// global paths, the stage of the global paths of the per-shard halo kernels
+// K7 and K8, and two block sums: block_sum (three barriers; K9, K10 and the
+// global paths of K1, K2, K5, K6 and K7) and BlockSum (one barrier; K3,
+// K4). The shared-memory layout, its
 // one-barrier sum with block_sum's bits and the f32 CG on it (K1 and K2 up
 // to 64x64) are in shared_stencil.cuh.
 //
@@ -24,8 +25,8 @@
 // block's threads stride over the V2 sites; a stencil stage reads neighbours
 // that other threads wrote, so stages are separated by __syncthreads(). The
 // fields lie where the kernel puts them: a per-chain global scratch that
-// stays in L2 (K4, K9, K10; K1, K2, K3, K5 and K6 on a lattice no block
-// holds), or shared memory (K7, K8 in these planes; K1, K2, K5, K6 and K3's
+// stays in L2 (K4, K9, K10; K1, K2, K3, K5, K6, K7 and K8 on a lattice or
+// block no block holds), or shared memory (K1, K2, K5, K6, K7, K8 and K3's
 // f32 recursion in the site-major layout of shared_stencil.cuh, which calls
 // hop_bx and hop_combine).
 #pragma once

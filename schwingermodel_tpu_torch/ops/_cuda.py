@@ -77,10 +77,11 @@ SIGNATURES = {
     # thE, thO, b, x, r, rnorm2, scratch, C, B, Nx, Nth, m0, stream
     "residual_launch": [P, P, P, P, P, P, P, I, I, I, I, D, P],
     # ue, uo, off, v, r, out, dots, scratch, n_blocks, Nxe, Nthe, m0,
-    # with_dots, stream
-    "halo_normal_launch": [P, P, P, P, P, P, P, P, I, I, I, D, I, P],
-    # ue, uo, off, psi, FE, FO, scratch, n_blocks, Nxe, Nthe, m0, beta, stream
-    "halo_force_launch": [P, P, P, P, P, P, P, I, I, I, D, D, P],
+    # with_dots, path, blocks, stream
+    "halo_normal_launch": [P, P, P, P, P, P, P, P, I, I, I, D, I, I, I, P],
+    # ue, uo, off, psi, FE, FO, scratch, n_blocks, Nxe, Nthe, m0, beta, path,
+    # blocks, stream
+    "halo_force_launch": [P, P, P, P, P, P, P, I, I, I, D, D, I, I, P],
     # Nx, Nth, path -> K6's blocks a multiprocessor runs at once (no stream)
     "cg_eo_blocks_per_sm": [I, I, I],
 }
@@ -163,6 +164,11 @@ class KernelLibrary:
         if err != 0:
             raise RuntimeError(f"{name}: CUDA error {err}")
 
+    def entry(self, name: str):
+        """The C entry point itself, for a caller that launches it often and
+        passes the stream and checks the returned error itself."""
+        return getattr(self.build(), name)
+
     def query(self, name: str, *args) -> int:
         """A query's answer; raise where it returns minus a CUDA error."""
         if name not in QUERIES:
@@ -186,9 +192,10 @@ def ptr(t: torch.Tensor):
     return ctypes.c_void_p(t.data_ptr())
 
 
-def check(t: torch.Tensor, name: str, dtype, shape) -> None:
-    """Raise unless t is a contiguous CUDA tensor of this dtype and shape."""
-    if not t.is_cuda:
+def check(t: torch.Tensor, name: str, dtype, shape, cuda: bool = True) -> None:
+    """Raise unless t is a contiguous tensor of this dtype and shape, on a
+    CUDA device where `cuda`."""
+    if cuda and not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")

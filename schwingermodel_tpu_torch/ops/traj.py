@@ -198,15 +198,31 @@ _HALO_ROWS = 4
 CG_GLOBAL, CG_SHARED = range(2)
 
 
-def _rows_fit(Nx: int, Nth: int, n: int, per_site: int) -> bool:
+def _rows_fit(Nx: int, Nth: int, n: int, per_site: int, skirt=False) -> bool:
     """n blocks a chain hold the fields: n divides Nx, and a block's Nx/n
-    rows, with _HALO_ROWS rows on either side when n > 1, fit its threads
-    and its shared memory; a block of several owns at least as many rows as
-    it computes again (32x32: 4 blocks a chain beat 8 on the card)."""
+    rows, with _HALO_ROWS rows on either side when n > 1 (for every n with
+    `skirt`: the halo kernels' extended block carries them), fit its
+    threads and its shared memory; a block of several owns at least as many
+    rows as it computes again (32x32: 4 blocks a chain beat 8 on the
+    card)."""
     if Nx % n or (n > 1 and Nx // n < 2 * _HALO_ROWS):
         return False
-    sites = (Nx // n + (2 * _HALO_ROWS if n > 1 else 0)) * Nth
+    sites = (Nx // n + (2 * _HALO_ROWS if n > 1 or skirt else 0)) * Nth
     return sites <= _cuda.BLOCK_SITES and per_site * sites <= _cuda.SHARED_MAX
+
+
+def split_rows(Nx: int, Nth: int, C: int, sms: int, per_site: int,
+               counts=(1, 2, 4, 8), skirt=False):
+    """(path, blocks per chain) for C chains whose Nx rows of Nth sites may
+    be split over any of `counts` blocks a chain (``_rows_fit``): the
+    largest count that leaves all C chains' blocks running at once on `sms`
+    multiprocessors, else the smallest that holds the rows; CG_GLOBAL where
+    none does. K1's rule; K7 and K8 take it with `skirt`."""
+    fits = [n for n in counts if _rows_fit(Nx, Nth, n, per_site, skirt)]
+    if not fits:
+        return CG_GLOBAL, 1
+    at_once = [n for n in fits if n * C <= sms]
+    return CG_SHARED, (max(at_once) if at_once else min(fits))
 
 
 @functools.lru_cache(maxsize=None)
@@ -223,12 +239,7 @@ def cg_path(Nx: int, Nth: int, C: int, sms: int = _cuda.H100_SMS, solve=True,
     smallest that holds the lattice (128x128: 8 blocks a chain). What no
     block holds keeps every field in a global scratch (CG_GLOBAL)."""
     per_site = _CG_SHARED_BYTES + (_PLAQ_BYTES if gauge else 0)
-    fits = [n for n in ((1,) if solve else (1, 2, 4, 8))
-            if _rows_fit(Nx, Nth, n, per_site)]
-    if not fits:
-        return CG_GLOBAL, 1
-    at_once = [n for n in fits if n * C <= sms]
-    return CG_SHARED, (max(at_once) if at_once else min(fits))
+    return split_rows(Nx, Nth, C, sms, per_site, (1,) if solve else (1, 2, 4, 8))
 
 
 def cg_path_name(Nx: int, Nth: int, C: int, sms: int = _cuda.H100_SMS,

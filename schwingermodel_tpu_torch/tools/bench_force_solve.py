@@ -1,10 +1,11 @@
 """Times of the force step (K1, all four variants), the loose solve (K2),
-the Hasenbusch ratio force (K5) and the f32 CG on given links (K6) on the
-card.
+the Hasenbusch ratio force (K5), the f32 CG on given links (K6) and the
+per-shard kernels of the lattice mesh (K7, K8) on the card.
 
     python -m schwingermodel_tpu_torch.tools.bench_force_solve \\
         [--shapes 64x64:32,64x64:128,32x32:32,128x128:8] \\
         [--k6-shapes 64x64:32:8,64x64:32:1,64x64:128:8,32x32:32:8,128x128:2:8] \\
+        [--halo-shapes 64x64:2x2:32,64x64:4x1:32,16x16:2x2:3,128x128:2x2:2] \\
         [--out PATH]
 
 For each lattice and chain count of ``--shapes`` it makes random angles and
@@ -31,6 +32,13 @@ the one ``cg_path`` takes, through the kernel's C entry, in queued device
 time (the host's cost is the same for every block count): the measurement
 behind that choice. For K6 on the shared path it times the global path in
 turns with it the same way, and says whether the two agree bit for bit.
+For each ``NXxNT:RXxRT:C`` of ``--halo-shapes`` (C chains on an RX x RT
+mesh of shards) it makes random angles and extended fields and times K7
+with and without its CG partials and K8 as the sharded CG and the sharded
+force call them (``ops/halo.EOOperatorsHaloFused``), both timers, with the
+path ``ops/halo.halo_path`` takes; then every other number of blocks a
+shard that holds the block, and the global path, in turns with the one
+taken in queued device time, with their largest difference from it.
 """
 
 from __future__ import annotations
@@ -42,9 +50,13 @@ import sys
 
 import torch
 
+from schwingermodel_tpu_torch.config import HMCParams, LatticeParams
 from schwingermodel_tpu_torch.models.schwinger import SchwingerModel
-from schwingermodel_tpu_torch.ops import _cuda, cg_eo
+from schwingermodel_tpu_torch.ops import _cuda, cg_eo, halo
 from schwingermodel_tpu_torch.ops import traj as tr
+from schwingermodel_tpu_torch.ops.eo_halo import W, extend
+from schwingermodel_tpu_torch.ops.geometry import ShardedGeometry
+from schwingermodel_tpu_torch.parallel.mesh import lattice_mesh, shard
 from schwingermodel_tpu_torch.tools.bench_mxu_stencil import _card
 from schwingermodel_tpu_torch.tools.bench_refined_solve import _timed
 from schwingermodel_tpu_torch.utils.metrics import device_ms
@@ -65,6 +77,74 @@ def _shapes(text: str, fields: int = 1):
             raise ValueError(f"{item!r}: expected NXxNT and {fields} count(s)")
         out.append((int(nx), int(nt), *(int(n) for n in counts)))
     return out
+
+
+def _halo_shapes(text: str):
+    """'64x64:2x2:32,16x16:2x2:3' -> [(64, 64, 2, 2, 32), (16, 16, 2, 2, 3)]."""
+    out = []
+    for item in text.split(","):
+        parts = item.split(":")
+        if len(parts) != 3:
+            raise ValueError(f"{item!r}: expected NXxNT:RXxRT:C")
+        (nx, nt), (rx, rt) = (p.split("x") for p in parts[:2])
+        out.append((int(nx), int(nt), int(rx), int(rt), int(parts[2])))
+    return out
+
+
+def _halo_rows(gen, dev, nx, nt, rx, rt, C, card, sms, reps):
+    """K7 and K8 at one shape: the rows of the main path's calls and of every
+    other route."""
+    mesh = lattice_mesh((rx, rt))
+    geom = ShardedGeometry(mesh)
+    model = SchwingerModel(lattice=LatticeParams(Nx=nx, Nt=nt, real_dtype="float32"),
+                           hmc=HMCParams(beta=BETA, m0=M0, even_odd=True), geom=geom)
+    th = (2.0 * torch.rand((C, 2, nx, nt), generator=gen, device=dev) - 1.0) * math.pi
+    op = halo.EOOperatorsHaloFused(geom, model.field_fermion_links(shard(th, mesh)), M0)
+    loc = (C, rx, rt, 2, 2, nx // rx, nt // 2 // rt)
+    v_ext, psi_ext = (extend(geom, torch.randn(loc, generator=gen, device=dev))
+                      for _ in range(2))
+    r = torch.randn(loc, generator=gen, device=dev)
+    planes = (op.ue_ext, op.uo_ext, op.off_ext)
+    Nxe, Nthe = v_ext.shape[-2:]
+    n_ent, shape = C * rx * rt, f"{nx}x{nt} over {rx}x{rt} C={C}"
+    rows = []
+    for kernel, per_site, run, launch in (
+            ("K7", halo._NORMAL_BYTES, lambda: op.normal_ext(v_ext, r),
+             lambda rt_: halo._NormalLaunch(*planes, M0, route=rt_)),
+            ("K7 without the dots", halo._NORMAL_BYTES, lambda: op.normal_ext(v_ext),
+             lambda rt_: halo._NormalLaunch(*planes, M0, route=rt_)),
+            ("K8", halo._FORCE_BYTES, lambda: op.force_planes(psi_ext, BETA),
+             lambda rt_: halo._ForceLaunch(*planes, route=rt_))):
+        taken = halo.halo_path(Nxe, Nthe, n_ent, sms, per_site)
+        rows.append({"metric": "ms", "kernel": kernel, "shape": shape, "card": card,
+                     "path": halo.halo_path_name(Nxe, Nthe, n_ent, sms, per_site),
+                     "blocks_a_shard": taken[1] if taken[0] == tr.CG_SHARED else "global",
+                     **_both_timers(run, reps)})
+
+        def call(route):
+            k = launch(route)
+            if kernel == "K8":
+                return lambda: k(psi_ext, M0, BETA)
+            return (lambda: k(v_ext, r)) if kernel == "K7" else (lambda: k(v_ext))
+        ref = call(taken)()
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        for n in (0, 1, 2, 4, 8):
+            route = (tr.CG_GLOBAL, 1) if n == 0 else (tr.CG_SHARED, n)
+            if route == taken or (n and not tr._rows_fit(Nxe - 2 * W, Nthe, n, per_site,
+                                                         skirt=True)):
+                continue
+            fn = call(route)
+            out = fn()
+            out = out if isinstance(out, tuple) else (out,)
+            diff = max((x - y).abs().max().item() for x, y in zip(out, ref))
+            taken_ms, n_ms = _turns(call(taken), fn, reps)
+            rows.append({"metric": "device_ms", "kernel": kernel, "shape": shape, "card": card,
+                         "blocks_a_shard": n or "global",
+                         "taken": taken[1] if taken[0] == tr.CG_SHARED else "global",
+                         "taken_device_ms": taken_ms, "device_ms": n_ms,
+                         "over_taken": n_ms / taken_ms, "max_abs_diff_from_taken": diff,
+                         "bit_for_bit_with_taken": diff == 0.0})
+    return rows
 
 
 def _k1_blocks(thE, thO, b, g, blocks):
@@ -117,12 +197,16 @@ def _turns(first, second, reps):
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="python -m schwingermodel_tpu_torch.tools.bench_force_solve",
-        description="K1, K2, K5 and K6 on the card: times, iterations, the path")
+        description="K1, K2, K5, K6, K7 and K8 on the card: times, iterations, the path")
     p.add_argument("--shapes", type=_shapes, default="64x64:32,64x64:128,32x32:32,128x128:8",
                    help="NXxNT:C items for K1, K2 and K5, comma-separated")
     p.add_argument("--k6-shapes", type=lambda t: _shapes(t, 2),
                    default="64x64:32:8,64x64:32:1,64x64:128:8,32x32:32:8,128x128:2:8",
                    help="NXxNT:C:B items for K6 (B right-hand sides per configuration)")
+    p.add_argument("--halo-shapes", type=_halo_shapes,
+                   default="64x64:2x2:32,64x64:2x2:128,64x64:4x1:32,64x64:1x4:32,"
+                           "16x16:2x2:3,128x128:2x2:2",
+                   help="NXxNT:RXxRT:C items for K7 and K8 (C chains on an RX x RT mesh)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--reps", type=int, default=20, help="launches per timing")
     p.add_argument("--out", default=None, metavar="PATH", help="also write the rows as JSON")
@@ -244,6 +328,10 @@ def main(argv=None) -> int:
                   "path": "global", "taken": row["path"], "taken_device_ms": taken_ms,
                   "device_ms": g_ms, "over_taken": g_ms / taken_ms,
                   "bit_for_bit_with_taken": same})
+
+    for nx, nt, rx, rt, C in args.halo_shapes:
+        for row in _halo_rows(gen, dev, nx, nt, rx, rt, C, card, sms, 10 * args.reps):
+            emit(row)
 
     if args.out:
         with open(args.out, "w") as f:

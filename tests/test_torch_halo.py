@@ -318,17 +318,18 @@ def test_halo_force_twin_matches_pallas(rng, mesh_shape):
 def test_halo_wrappers_refuse_bad_blocks():
     """An extended block without interior is refused on any device, and
     the choice between shared memory and the global scratch follows the
-    block's size."""
+    block's size: one block a shard where it fits, its rows split over
+    several where it does not, the global scratch where no split holds
+    it."""
     z = torch.zeros((1, 2, 2, 8, 12))
     off = torch.zeros((1, 8), dtype=torch.int32)
     with pytest.raises(ValueError, match="no interior"):
         halo.halo_normal(z, z, off, z, m0=M0)          # Nxe = 2W: empty crop
     with pytest.raises(ValueError, match="no interior"):
         halo.halo_force(z, z, off, z, m0=M0, beta=BETA)
-    assert halo._scratch(4, halo._NORMAL_PLANES, halo._NORMAL_SCRATCH,
-                         40 * 24, "cpu") is None       # 77 KB: shared memory
-    big = halo._scratch(2, halo._NORMAL_PLANES, halo._NORMAL_SCRATCH, 72 * 40, "cpu")
-    assert big.numel() == 2 * 8 * 72 * 40              # 230 KB: global scratch
+    assert halo.halo_path(40, 24, 128, 132) == (tr.CG_SHARED, 1)  # 77 KB: one block
+    assert halo.halo_path(72, 40, 2, 132) == (tr.CG_SHARED, 8)    # 230 KB: 8 blocks
+    assert halo.halo_path(264, 136, 4, 132) == (tr.CG_GLOBAL, 1)  # no split holds it
 
 
 # ---------- the closed-form force ----------
