@@ -21,10 +21,13 @@ Phases (any failure raises, and the script exits non-zero):
                         f64 true residual under 2e-6 ||b||, iteration
                         counts side by side;
    K10 solve_fused_mxu  (K2 with its x-shifts as one-hot products on the
-                        tensor cores) against its twin and against K2, tol
-                        1e-6 from x0 = b: equal flags and iterations, x to
-                        2e-4 (max |dx| printed), every f64 true residual
-                        under 2e-6 ||b||; and its shifts alone, P+ a and P- a
+                        tensor cores, banded, on K2's path) against its twin
+                        and against K2, tol 1e-6 from x0 = b: equal flags and
+                        iterations, x bit for bit K2's and to 2e-4 of the
+                        twin's, every f64 true residual under 2e-6 ||b||;
+                        against K2 bit for bit at K3's other shapes below
+                        too (the global path at 128x128 and 126x128); and
+                        its shifts alone, P+ a and P- a
                         of random f32 planes across 30 binades, equal to
                         torch.roll bit for bit (allow_tf32 is set False and
                         asserted first: the twin's matmul must be exact);
@@ -72,8 +75,13 @@ Phases (any failure raises, and the script exits non-zero):
                         the non-finite pattern of the twin (1 iteration,
                         unconverged, NaN x), the other entries bit for bit
                         the global path's;
-   K9 residual_f64      on random f64 x: |r - r_plain| <= 1e-12 (max|b| +
-                        max|A x|);
+   K9 residual_f64      on random f64 x, on the route ops/refined.residual_path
+                        takes and on every other (each slab count with each
+                        count of right-hand sides a block, and the global
+                        scratch), also at K3's other shapes below:
+                        |r - r_plain| <= 1e-12 (max|b| + max|A x|), ||r||^2
+                        to 1e-12 relative, r bit for bit across the routes,
+                        two launches equal;
    the refined dirac_inverse (K6 + K9 + K4) at 64x64 C=2 B=4 against the
    plain twins on the CPU, same noise: every flag true, each estimate
    Re(z^+ w) to rtol 1e-6;
@@ -104,8 +112,9 @@ Phases (any failure raises, and the script exits non-zero):
    card, which leaves the host-side launch out (device_ms), beside the kernel's
    bound: the larger of its bytes (inputs read once, outputs written once)
    over 3.35 TB/s and its operations (at the iteration counts these inputs
-   needed) over the card's f32 or f64 peak (K10's products over the f64
-   tensor-core peak), and K10 and K2 in turns; K1's and K2's path (one
+   needed) over the card's f32 or f64 peak (K10's banded products, as it
+   issues them, over the f64 tensor-core peak; the dense count's bound
+   beside), and K10 and K2 in turns; K9's route; K1's and K2's path (one
    block's shared memory, several blocks a chain, or the global scratch:
    ops/traj.cg_path) and microseconds per CG iteration, K6's path, blocks an
    SM, waves and microseconds per iteration of a wave's slowest entry, and
@@ -127,7 +136,8 @@ Phases (any failure raises, and the script exits non-zero):
    then the measurement path: (d) the refined demo with --condensate
    --n-noise 8 (K6, K9, K4; on its final configurations the condensate
    through the kernels equals the plain twins' on the card, same noise, to
-   rtol 1e-6), (e) the loose demo with --condensate (K6 from x0 = b, no
+   rtol 1e-6, and one measurement is timed with its K6 and K9 launches'
+   shares), (e) the loose demo with --condensate (K6 from x0 = b, no
    K9), and the meson correlators at 64x64 C=2 on (d)'s final
    configurations (kernels against the twins on the card to rtol 1e-6; the
    PCAC plateau printed); then the lattice mesh, 4 + 8 trajectories: (f)
@@ -483,6 +493,7 @@ def main() -> int:
     _cuda.KERNELS.build()
     print(f"phase 1: built {_cuda.KERNELS.path.name} in "
           f"{_cuda.KERNELS.build_seconds:.1f} s", flush=True)
+    sms = _cuda.sm_count(dev)
 
     # ---- phase 2: kernels against their plain twins ----
     # K10's twin shifts by a plain f32 matmul with a one-hot matrix, exact
@@ -639,6 +650,51 @@ def main() -> int:
                   f"plain {mp.fb_iters[half:half + 4].tolist()}); residual "
                   f"{rk.max().item():.3e}", flush=True)
 
+    def k9_checks(thE, thO, bb, C):
+        """K9 on a random f64 x against its twin, on the route residual_path
+        takes (through the wrapper) and on every other route that holds the
+        shape (each slab count with each count of right-hand sides a block,
+        and the global scratch): r to the bound, ||r||^2 to 1e-12 relative,
+        r on every route bit for bit the taken one's, two launches of the
+        taken route equal bit for bit."""
+        x64 = torch.randn(bb.shape, generator=gen, device=dev, dtype=torch.float64)
+        nC, B, _, _, nx, nth = bb.shape
+        rp, np_ = rs.residual_f64_reference(thE, thO, bb, x64, m0=M0)
+        bound = 1e-12 * (bb.abs().max().item() + (bb.double() - rp).abs().max().item())
+        taken = rs.residual_path(nx, nth, nC, B, sms)
+        r0, n0 = rs.residual_f64(thE, thO, bb, x64, m0=M0)
+        r1, n1 = rs.residual_f64(thE, thO, bb, x64, m0=M0)
+        torch.cuda.synchronize()
+        check(torch.equal(r0, r1) and torch.equal(n0, n1), f"K9 C={C}: two launches differ")
+        worst = (0.0, 0.0)
+        for route in [taken, (tr.CG_GLOBAL, 1, 1)] + [
+                q for q in rs.residual_routes(nx, nth, B) if q != taken]:
+            rk, nk = (r0, n0) if route == taken else rs._launch_residual(
+                thE, thO, bb, x64, M0, sms, route)
+            torch.cuda.synchronize()
+            dr = (rk - rp).abs().max().item()
+            dn = ((nk - np_).abs() / np_).max().item()
+            check(dr <= bound and dn <= 1e-12, f"K9 C={C} route {route}: |r - r_plain| "
+                  f"{dr} (bound {bound}), ||r||^2 rel {dn}")
+            check(torch.equal(rk, r0), f"K9 C={C}: route {route} differs from {taken}")
+            worst = max(worst[0], dr), max(worst[1], dn)
+        errs["residual_f64"] = max(errs["residual_f64"], worst[0])
+        print(f"phase 2: K9 C={C} B={B} (route: {rs.residual_path_name(nx, nth, nC, B, sms)}; "
+              f"{len(rs.residual_routes(nx, nth, B))} shared routes and the global one, r "
+              f"bit for bit on all): max |r - r_plain| {worst[0]:.3e} (bound {bound:.3e}); "
+              f"max rel. difference of ||r||^2 {worst[1]:.3e}; two launches equal", flush=True)
+
+    def k10_vs_k2(thE, thO, b, k, C):
+        """K10 against K2's result k on the same system: equal flags and
+        iterations, x bit for bit."""
+        k10 = tr.solve_fused_mxu(thE, thO, b, b, m0=M0, tol=LOOSE_TOL, max_iter=MAX_ITER)
+        torch.cuda.synchronize()
+        check(torch.equal(k10.converged, k.converged) and torch.equal(k10.iters, k.iters),
+              f"K10 C={C}: flags or iterations differ from K2's: {k10.iters.tolist()} "
+              f"{k.iters.tolist()}")
+        check(torch.equal(k10.x, k.x), f"K10 C={C}: x is not K2's bit for bit")
+        return k10
+
     def k1_k2_checks(thE, thO, b, C):
         """K1 in its four variants and K2 against their twins on one system
         (C: the label of its shape), on the path its size takes; returns K2's
@@ -769,18 +825,7 @@ def main() -> int:
 
         k6_checks(thE, thO, ue, uo, bb, C)
 
-        # K9 on a random f64 x
-        x64 = torch.randn(bb.shape, generator=gen, device=dev, dtype=torch.float64)
-        rk, nk = rs.residual_f64(thE, thO, bb, x64, m0=M0)
-        rp, np_ = rs.residual_f64_reference(thE, thO, bb, x64, m0=M0)
-        dr = (rk - rp).abs().max().item()
-        bound = 1e-12 * (bb.abs().max().item() + (bb.double() - rp).abs().max().item())
-        dn = ((nk - np_).abs() / np_).max().item()
-        check(dr <= bound and dn <= 1e-12,
-              f"K9 C={C}: |r - r_plain| {dr} (bound {bound}), ||r||^2 rel {dn}")
-        errs["residual_f64"] = max(errs["residual_f64"], dr)
-        print(f"phase 2: K9 C={C} B={B}: max |r - r_plain| {dr:.3e} (bound "
-              f"{bound:.3e}); max rel. difference of ||r||^2 {dn:.3e}", flush=True)
+        k9_checks(thE, thO, bb, C)
 
         k, p = k1_k2_checks(thE, thO, b, C)
 
@@ -798,7 +843,7 @@ def main() -> int:
         check(torch.equal(k10.iters, k.iters) and torch.equal(k10.iters, p10.iters),
               f"K10 C={C}: iterations K10 {k10.iters.tolist()} K2 {k.iters.tolist()} "
               f"twin {p10.iters.tolist()}")
-        check(dx_twin <= 2e-4 and dx_k2 <= 2e-4,
+        check(dx_twin <= 2e-4 and torch.equal(k10.x, k.x),
               f"K10 C={C}: x differs by {dx_twin} from its twin, {dx_k2} from K2")
         check(bool((r10 < 2 * LOOSE_TOL).all()),
               f"K10 C={C}: true residual {r10.max().item()}")
@@ -839,11 +884,15 @@ def main() -> int:
     for nx, nt, C in ((32, 32, C_MAIN), (20, 34, 2), (128, 128, 2), (126, 128, 2)):
         thE, thO, b = inputs(C, nx, nt)
         k3_checks(thE, thO, b, f"{C} at {nx}x{nt}")
-        k1_k2_checks(thE, thO, b, f"{C} at {nx}x{nt}")
+        k, _ = k1_k2_checks(thE, thO, b, f"{C} at {nx}x{nt}")
+        k10_vs_k2(thE, thO, b, k, f"{C} at {nx}x{nt}")
+        print(f"phase 2: K10 C={C} at {nx}x{nt} (path: {tr.cg_path_name(nx, nt // 2, C, sms)}): "
+              f"flags, iterations and x bit for bit K2's", flush=True)
         ue, uo = SchwingerModel.fermion_links(thE, thO)
         bb = torch.randn((C, 8 if C == C_MAIN else 2, 2, 2, nx, nt // 2), generator=gen,
                          device=dev)
         k6_checks(thE, thO, ue, uo, bb, f"{C} at {nx}x{nt}")
+        k9_checks(thE, thO, bb, f"{C} at {nx}x{nt}")
         k5_check(thE, thO, b, f"{C} at {nx}x{nt}")
     # K5 on one block a chain (C=128) and on 8 (128x128 C=8)
     for nx, nt, C in ((NX, NT, 4 * C_MAIN), (128, 128, 8)):
@@ -986,9 +1035,15 @@ def main() -> int:
     it_k6 = k6_iters.sum().item()
     it_k10 = tr.solve_fused_mxu(thE, thO, b, b, **kw).iters.sum().item()
     check(it_k10 == it_k2, f"K10 ran {it_k10} iterations on the timed inputs, K2 {it_k2}")
-    # K10's products: 32 shifted planes per normal apply, 2 Nx Nx Nth flops
-    # each, one apply per iteration and one for the first residual
-    mxu_ops = 32 * 2 * NX * NX * (NT // 2) * (it_k2 + C_MAIN)
+    # K10's products, one normal apply per iteration and one for the first
+    # residual: as the kernel issues them, 4 stages of (Nx/8)(Nth/4) items
+    # of 12 m8n8k4 (2 products, 2 plane pairs, the band's 3 k-steps; 512
+    # flops each); the dense product's count beside it, 32 shifted planes of
+    # 2 Nx Nx Nth flops (a dense product's, all Nx/4 k-steps)
+    mxu_items = -(-NX // 8) * -(-(NT // 2) // 4)
+    mxu_k_steps = len(tr.mxu_band_tiles(+1, 0, NX))
+    mxu_ops = 4 * mxu_items * 2 * 2 * mxu_k_steps * 512 * (it_k2 + C_MAIN)
+    mxu_ops_dense = 32 * 2 * NX * NX * (NT // 2) * (it_k2 + C_MAIN)
     k2_vs_k10 = in_turns(
         lambda: tr.solve_fused(thE, thO, b, b, **kw),
         lambda: tr.solve_fused_mxu(thE, thO, b, b, **kw), 20, 20)
@@ -1015,6 +1070,8 @@ def main() -> int:
             C_MAIN * (F_LINKS + F_NORMAL) + F_CG_ITER * it_k2)),
         "solve_fused_mxu": roofline(C_MAIN * 64 * V2, V2 * (
             C_MAIN * (F_LINKS + F_NORMAL) + F_CG_ITER * it_k2), 0.0, mxu_ops),
+        "solve_fused_mxu dense": roofline(C_MAIN * 64 * V2, V2 * (
+            C_MAIN * (F_LINKS + F_NORMAL) + F_CG_ITER * it_k2), 0.0, mxu_ops_dense),
         "ratio_force": roofline(C_MAIN * 64 * V2, C_MAIN * V2 * (
             F_LINKS + F_DHAT + 2 * F_HOP + 2 * F_FORCE + F_PLAQ)),
         "solve_refined": roofline(C_MAIN * 96 * V2, V2 * F_CG_ITER * it_k3,
@@ -1032,6 +1089,10 @@ def main() -> int:
            "cg_solve_eo": it_k6}
     print(f"phase 2: CG iterations of the timed inputs, summed over the chains or "
           f"entries: {its}", flush=True)
+    print(f"phase 2: K10's tensor-core products at {NX}x{NT} C={C_MAIN}: {mxu_k_steps} k-steps "
+          f"of {(NX + 3) // 4} a row tile, {mxu_ops:.4g} flops issued ({mxu_ops_dense:.4g} "
+          f"dense); bound with the dense count {bounds['solve_fused_mxu dense'][0]:.5f} ms",
+          flush=True)
     for k_name, (ms, plain_ms, dev_ms), (b_ms, b_by) in [
             *((k, times[k], bounds[k]) for k in times),
             *(("force_step " + v, k1_times[v], k1_bounds[v]) for v in k1_times)]:
@@ -1042,7 +1103,6 @@ def main() -> int:
     # K1 and K2 in detail: the path the lattice size and chain count take
     # (ops/traj.cg_path) and, with a CG, microseconds per iteration of the
     # slowest chain
-    sms = _cuda.sm_count(dev)
     k12_detail = {"solve_fused": dict(
         path=tr.cg_path_name(NX, NT // 2, C_MAIN, sms),
         us_per_iteration=1e3 * times["solve_fused"][0] / k2_iters.max().item())}
@@ -1064,6 +1124,17 @@ def main() -> int:
     k12_detail["ratio_force"] = dict(
         path=tr.cg_path_name(NX, NT // 2, C_MAIN, sms, False, True),
         blocks_a_chain=tr.ratio_force_path(NX, NT // 2, C_MAIN, sms)[1])
+    # K9's route (slabs a configuration, right-hand sides a block) and K10's
+    # path, microseconds per iteration of the slowest chain and k-steps
+    k9_route = rs.residual_path(NX, NT // 2, C_MAIN, RHS[C_MAIN], sms)
+    k12_detail["residual_f64"] = dict(
+        path=rs.residual_path_name(NX, NT // 2, C_MAIN, RHS[C_MAIN], sms),
+        slabs_a_configuration=k9_route[1], right_hand_sides_a_block=k9_route[2])
+    k12_detail["solve_fused_mxu"] = dict(
+        path=tr.cg_path_name(NX, NT // 2, C_MAIN, sms),
+        us_per_iteration=1e3 * times["solve_fused_mxu"][0] / k2_iters.max().item(),
+        k_steps_per_row_tile=mxu_k_steps, k_steps_per_row_tile_dense=(NX + 3) // 4,
+        bound_ms_dense_products=bounds["solve_fused_mxu dense"][0])
     for k_name, d in k12_detail.items():
         us = (f", {d['us_per_iteration']:.3f} us per iteration of the slowest chain"
               if "us_per_iteration" in d else "")
@@ -1319,6 +1390,53 @@ def main() -> int:
     # the measurement path: the condensate on the refined and loose demos
     N_NOISE = 8
     final_d = None
+
+    def refined_measurement(model, theta, zs, reps=5):
+        """One refined condensate measurement on given configurations, timed:
+        ms per measurement by the host clock (with the noise given, and with
+        its draw), and the ms of its K6 and K9 launches, each between CUDA
+        events recorded around its call as the measurement issues it."""
+        spans = {"cg": [], "residual": []}
+
+        def evented(fn, key):
+            def call(*a, **k):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = fn(*a, **k)
+                e1.record()
+                spans[key].append((e0, e1))
+                return out
+            return call
+        timed_model = dataclasses.replace(model, eo_kernels=refine.EOKernels(
+            evented(cg_eo.cg_solve_eo, "cg"), evented(rs.residual_f64, "residual"),
+            rs.solve_f64_cg_fallback))
+        obs.chiral_condensate_given_noise(timed_model, theta, zs)      # warm-up
+        for v in spans.values():
+            v.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            obs.chiral_condensate_given_noise(timed_model, theta, zs)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / reps
+        t0 = time.perf_counter()
+        for i in range(reps):
+            obs.chiral_condensate(model, theta, 1, i, N_NOISE)
+        torch.cuda.synchronize()
+        ms_noise = 1e3 * (time.perf_counter() - t0) / reps
+        out = dict(ms=ms, ms_with_noise_draw=ms_noise)
+        for key, name in (("cg", "K6"), ("residual", "K9")):
+            out[name + "_ms"] = sum(a.elapsed_time(b) for a, b in spans[key]) / reps
+            out[name + "_launches"] = len(spans[key]) / reps
+            out[name + "_share"] = out[name + "_ms"] / ms
+        print(f"phase 3: one refined condensate measurement at {NX}x{NT} C={C_MAIN} "
+              f"B={N_NOISE} on (d)'s final configurations ({card}): {ms:.3f} ms with the "
+              f"noise given, {ms_noise:.3f} ms with its draw; K6 {out['K6_ms']:.4f} ms in "
+              f"{out['K6_launches']:g} launches ({100 * out['K6_share']:.1f}%), K9 "
+              f"{out['K9_ms']:.4f} ms in {out['K9_launches']:g} launches "
+              f"({100 * out['K9_share']:.1f}%)", flush=True)
+        return out
     for label, hmc, uses, no_k9 in (
             ("(d) refined demo --condensate --n-noise 8", hmc_params(),
              ("with_solve=False,with_gauge=True", *refined_k, "cg_solve_eo",
@@ -1362,6 +1480,8 @@ def main() -> int:
                   f"on the card, same noise: max rel. difference of the condensate "
                   f"{rel:.3e}; chain 0: {vk.value[0].item():.10g} against "
                   f"{vp.value[0].item():.10g}", flush=True)
+            meas_detail = refined_measurement(SchwingerModel(lattice=lattice, hmc=hmc),
+                                              final_d, zs)
 
     # the meson correlators on (d)'s final configurations
     meson_model = SchwingerModel(lattice=lattice, hmc=hmc_params())
@@ -1607,6 +1727,9 @@ def main() -> int:
     by_name["solve_fused"].update(k12_detail["solve_fused"])
     by_name["cg_solve_eo"].update(k12_detail["cg_solve_eo"])
     by_name["ratio_force"].update(k12_detail["ratio_force"])
+    by_name["residual_f64"].update(k12_detail["residual_f64"])
+    by_name["residual_f64"]["refined_condensate_measurement"] = meas_detail
+    by_name["solve_fused_mxu"].update(k12_detail["solve_fused_mxu"])
     by_name["halo_normal"].update(halo_detail["halo_normal"])
     by_name["halo_force"].update(halo_detail["halo_force"])
     by_name["solve_fused_mxu"]["ms_k2_in_turns"] = k2_vs_k10[1]

@@ -1,7 +1,8 @@
 // The even-odd stencil on one block's shared memory, and the f32 CG that runs
-// on it (K1, K2, K6; K3's f32 recursion uses the layout, the hop and the
-// links; K5 and K8 run K1's force stages on it; K7 its stages, its loads of
-// given planes and the four-value block sum).
+// on it (K1, K2, K6, and K10 with its own operator; K3's f32 recursion uses
+// the layout, the hop and the links; K5 and K8 run K1's force stages on it;
+// K7 its stages, its loads of given planes and the four-value block sum; K9
+// its rows' links in f64 and the warp partials' sum).
 //
 // Layout: site-major. A spinor is one float4 a site (spin 0 re, im, spin 1
 // re, im), so a neighbour is one 16-byte load where the planar layout of
@@ -39,25 +40,27 @@ __device__ __forceinline__ void hop_site_shared(const float2* Ut, const float2* 
                           cx(Us[n.mt]), lo(mt), hi(mt), bx0, bx1, h0, h1);
 }
 
-// One parity's f32 links in shared memory for the rows xl < lg.Nx of a
-// block: row xl holds global row (first + xl) mod g.Nx of the angles (first
-// may be negative). The values of make_links<float>.
-__device__ __forceinline__ void make_links_rows(const float* __restrict__ th, int parity,
-                                                float2* u, const Geo& lg, int first,
-                                                const Geo& g) {
+// One parity's links in shared memory for the rows xl < lg.Nx of a block:
+// row xl holds global row (first + xl) mod g.Nx of the angles (first may be
+// negative). V is float2 (the values of make_links<float>, K1 and K2) or
+// double2 (those of make_links<double>, K9).
+template <typename V>
+__device__ __forceinline__ void make_links_rows(const float* __restrict__ th, int parity, V* u,
+                                                const Geo& lg, int first, const Geo& g) {
+  using T = decltype(V::x);
   for (int s = threadIdx.x; s < lg.V2; s += kThreads) {
     const int xl = s / lg.Nth;
     const int k = s - xl * lg.Nth;
     const int gx = ((first + xl) % g.Nx + g.Nx) % g.Nx;
     const bool flip = ((gx + parity) & 1) && (k == g.Nth - 1);
     for (int mu = 0; mu < 2; ++mu) {
-      float sn, cs;
-      sincosf(th[mu * g.V2 + gx * g.Nth + k], &sn, &cs);
+      T sn, cs;
+      sincos_t(static_cast<T>(th[mu * g.V2 + gx * g.Nth + k]), &sn, &cs);
       if (mu == 0 && flip) {
         sn = -sn;
         cs = -cs;
       }
-      u[mu * lg.V2 + s] = make_float2(cs, sn);
+      u[mu * lg.V2 + s] = V{cs, sn};
     }
   }
 }
@@ -282,9 +285,11 @@ struct CgShared {
   }
 
   // x = x0 in registers and r = b - A x0, d = r; returns (||b||^2, <r, r>)
-  // through bn and rho. b and x0: the chain's planar fields in global memory.
-  __device__ __forceinline__ void start(const float* b, const float* x0, float& bn,
-                                        float& rho) {
+  // through bn and rho. b and x0: the chain's planar fields in global memory;
+  // apply_A(a): A d into a and t2 with <d, A d> returned, as apply.
+  template <typename Apply>
+  __device__ __forceinline__ void start(const Apply& apply_A, const float* b, const float* x0,
+                                        float& bn, float& rho) {
     float bv[kOwnSites][4], a[kOwnSites][4];
 #pragma unroll
     for (int j = 0; j < kOwnSites; ++j) {
@@ -299,7 +304,7 @@ struct CgShared {
       }
     }
     bn = dot(bv, bv);
-    apply(a);
+    apply_A(a);
 #pragma unroll
     for (int j = 0; j < kOwnSites; ++j) {
       const int s = threadIdx.x + j * kThreads;
@@ -366,17 +371,18 @@ struct CgShared {
   // non-positive dAd or a non-finite alpha freezes it before the update, a
   // non-finite rho_c after it. Without them (K6, as the Pallas loop) only
   // the stop rule ends it: a zero b runs one iteration to a NaN x and rho.
-  // Ends with a barrier.
-  template <bool kGuards = true>
-  __device__ __forceinline__ CgOut solve(const float* b, const float* x0, double tol,
-                                         int max_iter) {
+  // The operator is apply_A, with apply's contract (K10 passes its
+  // tensor-core stages), or apply itself. Ends with a barrier.
+  template <bool kGuards = true, typename Apply>
+  __device__ __forceinline__ CgOut solve(const Apply& apply_A, const float* b, const float* x0,
+                                         double tol, int max_iter) {
     float bnorm2, rho;
-    start(b, x0, bnorm2, rho);
+    start(apply_A, b, x0, bnorm2, rho);
     const float stop2 = static_cast<float>(tol * tol) * bnorm2;
     float a[kOwnSites][4];
     int iters = 0;
     for (int k = 0; k < max_iter && rho >= stop2; ++k) {
-      const float dAd = apply(a);
+      const float dAd = apply_A(a);
       const float alpha = rho / dAd;
       if (kGuards && (!(dAd > 0.0f) || !isfinite(alpha))) break;
       const float rho_c = update_x_r(alpha);
@@ -387,6 +393,12 @@ struct CgShared {
     }
     __syncthreads();
     return {iters, rho, bnorm2};
+  }
+  template <bool kGuards = true>
+  __device__ __forceinline__ CgOut solve(const float* b, const float* x0, double tol,
+                                         int max_iter) {
+    return solve<kGuards>([this](float (&a)[kOwnSites][4]) { return apply(a); }, b, x0, tol,
+                          max_iter);
   }
 };
 

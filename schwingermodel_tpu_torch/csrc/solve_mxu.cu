@@ -5,68 +5,61 @@
 // Replaces schwingermodel_tpu/tools/bench_mxu_stencil.py:_solve_kernel_variant
 // (variant "mxu_xshift"): the experiment that asks whether a stencil gets
 // faster when the matrix unit, idle otherwise, moves the data. Everything
-// but the x-shifts is K2 (solve_fused.cu): the links built in-kernel, the
-// CG loop of stencil.cuh (cg_f32_op) per chain with its guards, the outputs
-// x, iterations, rho and ||b||^2. A hop becomes three passes:
+// but the x-neighbours is K2 (solve_fused.cu): the links built in-kernel,
+// the CG loop with its guards, the outputs x, iterations, rho and ||b||^2,
+// and where the fields live (ops/traj.cg_path, K2's rule):
 //
-//   1. at every source site, the x-backward products conj(u1s)(s0 -+ i s1)
-//      (hop_bx, the arithmetic K2 does in place) are written to 4 planes W;
-//   2. XP = P+ S (the source spinor's 4 real planes at x+1) and XM = P- W
-//      (the products at x-1), with P+[i][j] = (j == i+1 mod Nx) and
-//      P-[i][j] = (j == i-1 mod Nx), by mma.sync in this kernel's body;
-//   3. the site pass (hop_combine, shared with K2) reads XP and XM at its
-//      own site where K2 reads S and the products at x+1 and x-1; the t
-//      neighbours are gathered by index as in K2.
+// - shared (up to 64x64): K2's CG store (CgShared of shared_stencil.cuh:
+//   both parities' links, d, r, t1, t2 in shared memory, x in registers,
+//   the sums by BlockSumTree) and K2's loop; only the operator differs. Its
+//   four stages run as work items of 8 x-rows (a row tile) by 4 packed
+//   t-columns, one warp an item. Per item the x-neighbours of the 32 sites
+//   come from f64 m8n8k4 products: XP = P+ S (the source spinor at x+1)
+//   and XM = P- W, W = conj(u1)(s0 -+ i s1) at the source (hop_bx), with
+//   P+[i][j] = (j == i+1 mod Nx) and P-[i][j] = (j == i-1 mod Nx). The
+//   product's 8 columns are ordered [t][plane pair]: column 2 t + p holds
+//   plane p of the pair (re, im) at column t0 + t; spin 0's pair and spin
+//   1's pair are two tiles, so a lane ends with all four planes of XP and
+//   of XM at its site (x = m0 + lane/4, t = t0 + lane%4) in registers, and
+//   runs the site pass of K2 (hop_combine, with the t-neighbours gathered
+//   from shared memory) there. A: P's entries, built in registers from the
+//   lane's indices (1 where k is the row's neighbour, no table); only the
+//   k-tiles (4 values of k from a multiple of 4) that hold a nonzero of the
+//   row tile run (band_tile: 3 of Nx/4 for each product, the wrap
+//   included; the tiles skipped are zero, so the product is the same),
+//   walked as one window of 4 tiles so that a source row both products
+//   use is read once. B: the source values from the store, widened to
+//   f64; W is formed as its fragment is loaded and never stored. The fourth stage
+//   writes Dhat t2 back into t2 in place, and after one more barrier
+//   (7 an iteration, against K2's 6) the threads of CgShared read it at
+//   their own sites for <d, Ad> and the x, r updates: x, iterations and
+//   flags are K2's bit for bit;
+// - global (a lattice no block holds, e.g. 128x128): the loop of
+//   cg_f32_op over a per-chain global scratch (K2's 32 f32 values a site)
+//   with the same stages on the planar layout, 11 barriers an iteration.
 //
 // The product must be exact, or the operator is no longer Dhat Dhat^+. The
 // tensor cores take no f32 operands, and a TF32 operand keeps 10 mantissa
-// bits. Of the two exact ways, this kernel takes the f64 shape,
-// mma.sync.m8n8k4 on double: a plane's f32 values widen to f64 without
-// loss, each product is 1 * a or 0 * a, a column of P holds a single 1, so
-// every sum is one value plus zeros and rounds back to f32 unchanged: exact
-// by construction, on any card, for every finite input (a -0 comes out as
-// +0). The other way, three TF32 parts accumulated in f32, is exact only if
-// the card's accumulator keeps every bit of hi + mid + lo, which would have
-// to be shown on each card; it would run at the TF32 rate, 7.4 times the
-// f64 rate, and is left to the kernel's redesign. A non-finite value
-// spreads to its whole column (0 * inf = NaN), as in a matrix product
-// anywhere; chains are separate blocks, so it stays in its chain.
+// bits. This kernel takes the f64 shape, mma.sync.m8n8k4 on double: a
+// plane's f32 values widen to f64 without loss, each product is 1 * a or
+// 0 * a, a column of P holds a single 1, so every sum is one value plus
+// zeros and rounds back to f32 unchanged: exact by construction, on any
+// card, for every finite input (a -0 comes out as +0). Three TF32 parts
+// accumulated in f32 would be exact only if the card's accumulator kept
+// every bit of hi + mid + lo, which would have to be shown on each card;
+// not taken. A non-finite value reaches, through 0 * inf = NaN, every row
+// of each row tile whose k-tiles of the product include its row, in its
+// own column: 8 or 16 rows around it (the whole column with a dense
+// product). The chain's outcome is the same: the next dot carries the NaN
+// to every site, and chains are separate blocks.
 //
-// Execution: one thread block per chain, as K2. P+ and P- are built once
-// per block in shared memory as f64 one-hot matrices [Nx8][Nx8 + 4] (Nx8 =
-// Nx rounded up to 8, rows and columns beyond Nx zero; the row stride is
-// padded so that the lanes of an A-fragment load hit distinct banks; 70 KB
-// at Nx = 64, and a lattice of Nx above 112 does not fit and is refused;
-// kept as f32 and widened per step they cost 128 conversions a warp and
-// shift, and the solve 117 against 86 us per iteration on an NVIDIA H100
-// 80GB HBM3 at 700 W). Each of
-// the block's 16 warps takes one 8-column tile of the 4 planes of a shift
-// (laid side by side as [Nx, 4 Nth]: 16 column tiles at 64x64) with 8 row
-// tiles, and runs Nx8/4 m8n8k4 steps on the 8 accumulators, which share
-// each step's B fragment; that fragment is read from the chain's scratch in
-// global memory (L2), once per block, and widened in registers; the A
-// fragments come from shared memory.
-//
-// What bounds it on the card: as K2, barriers and L2 latency, now with
-// three barriers more per hop, and the products' 2 Nx Nx Nth flops per
-// shifted plane (32 planes per normal apply) against the card's f64
-// tensor-core peak of 67 TFLOP/s (NVIDIA H100 SXM data sheet).
-#include "stencil.cuh"
+// What bounds it on the card: as K2, the barriers and what a thread waits
+// for after each; the products add 2 directions x 2 plane pairs x 3
+// k-steps = 12 m8n8k4 an item, 6144 flops for 32 sites, against the card's
+// f64 tensor-core peak of 67 TFLOP/s (NVIDIA H100 SXM data sheet).
+#include "shared_stencil.cuh"
 
 namespace sm {
-
-// Row stride of a one-hot matrix in shared memory, for Nx8 rows.
-__host__ __device__ inline int perm_stride(int Nx8) { return Nx8 + 4; }
-
-// P+ (delta = +1: b[x] = a[x+1]) or P- (delta = -1) into shared memory.
-__device__ void make_perm(double* __restrict__ P, int Nx, int Nx8, int delta) {
-  const int ld = perm_stride(Nx8);
-  for (int e = threadIdx.x; e < Nx8 * ld; e += blockDim.x) {
-    const int i = e / ld, j = e - i * ld;
-    const int src = (i + delta + Nx) % Nx;
-    P[e] = (i < Nx && j == src) ? 1.0 : 0.0;
-  }
-}
 
 // D = A B + C on one 8x8x4 f64 tile: A row-major 8x4, one element a thread
 // at (row lane/4, column lane%4); B 4x8 at (row lane%4, column lane/4); C
@@ -77,144 +70,231 @@ __device__ __forceinline__ void dmma(double& c0, double& c1, double a, double b)
                : "d"(a), "d"(b));
 }
 
-// Row tiles one warp accumulates side by side for its column tile: they
-// share the B fragment of each step, so a value of `in` is read from L2 by
-// one warp only, and their independent accumulator chains hide the latency
-// of the f64 mma.
-constexpr int kRowTiles = 8;
+// The band of row tile m0 (rows m0 .. m0+7, m0 a multiple of 8): the
+// k-tiles (4 values of k from a multiple of 4, k below Nx rounded up to 4,
+// K4) that hold P's nonzeros of the tile's rows. P+ takes the n tiles
+// (m0 + 4 i) mod K4 and P- the n tiles (m0 - 4 + 4 i) mod K4, i < n =
+// min(3, K4 / 4): the tiles of k = m0+1 .. m0+8 (of m0-1 .. m0+6), the
+// wrap tile included (k = 0 for row Nx-1 of P+, k = Nx-1 for row 0 of P-),
+// each once; every tile left out is zero on the tile's rows. Walked as the
+// window j = 0 .. 3 of tiles (m0 - 4 + 4 j) mod K4: P- on j < n, P+ on
+// 1 <= j <= n, so a tile both products use is read once.
+__device__ __forceinline__ int band_steps(int Nx) { return min(3, ((Nx + 3) & ~3) >> 2); }
+__device__ __forceinline__ int band_tile(int m0, int j, int Nx) {
+  const int K4 = (Nx + 3) & ~3;
+  const int k0 = m0 - 4 + 4 * j;  // in [-4, K4 + 4)
+  return k0 < 0 ? k0 + K4 : (k0 >= K4 ? k0 - K4 : k0);
+}
 
-// out[p] = P in[p] for n_planes planes [Nx][Nth] of f32 values, on the
-// tensor cores. The planes lie side by side as the columns of one product:
-// n_planes * ceil(Nth / 8) column tiles, each taken by one warp together
-// with kRowTiles row tiles. The caller separates it from the writers of
-// `in` and the readers of `out` by barriers. Every warp of the block takes
-// part.
-__device__ void shift_planes(const double* __restrict__ P, const float* __restrict__ in,
-                             float* __restrict__ out, int n_planes, int Nx8, const Geo& g) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
-  const int ld = perm_stride(Nx8);
-  const int mt = Nx8 / 8, nt = (g.Nth + 7) / 8;
-  const int n_tiles = n_planes * nt;
-  const int m_chunks = (mt + kRowTiles - 1) / kRowTiles;
-  const int grp = lane >> 2, tig = lane & 3;
-  for (int item = warp; item < n_tiles * m_chunks; item += n_warps) {
-    const int t = item % n_tiles;
-    const int m_base = 8 * kRowTiles * (item / n_tiles);
-    const int plane = t / nt, n0 = 8 * (t % nt);
-    const float* src = in + (size_t)plane * g.V2 + n0 + grp;  // this lane's B column
-    const bool col_ok = n0 + grp < g.Nth;
-    const double* a_col = P + (m_base + grp) * ld + tig;
-    double c0[kRowTiles], c1[kRowTiles];
+// xp[p][i] += (P+ B+)[m0 + lane/4][column 2 (lane%4) + i] of plane pair p,
+// and xm the same for P- B-, over the band of row tile m0. The lane's entry
+// of A is P[m0 + lane/4][k0 + lane%4]: 1 where k is its row's neighbour
+// (x+1 or x-1 modulo Nx), 0 elsewhere and on the rows beyond Nx.
+// load(k, with_m, bp0, bp1, bm0, bm1) gives the lane's B entries at row k
+// of its column (t0 + lane/8, plane (lane/4) & 1 of pair 0 and of pair 1),
+// zero beyond the lattice: B+ always, B- where with_m.
+template <typename LoadB>
+__device__ __forceinline__ void banded_products(int m0, int Nx, const LoadB& load,
+                                                double (&xp)[2][2], double (&xm)[2][2]) {
+  const int lane = threadIdx.x & 31, row = m0 + (lane >> 2), q = lane & 3;
+  const int n = band_steps(Nx);
+  const bool live = row < Nx;
+  const int up = row + 1 == Nx ? 0 : row + 1, down = row == 0 ? Nx - 1 : row - 1;
 #pragma unroll
-    for (int j = 0; j < kRowTiles; ++j) c0[j] = c1[j] = 0.0;
-    for (int k0 = 0; k0 < Nx8; k0 += 4) {
-      const int row_b = k0 + tig;
-      const double b =
-          (col_ok && row_b < g.Nx) ? static_cast<double>(src[row_b * g.Nth]) : 0.0;
-#pragma unroll
-      for (int j = 0; j < kRowTiles; ++j) {
-        if (m_base + 8 * j < Nx8)  // the same in every lane of the warp
-          dmma(c0[j], c1[j], a_col[8 * j * ld + k0], b);
-      }
+  for (int j = 0; j < 4; ++j) {
+    const bool use_m = j < n, use_p = j >= 1 && j <= n;  // the same in every lane
+    if (!use_m && !use_p) continue;
+    const int k = band_tile(m0, j, Nx) + q;
+    double bp0, bp1, bm0, bm1;
+    load(k, use_m, bp0, bp1, bm0, bm1);
+    if (use_m) {
+      const double a = live && k == down ? 1.0 : 0.0;
+      dmma(xm[0][0], xm[0][1], a, bm0);
+      dmma(xm[1][0], xm[1][1], a, bm1);
     }
-    const int col = n0 + 2 * tig;
-#pragma unroll
-    for (int j = 0; j < kRowTiles; ++j) {
-      const int row = m_base + 8 * j + grp;
-      if (row < g.Nx) {
-        float* dst = out + (size_t)plane * g.V2 + row * g.Nth;
-        if (col < g.Nth) dst[col] = static_cast<float>(c0[j]);
-        if (col + 1 < g.Nth) dst[col + 1] = static_cast<float>(c1[j]);
-      }
+    if (use_p) {
+      const double a = live && k == up ? 1.0 : 0.0;
+      dmma(xp[0][0], xp[0][1], a, bp0);
+      dmma(xp[1][0], xp[1][1], a, bp1);
     }
   }
 }
 
-// out = hop(S) at every target site, or a*v + b*hop(S), with the x
-// neighbours from the tensor-core shifts. W, XP, XM: scratch spinors.
-// Starts after a barrier (S complete) and ends with one.
-template <bool DAG>
-__device__ void hop_stage_mxu(const float* __restrict__ Ut, const float* __restrict__ Us,
-                              const float* __restrict__ S, int tgt_parity,
-                              float* __restrict__ out, const float* __restrict__ v, float a,
-                              float b, float* __restrict__ W, float* __restrict__ XP,
-                              float* __restrict__ XM, const double* __restrict__ Pp,
-                              const double* __restrict__ Pm, int Nx8, const Geo& g) {
-  const int V2 = g.V2;
-  for (int s = threadIdx.x; s < V2; s += blockDim.x) {
-    Cx<float> bx0, bx1;
-    hop_bx<float, DAG>(ld(Us, 1, s, V2), ld(S, 0, s, V2), ld(S, 1, s, V2), bx0, bx1);
-    st(W, 0, s, V2, bx0);
-    st(W, 1, s, V2, bx1);
-  }
-  __syncthreads();
-  shift_planes(Pp, S, XP, 4, Nx8, g);
-  shift_planes(Pm, W, XM, 4, Nx8, g);
-  __syncthreads();
-  for (int s = threadIdx.x; s < V2; s += blockDim.x) {
-    const int x = s / g.Nth;
-    const int k = s - x * g.Nth;
-    const Nbr n = neighbours(x, k, (x + tgt_parity) & 1, g);
-    Cx<float> h0, h1;
-    hop_combine<float, DAG>(ld(Ut, 0, s, V2), ld(Ut, 1, s, V2), ld(S, 0, n.pt, V2),
-                            ld(S, 1, n.pt, V2), ld(XP, 0, s, V2), ld(XP, 1, s, V2),
-                            ld(Us, 0, n.mt, V2), ld(S, 0, n.mt, V2), ld(S, 1, n.mt, V2),
-                            ld(XM, 0, s, V2), ld(XM, 1, s, V2), h0, h1);
-    if (v != nullptr) {
-      h0 = axpby(a, ld(v, 0, s, V2), b, h0);
-      h1 = axpby(a, ld(v, 1, s, V2), b, h1);
-    }
-    st(out, 0, s, V2, h0);
-    st(out, 1, s, V2, h1);
-  }
-  __syncthreads();
+// A spinor's two spins and a link at site s on either layout: the CG
+// store's site-major one (float4 a spinor site, float2 a link) or the
+// planar one of stencil.cuh (the global path).
+__device__ __forceinline__ void spins(const float4* S, int s, int, Cx<float>& s0,
+                                      Cx<float>& s1) {
+  const float4 v = S[s];
+  s0 = lo(v);
+  s1 = hi(v);
+}
+__device__ __forceinline__ void spins(const float* S, int s, int V2, Cx<float>& s0,
+                                      Cx<float>& s1) {
+  s0 = ld(S, 0, s, V2);
+  s1 = ld(S, 1, s, V2);
+}
+__device__ __forceinline__ Cx<float> link(const float2* U, int mu, int s, int V2) {
+  return cx(U[mu * V2 + s]);
+}
+__device__ __forceinline__ Cx<float> link(const float* U, int mu, int s, int V2) {
+  return ld(U, mu, s, V2);
+}
+__device__ __forceinline__ void put(float4* out, int s, int, Cx<float> h0, Cx<float> h1) {
+  out[s] = f4(h0, h1);
+}
+__device__ __forceinline__ void put(float* out, int s, int V2, Cx<float> h0, Cx<float> h1) {
+  st(out, 0, s, V2, h0);
+  st(out, 1, s, V2, h1);
 }
 
-// out = (Dhat Dhat^+) v, the four hops of normal_apply through
-// hop_stage_mxu; starts and ends with a barrier.
-struct MxuNormalOp {
-  const float *ue, *uo;
-  float *t1, *t2, *t3, *W, *XP, *XM;
-  const double *Pp, *Pm;
-  float m, c;
-  int Nx8;
-  Geo g;
-  __device__ __forceinline__ void operator()(const float* v, float* out) const {
+// out = hop(S) at every target site, or a*v + b*hop(S) (v may be out: each
+// lane reads v and writes out at its own site only), with the x-neighbours
+// from the banded products. Work items (row tile, group of 4 packed
+// columns), one warp each; the caller puts barriers around it.
+template <bool DAG, bool AXPBY, typename L, typename S>
+__device__ void stage_mxu(const L* Ut, const L* Us, const S* Sp, int tgt_parity, S* out,
+                          const S* v, float a, float bb, const Geo& g) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tg = (g.Nth + 3) / 4, items = (g.Nx + 7) / 8 * tg;
+  const int bt = lane >> 3, bp = (lane >> 2) & 1;  // the lane's B column: t, plane
+  for (int item = warp; item < items; item += kThreads / 32) {
+    const int m0 = 8 * (item / tg), t0 = 4 * (item % tg);
+    const int tb = min(t0 + bt, g.Nth - 1);
+    const bool col_ok = t0 + bt < g.Nth;
+    double xp[2][2] = {{0.0, 0.0}, {0.0, 0.0}}, xm[2][2] = {{0.0, 0.0}, {0.0, 0.0}};
+    // B+ = S and B- = W = hop_bx(u1, S) at the source, from one read of S;
+    // rows and columns beyond the lattice read an edge site and give 0
+    banded_products(m0, g.Nx, [&](int k, bool with_m, double& bp0, double& bp1, double& bm0,
+                                  double& bm1) {
+      const bool ok = col_ok && k < g.Nx;
+      const int src = min(k, g.Nx - 1) * g.Nth + tb;
+      Cx<float> s0, s1;
+      spins(Sp, src, g.V2, s0, s1);
+      bp0 = ok ? (bp ? s0.im : s0.re) : 0.0f;
+      bp1 = ok ? (bp ? s1.im : s1.re) : 0.0f;
+      if (with_m) {
+        Cx<float> w0, w1;
+        hop_bx<float, DAG>(link(Us, 1, src, g.V2), s0, s1, w0, w1);
+        bm0 = ok ? (bp ? w0.im : w0.re) : 0.0f;
+        bm1 = ok ? (bp ? w1.im : w1.re) : 0.0f;
+      }
+    }, xp, xm);
+    // the site pass at this lane's site, K2's hop_combine
+    const int x = m0 + (lane >> 2), t = t0 + (lane & 3);
+    if (x < g.Nx && t < g.Nth) {
+      const int s = x * g.Nth + t;
+      const Nbr n = neighbours(x, t, (x + tgt_parity) & 1, g);
+      Cx<float> p0t, p1t, s0t, s1t, h0, h1;
+      spins(Sp, n.pt, g.V2, p0t, p1t);
+      spins(Sp, n.mt, g.V2, s0t, s1t);
+      const Cx<float> p0x{static_cast<float>(xp[0][0]), static_cast<float>(xp[0][1])};
+      const Cx<float> p1x{static_cast<float>(xp[1][0]), static_cast<float>(xp[1][1])};
+      const Cx<float> bx0{static_cast<float>(xm[0][0]), static_cast<float>(xm[0][1])};
+      const Cx<float> bx1{static_cast<float>(xm[1][0]), static_cast<float>(xm[1][1])};
+      hop_combine<float, DAG>(link(Ut, 0, s, g.V2), link(Ut, 1, s, g.V2), p0t, p1t, p0x, p1x,
+                              link(Us, 0, n.mt, g.V2), s0t, s1t, bx0, bx1, h0, h1);
+      if (AXPBY) {
+        Cx<float> v0, v1;
+        spins(v, s, g.V2, v0, v1);
+        h0 = axpby(a, v0, bb, h0);
+        h1 = axpby(a, v1, bb, h1);
+      }
+      put(out, s, g.V2, h0, h1);
+    }
+  }
+}
+
+// The shared path's operator for CgShared::solve: Ad = (Dhat Dhat^+) d into
+// a (and t2) at the thread's own sites, <d, Ad> returned; the first barrier
+// makes the d written just before visible.
+struct MxuApply {
+  CgShared* S;
+  __device__ __forceinline__ float operator()(float (&a)[kOwnSites][4]) const {
+    CgShared& C = *S;
+    const Geo& g = C.g;
     __syncthreads();
-    hop_stage_mxu<true>(uo, ue, v, 1, t1, nullptr, 0.0f, 0.0f, W, XP, XM, Pp, Pm, Nx8, g);
-    hop_stage_mxu<true>(ue, uo, t1, 0, t2, v, m, -c, W, XP, XM, Pp, Pm, Nx8, g);
-    hop_stage_mxu<false>(uo, ue, t2, 1, t3, nullptr, 0.0f, 0.0f, W, XP, XM, Pp, Pm, Nx8, g);
-    hop_stage_mxu<false>(ue, uo, t3, 0, out, t2, m, -c, W, XP, XM, Pp, Pm, Nx8, g);
+    stage_mxu<true, false>(C.uo, C.ue, C.d, 1, C.t1, C.d, 0.f, 0.f, g);  // (H_eo)^+ d
+    __syncthreads();
+    stage_mxu<true, true>(C.ue, C.uo, C.t1, 0, C.t2, C.d, C.m, -C.c, g);  // Dhat^+ d
+    __syncthreads();
+    stage_mxu<false, false>(C.uo, C.ue, C.t2, 1, C.t1, C.t2, 0.f, 0.f, g);  // H_oe t2
+    __syncthreads();
+    stage_mxu<false, true>(C.ue, C.uo, C.t1, 0, C.t2, C.t2, C.m, -C.c, g);  // Dhat t2
+    __syncthreads();
+    float dv[kOwnSites][4];
+#pragma unroll
+    for (int j = 0; j < kOwnSites; ++j) {
+      const int s = threadIdx.x + j * kThreads;
+      if (C.mine(j)) {
+        const float4 as = C.t2[s], ds = C.d[s];
+        a[j][0] = as.x, a[j][1] = as.y, a[j][2] = as.z, a[j][3] = as.w;
+        dv[j][0] = ds.x, dv[j][1] = ds.y, dv[j][2] = ds.z, dv[j][3] = ds.w;
+      }
+    }
+    return C.dot(dv, a);
   }
 };
 
 __global__ void __launch_bounds__(kThreads)
-solve_mxu_kernel(const float* __restrict__ thE, const float* __restrict__ thO,
-                 const float* __restrict__ b_all, const float* __restrict__ x0_all,
-                 float* __restrict__ x_all, int* __restrict__ iters_out,
-                 float* __restrict__ rho_out, float* __restrict__ bnorm_out,
-                 float* __restrict__ scratch, int Nx, int Nth, float m, float c, double tol,
-                 int max_iter) {
-  extern __shared__ double perm[];
+solve_mxu_shared_kernel(const float* __restrict__ thE, const float* __restrict__ thO,
+                        const float* __restrict__ b_all, const float* __restrict__ x0_all,
+                        float* __restrict__ x_all, int* __restrict__ iters_out,
+                        float* __restrict__ rho_out, float* __restrict__ bnorm_out, int Nx,
+                        int Nth, float m, float c, double tol, int max_iter) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ double sh[2 * (kThreads / 32)];
+  const Geo g{Nx, Nth, Nx * Nth};
+  const size_t ch = blockIdx.x;
+  CgShared S = cg_shared(smem, sh, g, m, c);
+  make_links_shared(thE + ch * 2 * g.V2, 0, S.ue, g);
+  make_links_shared(thO + ch * 2 * g.V2, 1, S.uo, g);
+  const CgOut o = S.solve(MxuApply{&S}, b_all + ch * 4 * g.V2, x0_all + ch * 4 * g.V2, tol,
+                          max_iter);
+  S.write_x(x_all + ch * 4 * g.V2);
+  if (threadIdx.x == 0) {
+    iters_out[ch] = o.iters;
+    rho_out[ch] = o.rho;
+    bnorm_out[ch] = o.bnorm2;
+  }
+}
+
+// out = (Dhat Dhat^+) v on the planar layout, as cg_f32_op takes its
+// operator: starts and ends with a barrier.
+struct MxuPlanarOp {
+  const float *ue, *uo;
+  float *t1, *t2, *t3;
+  float m, c;
+  Geo g;
+  __device__ __forceinline__ void operator()(const float* v, float* out) const {
+    __syncthreads();
+    stage_mxu<true, false>(uo, ue, v, 1, t1, v, 0.f, 0.f, g);
+    __syncthreads();
+    stage_mxu<true, true>(ue, uo, t1, 0, t2, v, m, -c, g);
+    __syncthreads();
+    stage_mxu<false, false>(uo, ue, t2, 1, t3, t2, 0.f, 0.f, g);
+    __syncthreads();
+    stage_mxu<false, true>(ue, uo, t3, 0, out, t2, m, -c, g);
+    __syncthreads();
+  }
+};
+
+__global__ void __launch_bounds__(kThreads)
+solve_mxu_global_kernel(const float* __restrict__ thE, const float* __restrict__ thO,
+                        const float* __restrict__ b_all, const float* __restrict__ x0_all,
+                        float* __restrict__ x_all, int* __restrict__ iters_out,
+                        float* __restrict__ rho_out, float* __restrict__ bnorm_out,
+                        float* __restrict__ scratch, int Nx, int Nth, float m, float c,
+                        double tol, int max_iter) {
   __shared__ double sh[33];
   const Geo g{Nx, Nth, Nx * Nth};
   const int V2 = g.V2;
-  const int Nx8 = (Nx + 7) / 8 * 8;
-  double* Pp = perm;
-  double* Pm = perm + Nx8 * perm_stride(Nx8);
-  make_perm(Pp, Nx, Nx8, +1);
-  make_perm(Pm, Nx, Nx8, -1);
   const int ch = blockIdx.x;
-  float* sc = scratch + (size_t)ch * 44 * V2;
+  float* sc = scratch + (size_t)ch * 32 * V2;
   float *ue = sc, *uo = sc + 4 * V2;
   make_links<float>(thE + (size_t)ch * 2 * V2, 0, ue, g);
   make_links<float>(thO + (size_t)ch * 2 * V2, 1, uo, g);
-  MxuNormalOp op;
-  op.ue = ue, op.uo = uo;
-  op.t1 = sc + 20 * V2, op.t2 = sc + 24 * V2, op.t3 = sc + 28 * V2;
-  op.W = sc + 32 * V2, op.XP = sc + 36 * V2, op.XM = sc + 40 * V2;
-  op.Pp = Pp, op.Pm = Pm;
-  op.m = m, op.c = c, op.Nx8 = Nx8, op.g = g;
+  const MxuPlanarOp op{ue, uo, sc + 20 * V2, sc + 24 * V2, sc + 28 * V2, m, c, g};
   const CgOut o = cg_f32_op(op, b_all + (size_t)ch * 4 * V2, x0_all + (size_t)ch * 4 * V2,
                             x_all + (size_t)ch * 4 * V2, sc + 8 * V2, sc + 12 * V2,
                             sc + 16 * V2, tol, max_iter, g, sh);
@@ -225,63 +305,80 @@ solve_mxu_kernel(const float* __restrict__ thE, const float* __restrict__ thO,
   }
 }
 
-// The shifts alone: out_p[p] = P+ in[p], out_m[p] = P- in[p], one block a
-// plane. The proof that the product is exact is made on this entry.
+// The shifts alone: out_p = P+ in and out_m = P- in for n_planes planes
+// [Nx][Nth], by the fragments of the stages (banded_products, the columns
+// [t][plane pair]), one block per four planes taken as the two pairs of a
+// spinor. The proof that the product is exact is made on this entry.
 __global__ void __launch_bounds__(kThreads)
 shift_mxu_kernel(const float* __restrict__ in, float* __restrict__ out_p,
-                 float* __restrict__ out_m, int Nx, int Nth) {
-  extern __shared__ double perm[];
+                 float* __restrict__ out_m, int n_planes, int Nx, int Nth) {
   const Geo g{Nx, Nth, Nx * Nth};
-  const int Nx8 = (Nx + 7) / 8 * 8;
-  double* Pp = perm;
-  double* Pm = perm + Nx8 * perm_stride(Nx8);
-  make_perm(Pp, Nx, Nx8, +1);
-  make_perm(Pm, Nx, Nx8, -1);
-  __syncthreads();
-  const size_t off = (size_t)blockIdx.x * g.V2;
-  shift_planes(Pp, in + off, out_p + off, 1, Nx8, g);
-  shift_planes(Pm, in + off, out_m + off, 1, Nx8, g);
-}
-
-// Bytes of dynamic shared memory for the two one-hot matrices, and the
-// kernel's opt-in to more than 48 KB of it.
-template <typename K>
-static int perm_shared(K kernel, int Nx, int* bytes) {
-  const int Nx8 = (Nx + 7) / 8 * 8;
-  *bytes = 2 * Nx8 * perm_stride(Nx8) * static_cast<int>(sizeof(double));
-  if (*bytes > kSharedMax) return static_cast<int>(cudaErrorInvalidValue);
-  if (*bytes > 48 * 1024)
-    return static_cast<int>(
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *bytes));
-  return 0;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int plane0 = 4 * blockIdx.x;
+  const int tg = (Nth + 3) / 4, items = (Nx + 7) / 8 * tg;
+  const int bt = lane >> 3, bp = (lane >> 2) & 1;
+  for (int item = warp; item < items; item += kThreads / 32) {
+    const int m0 = 8 * (item / tg), t0 = 4 * (item % tg);
+    const int tb = t0 + bt;
+    double xp[2][2] = {{0.0, 0.0}, {0.0, 0.0}}, xm[2][2] = {{0.0, 0.0}, {0.0, 0.0}};
+    banded_products(m0, Nx, [&](int k, bool, double& bp0, double& bp1, double& bm0,
+                                double& bm1) {
+      const int p0 = plane0 + bp, p1 = plane0 + 2 + bp;
+      const bool ok = k < Nx && tb < Nth;
+      const size_t s = static_cast<size_t>(k) * Nth + tb;
+      bp0 = bm0 = ok && p0 < n_planes ? static_cast<double>(in[p0 * static_cast<size_t>(g.V2) + s]) : 0.0;
+      bp1 = bm1 = ok && p1 < n_planes ? static_cast<double>(in[p1 * static_cast<size_t>(g.V2) + s]) : 0.0;
+    }, xp, xm);
+    const int x = m0 + (lane >> 2), t = t0 + (lane & 3);
+    for (int pr = 0; pr < 2; ++pr)
+      for (int i = 0; i < 2; ++i) {
+        const int pl = plane0 + 2 * pr + i;
+        if (x < Nx && t < Nth && pl < n_planes) {
+          const size_t o = pl * static_cast<size_t>(g.V2) + static_cast<size_t>(x) * Nth + t;
+          out_p[o] = static_cast<float>(xp[pr][i]);
+          out_m[o] = static_cast<float>(xm[pr][i]);
+        }
+      }
+  }
 }
 
 }  // namespace sm
 
+// path 0: the global scratch, f32 [C, 32 V2]; path 1: K2's shared store (at
+// most 2048 sites, 96 V2 bytes), no scratch.
 extern "C" int solve_mxu_launch(const void* thE, const void* thO, const void* b, const void* x0,
                                 void* x, void* iters, void* rho, void* bnorm, void* scratch,
                                 int C, int Nx, int Nth, double m0, double tol, int max_iter,
-                                void* stream) {
+                                int path, void* stream) {
   const float m = static_cast<float>(m0 + 2.0);
   const float c = static_cast<float>(1.0 / (4.0 * (m0 + 2.0)));
-  int bytes = 0;
-  const int err = sm::perm_shared(sm::solve_mxu_kernel, Nx, &bytes);
-  if (err != 0) return err;
-  sm::solve_mxu_kernel<<<C, sm::kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(thE), static_cast<const float*>(thO),
-      static_cast<const float*>(b), static_cast<const float*>(x0), static_cast<float*>(x),
-      static_cast<int*>(iters), static_cast<float*>(rho), static_cast<float*>(bnorm),
-      static_cast<float*>(scratch), Nx, Nth, m, c, tol, max_iter);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float *th_e = static_cast<const float*>(thE), *th_o = static_cast<const float*>(thO);
+  const float *bb = static_cast<const float*>(b), *xx0 = static_cast<const float*>(x0);
+  if (path == 0) {
+    sm::solve_mxu_global_kernel<<<C, sm::kThreads, 0, s>>>(
+        th_e, th_o, bb, xx0, static_cast<float*>(x), static_cast<int*>(iters),
+        static_cast<float*>(rho), static_cast<float*>(bnorm), static_cast<float*>(scratch), Nx,
+        Nth, m, c, tol, max_iter);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const size_t V2 = static_cast<size_t>(Nx) * Nth;
+  const size_t bytes = sm::kCgSharedBytes * V2;
+  if (path != 1 || V2 > sm::kOwnSites * sm::kThreads || bytes > sm::kSharedMax)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = cudaFuncSetAttribute(
+      sm::solve_mxu_shared_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sm::kSharedMax);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  sm::solve_mxu_shared_kernel<<<C, sm::kThreads, bytes, s>>>(
+      th_e, th_o, bb, xx0, static_cast<float*>(x), static_cast<int*>(iters),
+      static_cast<float*>(rho), static_cast<float*>(bnorm), Nx, Nth, m, c, tol, max_iter);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int shift_mxu_launch(const void* in, void* out_p, void* out_m, int n_planes, int Nx,
                                 int Nth, void* stream) {
-  int bytes = 0;
-  const int err = sm::perm_shared(sm::shift_mxu_kernel, Nx, &bytes);
-  if (err != 0) return err;
-  sm::shift_mxu_kernel<<<n_planes, sm::kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(in), static_cast<float*>(out_p), static_cast<float*>(out_m), Nx,
-      Nth);
+  sm::shift_mxu_kernel<<<(n_planes + 3) / 4, sm::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(in), static_cast<float*>(out_p), static_cast<float*>(out_m),
+      n_planes, Nx, Nth);
   return static_cast<int>(cudaGetLastError());
 }

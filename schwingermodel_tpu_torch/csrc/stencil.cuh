@@ -2,13 +2,14 @@
 // port's kernels (force_step.cu, solve_fused.cu, solve_mxu.cu,
 // ratio_force.cu, solve_ru.cu, cg_fallback.cu with cg_fallback.cuh, cg_eo.cu,
 // residual.cu, halo_normal.cu, halo_force.cu), with the fermion force
-// stencil, the f32 CG loop (cg_f32_op) of K10 and of K1's, K2's and K6's
-// global paths, the stage of the global paths of the per-shard halo kernels
-// K7 and K8, and two block sums: block_sum (three barriers; K9, K10 and the
-// global paths of K1, K2, K5, K6 and K7) and BlockSum (one barrier; K3,
-// K4). The shared-memory layout, its
-// one-barrier sum with block_sum's bits and the f32 CG on it (K1 and K2 up
-// to 64x64) are in shared_stencil.cuh.
+// stencil, the f32 CG loop (cg_f32_op) of the global paths of K1, K2, K6
+// and K10, the stage of the global paths of the per-shard halo kernels K7
+// and K8, the per-site hop (hop_bx, hop_combine) that every layout calls,
+// K9's f64 slabs in shared memory and K10's tensor-core stages included,
+// and two block sums: block_sum (three barriers; the global paths of K1,
+// K2, K5, K6, K7, K9 and K10) and BlockSum (one barrier; K3, K4). The
+// shared-memory layout, its one-barrier sum with block_sum's bits and the
+// f32 CG on it (K1, K2, K6 and K10 up to 64x64) are in shared_stencil.cuh.
 //
 // Device counterpart of schwingermodel_tpu_torch/ops/eo.py (and of the
 // packed stencil of schwingermodel_tpu/ops/pallas_eo.py:118-181), templated
@@ -25,10 +26,10 @@
 // block's threads stride over the V2 sites; a stencil stage reads neighbours
 // that other threads wrote, so stages are separated by __syncthreads(). The
 // fields lie where the kernel puts them: a per-chain global scratch that
-// stays in L2 (K4, K9, K10; K1, K2, K3, K5, K6, K7 and K8 on a lattice or
-// block no block holds), or shared memory (K1, K2, K5, K6, K7, K8 and K3's
-// f32 recursion in the site-major layout of shared_stencil.cuh, which calls
-// hop_bx and hop_combine).
+// stays in L2 (K4; K1, K2, K3, K5, K6, K7, K8, K9 and K10 on a lattice or
+// block no block holds), or shared memory (K1, K2, K5, K6, K7, K8, K10 and
+// K3's f32 recursion in the site-major layout of shared_stencil.cuh, K9 in
+// its f64 slabs of rows, residual.cu; all call hop_bx and hop_combine).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -35,8 +35,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 P, I, F, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 
 # Dynamic shared memory a kernel may ask for (csrc/stencil.cuh kSharedMax):
-# the wrappers of K1, K2, K3, K7 and K8 choose a kernel's path by it before
-# the launch.
+# the wrappers of K1, K2, K3, K7, K8, K9 and K10 choose a kernel's path by
+# it before the launch.
 SHARED_MAX = 220 * 1024
 # Sites one block holds on a shared path: its 512 threads own 4 each
 # (csrc/shared_stencil.cuh kOwnSites).
@@ -55,8 +55,8 @@ SIGNATURES = {
     # thE, thO, b, x0, x, iters, rho, bnorm2, scratch,
     # C, Nx, Nth, m0, tol, max_iter, path, stream
     "solve_fused_launch": [P, P, P, P, P, P, P, P, P, I, I, I, D, D, I, I, P],
-    # the arguments of solve_fused_launch without the path
-    "solve_mxu_launch": [P, P, P, P, P, P, P, P, P, I, I, I, D, D, I, P],
+    # the arguments of solve_fused_launch
+    "solve_mxu_launch": [P, P, P, P, P, P, P, P, P, I, I, I, D, D, I, I, P],
     # in, out_p, out_m, n_planes, Nx, Nth, stream
     "shift_mxu_launch": [P, P, P, I, I, I, P],
     # thE, thO, psi, phi2, FE, FO, scratch, C, Nx, Nth, m0, m1, beta, path,
@@ -74,8 +74,9 @@ SIGNATURES = {
     # ue, uo, b, x0, x, iters, rho, bnorm2, scratch,
     # C, B, Nx, Nth, m0, tol, max_iter, path, stream
     "cg_eo_launch": [P, P, P, P, P, P, P, P, P, I, I, I, I, D, D, I, I, P],
-    # thE, thO, b, x, r, rnorm2, scratch, C, B, Nx, Nth, m0, stream
-    "residual_launch": [P, P, P, P, P, P, P, I, I, I, I, D, P],
+    # thE, thO, b, x, r, rnorm2, scratch, tickets, C, B, Nx, Nth, m0, path,
+    # blocks, rhs, stream
+    "residual_launch": [P, P, P, P, P, P, P, P, I, I, I, I, D, I, I, I, P],
     # ue, uo, off, v, r, out, dots, scratch, n_blocks, Nxe, Nthe, m0,
     # with_dots, path, blocks, stream
     "halo_normal_launch": [P, P, P, P, P, P, P, P, I, I, I, D, I, I, I, P],

@@ -19,7 +19,8 @@ algorithm and uses f64 for that half.
 - ``residual_f64`` is K9 (``csrc/residual.cu``, replacing
   ``pallas_df._df_residual_kernel``): the f64 true residual
   r = b - (Dhat Dhat^+) x of the restart refinement, for C configurations
-  of B right-hand sides each.
+  of B right-hand sides each, on slabs of rows in shared memory where a
+  split of at most 8 holds the lattice (``residual_path``).
 
 Per-chain semantics. The Pallas kernels advance all chains in lockstep and
 couple them in three places: ``jnp.any`` over chains in the outer
@@ -35,13 +36,15 @@ is accumulated in f64; the f32 recursion rounds it to f32.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from schwingermodel_tpu_torch.ops import _cuda, eo, gauge
-from schwingermodel_tpu_torch.ops.traj import to_complex, to_planar
+from schwingermodel_tpu_torch.ops.traj import (CG_GLOBAL, CG_SHARED, _rows_fit,
+                                               to_complex, to_planar)
 
 
 class RefinedSolveResult(NamedTuple):
@@ -401,7 +404,93 @@ def residual_f64_reference(thE, thO, b, x, *, m0):
     return rp, (rp * rp).sum(dim=(2, 3, 4, 5))
 
 
-_RES_S64 = 20   # f64 scratch values per half-lattice site and entry (residual.cu)
+# Bytes a half-lattice site of K9's shared route (csrc/residual.cu
+# kResidualSharedBytes: the f64 links of both parities and two f64 spinor
+# planes), f64 values a site and entry of its global scratch, and the
+# right-hand sides one block may take.
+_RES_SHARED_BYTES, _RES_SCRATCH, _RES_MAX_RHS = 128, 20, 8
+
+
+def residual_routes(Nx: int, Nth: int, B: int):
+    """K9's shared routes for B right-hand sides of an Nx x 2 Nth lattice:
+    (CG_SHARED, slabs a configuration, right-hand sides a block) for every
+    slab count of at most 8 that holds the lattice (``traj._rows_fit``; an
+    odd Nx only whole) and every count of right-hand sides up to 8 that
+    divides B."""
+    return [(CG_SHARED, n, rhs) for n in ((1, 2, 4, 8) if Nx % 2 == 0 else (1,))
+            if _rows_fit(Nx, Nth, n, _RES_SHARED_BYTES)
+            for rhs in range(1, min(B, _RES_MAX_RHS) + 1) if B % rhs == 0]
+
+
+@functools.lru_cache(maxsize=None)
+def residual_path(Nx: int, Nth: int, C: int, B: int, sms: int = _cuda.H100_SMS):
+    """Where K9 keeps its fields for C configurations of B right-hand sides
+    of an Nx x 2 Nth lattice on a card of `sms` multiprocessors: (path,
+    slabs a configuration, right-hand sides a block). A block holds a slab
+    of rows of one configuration with its f64 links, built once, and runs
+    `rhs` of its right-hand sides through them in turn, so a launch has
+    C * (B / rhs) * slabs blocks. Of ``residual_routes`` (an odd Nx is not
+    split: its rows' offsets would not wrap), the route with the most
+    blocks that still run at once is taken, ties to the fewer
+    slabs (fewer halo rows computed again); where none runs at once, the
+    fewest blocks. K1's rule without the solve (``traj.split_rows``) with
+    the right-hand sides a block as a second count; chosen by the card's
+    time at every shape timed (``PERF.md`` section 6): 64x64 C=32 B=8 on 2
+    slabs of 4 right-hand sides, C=2 on 8 slabs of 1, 32x32 C=32 B=8 on 1
+    slab of 2, 128x128 C=8 B=8 on 8 slabs of 4, 64x64 C=128 B=8 on 2 slabs
+    of 8. CG_GLOBAL where no split holds the lattice (one block an entry
+    over a global scratch)."""
+    routes = [(C * (B // rhs) * n, n, rhs) for _, n, rhs in residual_routes(Nx, Nth, B)]
+    if not routes:
+        return CG_GLOBAL, 1, 1
+    at_once = [r for r in routes if r[0] <= sms]
+    if at_once:
+        _, n, rhs = min(at_once, key=lambda r: (-r[0], r[1]))
+    else:
+        _, n, rhs = min(routes, key=lambda r: (r[0], r[1]))
+    return CG_SHARED, n, rhs
+
+
+def residual_path_name(Nx: int, Nth: int, C: int, B: int, sms: int = _cuda.H100_SMS) -> str:
+    path, blocks, rhs = residual_path(Nx, Nth, C, B, sms)
+    if path == CG_GLOBAL:
+        return "global"
+    return (f"shared, {blocks} slab{'s' if blocks > 1 else ''} a configuration, "
+            f"{rhs} right-hand side{'s' if rhs > 1 else ''} a block")
+
+
+def _residual_scratch(C, B, Nx, Nth, route, device):
+    """K9's scratch on `route`: (fields, tickets). The global route's 20 f64
+    values a site and entry and no tickets; on a split the slabs' f64
+    partials [C * B * blocks] and a uint32 ticket a block group, which the
+    launch zeroes on its stream; on one slab neither."""
+    path, blocks, rhs = route
+    if path == CG_GLOBAL:
+        return torch.empty(C * B * _RES_SCRATCH * Nx * Nth, dtype=torch.float64,
+                           device=device), None
+    if blocks > 1:
+        return (torch.empty(C * B * blocks, dtype=torch.float64, device=device),
+                torch.empty(C * (B // rhs), dtype=torch.int32, device=device))
+    return None, None
+
+
+def _launch_residual(thE, thO, b, x, m0, sms, route=None):
+    """K9's launch on b's device on ``residual_path``'s route, or on `route`
+    (path, blocks, rhs) where the caller names one (the tools time and
+    compare every route): the global scratch only on the global path, the
+    slabs' f64 partials and the tickets only where a configuration spans
+    several blocks; (r, rnorm2)."""
+    C, B, _, _, Nx, Nth = b.shape
+    route = route or residual_path(Nx, Nth, C, B, sms)
+    r = torch.empty_like(x)
+    rnorm2 = torch.empty((C, B), dtype=torch.float64, device=b.device)
+    scratch, tickets = _residual_scratch(C, B, Nx, Nth, route, b.device)
+    p = _cuda.ptr
+    _cuda.KERNELS.call("residual_launch", p(thE), p(thO), p(b), p(x), p(r),
+                       p(rnorm2), None if scratch is None else p(scratch),
+                       None if tickets is None else p(tickets), C, B, Nx, Nth,
+                       float(m0), *route)
+    return r, rnorm2
 
 
 def residual_f64(thE, thO, b, x, *, m0):
@@ -409,7 +498,9 @@ def residual_f64(thE, thO, b, x, *, m0):
     from the f32 angles, and each entry's f64 ||r||^2.
 
     thE/thO f32 [C, 2, Nx, Nth]; b f32 and x f64 [C, B, 2, 2, Nx, Nth].
-    Returns (r f64 [C, B, 2, 2, Nx, Nth], rnorm2 f64 [C, B])."""
+    Returns (r f64 [C, B, 2, 2, Nx, Nth], rnorm2 f64 [C, B]). CUDA tensors
+    run csrc/residual.cu on the route ``residual_path`` gives; CPU tensors
+    run residual_f64_reference."""
     if not b.is_cuda:
         return residual_f64_reference(thE, thO, b, x, m0=m0)
     C, B, _, _, Nx, Nth = b.shape
@@ -417,15 +508,9 @@ def residual_f64(thE, thO, b, x, *, m0):
     _cuda.check(thO, "thO", torch.float32, (C, 2, Nx, Nth))
     _cuda.check(b, "b", torch.float32, (C, B, 2, 2, Nx, Nth))
     _cuda.check(x, "x", torch.float64, (C, B, 2, 2, Nx, Nth))
-    r = torch.empty_like(x)
-    rnorm2 = torch.empty((C, B), dtype=torch.float64, device=b.device)
-    s64 = torch.empty(C * B * _RES_S64 * Nx * Nth, dtype=torch.float64,
-                      device=b.device)
-    p = _cuda.ptr
-    _cuda.KERNELS.call("residual_launch", p(thE), p(thO), p(b), p(x), p(r),
-                       p(rnorm2), p(s64), C, B, Nx, Nth, float(m0))
+    out = _launch_residual(thE, thO, b, x, m0, _cuda.sm_count(b.device))
     residual_f64.launches += 1
-    return r, rnorm2
+    return out
 
 
 residual_f64.launches = 0

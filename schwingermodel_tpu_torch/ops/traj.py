@@ -275,7 +275,7 @@ def solve_fused_reference(thE, thO, b, x0, *, m0, tol, max_iter) -> SolveResult:
 
 
 def _launch_solve(entry, per_site, thE, thO, b, x0, m0, tol, max_iter, *path):
-    """Launch K2 or K10 (the same C interface; K2 also takes its path) with
+    """Launch K2 or K10 (the same C interface, the path last) with
     `per_site` f32 values of scratch per half-lattice site, none where
     per_site is 0; (x, iters, rho, bnorm2)."""
     C, _, Nx, Nth = thE.shape
@@ -353,14 +353,16 @@ class OneHotShiftGeometry(Geometry):
 ONE_HOT = OneHotShiftGeometry()
 
 
-def _check_one_hot_fits(Nx: int) -> None:
-    """Raise unless the two f64 one-hot matrices of solve_mxu.cu fit the
-    220 KB of shared memory a block may ask for (Nx up to 112)."""
-    Nx8 = -(-Nx // 8) * 8
-    if 2 * Nx8 * (Nx8 + 4) * 8 > 220 * 1024:
-        raise ValueError(
-            f"Nx = {Nx}: the one-hot [Nx, Nx] matrices of the tensor-core "
-            "shifts do not fit in shared memory (Nx <= 112)")
+def mxu_band_tiles(delta: int, m0: int, Nx: int):
+    """The k-tiles (4 values of k from a multiple of 4, below Nx rounded up
+    to 4, K4) of P+ (delta = +1) or P- (-1) that K10 runs for the row tile
+    of rows m0 .. m0+7 (m0 a multiple of 8): (m0 + 4 i) mod K4 for P+ and
+    (m0 - 4 + 4 i) mod K4 for P-, i < min(3, K4 / 4) (csrc/solve_mxu.cu
+    band_steps and band_tile). They hold every nonzero of the tile's rows,
+    the wrap included, each once; the tiles left out are zero there."""
+    K4 = (Nx + 3) & ~3
+    base = m0 if delta > 0 else m0 - 4
+    return [(base + 4 * i) % K4 for i in range(min(3, K4 // 4))]
 
 
 def shift_x_mxu_reference(a: torch.Tensor):
@@ -371,13 +373,13 @@ def shift_x_mxu_reference(a: torch.Tensor):
 
 def shift_x_mxu(a: torch.Tensor):
     """(P+ a, P- a) of f32 planes [n, Nx, Nth]: the tensor-core shifts of
-    csrc/solve_mxu.cu alone, (a[x+1], a[x-1]) bit for bit for finite input.
-    CPU tensors run shift_x_mxu_reference."""
+    csrc/solve_mxu.cu alone (its stages' banded fragments, four planes a
+    block), (a[x+1], a[x-1]) bit for bit for finite input, a -0 coming out
+    +0. CPU tensors run shift_x_mxu_reference."""
     if not a.is_cuda:
         return shift_x_mxu_reference(a)
     n, Nx, Nth = a.shape
     _cuda.check(a, "a", torch.float32, (n, Nx, Nth))
-    _check_one_hot_fits(Nx)
     out_p, out_m = torch.empty_like(a), torch.empty_like(a)
     p = _cuda.ptr
     _cuda.KERNELS.call("shift_mxu_launch", p(a), p(out_p), p(out_m), n, Nx, Nth)
@@ -398,23 +400,22 @@ def solve_fused_mxu_reference(thE, thO, b, x0, *, m0, tol, max_iter) -> SolveRes
     return _solve_result(to_planar(x), iters, rho, bnorm2, tol)
 
 
-_SOLVE_MXU_SCRATCH = 44  # K2's 32 and W, XP, XM (solve_mxu.cu)
-
-
 def solve_fused_mxu(thE, thO, b, x0, *, m0, tol, max_iter) -> SolveResult:
     """K10: K2's solve with every x-shift of the stencil computed as a
     product with a one-hot [Nx, Nx] matrix on the tensor cores
     (tools/bench_mxu_stencil of the JAX package, variant "mxu_xshift").
     Arguments and result as solve_fused. CUDA tensors run
-    csrc/solve_mxu.cu, never K2 or a twin in its place; CPU tensors run
-    solve_fused_mxu_reference."""
+    csrc/solve_mxu.cu on K2's path (``cg_path``: K2's shared store up to
+    64x64, its global scratch beyond), never K2 or a twin in its place; CPU
+    tensors run solve_fused_mxu_reference."""
     if not b.is_cuda:
         return solve_fused_mxu_reference(thE, thO, b, x0, m0=m0, tol=tol,
                                          max_iter=max_iter)
-    _check_one_hot_fits(thE.shape[-2])
+    C, _, Nx, Nth = thE.shape
+    path, _ = cg_path(Nx, Nth, C, _cuda.sm_count(b.device))
     x, iters, rho, bnorm2 = _launch_solve(
-        "solve_mxu_launch", _SOLVE_MXU_SCRATCH, thE, thO, b, x0, m0, tol,
-        max_iter)
+        "solve_mxu_launch", _SOLVE_SCRATCH if path == CG_GLOBAL else 0, thE,
+        thO, b, x0, m0, tol, max_iter, path)
     solve_fused_mxu.launches += 1
     return _solve_result(x, iters, rho, bnorm2, tol)
 

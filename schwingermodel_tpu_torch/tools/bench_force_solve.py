@@ -1,11 +1,13 @@
 """Times of the force step (K1, all four variants), the loose solve (K2),
-the Hasenbusch ratio force (K5), the f32 CG on given links (K6) and the
-per-shard kernels of the lattice mesh (K7, K8) on the card.
+the Hasenbusch ratio force (K5), the f32 CG on given links (K6), the
+per-shard kernels of the lattice mesh (K7, K8) and the f64 true residual
+(K9) on the card.
 
     python -m schwingermodel_tpu_torch.tools.bench_force_solve \\
         [--shapes 64x64:32,64x64:128,32x32:32,128x128:8] \\
         [--k6-shapes 64x64:32:8,64x64:32:1,64x64:128:8,32x32:32:8,128x128:2:8] \\
         [--halo-shapes 64x64:2x2:32,64x64:4x1:32,16x16:2x2:3,128x128:2x2:2] \\
+        [--residual-shapes 64x64:32:8,64x64:2:8,64x64:2:2,32x32:32:8,128x128:8:8] \\
         [--out PATH]
 
 For each lattice and chain count of ``--shapes`` it makes random angles and
@@ -38,7 +40,16 @@ with and without its CG partials and K8 as the sharded CG and the sharded
 force call them (``ops/halo.EOOperatorsHaloFused``), both timers, with the
 path ``ops/halo.halo_path`` takes; then every other number of blocks a
 shard that holds the block, and the global path, in turns with the one
-taken in queued device time, with their largest difference from it.
+taken in queued device time, with their largest difference from it. For
+each ``NXxNT:C:B`` of ``--residual-shapes`` it makes random angles, an f32
+b and an f64 x, and times K9 as the restart refinement calls it
+(``ops/refined.residual_f64``), both timers, with the route
+``ops/refined.residual_path`` takes (slabs a configuration, right-hand
+sides a block); then every other route (each slab count that holds the
+lattice with each right-hand-side count dividing B, and the global
+scratch) in turns with the one taken in queued device time, with whether
+r is the taken route's bit for bit and ||r||^2's largest relative
+difference from it.
 """
 
 from __future__ import annotations
@@ -53,6 +64,7 @@ import torch
 from schwingermodel_tpu_torch.config import HMCParams, LatticeParams
 from schwingermodel_tpu_torch.models.schwinger import SchwingerModel
 from schwingermodel_tpu_torch.ops import _cuda, cg_eo, halo
+from schwingermodel_tpu_torch.ops import refined as rs
 from schwingermodel_tpu_torch.ops import traj as tr
 from schwingermodel_tpu_torch.ops.eo_halo import W, extend
 from schwingermodel_tpu_torch.ops.geometry import ShardedGeometry
@@ -147,6 +159,36 @@ def _halo_rows(gen, dev, nx, nt, rx, rt, C, card, sms, reps):
     return rows
 
 
+def _residual_rows(gen, dev, nx, nt, C, B, card, sms, reps):
+    """K9 at one shape: the row of the refinement's call, and one row for
+    every other route against the one taken."""
+    nth = nt // 2
+    th = (2.0 * torch.rand((C, 2, nx, nt), generator=gen, device=dev) - 1.0) * math.pi
+    thE, thO = tr.pack_planes(th)
+    b = torch.randn((C, B, 2, 2, nx, nth), generator=gen, device=dev)
+    x = torch.randn(b.shape, generator=gen, device=dev, dtype=torch.float64)
+    taken = rs.residual_path(nx, nth, C, B, sms)
+    shape = f"{nx}x{nt} C={C} B={B}"
+    rows = [{"metric": "ms", "kernel": "K9", "shape": shape, "card": card,
+             "path": rs.residual_path_name(nx, nth, C, B, sms), "route": list(taken),
+             **_both_timers(lambda: rs.residual_f64(thE, thO, b, x, m0=M0), reps)}]
+
+    def call(route):
+        return lambda: rs._launch_residual(thE, thO, b, x, M0, sms, route)
+    r_ref, n_ref = call(taken)()
+    for route in [(tr.CG_GLOBAL, 1, 1)] + rs.residual_routes(nx, nth, B):
+        if route == taken:
+            continue
+        r, n2 = call(route)()
+        taken_ms, r_ms = _turns(call(taken), call(route), reps)
+        rows.append({"metric": "device_ms", "kernel": "K9", "shape": shape, "card": card,
+                     "route": list(route), "taken": list(taken), "taken_device_ms": taken_ms,
+                     "device_ms": r_ms, "over_taken": r_ms / taken_ms,
+                     "r_bit_for_bit_with_taken": torch.equal(r, r_ref),
+                     "rnorm2_max_rel_diff": ((n2 - n_ref).abs() / n_ref).max().item()})
+    return rows
+
+
 def _k1_blocks(thE, thO, b, g, blocks):
     """K1 without the solve through its C entry: `blocks` blocks a chain on
     the shared path, or the global path where blocks is 0."""
@@ -197,7 +239,7 @@ def _turns(first, second, reps):
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="python -m schwingermodel_tpu_torch.tools.bench_force_solve",
-        description="K1, K2, K5, K6, K7 and K8 on the card: times, iterations, the path")
+        description="K1, K2, K5, K6, K7, K8 and K9 on the card: times, iterations, the path")
     p.add_argument("--shapes", type=_shapes, default="64x64:32,64x64:128,32x32:32,128x128:8",
                    help="NXxNT:C items for K1, K2 and K5, comma-separated")
     p.add_argument("--k6-shapes", type=lambda t: _shapes(t, 2),
@@ -207,6 +249,10 @@ def main(argv=None) -> int:
                    default="64x64:2x2:32,64x64:2x2:128,64x64:4x1:32,64x64:1x4:32,"
                            "16x16:2x2:3,128x128:2x2:2",
                    help="NXxNT:RXxRT:C items for K7 and K8 (C chains on an RX x RT mesh)")
+    p.add_argument("--residual-shapes", type=lambda t: _shapes(t, 2),
+                   default="64x64:32:8,64x64:2:8,64x64:2:2,64x64:128:8,32x32:32:8,"
+                           "128x128:8:8",
+                   help="NXxNT:C:B items for K9 (B right-hand sides per configuration)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--reps", type=int, default=20, help="launches per timing")
     p.add_argument("--out", default=None, metavar="PATH", help="also write the rows as JSON")
@@ -331,6 +377,10 @@ def main(argv=None) -> int:
 
     for nx, nt, rx, rt, C in args.halo_shapes:
         for row in _halo_rows(gen, dev, nx, nt, rx, rt, C, card, sms, 10 * args.reps):
+            emit(row)
+
+    for nx, nt, C, B in args.residual_shapes:
+        for row in _residual_rows(gen, dev, nx, nt, C, B, card, sms, 10 * args.reps):
             emit(row)
 
     if args.out:

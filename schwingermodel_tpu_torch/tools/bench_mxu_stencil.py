@@ -9,7 +9,8 @@ turns:
 - ``cuda_shift``: K2 (``ops/traj.solve_fused``), every neighbour gathered
   by index;
 - ``mma_xshift``: K10 (``ops/traj.solve_fused_mxu``), the x-neighbours from
-  products with one-hot [Nx, Nx] matrices on the tensor cores.
+  products with one-hot [Nx, Nx] matrices on the tensor cores, only the
+  k-steps of the band of each row tile (3 of Nx/4; its row says how many).
 
     python -m schwingermodel_tpu_torch.tools.bench_mxu_stencil
 
@@ -17,7 +18,8 @@ At 64x64, C=32 chains, m0=0.2, tol 1e-6, max_iter 300 and x0 = b it solves
 REP=50 right-hand sides made from ``--seed``, checks for each that the two
 variants return equal flags and iteration counts and solutions within 2e-4
 (the shifts are exact and the site arithmetic is shared, so bit for bit is
-expected), and prints one JSON row per variant and the verdict row. Times
+expected), and prints one JSON row per variant (microseconds per lockstep
+iteration, the slowest chain's) and the verdict row. Times
 are CUDA events around the REP launches of a variant; on ``--device cpu``
 the plain twins run on the host's clock, and the rows say so in
 ``backend``. The result is written to ``--out PATH`` only when that is
@@ -122,11 +124,17 @@ def main(argv=None) -> int:
         iters = torch.stack([o.iters for o in out])            # [REP, C]
         lockstep = iters.max(dim=1).values                     # per solve
         results[name] = out
+        us = 1e6 * seconds / max(int(lockstep.sum()), 1)
         row = {"metric": "cg_us_per_lockstep_iter", "variant": name,
-               "value": round(1e6 * seconds / max(int(lockstep.sum()), 1), 3),
-               "unit": "us/iter", "lockstep_iters": int(lockstep[0]),
+               "value": round(us, 3), "unit": "us/iter",
+               "us_per_iteration": us, "lockstep_iters": int(lockstep[0]),
                "shape": f"{args.nx}x{args.nt} C={args.chains}",
                "backend": backend, "card": card}
+        if name == "mma_xshift":
+            # m8n8k4 steps a row tile of 8 x-rows runs for each product,
+            # against the dense product's
+            row["k_steps_per_row_tile"] = len(tr.mxu_band_tiles(+1, 0, args.nx))
+            row["k_steps_per_row_tile_dense"] = (args.nx + 3) // 4
         rows.append(row)
         print(json.dumps(row), flush=True)
 

@@ -104,9 +104,10 @@ def test_the_solves_never_split_a_chain():
 # ---------- the tool's arguments ----------
 
 def test_bench_tool_parses_its_shapes():
-    """--shapes takes NXxNT:C items (K1, K2, K5), --k6-shapes NXxNT:C:B
-    (K6, B right-hand sides per configuration), --halo-shapes NXxNT:RXxRT:C
-    (K7, K8: C chains on an RX x RT mesh of shards)."""
+    """--shapes takes NXxNT:C items (K1, K2, K5), --k6-shapes and
+    --residual-shapes NXxNT:C:B (K6, K9: B right-hand sides per
+    configuration), --halo-shapes NXxNT:RXxRT:C (K7, K8: C chains on an
+    RX x RT mesh of shards)."""
     assert bench_force_solve._shapes("64x64:32,128x128:8") == [(64, 64, 32), (128, 128, 8)]
     assert bench_force_solve._shapes("64x64:32:8,20x34:2:1", 2) == [(64, 64, 32, 8),
                                                                    (20, 34, 2, 1)]
@@ -117,7 +118,8 @@ def test_bench_tool_parses_its_shapes():
 @pytest.mark.parametrize("argv", [
     ["--k6-shapes", "64x64:32"], ["--shapes", "64x64:32:8"],
     ["--k6-shapes", "64x64:32:8:1"], ["--shapes", "64:32"], ["--halo-shapes", "64x64:32"],
-    ["--halo-shapes", "64x64:2x2"], ["--halo-shapes", "64x64:2:32"]])
+    ["--halo-shapes", "64x64:2x2"], ["--halo-shapes", "64x64:2:32"],
+    ["--residual-shapes", "64x64:32"], ["--residual-shapes", "64x64:32:8:1"]])
 def test_bench_tool_refuses_malformed_arguments(argv):
     with pytest.raises(SystemExit) as exc:
         bench_force_solve.main(argv)
@@ -129,7 +131,8 @@ def test_bench_tool_refuses_to_time_without_a_card(capsys):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the tool would time it")
     assert bench_force_solve.main(["--shapes", "16x16:2", "--k6-shapes", "32x32:4:2",
-                                   "--halo-shapes", "16x16:2x2:1"]) == 1
+                                   "--halo-shapes", "16x16:2x2:1",
+                                   "--residual-shapes", "16x16:2:2"]) == 1
     assert "CUDA is not available" in capsys.readouterr().err
 
 
