@@ -152,7 +152,18 @@ Phases (any failure raises, and the script exits non-zero):
    working precision (no K6 launch), (l) Hasenbusch dm=0.4 on 2x2 shards
    (K7 launched, K8 not), 4 + 8 trajectories each, and (m) the refined
    demo of 4 + 4 trajectories, a checkpoint, and 4 more from it against
-   the unbroken 4 + 8: equal bit for bit. Every run has the kernels' launch counters set
+   the unbroken 4 + 8: equal bit for bit (before (m), the plain CG of (j)
+   and (k), which replays one iteration as a CUDA graph, against its eager
+   loop on a 16x16 f64 full-D solve of C=4: x and iterations bit for bit);
+   then the physics tools at the
+   goldens' small lattices: (n) tools/crossvalidate.compare_point at 8x8
+   beta=2 m0=0.2 (Nt/2 = 4), packed refined, C=8, 50 + 100 x 2
+   trajectories in a temporary working directory, held to n_ill == 0, a
+   finite row and |n_sigma_Ep| <= 4 against the C++ golden (a gross-fault
+   gate, not the physics gate), K1's and K3's paths printed; (o)
+   tools/critical_mass at 16x16 beta=2 --m0-list=-0.10 --n-blocks 4 (K1,
+   K3, and K6 and K9 in the correlators), held to a finite positive m_PCAC
+   with every solve converged. Every run has the kernels' launch counters set
    to 0 just before it and read just after it, and fails if a kernel of its
    path was not launched; the packed refined runs must launch K3 once per
    solve and K4's own entry never (the fallback runs inside K3's launch; each
@@ -170,11 +181,14 @@ Imports nothing of jax or of the JAX package.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -473,8 +487,9 @@ def main() -> int:
     from schwingermodel_tpu_torch.parallel.sharded import make_sharded_traj_fn
     from schwingermodel_tpu_torch.runner import run_hmc
     from schwingermodel_tpu_torch.scan import exact_quenched_plaquette
+    from schwingermodel_tpu_torch.solvers import cg as cg_mod
     from schwingermodel_tpu_torch.solvers import refine
-    from schwingermodel_tpu_torch.tools import bench_mxu_stencil
+    from schwingermodel_tpu_torch.tools import bench_mxu_stencil, critical_mass, crossvalidate
 
     # the package under test is the checkout's own, beside this script
     check(Path(_cuda.__file__).resolve().parents[2] == Path(__file__).resolve().parent,
@@ -1578,6 +1593,33 @@ def main() -> int:
               f"{rates['refined demo md=10']:.2f} for the packed refined demo{extra}; "
               f"card {card}", flush=True)
 
+    # the plain CG of the unpacked sampler (runs (j) and (k)) replays one
+    # iteration as a CUDA graph: the same bits as the eager loop
+    g_model = SchwingerModel(
+        lattice=LatticeParams(Nx=16, Nt=16, real_dtype="float64"),
+        hmc=HMCParams(beta=2.0, m0=0.2, cg=CGParams(tol=1e-10, max_iter=MAX_ITER)))
+    g_theta = (2.0 * torch.rand((4, 2, 16, 16), generator=gen, device=dev,
+                                dtype=torch.float64) - 1.0) * math.pi
+    g_b = torch.randn((4, 2, 16, 16), generator=gen, device=dev, dtype=torch.complex128)
+    g_ms = {}
+    replay = cg_mod._loop_graphed
+    for loop_name, loop in (("graph", replay), ("eager", cg_mod._loop)):
+        cg_mod._loop_graphed = loop
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g_res = g_model.solve_normal(g_theta, g_b)
+            torch.cuda.synchronize()
+            g_ms[loop_name] = (1e3 * (time.perf_counter() - t0), g_res)
+        finally:
+            cg_mod._loop_graphed = replay
+    (t_g, res_g), (t_e, res_e) = g_ms["graph"], g_ms["eager"]
+    check(torch.equal(res_g.x, res_e.x) and torch.equal(res_g.iters, res_e.iters)
+          and bool(res_g.converged.all()), "the graph-replayed CG differs from the eager loop")
+    print(f"phase 3: plain CG, full-D f64 16x16 C=4 tol 1e-10: graph replay equal to the "
+          f"eager loop bit for bit (x, iterations {res_g.iters.tolist()}); {t_g:.2f} ms "
+          f"against {t_e:.2f} ms eager (capture included); card {card}", flush=True)
+
     # (m) checkpoint and resume: 4 + 4, a checkpoint, 4 more, against 4 + 8
     def resumed():
         first = run_hmc(lattice, hmc_params(), dataclasses.replace(run_mesh, n_meas=4),
@@ -1606,6 +1648,61 @@ def main() -> int:
     print(f"phase 3: (m) 4 + 4 trajectories, a checkpoint, 4 more from it: final "
           f"configuration and plaquette chain equal the unbroken 4 + 8 run's bit for "
           f"bit; card {card}", flush=True)
+
+    # ---- the physics tools, at the small lattices of the goldens ----
+    # (n) the crossvalidation's compare_point at 8x8 beta=2 m0=0.2 (Nt/2 = 4,
+    # 32 even sites a chain), packed refined, C=8, from the golden point with
+    # 50 thermalization trajectories; in a temporary working directory,
+    # where the runner would dump an ill configuration
+    golden = json.loads(Path(crossvalidate.GOLDEN_DEFAULT).read_text())
+    ref = dict(next(r for r in golden if (r["Nx"], r["beta"], r["m0"]) == (8, 2.0, 0.2)),
+               ntherm=50)
+    cv_args = argparse.Namespace(
+        device="cuda", dtype="float32", refine=True, even_odd=True, plaquette_only=True,
+        nmeas=100, chains=8, seed=11, md_steps=None, integrator="leapfrog",
+        hasenbusch_dm=None, n_sigma=2.0, n_sigma_acc=3.0)
+    cwd = Path.cwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            row, wall, _ = counted(
+                "(n) crossvalidate.compare_point 8x8 beta=2 m0=0.2 C=8",
+                ("with_solve=False,with_gauge=True", *refined_k),
+                lambda: crossvalidate.compare_point(ref, cv_args), no_k4)
+        finally:
+            os.chdir(cwd)
+    check(row["n_ill"] == 0, f"(n): {row['n_ill']} ill configurations")
+    check(all(math.isfinite(v) for v in row.values()
+              if isinstance(v, float)), f"(n): a number of the row is not finite: {row}")
+    check(abs(row["n_sigma_Ep"]) <= 4.0, f"(n): <P> {row['Ep']} is "
+          f"{row['n_sigma_Ep']:.2f} sigma from the golden {row['ref_Ep']}")
+    print(f"phase 3: (n) compare_point 8x8 beta=2 m0=0.2 C=8, 50 + 100 x 2 trajectories "
+          f"in {wall:.2f} s (K1 path {tr.cg_path_name(8, 4, 8, sms, False, True)}, "
+          f"K3 path {rs.ru_path_name(8, 4, 8, sms)}): <P> {row['Ep']:.6f} +- "
+          f"{row['dEp']:.6f} against the golden {row['ref_Ep']:.6f} +- "
+          f"{row['ref_dEp']:.6f} ({row['n_sigma_Ep']:.2f} sigma), acceptance "
+          f"{row['acceptance']:.4f}, device {row['device']}", flush=True)
+
+    # (o) the critical-mass tool at 16x16 beta=2, one mass, 4 measurement
+    # blocks: the meson correlators of C=8 chains through K6 and K9
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "critical_mass.json"
+        with np.errstate(all="ignore"):      # one mass: the fit is undefined
+            rc, wall, _ = counted(
+                "(o) critical_mass 16x16 beta=2 m0=-0.10",
+                ("with_solve=False,with_gauge=True", *refined_k, "cg_solve_eo",
+                 "residual_f64"),
+                lambda: critical_mass.main(["--beta", "2", "--m0-list=-0.10",
+                                            "--n-blocks", "4", "--json", str(out)]))
+        summary = json.loads(out.read_text())
+    check(rc == 0, f"(o): critical_mass exited {rc}")
+    cm_row = summary["rows"][0]
+    check(math.isfinite(cm_row["m_pcac"]) and cm_row["m_pcac"] > 0.0
+          and cm_row["all_converged"], f"(o): {cm_row}")
+    print(f"phase 3: (o) critical_mass 16x16 beta=2 m0=-0.10, C=8, 2 x 100 annealing + "
+          f"200 + 4 x 5 trajectories and 4 correlator sets in {wall:.2f} s: m_PCAC "
+          f"{cm_row['m_pcac']:.5f} +- {cm_row['err']:.5f}, acceptance "
+          f"{cm_row['acceptance']}, all converged; card {card}", flush=True)
 
     # where the time goes (--profile): three batch trajectories of each path
     # under torch.profiler

@@ -274,9 +274,7 @@ class SchwingerModel:
         return self.geom.gsum((torch.conj(x) * y).real.sum(dim=-3))
 
     def _dot_batch_re(self, pairs):
-        return self.geom.gsum_stack([
-            (a.real * b.real + a.imag * b.imag).sum(dim=(-3, -2, -1))
-            for a, b in pairs])
+        return dops.spinor_dot_re_batch(self.geom, pairs)
 
     def _cg(self, apply_A, b, x0, tol) -> CGResult:
         """The plain CG of every non-fused solve."""

@@ -44,46 +44,36 @@ def fermion_links(U: torch.Tensor, sign_mask: torch.Tensor) -> torch.Tensor:
 def _hops(geom: Geometry, Uf, phi, dagger: bool):
     """The hopping sums (h0, h1) of D (dagger False) or D^+ (True) on phi:
     D = m - h/2. Backward hops ship the link-multiplied, spin-projected
-    product formed at the source site."""
+    product formed at the source site. The spin projectors' second rows
+    are -+1 (t) and -+i (x) times their first, so each hop carries one
+    field: h1 = -+((A - bt) + i (B - bx)), for D and D^+."""
     u0, u1 = Uf[..., 0, :, :], Uf[..., 1, :, :]
     p0, p1 = phi[..., 0, :, :], phi[..., 1, :, :]
-    p_pt = shift_p_t(geom, phi)
-    p0_pt, p1_pt = p_pt[..., 0, :, :], p_pt[..., 1, :, :]
-    p_px = shift_p_x(geom, phi)
-    p0_px, p1_px = p_px[..., 0, :, :], p_px[..., 1, :, :]
-    u0c, u1c = torch.conj(u0), torch.conj(u1)
+    pt = shift_p_t(geom, phi)
+    px = shift_p_x(geom, phi)
+    s = -1j if dagger else 1j
+    t = 1.0 if dagger else -1.0
+    A = u0 * torch.add(pt[..., 0, :, :], pt[..., 1, :, :], alpha=t)
+    bt = shift_m_t(geom, torch.conj(u0) * torch.add(p0, p1, alpha=-t))
+    B = u1 * torch.add(px[..., 0, :, :], px[..., 1, :, :], alpha=s)
+    bx = shift_m_x(geom, torch.conj(u1) * torch.add(p0, p1, alpha=-s))
     if not dagger:
-        bt = shift_m_t(geom, u0c * (p0 + p1))
-        bx = shift_m_x(geom, torch.stack(
-            [u1c * (p0 - 1j * p1), u1c * (1j * p0 + p1)], dim=-3))
-        bx0, bx1 = bx[..., 0, :, :], bx[..., 1, :, :]
-        h0 = u0 * (p0_pt - p1_pt) + u1 * (p0_px + 1j * p1_px) + bt + bx0
-        h1 = u0 * (p1_pt - p0_pt) + u1 * (p1_px - 1j * p0_px) + bt + bx1
-        return h0, h1
-    bt0 = shift_m_t(geom, u0c * (p0 - p1))
-    bx = shift_m_x(geom, torch.stack(
-        [u1c * (p0 + 1j * p1), u1c * (p1 - 1j * p0)], dim=-3))
-    bx0, bx1 = bx[..., 0, :, :], bx[..., 1, :, :]
-    fwd_t = u0 * (p0_pt + p1_pt)
-    h0 = bt0 + bx0 + fwd_t + u1 * (p0_px - 1j * p1_px)
-    h1 = -bt0 + bx1 + fwd_t + u1 * (p1_px + 1j * p0_px)
-    return h0, h1
+        return (A + bt) + (B + bx), torch.add(bt - A, bx - B, alpha=1j)
+    return (A + bt) + (B + bx), torch.add(A - bt, B - bx, alpha=1j)
 
 
 def dirac(geom: Geometry, Uf, phi, m0):
     """D phi (reference D_phi, doc Eq (34)); Uf the folded links."""
     m = float(m0) + 2.0
-    h0, h1 = _hops(geom, Uf, phi, dagger=False)
-    return torch.stack([m * phi[..., 0, :, :] - 0.5 * h0,
-                        m * phi[..., 1, :, :] - 0.5 * h1], dim=-3)
+    return torch.add(m * phi, torch.stack(_hops(geom, Uf, phi, dagger=False), dim=-3),
+                     alpha=-0.5)
 
 
 def dirac_dagger(geom: Geometry, Uf, phi, m0):
     """D^+ phi (reference D_dagger_phi, doc Eqs (35)-(36))."""
     m = float(m0) + 2.0
-    h0, h1 = _hops(geom, Uf, phi, dagger=True)
-    return torch.stack([m * phi[..., 0, :, :] - 0.5 * h0,
-                        m * phi[..., 1, :, :] - 0.5 * h1], dim=-3)
+    return torch.add(m * phi, torch.stack(_hops(geom, Uf, phi, dagger=True), dim=-3),
+                     alpha=-0.5)
 
 
 def dirac_normal(geom: Geometry, Uf, phi, m0):
@@ -115,10 +105,12 @@ def spinor_dot(geom: Geometry, x, y) -> torch.Tensor:
 
 def spinor_dot_re_batch(geom: Geometry, pairs) -> torch.Tensor:
     """Re<a_i, b_i> of several spinor pairs with one global reduction,
-    stacked along a new last axis (the single-reduction CG's lever)."""
-    return geom.gsum_stack([
-        (a.real * b.real + a.imag * b.imag).sum(dim=(-3, -2, -1))
-        for a, b in pairs])
+    stacked along a new last axis (the single-reduction CG's lever): one
+    product and one sum over the stacked pairs, real and imaginary parts as
+    a last axis."""
+    a = torch.view_as_real(torch.stack([a for a, _ in pairs]))
+    b = torch.view_as_real(torch.stack([b for _, b in pairs]))
+    return geom.gsum_stack(list((a * b).sum(dim=(-4, -3, -2, -1))))
 
 
 def spinor_norm2(geom: Geometry, x) -> torch.Tensor:

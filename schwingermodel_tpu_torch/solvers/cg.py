@@ -18,10 +18,11 @@ advance together and a chain is frozen by masking its updates
 (``torch.where``, never 0 * d): a frozen chain does not change, so results
 and iteration counts equal the per-chain loops'. The iteration counts stay
 on the device; the host reads once per iteration whether any chain is
-still live. The eager loop is bound by the host's launch rate (some 40
-small launches per iteration), so that read costs a fraction of an
-iteration, and reading less often (which adds iterations in which every
-chain is frozen) measured no faster on an H100.
+still live. On CPU tensors the loop runs eagerly. On the card an
+iteration is some 100 small launches, bound by the host's launch rate, so
+each solve captures one iteration as a CUDA graph and replays it: the
+same kernels on the same buffers, one graph launch and one host read an
+iteration.
 """
 
 from __future__ import annotations
@@ -64,25 +65,63 @@ def cg_solve_single_reduction(
     b_norm2 = dot_re(b, b)
     stop2 = (tol * tol) * b_norm2
     r = b - apply_A(x)
-    d = r
+    x, d = x.clone(), r.clone()
     rho = dot_re(r, r)
     iters = torch.zeros(rho.shape, dtype=torch.int32, device=b.device)
-    for _ in range(max_iter):
+
+    def step():
+        """One iteration, written into x, r, d, rho and iters in place (so
+        that a CUDA graph of it replays on the same buffers)."""
         live = rho >= stop2                  # a NaN rho never starts
-        if not bool(live.any()):
-            break
         Ad = apply_A(d)
         rr, dAd, AdAd, rAd = dot_batch_re(
             [(r, r), (d, Ad), (Ad, Ad), (r, Ad)]).unbind(-1)
         alpha = rr / dAd
         lv = bcast(live, x)
         a = bcast(alpha, x)
-        x = torch.where(lv, x + a * d, x)
-        r = torch.where(lv, r - a * Ad, r)
-        rho_new = rr - 2.0 * alpha * rAd + alpha * alpha * AdAd
-        d = torch.where(lv, r + bcast(rho_new / rr, x) * d, d)
-        rho = torch.where(live, rho_new, rho)
-        iters = iters + live.to(torch.int32)
+        x.copy_(torch.where(lv, torch.addcmul(x, a, d), x))
+        r_new = torch.where(lv, torch.addcmul(r, a, Ad, value=-1.0), r)
+        rho_new = torch.addcmul(torch.addcmul(rr, alpha, rAd, value=-2.0),
+                                alpha * alpha, AdAd)
+        d.copy_(torch.where(lv, torch.addcmul(r_new, bcast(rho_new / rr, x), d), d))
+        r.copy_(r_new)
+        rho.copy_(torch.where(live, rho_new, rho))
+        iters.add_(live)
+
+    def any_live() -> bool:
+        return bool((rho >= stop2).any())
+
+    (_loop_graphed if b.is_cuda else _loop)(step, any_live, max_iter)
     rho_exact = dot_re(r, r)                 # un-drifted exit check
     return CGResult(x=x, iters=iters, converged=rho_exact < stop2,
                     rel_residual=rel_residual(rho_exact, b_norm2))
+
+
+def _loop(step, any_live, max_iter: int) -> None:
+    for _ in range(max_iter):
+        if not any_live():
+            break
+        step()
+
+
+def _loop_graphed(step, any_live, max_iter: int) -> None:
+    """The same iterations on the card, the first one eager (on a side
+    stream, as a capture's warm-up) and the rest replays of a CUDA graph
+    of one iteration, captured for this solve (the operator's tensors
+    change from solve to solve): the same kernels on the same buffers, so
+    the same bits, at one graph launch and one host read an iteration in
+    place of some 100 launches."""
+    if max_iter < 1 or not any_live():
+        return
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step()
+    for _ in range(max_iter - 1):
+        if not any_live():
+            break
+        graph.replay()

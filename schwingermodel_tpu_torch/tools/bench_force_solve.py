@@ -69,9 +69,8 @@ from schwingermodel_tpu_torch.ops import traj as tr
 from schwingermodel_tpu_torch.ops.eo_halo import W, extend
 from schwingermodel_tpu_torch.ops.geometry import ShardedGeometry
 from schwingermodel_tpu_torch.parallel.mesh import lattice_mesh, shard
-from schwingermodel_tpu_torch.tools.bench_mxu_stencil import _card
 from schwingermodel_tpu_torch.tools.bench_refined_solve import _timed
-from schwingermodel_tpu_torch.utils.metrics import device_ms
+from schwingermodel_tpu_torch.utils.metrics import card_label, device_ms
 
 M0, BETA, TOL, MAX_ITER = 0.2, 4.0, 1e-6, 10000
 M0_HB, M1_HB, K6_TOL = -0.19, 0.21, 1e-5
@@ -261,7 +260,7 @@ def main(argv=None) -> int:
         print("error: CUDA is not available", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
-    card = _card(dev)
+    card = card_label(dev)
     sms = _cuda.sm_count(dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)

@@ -30,7 +30,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import time
 
@@ -38,23 +37,10 @@ import numpy as np
 import torch
 
 from schwingermodel_tpu_torch.ops import traj as tr
+from schwingermodel_tpu_torch.utils.metrics import card_label
 
 M0, TOL, MAX_ITER = 0.2, 1e-6, 300     # the solve, as the JAX tool fixes it
 X_GATE = 2e-4
-
-
-def _card(device) -> str:
-    """The card's name and power limit as nvidia-smi gives them."""
-    if device.type != "cuda":
-        return "cpu"
-    try:
-        out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60, check=True)
-        return out.stdout.strip().splitlines()[0]
-    except (OSError, subprocess.SubprocessError):
-        return torch.cuda.get_device_name(device)
 
 
 def _inputs(seed, rep, C, Nx, Nt, device):
@@ -111,7 +97,7 @@ def main(argv=None) -> int:
                            device)
     kw = dict(m0=M0, tol=TOL, max_iter=MAX_ITER)
     variants = (("cuda_shift", tr.solve_fused), ("mma_xshift", tr.solve_fused_mxu))
-    card = _card(device)
+    card = card_label(device)
     backend = ("cuda kernels" if device.type == "cuda"
                else "plain PyTorch twins on the CPU (host clock)")
 

@@ -28,7 +28,7 @@ import torch
 from schwingermodel_tpu_torch.ops import _cuda
 from schwingermodel_tpu_torch.ops import refined as rs
 from schwingermodel_tpu_torch.ops import traj as tr
-from schwingermodel_tpu_torch.tools.bench_mxu_stencil import _card
+from schwingermodel_tpu_torch.utils.metrics import card_label
 
 M0 = 0.2
 INPUTS = (("cold certified 1e-10", 1e-10, True), ("forecast force 1e-8", 1e-8, False))
@@ -62,7 +62,7 @@ def main(argv=None) -> int:
         print("error: CUDA is not available", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
-    card = _card(dev)
+    card = card_label(dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     rows = []

@@ -34,12 +34,30 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
+import subprocess
 import time
 from typing import Dict, Optional
 
 DIRAC_FLOPS_PER_SITE = 80.0        # full-lattice D apply
 EO_NORMAL_FLOPS_PER_SITE = 152.0   # Dhat Dhat^+ apply, per lattice site
 CG_VECTOR_FLOPS_PER_SITE = 20.0    # dots + axpys per CG iteration
+
+
+def card_label(device) -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` gives them, "cpu" off the card."""
+    if device.type != "cuda":
+        return "cpu"
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True)
+        return out.stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError):
+        import torch
+
+        return torch.cuda.get_device_name(device)
 
 
 def cg_iteration_flops(volume: int, even_odd: bool) -> float:

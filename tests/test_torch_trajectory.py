@@ -101,21 +101,18 @@ def test_unported_configurations_are_refused():
 
 
 def test_package_imports_no_jax():
-    code = ("import sys, importlib\n"
-            "for m in ['schwingermodel_tpu_torch', 'schwingermodel_tpu_torch.cli',"
-            " 'schwingermodel_tpu_torch.runner', 'schwingermodel_tpu_torch.ops._cuda',"
-            " 'schwingermodel_tpu_torch.ops.refined', 'schwingermodel_tpu_torch.hmc.packed',"
-            " 'schwingermodel_tpu_torch.ops.traj', 'schwingermodel_tpu_torch.hmc.sampler',"
-            " 'schwingermodel_tpu_torch.models.schwinger', 'schwingermodel_tpu_torch.ops.cg_eo',"
-            " 'schwingermodel_tpu_torch.solvers.refine', 'schwingermodel_tpu_torch.observables',"
-            " 'schwingermodel_tpu_torch.ops.geometry', 'schwingermodel_tpu_torch.ops.dirac',"
-            " 'schwingermodel_tpu_torch.ops.eo_halo', 'schwingermodel_tpu_torch.ops.halo',"
-            " 'schwingermodel_tpu_torch.solvers.cg', 'schwingermodel_tpu_torch.hmc.integrators',"
-            " 'schwingermodel_tpu_torch.parallel.mesh', 'schwingermodel_tpu_torch.parallel.sharded',"
-            " 'schwingermodel_tpu_torch.hmc.autotune', 'schwingermodel_tpu_torch.scan',"
-            " 'schwingermodel_tpu_torch.io.checkpoint', 'schwingermodel_tpu_torch.tools.betascan',"
-            " 'schwingermodel_tpu_torch.tools.bench_mxu_stencil']:\n"
+    """Every module of the port, found by walking the package, imports
+    neither jax nor the JAX package (``__main__`` runs the CLI when it is
+    imported; it imports only ``cli``)."""
+    code = ("import sys, importlib, pkgutil\n"
+            "import schwingermodel_tpu_torch as pkg\n"
+            "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')\n"
+            "         if not m.name.endswith('.__main__')]\n"
+            "for m in names:\n"
             "    importlib.import_module(m)\n"
+            "for m in ('tools.crossvalidate', 'tools.critical_mass', 'tools.bench_refined_solve',"
+            " 'tools.bench_force_solve', 'cli', 'ops._cuda', 'parallel.sharded'):\n"
+            "    assert 'schwingermodel_tpu_torch.' + m in names, m\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
             "assert not any(k.startswith('schwingermodel_tpu.') or k == 'schwingermodel_tpu'"
             " for k in sys.modules)\n")
