@@ -163,7 +163,18 @@ Phases (any failure raises, and the script exits non-zero):
    gate, not the physics gate), K1's and K3's paths printed; (o)
    tools/critical_mass at 16x16 beta=2 --m0-list=-0.10 --n-blocks 4 (K1,
    K3, and K6 and K9 in the correlators), held to a finite positive m_PCAC
-   with every solve converged. Every run has the kernels' launch counters set
+   with every solve converged; (p) the main path in chain groups across
+   processes (parallel/multihost.py): one refined trajectory of C=32 chains
+   against its two halves, each on the noise of its global chains, and K1
+   and K3 on the batch against its halves (bits equal, or the kernel whose
+   bits move named), then the CLI at the demo config with --chains 32,
+   10 + 20 trajectories and a checkpoint, in one process and under torchrun
+   in two processes with --ranks-chain 2 on this one card (gloo; two
+   processes time-slicing one card, not multi-GPU): every chain's theta bit
+   for bit (else within 2e-4 with the kernel named), the printed averages
+   equal, one SimData and one checkpoint each, the results printed by
+   process 0 only, and each process's K1 and K3 launches on cuda:0 (its
+   own stderr line), both runs' chain-traj/s printed. Every run has the kernels' launch counters set
    to 0 just before it and read just after it, and fails if a kernel of its
    path was not launched; the packed refined runs must launch K3 once per
    solve and K4's own entry never (the fallback runs inside K3's launch; each
@@ -186,6 +197,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -467,6 +479,154 @@ def halo_kernel_checks(dev, gen, card):
           f"{t_nodots:.4f} ms; eo_halo.extend of one spinor (4 ppermutes as rolls, 2 "
           f"cats) {t_ext:.4f} ms", flush=True)
     return errs, times, bounds, detail
+
+
+MP_FLAGS = ["--device", "cuda", "--nx", str(NX), "--nt", str(NT), "--beta", str(BETA),
+            "--m0", str(M0), "--md-steps", "10", "--tau", "0.1", "--ntherm", "10",
+            "--nmeas", "20", "--nsteps", "0", "--ranks-x", "1", "--ranks-t", "1",
+            "--chains", str(C_MAIN), "--seed", "0"]
+MP_RESULTS = ("Average plaquette", "Average gauge action", "Acceptance rate",
+              "<exp(-dH)>")
+
+
+def chain_groups(hp, rs, tr, sms, card, lattice, hmc, dev):
+    """Phase 3 (p): the chain-parallel main path (parallel/multihost.py).
+
+    In this process: one refined trajectory of C_MAIN chains against the
+    same trajectory of its two halves, each half on the noise of its global
+    chains (hmc_trajectory_packed's chain_offset), and K1 and K3 on the
+    batch against its halves, bit for bit where the bits agree and named
+    where they do not. Then the CLI twice from this checkout, at the demo
+    config with C_MAIN chains, 10 + 20 trajectories and a checkpoint each:
+    in one process, and under torchrun in nproc processes with
+    --ranks-chain nproc, process i on cuda:{i % cards}: with one card two
+    processes (gloo between them) time-slice it, which is not multi-GPU;
+    with several cards, one process a card (NCCL). Held: every chain's theta bit
+    for bit (else within 2e-4, with the kernel whose bits move named), the
+    printed averages equal (where theta is), one SimData and one checkpoint
+    each, the results printed by process 0 only, the banner's layout, and
+    each process's K1 and K3 launches on its card. Returns the processes'
+    launches summed."""
+    import ast
+    from schwingermodel_tpu_torch.models.schwinger import SchwingerModel
+    from schwingermodel_tpu_torch.runner import hot_start
+
+    cards = torch.cuda.device_count()
+    nproc = cards if cards > 1 else 2
+    model = SchwingerModel(lattice=lattice, hmc=hmc)
+    theta = hot_start(lattice, 0, C_MAIN, dev)
+    h = C_MAIN // 2
+    halves = (slice(0, h), slice(h, C_MAIN))
+    whole, st = hp.hmc_trajectory_packed(model, theta, 0, 0)
+    parts = [hp.hmc_trajectory_packed(model, theta[s].contiguous(), 0, 0,
+                                      chain_offset=s.start) for s in halves]
+    split_bits = (torch.equal(whole, torch.cat([t for t, _ in parts]))
+                  and torch.equal(st.delta_H, torch.cat([p.delta_H for _, p in parts])))
+    # the kernels of the path on the batch and on its halves
+    thE, thO = tr.pack_planes(theta)
+    b = torch.randn((C_MAIN, 2, 2, NX, NT // 2), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(5))
+    k1 = lambda s: tr.force_step(thE[s], thO[s], b[s], b[s], m0=M0, beta=BETA, tol=1e-8,
+                                 max_iter=10000, with_solve=False, with_gauge=True)
+    k3 = lambda s: rs.solve_refined(thE[s], thO[s], b[s], b[s], m0=M0, tol=1e-10,
+                                    certify=True, fallback=True)
+    moved = []
+    for kname, fn, fields in (("K1 force_step", k1, ("FE", "FO")),
+                              ("K3 solve_refined", k3, ("x64", "iters"))):
+        full = fn(slice(None))
+        cut = [fn(s) for s in halves]
+        for f in fields:
+            if not torch.equal(getattr(full, f),
+                               torch.cat([getattr(c, f) for c in cut])):
+                moved.append(f"{kname}.{f}")
+    paths = (f"K1 path {tr.cg_path_name(NX, NT // 2, C_MAIN, sms, False, True)} at "
+             f"C={C_MAIN}, {tr.cg_path_name(NX, NT // 2, h, sms, False, True)} at C={h}; "
+             f"K3 path {rs.ru_path_name(NX, NT // 2, C_MAIN, sms)} at C={C_MAIN}, "
+             f"{rs.ru_path_name(NX, NT // 2, h, sms)} at C={h}")
+    print(f"phase 3: (p) one refined trajectory of {C_MAIN} chains against its two "
+          f"halves: theta' and dH bit for bit {split_bits}; kernels whose bits move "
+          f"between the batch and its halves: {moved or 'none'} ({paths})", flush=True)
+
+    repo = Path(__file__).resolve().parent
+    outs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, n in (("1 process", 1), ("processes", nproc)):
+            out_dir = Path(tmp) / f"p{n}"
+            out_dir.mkdir()
+            argv = [*MP_FLAGS, "--out-dir", str(out_dir),
+                    "--checkpoint", str(out_dir / "ck.npz")]
+            if n > 1:
+                cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                       "--nproc-per-node", str(n), "-m", "schwingermodel_tpu_torch",
+                       *argv, "--ranks-chain", str(n)]
+            else:
+                cmd = [sys.executable, "-m", "schwingermodel_tpu_torch", *argv]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, cwd=repo, capture_output=True, text=True,
+                                  timeout=600)
+            wall = time.perf_counter() - t0
+            check(proc.returncode == 0, f"(p) {label}: exit {proc.returncode}\n"
+                  f"{proc.stdout[-3000:]}\n{proc.stderr[-4000:]}")
+            rate = re.search(r"perf: measure: \S+ s\s+(\S+) traj/s", proc.stdout)
+            check(rate is not None, f"(p) {label}: no measure-phase rate")
+            outs[label] = {
+                "stdout": proc.stdout, "stderr": proc.stderr, "wall": wall,
+                "rate": float(rate.group(1)),
+                "theta": np.load(out_dir / "ck.npz")["theta"],
+                "simdata": len(list(out_dir.glob("*SimData*"))),
+                "checkpoints": len(list(out_dir.glob("*.npz"))),
+                "results": [ln for ln in proc.stdout.splitlines()
+                            if ln.startswith(MP_RESULTS)]}
+    one, two = outs["1 process"], outs["processes"]
+    layout = (f"{nproc} processes on {cards} device{'s' if cards > 1 else ''} "
+              f"({'nccl' if cards > 1 else 'gloo'})")
+    what = "multi-GPU" if cards > 1 else "not multi-GPU"
+    for label, o in outs.items():
+        check(o["simdata"] == 1 and o["checkpoints"] == 1,
+              f"(p) {label}: {o['simdata']} SimData and {o['checkpoints']} checkpoints")
+        check(o["stdout"].count("Average plaquette value") == 1,
+              f"(p) {label}: the plaquette line printed "
+              f"{o['stdout'].count('Average plaquette value')} times")
+        check("all solves converged: True" in o["stdout"], f"(p) {label}: a solve failed")
+        check(o["theta"].shape == (C_MAIN, 2, NX, NT)
+              and np.isfinite(o["theta"]).all(), f"(p) {label}: final configuration")
+    check(f"* Chain groups = {layout}" in two["stdout"],
+          f"(p) the banner does not read {layout}")
+    per_proc = {}
+    for m in re.finditer(rf"process (\d+) of {nproc} on (\S+): kernel launches (\{{.*?\}})",
+                         two["stderr"]):
+        per_proc[int(m.group(1))] = (m.group(2), ast.literal_eval(m.group(3)))
+    check(sorted(per_proc) == list(range(nproc)), f"(p) per-process lines: {per_proc}")
+    for rank, (where, got) in sorted(per_proc.items()):
+        check(where == f"cuda:{rank % cards}" and got["force_step"] > 0
+              and got["solve_refined"] > 0 and got["solve_f64_cg_fallback"] == 0,
+              f"(p) process {rank} on {where}: launches {got}")
+        print(f"phase 3: (p) process {rank} of {nproc} on {where}: launches {got}",
+              flush=True)
+    bits = np.array_equal(one["theta"], two["theta"])
+    d = np.remainder(one["theta"] - two["theta"] + np.pi, 2 * np.pi) - np.pi
+    dmax = float(np.abs(d).max())
+    if bits:
+        check(one["results"] == two["results"] and len(one["results"]) == 4,
+              f"(p) printed averages differ: {one['results']} against {two['results']}")
+    else:
+        check(dmax <= 2e-4 and moved, f"(p) theta differs by {dmax:.3e} "
+              f"(kernels whose bits move: {moved or 'none'})")
+    print(f"phase 3: (p) the CLI at {NX}x{NT} C={C_MAIN}, 10 + 20 trajectories, one "
+          f"process against {nproc} (--ranks-chain {nproc}, torchrun): every chain's theta bit "
+          f"for bit {bits} (max |dtheta| {dmax:.3e}), printed averages "
+          f"{'equal' if one['results'] == two['results'] else 'differ'}: "
+          f"{two['results']}; one SimData and one checkpoint each, the results "
+          f"printed by process 0 only", flush=True)
+    for label, o in (("1 process", one), (f"{layout}, {what}", two)):
+        print(f"phase 3: (p) {label}: measure phase {o['rate']:.2f} chain-traj/s, "
+              f"{o['wall']:.1f} s wall (process start-up included); card {card}",
+              flush=True)
+    total = dict.fromkeys(per_proc[0][1], 0)
+    for _, got in per_proc.values():
+        for k, n in got.items():
+            total[k] += n
+    return {"launches": total, "bits": bits, "rates": {k: o["rate"] for k, o in outs.items()}}
 
 
 def main() -> int:
@@ -1703,6 +1863,14 @@ def main() -> int:
           f"200 + 4 x 5 trajectories and 4 correlator sets in {wall:.2f} s: m_PCAC "
           f"{cm_row['m_pcac']:.5f} +- {cm_row['err']:.5f}, acceptance "
           f"{cm_row['acceptance']}, all converged; card {card}", flush=True)
+
+    # (p) the main path in two processes on this card, one chain group a
+    # process: first in this process, the batch of C chains against its two
+    # halves (each on the noise of its global chains), kernel by kernel;
+    # then the CLI under torchrun against the CLI in one process
+    p_res = chain_groups(hp, rs, tr, sms, card, lattice, hmc_params(), dev)
+    for k, n in p_res["launches"].items():
+        launches[k] += n
 
     # where the time goes (--profile): three batch trajectories of each path
     # under torch.profiler

@@ -41,10 +41,25 @@ decomposition of a multi-GPU run without the GPUs, not a multi-GPU run. A
 lattice that the mesh does not divide (or an odd local Nt in even-odd mode)
 exits with status 1, as the reference does; 1 x 1 runs without a mesh.
 
+Several processes run the chains in groups, one group a process, each on
+its own device with the lattice whole there (parallel/multihost.py), started
+by torchrun (``python -m torch.distributed.run --nproc-per-node N -m
+schwingermodel_tpu_torch ...``; also from SLURM's or Open MPI's variables)
+or by the three multi-host flags in each process (``--coordinator
+host:port --num-processes N --process-id i``). Process i runs on
+``cuda:{LOCAL_RANK % device_count}``; ``--chains`` is rounded up to a
+multiple of the processes (with a note), or with ``--ranks-chain R`` must
+be divisible by R, and R must be the number of processes (else status 1).
+Every process computes; the primary alone echoes and writes SimData,
+configurations and the checkpoint, after gathering the chains; on
+``--resume`` every process reads the checkpoint and takes its chains. Give
+the parameters as flags: the processes of one launcher share its stdin. A
+lattice mesh across processes is not ported yet (status 2).
+
 Flags that select something not ported yet exit with status 2 and a "not
-yet ported" message: ``--ranks-chain`` other than 1 (multi-GPU),
-``--coordinator``, ``--num-processes`` and ``--process-id`` (multi-host),
-and ``--mre-history >= 2`` on the path named above.
+yet ported" message: a lattice mesh (``--ranks-x``·``--ranks-t`` > 1) with
+several processes or with ``--ranks-chain``, and ``--mre-history >= 2`` on
+the path named above.
 
 Three flags of the JAX parser are dropped, parsed only to say so (status 2,
 "dropped in schwingermodel_tpu_torch" and what replaces the flag):
@@ -74,9 +89,9 @@ def _prompt(question: str, cast, interactive: bool):
     return cast(line.split()[0])
 
 
+# The multi-host flags, given all three or none (else exit status 2).
+MULTI_HOST = ("--coordinator", "--num-processes", "--process-id")
 # Flags of the JAX parser that the port answers with exit status 2.
-NOT_PORTED = {"--coordinator": "multi-host", "--num-processes": "multi-host",
-              "--process-id": "multi-host"}
 DROPPED = {
     "--cg-refine-impl": "native float64 replaces the double-float pairs",
     "--platform": "use --device {cuda,cpu}",
@@ -106,7 +121,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ranks-t", type=int, default=None,
                    help="shards of the lattice mesh in t")
     p.add_argument("--ranks-chain", type=int, default=1,
-                   help="chain groups over devices (only 1 is ported)")
+                   help="chain groups, one a process (requires --chains "
+                        "divisible by it and as many processes)")
     p.add_argument("--cg-tol", type=float, default=None,
                    help="CG relative tolerance (default 1e-10; 1e-6 with "
                         "--no-cg-refine)")
@@ -153,8 +169,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="write a torch.profiler trace of the run to "
                         "DIR/trace.json (view in chrome://tracing or Perfetto)")
-    for flag, what in NOT_PORTED.items():
-        p.add_argument(flag, default=None, help=f"not ported: {what}")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="multi-host: the address of process 0's rendezvous "
+                        "(also honored: torchrun's, SLURM's and Open MPI's "
+                        "variables)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="multi-host: total process count")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="multi-host: this process's id")
     for flag, instead in DROPPED.items():
         p.add_argument(flag, default=None, help=f"dropped: {instead}")
     return p
@@ -167,26 +189,43 @@ def _dest(flag: str) -> str:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     args.dtype = args.dtype or "float32"
-    if args.ranks_chain != 1:
-        print("error: not yet ported to schwingermodel_tpu_torch: "
-              "--ranks-chain other than 1 (multi-GPU)", file=sys.stderr)
-        return 2
-    for flag, what in NOT_PORTED.items():
-        if getattr(args, _dest(flag)) is not None:
-            print(f"error: not yet ported to schwingermodel_tpu_torch: "
-                  f"{flag} ({what})", file=sys.stderr)
-            return 2
     for flag, instead in DROPPED.items():
         if getattr(args, _dest(flag)) is not None:
             print(f"error: dropped in schwingermodel_tpu_torch: {flag} "
                   f"({instead})", file=sys.stderr)
             return 2
+    given = [f for f in MULTI_HOST if getattr(args, _dest(f)) is not None]
+    if given and len(given) < len(MULTI_HOST):
+        missing = ", ".join(f for f in MULTI_HOST if f not in given)
+        print(f"error: {', '.join(given)} needs {missing} (multi-host)",
+              file=sys.stderr)
+        return 2
 
     import torch
 
     if args.device == "cuda" and not torch.cuda.is_available():
         print("error: --device cuda but CUDA is not available", file=sys.stderr)
         return 1
+
+    from schwingermodel_tpu_torch.parallel import multihost
+
+    # bring up the processes before anything touches a device (reference:
+    # MPI_Init first, main.cpp:13); a no-op for one process
+    multihost.maybe_initialize(args.coordinator, args.num_processes,
+                               args.process_id, device=args.device)
+    try:
+        return _main(args)
+    finally:
+        multihost.shutdown()
+
+
+def _main(args) -> int:
+    import torch
+
+    from schwingermodel_tpu_torch.parallel import multihost
+
+    distributed = multihost.process_count() > 1
+    echo = print if multihost.is_primary() else (lambda *a, **k: None)
 
     from schwingermodel_tpu_torch.config import (
         CGParams, HMCParams, LatticeParams, RunParams,
@@ -199,7 +238,9 @@ def main(argv=None) -> int:
     from schwingermodel_tpu_torch.parallel.mesh import lattice_mesh
     from schwingermodel_tpu_torch.models.schwinger import SchwingerModel
     from schwingermodel_tpu_torch.runner import run_hmc
-    from schwingermodel_tpu_torch.utils.metrics import profiler_trace
+    from schwingermodel_tpu_torch.utils.metrics import (
+        kernel_launches, profiler_trace,
+    )
 
     # ---- parameters: flags, else reference-style stdin prompts ----
     need_stdin = any(
@@ -271,7 +312,33 @@ def main(argv=None) -> int:
     if rx < 1 or rt < 1:
         print(f"error: mesh {rx}x{rt}: extents must be positive", file=sys.stderr)
         return 1
-    if rx * rt > 1:
+    rc, world = args.ranks_chain, multihost.process_count()
+    if rx * rt > 1 and (distributed or rc > 1):
+        print("error: not yet ported to schwingermodel_tpu_torch: a lattice "
+              "mesh (--ranks-x/--ranks-t) across processes or with "
+              "--ranks-chain (a torch.distributed lattice mesh)",
+              file=sys.stderr)
+        return 2
+    if rc > 1 and rc != world:
+        # JAX: "mesh ... needs n devices, have m"
+        print(f"error: --ranks-chain {rc} needs {rc} processes, have {world}",
+              file=sys.stderr)
+        return 1
+    if distributed:
+        # one chain group a process, the lattice whole on each device
+        mesh = multihost.multihost_mesh()
+        if rc > 1 and run.n_chains % rc:
+            print(f"error: --chains {run.n_chains} not divisible by "
+                  f"--ranks-chain {rc}", file=sys.stderr)
+            return 1
+        if run.n_chains % world:
+            # round UP to the next multiple of the chain groups: never
+            # silently reduce the statistics asked for
+            n_new = world * (-(-run.n_chains // world))
+            echo(f"note: --chains {run.n_chains} rounded up to {n_new} "
+                 f"(chain mesh axis = {world})")
+            run = dataclasses.replace(run, n_chains=n_new)
+    elif rx * rt > 1:
         if lattice.Nx % rx or lattice.Nt % rt:
             # the reference exits the same way (mpi_setup.h:12-19)
             print(f"error: lattice {lattice.Nx}x{lattice.Nt} not divisible "
@@ -287,7 +354,7 @@ def main(argv=None) -> int:
     # Hasenbusch (schwingermodel_tpu/hmc/packed.py:219); elsewhere it is
     # ignored
     model = SchwingerModel(lattice=lattice, hmc=hmc)
-    if mesh is None and hp.packed_eligible(model) and hp.uses_mre(model):
+    if rx * rt == 1 and hp.packed_eligible(model) and hp.uses_mre(model):
         print("error: not yet ported to schwingermodel_tpu_torch: "
               "--mre-history >= 2", file=sys.stderr)
         return 2
@@ -298,73 +365,84 @@ def main(argv=None) -> int:
     elif args.cold_start and initial_theta is None:
         initial_theta = np.zeros((2, lattice.Nx, lattice.Nt))
 
-    device_name = (torch.cuda.get_device_name(0) if args.device == "cuda"
+    device = multihost.local_device(args.device)
+    device_name = (torch.cuda.get_device_name(device) if device.type == "cuda"
                    else "cpu")
-    print("*" * 70)
-    print("*                              PARAMETERS")
-    print(f"* Nx = {lattice.Nx}, Nt = {lattice.Nt}")
-    print(f"* m0 = {hmc.m0:g}, kappa = {hmc.kappa:g}")
+    echo("*" * 70)
+    echo("*                              PARAMETERS")
+    echo(f"* Nx = {lattice.Nx}, Nt = {lattice.Nt}")
+    echo(f"* m0 = {hmc.m0:g}, kappa = {hmc.kappa:g}")
     if hmc.hasenbusch_dm:
-        print(f"* Hasenbusch split: auxiliary mass m1 = "
-              f"{hmc.m0 + hmc.hasenbusch_dm:g} (dm = {hmc.hasenbusch_dm:g})")
-    print(f"* beta = {hmc.beta:g}" + ("  (quenched)" if hmc.quenched else ""))
-    print(f"* Thermalization confs = {run.n_therm}")
-    print(f"* Measurement confs = {run.n_meas}")
-    print(f"* Decorrelation steps (confs dropped between measurements) = {run.n_steps}")
-    print(f"* Trajectory length = {hmc.trajectory_length:g}, "
-          f"Leapfrog steps = {hmc.md_steps}, "
-          f"Integration step = {hmc.step_size:g}")
+        echo(f"* Hasenbusch split: auxiliary mass m1 = "
+             f"{hmc.m0 + hmc.hasenbusch_dm:g} (dm = {hmc.hasenbusch_dm:g})")
+    echo(f"* beta = {hmc.beta:g}" + ("  (quenched)" if hmc.quenched else ""))
+    echo(f"* Thermalization confs = {run.n_therm}")
+    echo(f"* Measurement confs = {run.n_meas}")
+    echo(f"* Decorrelation steps (confs dropped between measurements) = {run.n_steps}")
+    echo(f"* Trajectory length = {hmc.trajectory_length:g}, "
+         f"Leapfrog steps = {hmc.md_steps}, "
+         f"Integration step = {hmc.step_size:g}")
     refine_desc = (f" (mixed-precision: f32 recursion + f64 true residual, "
                    f"replacement every {hmc.cg.inner_tol:g})"
                    if hmc.cg.refine else
                    f" ({'f32' if lattice.real_dtype == 'float32' else 'f64'} CG)")
-    print(f"* CG max iterations = {hmc.cg.max_iter}, "
-          f"CG tolerance = {hmc.cg.tol:g}{refine_desc}")
+    echo(f"* CG max iterations = {hmc.cg.max_iter}, "
+         f"CG tolerance = {hmc.cg.tol:g}{refine_desc}")
     ftol = hmc.cg.resolved_force_tol()
     if ftol != hmc.cg.tol:
-        print(f"* CG force tolerance = {ftol:g} "
-              f"(action solves at {hmc.cg.tol:g})")
-    print(f"* Device = {args.device} ({device_name})")
-    print(f"* Device mesh = {rx}x{rt} shards on 1 device ({device_name})")
-    print(f"* Chains = {run.n_chains}, dtype = {lattice.real_dtype}, "
-          f"seed = {run.seed}")
-    print("*" * 70)
+        echo(f"* CG force tolerance = {ftol:g} "
+             f"(action solves at {hmc.cg.tol:g})")
+    echo(f"* Device = {device} ({device_name})")
+    echo(f"* Device mesh = {rx}x{rt} shards on 1 device ({device_name})")
+    if distributed:
+        echo(f"* Chain groups = {multihost.layout()}")
+    echo(f"* Chains = {run.n_chains}, dtype = {lattice.real_dtype}, "
+         f"seed = {run.seed}")
+    echo("*" * 70)
 
     with profiler_trace(args.profile):
-        result = run_hmc(lattice, hmc, run, device=args.device,
+        result = run_hmc(lattice, hmc, run, device=device,
                          initial_theta=initial_theta,
-                         start_traj_index=start_traj, progress=print,
+                         start_traj_index=start_traj, progress=echo,
                          write_simdata=not args.no_simdata,
                          measure_condensate=args.condensate,
                          n_noise=args.n_noise, mesh=mesh)
     if args.profile:
         print(f"Profiler trace written to {args.profile}")
 
-    print(f"Average plaquette value / volume: Ep = {result.Ep:.17g} "
-          f"dEp = {result.dEp:.17g}")
-    print(f"Average gauge action / volume: gS = {result.gS:.17g} "
-          f"dgS = {result.dgS:.17g}")
+    echo(f"Average plaquette value / volume: Ep = {result.Ep:.17g} "
+         f"dEp = {result.dEp:.17g}")
+    echo(f"Average gauge action / volume: gS = {result.gS:.17g} "
+         f"dgS = {result.dgS:.17g}")
     if args.condensate:
         s = result.summary("chiral_condensate")
-        print(f"Chiral condensate: {s['mean']:.10g} +- {s['error']:.3g} "
-              f"(tau_int {s['tau_int']:.2f})")
-    print(f"Acceptance rate: {result.acceptance_rate:.17g}")
-    print(f"<exp(-dH)> = {result.exp_mdH_mean:.6f}, all solves converged: "
-          f"{result.all_converged}")
-    print(f"Execution time = {result.elapsed_seconds:.6f} s")
-    print("-------------------------------")
+        echo(f"Chiral condensate: {s['mean']:.10g} +- {s['error']:.3g} "
+             f"(tau_int {s['tau_int']:.2f})")
+    echo(f"Acceptance rate: {result.acceptance_rate:.17g}")
+    echo(f"<exp(-dH)> = {result.exp_mdH_mean:.6f}, all solves converged: "
+         f"{result.all_converged}")
+    echo(f"Execution time = {result.elapsed_seconds:.6f} s")
+    echo("-------------------------------")
     if result.n_ill:
-        print(f"WARNING: {result.n_ill} ill (CG-failed) configurations dumped")
-    if args.checkpoint:
-        # result.hmc carries the tuned md_steps, so a resumed run goes on
-        # with the step it ended with
+        echo(f"WARNING: {result.n_ill} ill (CG-failed) configurations dumped")
+    if distributed:
+        # each process's own line: where it ran and what it launched
+        # one write, so that the processes' lines do not interleave
+        sys.stderr.write(f"process {multihost.process_index()} of "
+                         f"{multihost.process_count()} on {device}: kernel "
+                         f"launches {kernel_launches()}\n")
+        sys.stderr.flush()
+    if args.checkpoint and multihost.is_primary():
+        # primary-only, like every other writer (result.theta holds every
+        # process's chains); result.hmc carries the tuned md_steps, so a
+        # resumed run goes on with the step it ended with
         save_checkpoint(
             args.checkpoint, theta=result.theta, key=result.key,
             traj_index=result.traj_index, lattice=lattice, hmc=result.hmc,
             run=run,
             chains={k: v.reshape(len(v), -1).mean(axis=1)
                     for k, v in result.chains.items()})
-        print(f"Checkpoint written to {args.checkpoint}")
+        echo(f"Checkpoint written to {args.checkpoint}")
     return 0
 
 

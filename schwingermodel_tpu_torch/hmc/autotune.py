@@ -13,7 +13,9 @@ The dual-averaging state is five host floats. The JAX package keeps it on
 the device inside one compiled scan; here each warm-up trajectory ends with
 one host read of the pooled acceptance, because the next trajectory's step
 size is a Python float that scales host-side updates (no kernel argument
-bakes ``hmc.step_size``). It is the only host read inside the warm-up.
+bakes ``hmc.step_size``). It is the only host read inside the warm-up;
+in a multi-process run it is a gather of every process's chains
+(parallel/multihost.py).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 from schwingermodel_tpu_torch.config import HMCParams
 from schwingermodel_tpu_torch.hmc import sampler
 from schwingermodel_tpu_torch.models.schwinger import SchwingerModel
+from schwingermodel_tpu_torch.parallel import multihost as mh
 
 # the warm-up's trajectories draw from their own stream of indices, apart
 # from the run's (which count from 0), as JAX folds 0x7E0E into the run key
@@ -78,7 +81,7 @@ def tune_step_size(
 ) -> TuneResult:
     """Dual-averaging warm-up over n_tune trajectories of theta
     [C, 2, Nx, Nt]; the acceptance probabilities are pooled by their mean
-    over the chains. ``traj_fn(theta, seed, traj_index, dt)`` defaults to
+    over the chains (over every process's chains, in global order). ``traj_fn(theta, seed, traj_index, dt)`` defaults to
     the unpacked sampler; pass the packed or the sharded step for those
     paths."""
     eps0 = float(model.hmc.step_size) if eps0 is None else eps0
@@ -90,8 +93,10 @@ def tune_step_size(
     p = float("nan")
     for i in range(n_tune):
         theta, st = traj_fn(theta, seed, TUNE_STREAM + i, math.exp(da.log_eps))
-        # the warm-up's one host read per trajectory
-        p = float(torch.clamp(st.exp_mdH, max=1.0).mean())
+        # the warm-up's one host read per trajectory: every process's
+        # chains, the mean taken in global chain order on the host, so that
+        # every process tunes the step of one process holding every chain
+        p = float(torch.clamp(mh.gather_chains(st.exp_mdH), max=1.0).mean())
         da = da_update(da, p, target=target)
     return TuneResult(theta=theta, eps=math.exp(da.log_eps_bar),
                       accept_prob_last=p)

@@ -283,9 +283,9 @@ def trajectory_packed_given_noise(model: SchwingerModel, theta, pi, chi, r,
 
 
 def hmc_trajectory_packed(model: SchwingerModel, theta, seed: int,
-                          traj_index: int, dt=None):
+                          traj_index: int, dt=None, chain_offset: int = 0):
     """One trajectory of theta [C, 2, Nx, Nt] with noise drawn from
-    (seed, traj_index, chain)."""
+    (seed, traj_index, chain_offset + chain)."""
     pi, chi, r = draw_chain_noise(model, seed, traj_index, theta.shape[0],
-                                  theta.device)
+                                  theta.device, chain_offset)
     return trajectory_packed_given_noise(model, theta, pi, chi, r, dt)

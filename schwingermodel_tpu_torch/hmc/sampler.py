@@ -50,14 +50,16 @@ def draw_noise(model: SchwingerModel, shape, gen: torch.Generator, device):
 
 
 def draw_chain_noise(model: SchwingerModel, seed: int, traj_index: int,
-                     n_chains: int, device):
-    """(pi, chi, r) for all chains of one trajectory on the global lattice,
-    each chain from its own generator (utils/prng.py)."""
+                     n_chains: int, device, chain_offset: int = 0):
+    """(pi, chi, r) for chains chain_offset .. chain_offset + n_chains - 1
+    of one trajectory on the global lattice, each chain from its own
+    generator of its global index (utils/prng.py), so that a chain draws
+    the same noise in whichever process holds it."""
     shape = (2, model.lattice.Nx, model.lattice.Nt)
     draws = [draw_noise(model, shape,
                         prng.chain_generator(seed, traj_index, c, device),
                         device)
-             for c in range(n_chains)]
+             for c in range(chain_offset, chain_offset + n_chains)]
     pi, chi, r = (torch.stack(v) for v in zip(*draws))
     return pi, chi, r
 
@@ -114,9 +116,9 @@ def trajectory_given_noise(model: SchwingerModel, theta, pi, chi, r, dt=None,
 
 
 def hmc_trajectory(model: SchwingerModel, theta, seed: int, traj_index: int,
-                   dt=None, beta=None):
+                   dt=None, beta=None, chain_offset: int = 0):
     """One trajectory of theta [C, 2, Nx, Nt] (one lattice per chain) with
-    noise drawn from (seed, traj_index, chain)."""
+    noise drawn from (seed, traj_index, chain_offset + chain)."""
     pi, chi, r = draw_chain_noise(model, seed, traj_index, theta.shape[0],
-                                  theta.device)
+                                  theta.device, chain_offset)
     return trajectory_given_noise(model, theta, pi, chi, r, dt, beta)

@@ -12,6 +12,10 @@ The port's noise is a function of (seed, stream, trajectory, chain)
 resumes the streams exactly. A key written by the JAX package is kept as
 the opaque array it is: the port's streams start from ``run.seed``.
 
+In a multi-process run (parallel/multihost.py) the primary writes the one
+file, with every process's chains gathered into ``theta``; on resume every
+process reads it and the runner takes the process's chains.
+
 Fields that only the port's configuration has (``CGParams.cert_k``) are
 stored under ``extra["torch_port"]``, not among the dataclass fields, which
 the JAX loader passes to its own constructors; fields only JAX has

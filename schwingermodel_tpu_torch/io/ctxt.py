@@ -1,8 +1,12 @@
 """Byte-compatible gauge-configuration files (.ctxt).
 
-Counterpart of ``schwingermodel_tpu/io/ctxt.py:36-176``: the file names and
-the NumPy write/read path, which produces the same bytes as the native
-codec there. The native codec is not ported yet.
+Counterpart of ``schwingermodel_tpu/io/ctxt.py``: the file names, the
+readers and writers, the binary-to-text converter and the lattice shape
+read from a binary file's own records. Encoding and decoding run through
+the port's native codec (native/ctxt_codec.cpp, built on first use) where
+it loads, else through a vectorized NumPy path that writes the same bytes.
+Links are written as float64 complex whatever the working precision, as the
+reference does.
 
   binary  2*Nx*Nt packed 28-byte records `int32 x, int32 t, int32 mu,
           float64 re, float64 im`, ordered x-major, then t, then mu
@@ -15,7 +19,12 @@ codec there. The native codec is not ported yet.
 
 from __future__ import annotations
 
+import ctypes
+import os
+
 import numpy as np
+
+from schwingermodel_tpu_torch.native import load_codec
 
 RECORD_DTYPE = np.dtype(
     [("x", "<i4"), ("t", "<i4"), ("mu", "<i4"), ("re", "<f8"), ("im", "<f8")]
@@ -48,6 +57,17 @@ def theta_from_links(U) -> np.ndarray:
     return np.angle(np.asarray(U, dtype=np.complex128)).astype(np.float64)
 
 
+def _interleaved(U: np.ndarray) -> np.ndarray:
+    """[2, Nx, Nt] complex128 -> C-contiguous interleaved re/im doubles,
+    the native codec's layout."""
+    U = np.ascontiguousarray(U, dtype=np.complex128)
+    return U.view(np.float64)
+
+
+def _dptr(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
+
+
 def _records_from_links(U: np.ndarray) -> np.ndarray:
     _, Nx, Nt = U.shape
     rec = np.empty(Nx * Nt * 2, dtype=RECORD_DTYPE)
@@ -78,7 +98,18 @@ def _links_from_records(rec: np.ndarray, Nx: int, Nt: int) -> np.ndarray:
 
 def write_conf(path: str, U, *, binary: bool = True) -> None:
     """Write links U [2, Nx, Nt] to a .ctxt file (always float64 complex)."""
-    rec = _records_from_links(np.ascontiguousarray(U, dtype=np.complex128))
+    U = np.ascontiguousarray(U, dtype=np.complex128)
+    _, Nx, Nt = U.shape
+    lib = load_codec()
+    if lib is not None:
+        buf = _interleaved(U)              # a view of U, alive for the call
+        fn = lib.ctxt_write_binary if binary else lib.ctxt_write_text
+        rc = fn(path.encode(), _dptr(buf), Nx, Nt)
+        if rc != 0:
+            raise OSError(f"native ctxt write failed ({rc}): {path}")
+        return
+    # the NumPy path: the same bytes
+    rec = _records_from_links(U)
     if binary:
         rec.tofile(path)
         return
@@ -98,6 +129,16 @@ def read_conf(path: str, Nx: int, Nt: int, *, binary: bool | None = None) -> np.
             binary = False
         except UnicodeDecodeError:
             binary = True
+    lib = load_codec()
+    if lib is not None:
+        buf = np.empty((2, Nx, Nt, 2), dtype=np.float64)
+        fn = lib.ctxt_read_binary if binary else lib.ctxt_read_text
+        rc = fn(path.encode(), _dptr(buf), Nx, Nt)
+        if rc == -1:
+            raise FileNotFoundError(path)
+        if rc != 0:
+            raise ValueError(f"corrupt or wrong-shape .ctxt ({rc}): {path}")
+        return (buf[..., 0] + 1j * buf[..., 1]).astype(np.complex128)
     if binary:
         rec = np.fromfile(path, dtype=RECORD_DTYPE)
     else:
@@ -108,3 +149,17 @@ def read_conf(path: str, Nx: int, Nt: int, *, binary: bool | None = None) -> np.
         rec["mu"] = flat[:, 2].astype(np.int32)
         rec["re"], rec["im"] = flat[:, 3], flat[:, 4]
     return _links_from_records(rec, Nx, Nt)
+
+
+def convert_binary_to_text(src: str, dst: str, Nx: int, Nt: int) -> None:
+    """Binary .ctxt -> its whitespace text form (reference readBinConf.cpp /
+    readBin.sh)."""
+    write_conf(dst, read_conf(src, Nx, Nt, binary=True), binary=False)
+
+
+def sniff_lattice_shape(path: str) -> tuple[int, int]:
+    """(Nx, Nt) of a binary .ctxt file, from its own index records."""
+    rec = np.fromfile(path, dtype=RECORD_DTYPE)
+    if rec.size == 0 or os.path.getsize(path) % RECORD_DTYPE.itemsize:
+        raise ValueError(f"not a binary .ctxt file: {path}")
+    return int(rec["x"].max()) + 1, int(rec["t"].max()) + 1

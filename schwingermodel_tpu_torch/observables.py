@@ -65,14 +65,15 @@ class CondensateResult(NamedTuple):
 
 
 def condensate_noise(seed: int, meas_index: int, n_chains: int, theta_shape,
-                     n_noise: int, device) -> torch.Tensor:
+                     n_noise: int, device, chain_offset: int = 0) -> torch.Tensor:
     """[C, n_noise, 2, Nx, Nt] complex64 Z2xZ2 noise, each chain's from its
-    own generator of (seed, measurement, chain), drawn on the device."""
+    own generator of (seed, measurement, chain_offset + chain), drawn on the
+    device."""
     shape = (n_noise, *tuple(theta_shape)[-3:])
     return torch.stack([
         prng.z2_complex(prng.measurement_generator(seed, meas_index, c, device),
                         shape, torch.float32, device)
-        for c in range(n_chains)])
+        for c in range(chain_offset, chain_offset + n_chains)])
 
 
 def chiral_condensate_given_noise(model: SchwingerModel, theta, zs
@@ -88,11 +89,12 @@ def chiral_condensate_given_noise(model: SchwingerModel, theta, zs
 
 
 def chiral_condensate(model: SchwingerModel, theta, seed: int, meas_index: int,
-                      n_noise: int = 8) -> CondensateResult:
+                      n_noise: int = 8, chain_offset: int = 0) -> CondensateResult:
     """(1/V) Tr D^{-1} per chain by Z2xZ2 stochastic estimation, with the
-    noise of measurement `meas_index`."""
+    noise of measurement `meas_index` (chain c's of global chain
+    chain_offset + c)."""
     zs = condensate_noise(seed, meas_index, theta.shape[0], theta.shape,
-                          n_noise, theta.device)
+                          n_noise, theta.device, chain_offset)
     return chiral_condensate_given_noise(model, theta, zs)
 
 

@@ -58,6 +58,32 @@ class LatticeMesh:
         return a.sum(dim=dims, keepdim=True)
 
 
+def choose_mesh_shape(n_devices: int, Nx: int, Nt: int) -> Tuple[int, int]:
+    """(rx, rt) with rx * rt == n_devices whose blocks are the closest to
+    square (the least halo surface per volume): JAX ``choose_mesh_shape``,
+    the automatic counterpart of the reference's ranks_x/ranks_t prompts
+    (src/main.cpp; validated at mpi_setup.h:6-23)."""
+    best = None
+    for rx in range(1, n_devices + 1):
+        if n_devices % rx:
+            continue
+        rt = n_devices // rx
+        if Nx % rx or Nt % rt:
+            continue
+        wx, wt = Nx // rx, Nt // rt
+        # surface-to-volume of the local block = 2(wx+wt)/(wx*wt)
+        cost = (wx + wt) / (wx * wt)
+        if best is None or cost < best[0]:
+            best = (cost, rx, rt)
+    if best is None:
+        raise ValueError(
+            f"cannot tile {Nx}x{Nt} lattice over {n_devices} devices: no "
+            f"factorization rx*rt={n_devices} divides (Nx, Nt) evenly "
+            f"(reference exits the same way, mpi_setup.h:12-19)"
+        )
+    return best[1], best[2]
+
+
 def lattice_mesh(shape: Optional[Tuple[int, int]] = None) -> LatticeMesh:
     """A LatticeMesh of shape (rx, rt); one shard where no shape is given."""
     rx, rt = (1, 1) if shape is None else shape

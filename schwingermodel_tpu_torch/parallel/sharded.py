@@ -15,15 +15,23 @@ Chains are a batch axis: C chains over rx * rt shards each. Where the JAX
 package needs a ('chain', 'x', 't') mesh and ORs the CG's stop over the
 chain groups, here every solver decision reads only that chain's
 psum-reduced state.
+
+Across processes (parallel/multihost.py) the chains are cut into groups,
+one a process, each with the lattice whole on its device:
+``make_chain_sharded_packed_traj_fn`` runs a group's chains through the
+packed main path (K1, K3 with K4 inside its launch) with no collective,
+each chain on the noise of its global index.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+from schwingermodel_tpu_torch.hmc import packed as hp
 from schwingermodel_tpu_torch.hmc import sampler
 from schwingermodel_tpu_torch.models.schwinger import SchwingerModel
 from schwingermodel_tpu_torch.ops.geometry import ShardedGeometry
+from schwingermodel_tpu_torch.parallel.multihost import ChainMesh
 from schwingermodel_tpu_torch.parallel.mesh import (
     T_AXIS_NAME, LatticeMesh, shard, unshard,
 )
@@ -63,6 +71,39 @@ def make_sharded_traj_fn(model: SchwingerModel, mesh: LatticeMesh):
         pi, chi, r = sampler.draw_chain_noise(model, seed, traj_index,
                                               theta.shape[0], theta.device)
         return given_noise(theta, pi, chi, r, dt, beta)
+
+    step.given_noise = given_noise
+    return step
+
+
+def chain_packed_supported(model: SchwingerModel, mesh) -> bool:
+    """True where the packed trajectory runs a chain group of this mesh (JAX
+    ``chain_packed_supported``): a chain-only layout (both lattice axes 1,
+    the multi-process default) and a model on the packed path."""
+    return (isinstance(mesh, ChainMesh) and tuple(mesh.shape[1:]) == (1, 1)
+            and hp.packed_eligible(model))
+
+
+def make_chain_sharded_packed_traj_fn(model: SchwingerModel, mesh: ChainMesh):
+    """The packed trajectory (hmc/packed.py) of this process's chain group
+    (JAX ``make_chain_sharded_packed_traj_fn``, where ``shard_map`` hands
+    each device group its chains): ``step(theta, seed, traj_index, dt=None)
+    -> (theta', stats)`` on the group's theta [C/R, 2, Nx, Nt], each chain on
+    the noise of its global index (group index x C/R + c), with no
+    collective; the stats are the group's, [C/R]. ``step.given_noise(theta,
+    pi, chi, r, dt=None)`` is the same update on pre-drawn noise of the
+    group's chains."""
+    if not chain_packed_supported(model, mesh):
+        raise ValueError(f"the packed trajectory does not run this model on "
+                         f"mesh {mesh}")
+    hp.packed_supported(model)
+
+    def step(theta, seed: int, traj_index: int, dt=None):
+        return hp.hmc_trajectory_packed(model, theta, seed, traj_index, dt=dt,
+                                        chain_offset=mesh.index * theta.shape[0])
+
+    def given_noise(theta, pi, chi, r, dt=None):
+        return hp.trajectory_packed_given_noise(model, theta, pi, chi, r, dt)
 
     step.given_noise = given_noise
     return step

@@ -1,8 +1,9 @@
-"""Conjugate gradient with one global reduction per iteration.
+"""Conjugate gradient: the reference's loop, and one with one global
+reduction per iteration.
 
-Counterpart of ``cg_solve_single_reduction`` in
-``schwingermodel_tpu/solvers/cg.py``: the CG that every non-fused solve of
-the unpacked sampler runs. All four inner products <r,r>, <d,Ad>, <Ad,Ad>,
+Counterpart of ``schwingermodel_tpu/solvers/cg.py``: ``cg_solve``, the
+reference's two-reduction loop, and ``cg_solve_single_reduction``, the CG
+that every non-fused solve of the unpacked sampler runs. All four inner products <r,r>, <d,Ad>, <Ad,Ad>,
 <r,Ad> ride one batched reduction (one psum on a mesh), and the next
 residual norm follows from
 
@@ -43,6 +44,48 @@ class CGResult(NamedTuple):
 def rel_residual(rho: torch.Tensor, b_norm2: torch.Tensor) -> torch.Tensor:
     tiny = torch.finfo(b_norm2.dtype).tiny
     return torch.sqrt(rho.abs()) * torch.rsqrt(torch.clamp(b_norm2, min=tiny))
+
+
+def cg_solve(
+    apply_A: Callable[[torch.Tensor], torch.Tensor],
+    b: torch.Tensor,
+    dot_re: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+    *,
+    x0: torch.Tensor | None = None,
+    tol: float = 1e-10,
+    max_iter: int = 10000,
+) -> CGResult:
+    """The reference's CG with its two reductions an iteration, <d,Ad> and
+    then <r',r'> (JAX ``cg_solve``; src/conjugate_gradient.cpp:14-44), per
+    chain: solve A x = b for hermitian positive-definite A from x0 (default
+    b) until ||r|| < tol ||b|| or max_iter iterations, a chain whose stop
+    rule has fired frozen by masking. The CG scalars are real (the
+    reference's complex alpha and beta have imaginary parts of rounding
+    only). The unpacked sampler runs ``cg_solve_single_reduction``; this
+    is the library's plain form, run eagerly on any device."""
+    x = (b if x0 is None else x0).clone()
+    b_norm2 = dot_re(b, b)
+    stop2 = (tol * tol) * b_norm2
+    r = b - apply_A(x)
+    d = r.clone()
+    rho = dot_re(r, r)
+    iters = torch.zeros(rho.shape, dtype=torch.int32, device=b.device)
+    for _ in range(max_iter):
+        live = rho >= stop2                  # a NaN rho never starts
+        if not bool(live.any()):
+            break
+        Ad = apply_A(d)
+        alpha = rho / dot_re(d, Ad)
+        lv = bcast(live, x)
+        x = torch.where(lv, x + bcast(alpha, x) * d, x)
+        r_new = torch.where(lv, r - bcast(alpha, r) * Ad, r)
+        rho_new = dot_re(r_new, r_new)
+        d = torch.where(lv, r_new + bcast(rho_new / rho, d) * d, d)
+        r = r_new
+        rho = torch.where(live, rho_new, rho)
+        iters += live
+    return CGResult(x=x, iters=iters, converged=rho < stop2,
+                    rel_residual=rel_residual(rho, b_norm2))
 
 
 def cg_solve_single_reduction(

@@ -60,6 +60,20 @@ def card_label(device) -> str:
         return torch.cuda.get_device_name(device)
 
 
+def kernel_launches() -> dict:
+    """Every CUDA kernel wrapper's launch counter (each adds one where it
+    launches its kernel; a CPU tensor runs the plain twin and counts
+    nothing): entry point -> launches since the counter was last set."""
+    from schwingermodel_tpu_torch.ops import cg_eo, halo
+    from schwingermodel_tpu_torch.ops import refined as rs
+    from schwingermodel_tpu_torch.ops import traj as tr
+
+    fns = (tr.force_step, tr.solve_fused, tr.solve_fused_mxu, tr.ratio_force,
+           rs.solve_refined, rs.solve_f64_cg_fallback, cg_eo.cg_solve_eo,
+           rs.residual_f64, halo.halo_normal, halo.halo_force)
+    return {fn.__name__: fn.launches for fn in fns}
+
+
 def cg_iteration_flops(volume: int, even_odd: bool) -> float:
     """Real flops of one CG iteration on the (even-odd) normal system."""
     if even_odd:

@@ -226,7 +226,10 @@ def test_cli_runs_the_sampler_options(tmp_path, argv, shows):
         assert "CG tolerance = 1e-10 (f64 CG)" in out.stdout
 
 
-@pytest.mark.parametrize("argv", [["--ranks-chain", "2"], ["--mre-history", "2"]])
+@pytest.mark.parametrize("argv", [
+    # chain groups with a lattice mesh (a torch.distributed lattice mesh)
+    ["--ranks-chain", "2", "--ranks-x", "2", "--ranks-t", "2"],
+    ["--mre-history", "2"]])
 def test_cli_still_refuses(tmp_path, argv):
     out = _cli(*FLAGS, "--out-dir", str(tmp_path), *argv)
     assert out.returncode == 2

@@ -166,16 +166,19 @@ def test_cli_runs_reference_pipe_on_cpu(tmp_path):
     (["--no-even-odd"], "all solves converged: True"),
     (["--dtype", "float64"], "dtype = float64"),
     (["--nx", "7", "--nt", "8"], "Nx = 7, Nt = 8"),
-    (["--ranks-chain", "2"], "not yet ported"),
+    # chain groups with a lattice mesh: a torch.distributed lattice mesh
+    (["--ranks-chain", "2", "--ranks-x", "2", "--ranks-t", "2"],
+     "not yet ported"),
     (["--device", "cuda"], "CUDA is not available"),
+    # a multi-host flag alone: the three go together
     (["--coordinator", "localhost:1234"],
-     "error: not yet ported to schwingermodel_tpu_torch: --coordinator "
+     "error: --coordinator needs --num-processes, --process-id "
      "(multi-host)\n"),
     (["--num-processes", "2"],
-     "error: not yet ported to schwingermodel_tpu_torch: --num-processes "
+     "error: --num-processes needs --coordinator, --process-id "
      "(multi-host)\n"),
     (["--process-id", "0"],
-     "error: not yet ported to schwingermodel_tpu_torch: --process-id "
+     "error: --process-id needs --coordinator, --num-processes "
      "(multi-host)\n"),
     (["--cg-refine-impl", "x64"],
      "error: dropped in schwingermodel_tpu_torch: --cg-refine-impl (native "
@@ -190,9 +193,11 @@ def test_cli_runs_reference_pipe_on_cpu(tmp_path):
 ])
 def test_cli_refuses_what_it_cannot_run(argv, message, tmp_path):
     """What the CLI refuses and what it no longer does: --ranks-chain 2
-    (multi-GPU) and the multi-host flags exit 2 with "not yet ported"; the
-    three flags of the JAX parser that the port drops exit 2 and name what
-    replaces them (exact messages); --device cuda without a card
+    with a lattice mesh exits 2 with "not yet ported", a multi-host flag
+    without the other two exits 2 naming them (multi-process runs:
+    tests/test_torch_multiprocess.py); the three flags of the JAX parser
+    that the port drops exit 2 and name what replaces them (exact
+    messages); --device cuda without a card
     exits non-zero instead of falling back to the CPU; --profile DIR runs
     and leaves a trace file in DIR; --quenched,
     --no-even-odd, --dtype float64 and an odd lattice, which used to be
@@ -205,7 +210,9 @@ def test_cli_refuses_what_it_cannot_run(argv, message, tmp_path):
     out = subprocess.run(
         [sys.executable, "-m", "schwingermodel_tpu_torch", *args, *size, *argv,
          "--out-dir", str(tmp_path)],
-        input="1\n1\n0.1\n4\n0.4\n2\n2\n2\n0\n0\n", cwd=REPO,
+        # the first two prompts are the mesh's, unless given as flags
+        input=("" if "--ranks-x" in argv else "1\n1\n")
+        + "0.1\n4\n0.4\n2\n2\n2\n0\n0\n", cwd=REPO,
         capture_output=True, text=True, timeout=300,
         env={**os.environ, "OMP_NUM_THREADS": "1"})
     if message == "not yet ported":
