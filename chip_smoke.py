@@ -82,6 +82,19 @@ Phases (any failure raises, and the script exits non-zero):
                         |r - r_plain| <= 1e-12 (max|b| + max|A x|), ||r||^2
                         to 1e-12 relative, r bit for bit across the routes,
                         two launches equal;
+   K3's MRE branch      (a history of K = 4 earlier solutions; the forecast a
+                        prologue of K3's launch) at 32x32 C=32 (all shared),
+                        64x64 C=32 (shared), 128x128 C=2 (a cluster) and
+                        126x128 C=2 (the global scratch), on the history of
+                        tests_tpu/test_tpu_resident.py:444-478 and on the last
+                        four force solutions of a refined MRE trajectory
+                        (md=40, tau=1, its action solve's inputs): the
+                        forecast alone (max_iter=0) to 1e-4 of ||x0||
+                        against mre_forecast_reference, the solve at 1e-10
+                        under 1e-10 ||b|| on the f64 oracle with the twin's
+                        flags, chains 0 and 1 alone bit for bit their chains
+                        of the batch, iterations beside K = 1's; at 64x64
+                        C=32 K3's ms at K = 4 against K = 1 in turns;
    the refined dirac_inverse (K6 + K9 + K4) at 64x64 C=2 B=4 against the
    plain twins on the CPU, same noise: every flag true, each estimate
    Re(z^+ w) to rtol 1e-6;
@@ -174,7 +187,20 @@ Phases (any failure raises, and the script exits non-zero):
    for bit (else within 2e-4 with the kernel named), the printed averages
    equal, one SimData and one checkpoint each, the results printed by
    process 0 only, and each process's K1 and K3 launches on cuda:0 (its
-   own stderr line), both runs' chain-traj/s printed. Every run has the kernels' launch counters set
+   own stderr line), both runs' chain-traj/s printed; (q) the MRE path,
+   tools/bench_points.py:51-52's point through the CLI in this process
+   (64x64 beta=4 m0=0.2 md=40 tau=1 C=32, refined, 60 + 40 trajectories)
+   with --mre-history 4 and with 0: every solve converged, K3 at 40
+   launches a batch trajectory, K4's entry never, CG iterations per
+   chain-trajectory, acceptance and chain-traj/s of both; (r) the lattice
+   mesh across processes: the demo's CLI on 2x2 shards, 2 + 4 trajectories,
+   in one process (every shard on the card) and under torchrun in 4
+   processes of one shard each (parallel/mesh.DistLatticeMesh; on one card
+   gloo through the host, not multi-GPU; one process a card with NCCL on a
+   machine of 4 or more): every chain's theta and the printed results bit
+   for bit, or theta within 2e-4 with the difference printed, one SimData
+   and one checkpoint each, the banner, and each process's K7 and K8
+   launches. Every run has the kernels' launch counters set
    to 0 just before it and read just after it, and fails if a kernel of its
    path was not launched; the packed refined runs must launch K3 once per
    solve and K4's own entry never (the fallback runs inside K3's launch; each
@@ -184,8 +210,9 @@ Phases (any failure raises, and the script exits non-zero):
    torch.profiler (launches, device-busy share, the top kernels by device
    time, and K1's and K2's device time), then one K6 launch (C=32, B=8) and
    one K5 launch at 64x64, whose shared kernels must appear by name;
-4. the kernels line (ten entry points), the card line, and the last line
-   {"ok": true, "device": {...}}.
+4. the kernels line (ten entry points; K3's with ms_mre4, its time at
+   K = 4 in turns with K = 1, and launches_mre_path, its launches in (q)),
+   the card line, and the last line {"ok": true, "device": {...}}.
 
 Imports nothing of jax or of the JAX package.
 """
@@ -629,10 +656,251 @@ def chain_groups(hp, rs, tr, sms, card, lattice, hmc, dev):
     return {"launches": total, "bits": bits, "rates": {k: o["rate"] for k, o in outs.items()}}
 
 
+def mre_kernel_checks(rs, hp, model_of, dev, gen, card, sms, inputs, rel_residual):
+    """Phase 2: K3's MRE branch (a history of K = 4 earlier solutions, the
+    forecast a prologue of K3's own launch) against its plain twin on every
+    path K3 takes: 32x32 C=32 (all shared), 64x64 C=32 (shared), 128x128
+    C=2 (a cluster of blocks) and 126x128 C=2 (the global scratch), on two
+    histories: tests_tpu/test_tpu_resident.py's (the certified solution, a
+    copy scaled by 1.001, b and zeros) and the last four force solutions of
+    a refined MRE trajectory (md=40, tau=1) with the inputs of its action
+    solve. Held: the forecast alone (max_iter=0 returns it) to 1e-4 of
+    ||x0|| against mre_forecast_reference; the solve from it at 1e-10 under
+    1e-10 ||b|| on the f64 oracle with the twin's flags; chains 0 and 1
+    alone equal to their chains of the batch bit for bit. Iterations beside
+    K = 1's (from hist[0]; for the first history also from b). Returns
+    K3's ms at 64x64 C=32 on the trajectory's history at K = 4 and at
+    K = 1, timed in turns (K = 1, 4, 4, 1)."""
+    turns = None
+    for nx, nt, C in ((32, 32, C_MAIN), (NX, NT, C_MAIN), (128, 128, 2), (126, 128, 2)):
+        path = rs.ru_path_name(nx, nt // 2, C, sms)
+        thE, thO, b = inputs(C, nx, nt)
+        exact = rs.solve_refined(thE, thO, b, b, m0=M0, tol=1e-10)
+        tpu_hist = torch.stack([exact.x, 1.001 * exact.x, b, torch.zeros_like(b)])
+        # a refined MRE trajectory's solves, recorded; its last is the
+        # action solve over the history of the last four force solutions
+        model = model_of(nx, nt)
+        calls = []
+        solve = rs.solve_refined
+
+        def recorded(thE_, thO_, b_, x0_, **kw):
+            calls.append((thE_, thO_, b_, x0_))
+            return solve(thE_, thO_, b_, x0_, **kw)
+        # the wrapper counts its launches under the module's name
+        recorded.launches = 0
+        theta = (2.0 * torch.rand((C, 2, nx, nt), generator=gen, device=dev)
+                 - 1.0) * math.pi
+        pi, chi, r = hp.draw_chain_noise(model, 5, 0, C, dev)
+        rs.solve_refined = recorded
+        try:
+            hp.trajectory_packed_given_noise(model, theta, pi, chi, r)
+        finally:
+            rs.solve_refined = solve
+        check(len(calls) == 40 and calls[-1][3].shape[0] == 4,
+              f"MRE trajectory at {nx}x{nt}: {len(calls)} solves")
+        tE, tO, tb, traj_hist = calls[-1]
+        for label, (E, O, bb, hist) in (("TPU test's history", (thE, thO, b, tpu_hist)),
+                                        ("a trajectory's history", (tE, tO, tb, traj_hist))):
+            kw = dict(m0=M0, tol=1e-10)
+            x0k = rs.solve_refined(E, O, bb, hist, max_iter=0, **kw).x
+            x0p = rs.mre_forecast_reference(E, O, bb, hist, m0=M0)
+            dx0 = ((x0k - x0p).flatten(1).norm(dim=1)
+                   / x0p.flatten(1).norm(dim=1)).max().item()
+            check(dx0 <= 1e-4, f"K3 MRE {label} at {nx}x{nt}: forecast differs by "
+                  f"{dx0} of ||x0||")
+            k = rs.solve_refined(E, O, bb, hist, **kw)
+            p = rs.solve_refined_reference(E, O, bb, hist, **kw)
+            one = rs.solve_refined(E, O, bb, hist[0], **kw)
+            rk = rel_residual(E, O, bb, k.x64)
+            rp = rel_residual(E, O, bb, p.x64)
+            check(bool((rk < 1e-10).all()) and bool((rp < 1e-10).all()),
+                  f"K3 MRE {label} at {nx}x{nt}: residual kernel {rk.max().item()} "
+                  f"plain {rp.max().item()}")
+            check(torch.equal(k.converged, p.converged) and bool(k.converged.all()),
+                  f"K3 MRE {label} at {nx}x{nt}: flags {k.converged.tolist()} plain "
+                  f"{p.converged.tolist()}")
+            for i in range(2):
+                alone = rs.solve_refined(E[i:i + 1], O[i:i + 1], bb[i:i + 1],
+                                         hist[:, i:i + 1].contiguous(), **kw)
+                check(torch.equal(alone.x64[0], k.x64[i])
+                      and int(alone.iters[0]) == int(k.iters[i]),
+                      f"K3 MRE {label} at {nx}x{nt}: chain {i} alone differs")
+            extra = ""
+            if label.startswith("TPU"):
+                extra = f", from b {exact.iters[:4].tolist()}"
+            print(f"phase 2: K3 MRE K=4, {label}, {nx}x{nt} C={C} (path: {path}): "
+                  f"forecast max |x0 - x0_plain| / |x0| {dx0:.3e}; residual kernel "
+                  f"{rk.max().item():.3e} plain {rp.max().item():.3e}, flags equal; "
+                  f"iterations K=4 kernel {k.iters[:4].tolist()} plain "
+                  f"{p.iters[:4].tolist()}, K=1 from hist[0] {one.iters[:4].tolist()}"
+                  f"{extra} (summed over the chains: K=4 {k.iters.sum().item()}, K=1 "
+                  f"{one.iters.sum().item()}); chains 0, 1 alone equal their chains of "
+                  f"the batch bit for bit", flush=True)
+        if (nx, nt) == (NX, NT):
+            h0 = traj_hist[0].contiguous()
+            k1 = lambda: rs.solve_refined(tE, tO, tb, h0, m0=M0, tol=1e-10)
+            k4 = lambda: rs.solve_refined(tE, tO, tb, traj_hist, m0=M0, tol=1e-10)
+            a1, a4, b4, b1 = (timed(f, 20) for f in (k1, k4, k4, k1))
+            turns = ((a4 + b4) / 2, (a1 + b1) / 2)
+            print(f"phase 2: K3 at {nx}x{nt} C={C} on the trajectory's action solve, in "
+                  f"turns ({card}): K=4 {turns[0]:.4f} ms, K=1 from hist[0] "
+                  f"{turns[1]:.4f} ms; iterations K=4 {k4().iters.sum().item()}, K=1 "
+                  f"{k1().iters.sum().item()} summed over the chains", flush=True)
+    return turns
+
+
+Q_FLAGS = ["--device", "cuda", "--nx", str(NX), "--nt", str(NT), "--beta", str(BETA),
+           "--m0", str(M0), "--md-steps", "40", "--tau", "1", "--ntherm", "60",
+           "--nmeas", "40", "--nsteps", "0", "--ranks-x", "1", "--ranks-t", "1",
+           "--chains", str(C_MAIN), "--seed", "0", "--no-simdata"]
+
+
+def mre_path(cli, counted, card):
+    """Phase 3 (q): tools/bench_points.py:51-52's point through the CLI in
+    this process, 64x64 beta=4 m0=0.2 md=40 tau=1 C=32 refined, 60 + 40
+    trajectories from a hot start (the JAX tool's --n-therm 60 and 40
+    timed), with --mre-history 4 and with 0: exit 0, every
+    solve converged, K3 at 40 launches a batch trajectory (39 force solves
+    and the action solve) with the fallback inside, K4's own entry never.
+    Returns {K: (measure-phase chain-traj/s, CG iterations per
+    chain-trajectory, acceptance, K3 launches)}."""
+    import contextlib
+    import io
+
+    out = {}
+    n_traj = 100
+    for K in (4, 0):
+        buf = io.StringIO()
+        with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(buf):
+            rc, wall, got = counted(
+                f"(q) --mre-history {K}", ("with_solve=False,with_gauge=True",
+                                           "solve_refined"),
+                lambda: cli.main([*Q_FLAGS, "--mre-history", str(K), "--out-dir", tmp]),
+                ("solve_f64_cg_fallback",))
+        text = buf.getvalue()
+        print("\n".join(ln for ln in text.splitlines() if ln.startswith("phase 3")),
+              flush=True)
+        check(rc == 0 and "all solves converged: True" in text,
+              f"(q) --mre-history {K}: exit {rc}\n{text[-3000:]}")
+        check(got["solve_refined"] == 40 * n_traj,
+              f"(q) --mre-history {K}: {got['solve_refined']} K3 launches")
+        rate = re.search(r"perf: measure: \S+ s\s+(\S+) traj/s\s+(\S+) CG iters/traj", text)
+        acc = re.search(r"Acceptance rate: (\S+)", text)
+        em = re.search(r"<exp\(-dH\)> = (\S+),", text)
+        check(rate and acc and em, f"(q) --mre-history {K}: no result lines")
+        acc, em = float(acc.group(1)), float(em.group(1))
+        check(0.3 < acc <= 1.0 and abs(em - 1.0) < 0.1,
+              f"(q) --mre-history {K}: acceptance {acc}, <exp(-dH)> {em}")
+        out[K] = (float(rate.group(1)), float(rate.group(2)), acc, got["solve_refined"])
+        print(f"phase 3: (q) 64x64 beta=4 m0=0.2 md=40 tau=1 C={C_MAIN} refined "
+              f"--mre-history {K}, 60 + 40 trajectories in {wall:.2f} s: measure phase "
+              f"{out[K][0]:.2f} chain-traj/s, {out[K][1]:.1f} CG iterations per "
+              f"chain-trajectory, acceptance {acc:.4f}, <exp(-dH)> {em:.6f}; per batch "
+              f"trajectory {got['solve_refined'] / n_traj:g} K3, "
+              f"{got['force_step'] / n_traj:g} K1 and {got['solve_f64_cg_fallback']} K4 "
+              f"launches; card {card}", flush=True)
+    return out
+
+
+R_FLAGS = ["--device", "cuda", "--nx", str(NX), "--nt", str(NT), "--beta", str(BETA),
+           "--m0", str(M0), "--md-steps", "10", "--tau", "0.1", "--ntherm", "2",
+           "--nmeas", "4", "--nsteps", "0", "--ranks-x", "2", "--ranks-t", "2",
+           "--chains", str(C_MAIN), "--seed", "0"]
+
+
+def dist_mesh(card):
+    """Phase 3 (r): the demo's CLI on a 2x2 lattice mesh, 2 + 4
+    trajectories, in one process (every shard on the card) against 4
+    processes of one shard each under torchrun (parallel/mesh.DistLatticeMesh):
+    on one card the 4 processes time-slice it and gloo moves the halos and
+    the psums through the host, which is not multi-GPU; on a machine of 4
+    or more cards one process a card with NCCL. Held: exit 0, every solve
+    converged, one SimData and one checkpoint each, the banner, each
+    process's K7 and K8 launches; every chain's theta and the printed
+    results bit for bit, or else theta within the f32 gate 2e-4 with the
+    difference reported. Returns the processes' launches summed."""
+    import ast
+
+    cards = torch.cuda.device_count()
+    repo = Path(__file__).resolve().parent
+    outs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, n in (("1 process", 1), ("4 processes", 4)):
+            out_dir = Path(tmp) / f"r{n}"
+            out_dir.mkdir()
+            argv = [*R_FLAGS, "--out-dir", str(out_dir), "--checkpoint",
+                    str(out_dir / "ck.npz")]
+            cmd = ([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                    "--nproc-per-node", str(n), "-m", "schwingermodel_tpu_torch", *argv]
+                   if n > 1 else [sys.executable, "-m", "schwingermodel_tpu_torch", *argv])
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, cwd=repo, capture_output=True, text=True,
+                                  timeout=900)
+            wall = time.perf_counter() - t0
+            check(proc.returncode == 0, f"(r) {label}: exit {proc.returncode}\n"
+                  f"{proc.stdout[-3000:]}\n{proc.stderr[-4000:]}")
+            check("all solves converged: True" in proc.stdout, f"(r) {label}: a solve failed")
+            rate = re.search(r"perf: measure: \S+ s\s+(\S+) traj/s\s+(\S+) CG", proc.stdout)
+            check(rate is not None, f"(r) {label}: no measure-phase rate")
+            outs[label] = {
+                "stdout": proc.stdout, "stderr": proc.stderr, "wall": wall,
+                "rate": float(rate.group(1)), "iters": float(rate.group(2)),
+                "theta": np.load(out_dir / "ck.npz")["theta"],
+                "files": (len(list(out_dir.glob("*SimData*"))),
+                          len(list(out_dir.glob("*.npz")))),
+                "results": [ln for ln in proc.stdout.splitlines()
+                            if ln.startswith(MP_RESULTS)]}
+    one, four = outs["1 process"], outs["4 processes"]
+    nccl, m = cards >= 4, min(cards, 4)
+    layout = (f"4 processes on {m} device{'s' if m > 1 else ''} "
+              f"({'nccl' if nccl else 'gloo'})")
+    what = "multi-GPU" if nccl else "not multi-GPU"
+    for label, o in outs.items():
+        check(o["files"] == (1, 1), f"(r) {label}: SimData and checkpoints {o['files']}")
+        check(o["theta"].shape == (C_MAIN, 2, NX, NT) and np.isfinite(o["theta"]).all(),
+              f"(r) {label}: final configuration")
+    banner = f"* Device mesh = 2x2 shards, one a process: {layout}"
+    check(banner in four["stdout"], f"(r) the banner does not read {banner}")
+    per_proc = {}
+    for m in re.finditer(r"process (\d+) of 4 on (\S+): kernel launches (\{.*?\})",
+                         four["stderr"]):
+        per_proc[int(m.group(1))] = (m.group(2), ast.literal_eval(m.group(3)))
+    check(sorted(per_proc) == [0, 1, 2, 3], f"(r) per-process lines: {per_proc}")
+    for rank, (where, got) in sorted(per_proc.items()):
+        check(got["halo_normal"] > 0 and got["halo_force"] > 0
+              and got["solve_refined"] == 0 and got["force_step"] == 0,
+              f"(r) process {rank} on {where}: launches {got}")
+        print(f"phase 3: (r) process {rank} of 4 on {where}: per batch trajectory "
+              f"{got['halo_normal'] / 6:.1f} K7 and {got['halo_force'] / 6:.1f} K8 "
+              f"launches; all {got}", flush=True)
+    bits = np.array_equal(one["theta"], four["theta"])
+    d = np.remainder(one["theta"] - four["theta"] + np.pi, 2 * np.pi) - np.pi
+    dmax = float(np.abs(d).max())
+    same = one["results"] == four["results"] and len(one["results"]) == 4
+    check(bits and same or dmax <= 2e-4,
+          f"(r) theta differs by {dmax:.3e} from the one-process mesh's")
+    print(f"phase 3: (r) the demo's CLI at {NX}x{NT} C={C_MAIN} on 2x2 shards, 2 + 4 "
+          f"trajectories, one process against 4 ({layout}, {what}): every chain's theta "
+          f"bit for bit {bits} (max |dtheta| {dmax:.3e}), printed results "
+          f"{'equal' if same else 'differ'}: {four['results']} against "
+          f"{one['results']}", flush=True)
+    for label, o in (("1 process, every shard on the card", one),
+                     (f"{layout}, {what}", four)):
+        print(f"phase 3: (r) {label}: measure phase {o['rate']:.2f} chain-traj/s, "
+              f"{o['iters']:.1f} CG iterations per chain-trajectory, {o['wall']:.1f} s "
+              f"wall (process start-up included); card {card}", flush=True)
+    total = dict.fromkeys(per_proc[0][1], 0)
+    for _, got in per_proc.values():
+        for k, n in got.items():
+            total[k] += n
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("error: CUDA is not available", file=sys.stderr)
         return 1
+    from schwingermodel_tpu_torch import cli
     from schwingermodel_tpu_torch import observables as obs
     from schwingermodel_tpu_torch.config import (CGParams, HMCParams,
                                                  LatticeParams, RunParams)
@@ -1350,6 +1618,18 @@ def main() -> int:
     times.update(halo_times)
     bounds.update(halo_bounds)
 
+    # K3's MRE branch on every path, against its twin, and timed at K = 4
+    # against K = 1 in turns
+    def mre_model(nx, nt):
+        return SchwingerModel(
+            lattice=LatticeParams(Nx=nx, Nt=nt, real_dtype="float32"),
+            hmc=HMCParams(beta=BETA, m0=M0, md_steps=40, trajectory_length=1.0,
+                          even_odd=True, mre_history=4,
+                          cg=CGParams(tol=1e-10, max_iter=MAX_ITER, refine=True,
+                                      inner_tol=1e-5)))
+    mre_ms = mre_kernel_checks(rs, hp, mre_model, dev, gen, card, sms, inputs,
+                               rel_residual)
+
     # trajectories through the kernels against the plain twins on the CPU
 
     def hmc_params(md_steps=10, refine=True, **kw):
@@ -1872,6 +2152,12 @@ def main() -> int:
     for k, n in p_res["launches"].items():
         launches[k] += n
 
+    # (q) the MRE path through the CLI, against the second-order forecast
+    q_res = mre_path(cli, counted, card)
+    # (r) the lattice mesh across processes against the one-process mesh
+    for k, n in dist_mesh(card).items():
+        launches[k] += n
+
     # where the time goes (--profile): three batch trajectories of each path
     # under torch.profiler
     def profile(label, model, mesh):
@@ -1988,7 +2274,11 @@ def main() -> int:
     by_name["solve_refined"].update(
         path=k3_path, us_per_iteration=k3_us_iter,
         f64_residual_share=k3_f64_share, ms_with_fallback_on=k3_fb_ms,
-        ms_at_4x_chains=k3_c128_ms)
+        ms_at_4x_chains=k3_c128_ms,
+        # the MRE branch (K = 4) on a trajectory's action solve, in turns with
+        # K = 1, and its launches on the MRE path (q)
+        ms_mre4=mre_ms[0], ms_k1_in_turns_with_mre4=mre_ms[1],
+        launches_mre_path=q_res[4][3])
     by_name["solve_fused"].update(k12_detail["solve_fused"])
     by_name["cg_solve_eo"].update(k12_detail["cg_solve_eo"])
     by_name["ratio_force"].update(k12_detail["ratio_force"])

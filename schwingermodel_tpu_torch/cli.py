@@ -29,17 +29,23 @@ CKPT`` continues from one (its configuration, parameters and trajectory
 counter; ``--nmeas`` extends the run without thermalization; the warm-up
 of ``--autotune`` is switched off, since the checkpoint carries the tuned
 md_steps), also from a checkpoint the JAX package wrote. ``--profile DIR``
-writes a ``torch.profiler`` trace of the run to ``DIR/trace.json``. ``--mre-history >= 2`` is refused only
-where the JAX package would use it (refined, forecasting on, no Hasenbusch,
-the packed path) and ignored elsewhere, as there.
+writes a ``torch.profiler`` trace of the run to ``DIR/trace.json``.
+``--mre-history K`` (K >= 2) starts every solve of the packed refined path
+from the MRE forecast over the last K force solutions, computed in K3's
+launch; it is ignored where the JAX package ignores it (the loose
+contract, ``--no-cg-forecast``, Hasenbusch, off the packed path).
 
 ``--ranks-x RX --ranks-t RT`` (or the first two prompts) cut the lattice
 into RX x RT shards and run the lattice-sharded trajectory
 (parallel/sharded.py) with the per-shard halo kernels, with or without
-``--hasenbusch-dm``. All shards live on the one device: this is the domain
-decomposition of a multi-GPU run without the GPUs, not a multi-GPU run. A
-lattice that the mesh does not divide (or an odd local Nt in even-odd mode)
-exits with status 1, as the reference does; 1 x 1 runs without a mesh.
+``--hasenbusch-dm``. In one process all shards live on the one device:
+the domain decomposition of a multi-GPU run without the GPUs, not a
+multi-GPU run. In RC x RX x RT processes (``--ranks-chain RC``, default 1)
+each process holds one shard (parallel/mesh.DistLatticeMesh, rank r at
+chain group r // (RX RT)); another number of processes exits with status
+1. A lattice that the mesh does not divide (or an odd local Nt in even-odd
+mode) exits with status 1, as the reference does; 1 x 1 runs without a
+mesh.
 
 Several processes run the chains in groups, one group a process, each on
 its own device with the lattice whole there (parallel/multihost.py), started
@@ -53,13 +59,8 @@ be divisible by R, and R must be the number of processes (else status 1).
 Every process computes; the primary alone echoes and writes SimData,
 configurations and the checkpoint, after gathering the chains; on
 ``--resume`` every process reads the checkpoint and takes its chains. Give
-the parameters as flags: the processes of one launcher share its stdin. A
-lattice mesh across processes is not ported yet (status 2).
-
-Flags that select something not ported yet exit with status 2 and a "not
-yet ported" message: a lattice mesh (``--ranks-x``·``--ranks-t`` > 1) with
-several processes or with ``--ranks-chain``, and ``--mre-history >= 2`` on
-the path named above.
+the parameters as flags: the processes of one launcher share its stdin.
+With a lattice mesh the chain groups are its planes (above).
 
 Three flags of the JAX parser are dropped, parsed only to say so (status 2,
 "dropped in schwingermodel_tpu_torch" and what replaces the flag):
@@ -116,8 +117,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="decorrelation sweeps between measurements")
     p.add_argument("--save-conf", action="store_true", default=None)
     p.add_argument("--ranks-x", type=int, default=None,
-                   help="shards of the lattice mesh in x (all shards on the "
-                        "one device)")
+                   help="shards of the lattice mesh in x (in one process "
+                        "all shards on the one device, else one a process)")
     p.add_argument("--ranks-t", type=int, default=None,
                    help="shards of the lattice mesh in t")
     p.add_argument("--ranks-chain", type=int, default=1,
@@ -138,7 +139,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="MD force-solve tolerance under the refined contract "
                         "(default 1e-8; the Metropolis action solves run at "
                         "--cg-tol)")
-    p.add_argument("--mre-history", type=int, default=0)
+    p.add_argument("--mre-history", type=int, default=0,
+                   help="refined-contract forecast history depth: >= 2 "
+                        "MRE-projects each solve's start onto the span of "
+                        "the last K solutions in-kernel; 0 = the 2nd-order "
+                        "extrapolation (default)")
     p.add_argument("--dtype", choices=["float32", "float64"], default=None,
                    help="working precision (default float32)")
     p.add_argument("--seed", type=int, default=0)
@@ -230,13 +235,11 @@ def _main(args) -> int:
     from schwingermodel_tpu_torch.config import (
         CGParams, HMCParams, LatticeParams, RunParams,
     )
-    from schwingermodel_tpu_torch.hmc import packed as hp
     from schwingermodel_tpu_torch.io import ctxt
     from schwingermodel_tpu_torch.io.checkpoint import (
         load_checkpoint, save_checkpoint,
     )
     from schwingermodel_tpu_torch.parallel.mesh import lattice_mesh
-    from schwingermodel_tpu_torch.models.schwinger import SchwingerModel
     from schwingermodel_tpu_torch.runner import run_hmc
     from schwingermodel_tpu_torch.utils.metrics import (
         kernel_launches, profiler_trace,
@@ -313,32 +316,18 @@ def _main(args) -> int:
         print(f"error: mesh {rx}x{rt}: extents must be positive", file=sys.stderr)
         return 1
     rc, world = args.ranks_chain, multihost.process_count()
-    if rx * rt > 1 and (distributed or rc > 1):
-        print("error: not yet ported to schwingermodel_tpu_torch: a lattice "
-              "mesh (--ranks-x/--ranks-t) across processes or with "
-              "--ranks-chain (a torch.distributed lattice mesh)",
-              file=sys.stderr)
-        return 2
-    if rc > 1 and rc != world:
+    across = rx * rt > 1 and (distributed or rc > 1)
+    if across and rc * rx * rt != world:
         # JAX: "mesh ... needs n devices, have m"
+        shape = f"{rc}x{rx}x{rt}" if rc > 1 else f"{rx}x{rt}"
+        print(f"error: mesh {shape} needs {rc * rx * rt} processes, have "
+              f"{world}", file=sys.stderr)
+        return 1
+    if rx * rt == 1 and rc > 1 and rc != world:
         print(f"error: --ranks-chain {rc} needs {rc} processes, have {world}",
               file=sys.stderr)
         return 1
-    if distributed:
-        # one chain group a process, the lattice whole on each device
-        mesh = multihost.multihost_mesh()
-        if rc > 1 and run.n_chains % rc:
-            print(f"error: --chains {run.n_chains} not divisible by "
-                  f"--ranks-chain {rc}", file=sys.stderr)
-            return 1
-        if run.n_chains % world:
-            # round UP to the next multiple of the chain groups: never
-            # silently reduce the statistics asked for
-            n_new = world * (-(-run.n_chains // world))
-            echo(f"note: --chains {run.n_chains} rounded up to {n_new} "
-                 f"(chain mesh axis = {world})")
-            run = dataclasses.replace(run, n_chains=n_new)
-    elif rx * rt > 1:
+    if rx * rt > 1:
         if lattice.Nx % rx or lattice.Nt % rt:
             # the reference exits the same way (mpi_setup.h:12-19)
             print(f"error: lattice {lattice.Nx}x{lattice.Nt} not divisible "
@@ -349,15 +338,24 @@ def _main(args) -> int:
                   f"Nt={lattice.Nt} over {rt} t-shards gives "
                   f"{lattice.Nt // rt}", file=sys.stderr)
             return 1
+    if distributed:
+        # chain groups: one a process with the lattice whole on each
+        # device, or one a plane of rx x rt processes, one shard each
+        mesh = multihost.multihost_mesh(rx, rt)
+        groups = mesh.groups
+        if rc > 1 and run.n_chains % rc:
+            print(f"error: --chains {run.n_chains} not divisible by "
+                  f"--ranks-chain {rc}", file=sys.stderr)
+            return 1
+        if run.n_chains % groups:
+            # round UP to the next multiple of the chain groups: never
+            # silently reduce the statistics asked for
+            n_new = groups * (-(-run.n_chains // groups))
+            echo(f"note: --chains {run.n_chains} rounded up to {n_new} "
+                 f"(chain mesh axis = {groups})")
+            run = dataclasses.replace(run, n_chains=n_new)
+    elif rx * rt > 1:
         mesh = lattice_mesh((rx, rt))
-    # MRE runs only on the packed path, refined, forecasting, without
-    # Hasenbusch (schwingermodel_tpu/hmc/packed.py:219); elsewhere it is
-    # ignored
-    model = SchwingerModel(lattice=lattice, hmc=hmc)
-    if rx * rt == 1 and hp.packed_eligible(model) and hp.uses_mre(model):
-        print("error: not yet ported to schwingermodel_tpu_torch: "
-              "--mre-history >= 2", file=sys.stderr)
-        return 2
 
     if args.read_conf:
         initial_theta = ctxt.theta_from_links(
@@ -393,8 +391,15 @@ def _main(args) -> int:
         echo(f"* CG force tolerance = {ftol:g} "
              f"(action solves at {hmc.cg.tol:g})")
     echo(f"* Device = {device} ({device_name})")
-    echo(f"* Device mesh = {rx}x{rt} shards on 1 device ({device_name})")
-    if distributed:
+    if distributed and rx * rt > 1:
+        echo(f"* Device mesh = {rx}x{rt} shards, one a process: "
+             f"{multihost.layout()}"
+             + (", not multi-GPU" if multihost.shares_devices() else ""))
+        echo(f"* Chain groups = {mesh.groups} (one a plane of {rx * rt} "
+             f"processes)")
+    else:
+        echo(f"* Device mesh = {rx}x{rt} shards on 1 device ({device_name})")
+    if distributed and rx * rt == 1:
         echo(f"* Chain groups = {multihost.layout()}")
     echo(f"* Chains = {run.n_chains}, dtype = {lattice.real_dtype}, "
          f"seed = {run.seed}")

@@ -2,8 +2,8 @@
 // f64 fallback (K4's body) at the end of the same launch.
 //
 // Replaces schwingermodel_tpu/ops/pallas_df.py:_solve_ru_kernel
-// (solve_refined_fused, K = 1 history) and, where the caller asks for the
-// fallback, the lax.cond around _df_cg_fb_kernel. The algorithm is kept and
+// (solve_refined_fused, with its history of K >= 1 solutions) and, where
+// the caller asks for the fallback, the lax.cond around _df_cg_fb_kernel. The algorithm is kept and
 // the double-float half becomes native f64: one continuous f32 CG recursion;
 // x accumulated in f64 as x += (double)alpha * (double)d; each time the
 // recursive residual has contracted by tau it is replaced by the true
@@ -12,8 +12,23 @@
 // shorter than cert_k iterations. Semantics are per chain: every decision
 // (inner target, replacement gate, stagnation test, iteration cap, whether
 // the fallback runs) reads only that chain's state -- the reference's
-// one-CG-per-chain semantics. The MRE start (history depth >= 2) is not
-// ported.
+// one-CG-per-chain semantics.
+//
+// The start: hist[0] where the history has one entry; with K >= 2 the MRE
+// forecast over it (chronological inversion, pallas_df.py:454-492), as a
+// prologue of the same launch on every path (mre_forecast): w0 = A hist[0],
+// r1 = b - w0, and for each older solution the pair v = hist[i] - hist[0],
+// w = A hist[i] - w0, Gram-Schmidt against the earlier pairs, scaled to a
+// unit w (dropped below 1e-8 of the largest |w|^2: a duplicate history
+// leaves x0 = hist[0] exactly), x0 += <r1, w> v; A in f32 through the
+// path's own stencil (a shared-memory apply of the recursion's links on the
+// shared and cluster paths), dots accumulated in f64 and rounded to f32.
+// The K - 1 pairs do not fit beside the recursion's fields (192 KiB a chain
+// at 64x64 and K = 4): they, A hist[0], r1 and x0 live in a per-chain global
+// scratch of 4 (2K + 1) floats a site, read and written by the thread that
+// owns the site, which L2 holds (6 MiB at C = 32). The prologue costs K
+// applies and K(K-1)/2 + K - 1 block sums: at K = 4 about what 9
+// iterations of the recursion cost.
 //
 // What bounds it on the card: per iteration one normal apply (4 dependent
 // stencil stages of ~150 flops per site) and 2 block reductions on 2048
@@ -55,6 +70,8 @@
 // nothing for it.
 #include <cooperative_groups.h>
 
+#include <cfloat>
+
 #include "cg_fallback.cuh"
 #include "shared_stencil.cuh"
 
@@ -63,7 +80,10 @@ namespace sm {
 namespace cg = cooperative_groups;
 
 struct RuParams {
-  const float *thE, *thO, *b, *x0;
+  const float *thE, *thO, *b;
+  const float* hist;  // [K, C, 4 V2]: the start (K = 1) or the MRE history, newest first
+  float* mre;         // [C, mre_values(K) V2] for K >= 2, else null
+  int K, C;
   float* x;
   double* x64;
   int *iters, *fb_iters;
@@ -208,6 +228,17 @@ struct RuGlobal : RuF64 {
   __device__ __forceinline__ void update_d(float beta) {
     for (int i = threadIdx.x; i < n; i += kThreads) d[i] = fma_rn(beta, d[i], r[i]);
   }
+
+  // the MRE prologue's pieces (mre_forecast): a chain's sum, the thread's
+  // own sites, and dst = A src at them (planar [4][V2] in global memory)
+  __device__ __forceinline__ double chain_sum(double v) { return sum(v); }
+  template <class F>
+  __device__ __forceinline__ void each_own(F f) const {
+    for (int s = threadIdx.x; s < g.V2; s += kThreads) f(s);
+  }
+  __device__ __forceinline__ void apply_A_to(const float* src, float* dst) {
+    normal_apply<float>(ue, uo, src, dst, t1, t2, t1, m, c, g);
+  }
 };
 
 // The f32 recursion in one block's shared memory, site-major (a spinor is
@@ -225,6 +256,8 @@ struct RuShared : RuF64 {
   OwnSites own;
   double x[kOwnSites][4];
 
+  __device__ __forceinline__ void init_sites() { own.init(g); }
+
   __device__ __forceinline__ void init(const float* x0) {
     own.init(g);
 #pragma unroll
@@ -233,6 +266,48 @@ struct RuShared : RuF64 {
       if (s < g.V2) {
 #pragma unroll
         for (int q = 0; q < 4; ++q) x[j][q] = static_cast<double>(x0[q * g.V2 + s]);
+      }
+    }
+  }
+
+  __device__ __forceinline__ double chain_sum(double v) { return sum(v); }
+  template <class F>
+  __device__ __forceinline__ void each_own(F f) const {
+#pragma unroll
+    for (int j = 0; j < kOwnSites; ++j) {
+      const int s = threadIdx.x + j * kThreads;
+      if (s < g.V2) f(s);
+    }
+  }
+
+  // dst = A src at the thread's own sites, src and dst planar [4][V2] in
+  // global memory: src in d's place and the stages of apply_dAd, before the
+  // recursion uses d, t1 and t2. The barrier after the load orders it after
+  // the previous apply's reads of t1 (every thread has passed its stages).
+  __device__ __forceinline__ void apply_A_to(const float* src, float* dst) {
+    each_own([&](int s) {
+      d[s] = make_float4(src[s], src[g.V2 + s], src[2 * g.V2 + s], src[3 * g.V2 + s]);
+    });
+    __syncthreads();
+    stage<true, false>(uo, ue, d, 1, t1, nullptr, 0.f, 0.f);
+    __syncthreads();
+    stage<true, true>(ue, uo, t1, 0, t2, d, m, -c);
+    __syncthreads();
+    stage<false, false>(uo, ue, t2, 1, t1, nullptr, 0.f, 0.f);
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kOwnSites; ++j) {
+      const int s = threadIdx.x + j * kThreads;
+      if (s < g.V2) {
+        Cx<float> h0, h1;
+        hop_site_shared<false>(ue, uo, t1, s, own.nbrs(j, 0, g), g.V2, h0, h1);
+        const float4 vs = t2[s];
+        h0 = axpby(m, lo(vs), -c, h0);
+        h1 = axpby(m, hi(vs), -c, h1);
+        dst[s] = h0.re;
+        dst[g.V2 + s] = h0.im;
+        dst[2 * g.V2 + s] = h1.re;
+        dst[3 * g.V2 + s] = h1.im;
       }
     }
   }
@@ -451,6 +526,15 @@ struct RuCluster : RuF64 {
     }
   }
 
+  __device__ __forceinline__ void init_sites() {
+#pragma unroll
+    for (int j = 0; j < kOwnSites; ++j) {
+      const int sl = threadIdx.x + j * kThreads;
+      const int xl = sl / g.Nth;
+      sxk[j] = (xl << 16) | (sl - xl * g.Nth);
+    }
+  }
+
   __device__ __forceinline__ void init(const float* x0) {
 #pragma unroll
     for (int j = 0; j < kOwnSites; ++j) {
@@ -475,6 +559,51 @@ struct RuCluster : RuF64 {
     double all = 0.0;
     for (int i = 0; i < N; ++i) all += slot[i];
     return all;
+  }
+
+  __device__ __forceinline__ double chain_sum(double v) { return cluster_sum(v); }
+  template <class F>
+  __device__ __forceinline__ void each_own(F f) const {
+#pragma unroll
+    for (int j = 0; j < kOwnSites; ++j) {
+      const int sl = threadIdx.x + j * kThreads;
+      if (sl < Vl) f(row0() * g.Nth + sl);
+    }
+  }
+
+  // dst = A src at the block's rows, as RuShared::apply_A_to, the edge rows
+  // also stored into the neighbours' halo rows; every block of the cluster
+  // has passed the previous apply's stages before this one's first sync
+  __device__ __forceinline__ void apply_A_to(const float* src, float* dst) {
+#pragma unroll
+    for (int j = 0; j < kOwnSites; ++j) {
+      const int sl = threadIdx.x + j * kThreads, s = row0() * g.Nth + sl;
+      if (sl < Vl)
+        put(d(), sl,
+            make_float4(src[s], src[g.V2 + s], src[2 * g.V2 + s], src[3 * g.V2 + s]));
+    }
+    sync();
+    stage<true, false>(uo(), ue(), d(), 1, t1(), nullptr, 0.f, 0.f);
+    sync();
+    stage<true, true>(ue(), uo(), t1(), 0, t2(), d(), m, -c);
+    sync();
+    stage<false, false>(uo(), ue(), t2(), 1, t1(), nullptr, 0.f, 0.f);
+    sync();
+#pragma unroll
+    for (int j = 0; j < kOwnSites; ++j) {
+      const int sl = threadIdx.x + j * kThreads, h = sl + halo(), s = row0() * g.Nth + sl;
+      if (sl < Vl) {
+        Cx<float> h0, h1;
+        hop_site_shared<false>(ue(), uo(), t1(), h, nbrs(j, h, 0), Vh, h0, h1);
+        const float4 vs = t2()[h];
+        h0 = axpby(m, lo(vs), -c, h0);
+        h1 = axpby(m, hi(vs), -c, h1);
+        dst[s] = h0.re;
+        dst[g.V2 + s] = h0.im;
+        dst[2 * g.V2 + s] = h1.re;
+        dst[3 * g.V2 + s] = h1.im;
+      }
+    }
   }
 
   // store own site sl of a field, and a site of an edge row also into the
@@ -665,6 +794,100 @@ struct RuCluster : RuF64 {
   }
 };
 
+// f32 values a chain's MRE scratch holds per half-lattice site: A hist[0],
+// r1, x0 and the K - 1 pairs (v, w), a spinor of 4 floats each.
+__host__ __device__ inline int mre_values(int K) { return 4 * (3 + 2 * (K - 1)); }
+
+// The MRE forecast of one chain (K >= 2; pallas_df.py:454-492) on a store
+// of its vectors: returns x0, planar [4][V2] in the chain's scratch. Every
+// vector operation is f32 at the thread's own sites (each site read and
+// written by the thread that owns it, so only the applies and the sums
+// synchronise); each dot is accumulated in f64 and rounded to f32, the same
+// bits in every thread (and every block of a cluster), so every thread
+// takes the same keep decision.
+template <class Store>
+__device__ const float* mre_forecast(Store& S, const RuParams& p, int ch) {
+  const int V2 = S.g.V2, n = 4 * V2;
+  const size_t step = static_cast<size_t>(p.C) * n;  // hist[i] to hist[i + 1]
+  const float* base = p.hist + static_cast<size_t>(ch) * n;
+  const float* b = S.b;
+  float* w0 = p.mre + static_cast<size_t>(ch) * mre_values(p.K) * V2;
+  float* r1 = w0 + n;
+  float* x0 = r1 + n;
+  float* vs = x0 + n;
+  float* ws = vs + static_cast<size_t>(p.K - 1) * n;
+  S.apply_A_to(base, w0);
+  S.each_own([&](int s) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int i = q * V2 + s;
+      r1[i] = b[i] - w0[i];
+      x0[i] = base[i];
+    }
+  });
+  float nrm_max = 0.0f;
+  for (int k = 1; k < p.K; ++k) {
+    const float* h = base + k * step;
+    float* v = vs + static_cast<size_t>(k - 1) * n;
+    float* w = ws + static_cast<size_t>(k - 1) * n;
+    // the difference about the fixed base, so that (v, w = A v) stay a pair
+    S.apply_A_to(h, w);
+    S.each_own([&](int s) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int i = q * V2 + s;
+        v[i] = h[i] - base[i];
+        w[i] = w[i] - w0[i];
+      }
+    });
+    for (int j = 0; j < k - 1; ++j) {  // modified Gram-Schmidt
+      const float* vj = vs + static_cast<size_t>(j) * n;
+      const float* wj = ws + static_cast<size_t>(j) * n;
+      double acc = 0.0;
+      S.each_own([&](int s) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          acc += static_cast<double>(w[q * V2 + s]) * static_cast<double>(wj[q * V2 + s]);
+      });
+      const float cj = static_cast<float>(S.chain_sum(acc));
+      S.each_own([&](int s) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int i = q * V2 + s;
+          w[i] = fma_rn(-cj, wj[i], w[i]);
+          v[i] = fma_rn(-cj, vj[i], v[i]);
+        }
+      });
+    }
+    double acc = 0.0;
+    S.each_own([&](int s) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        acc += static_cast<double>(w[q * V2 + s]) * static_cast<double>(w[q * V2 + s]);
+    });
+    const float nrm = static_cast<float>(S.chain_sum(acc));
+    nrm_max = k == 1 ? nrm : fmaxf(nrm_max, nrm);
+    // drop a direction degenerate beyond the f32 Gram-Schmidt noise floor
+    const float inv = nrm > 1e-8f * nrm_max ? __frsqrt_rn(fmaxf(nrm, FLT_MIN)) : 0.0f;
+    acc = 0.0;
+    S.each_own([&](int s) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int i = q * V2 + s;
+        w[i] *= inv;
+        v[i] *= inv;
+        acc += static_cast<double>(r1[i]) * static_cast<double>(w[i]);
+      }
+    });
+    const float a = static_cast<float>(S.chain_sum(acc));
+    S.each_own([&](int s) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) x0[q * V2 + s] = fma_rn(a, v[q * V2 + s], x0[q * V2 + s]);
+    });
+  }
+  return x0;
+}
+
 // What follows the loop on every path: the chain's outputs and, for a chain
 // left unconverged when the caller asked for it, the f64 fallback from x64
 // (already written). fbw: the fallback's scratch.
@@ -732,7 +955,12 @@ __global__ void __launch_bounds__(kThreads, 1) solve_ru_shared_kernel(const RuPa
   make_links_shared(p.thO + (size_t)ch * 2 * V2, 1, S.uo, g);
   make_links<double>(p.thE + (size_t)ch * 2 * V2, 0, S.ue64, g);
   make_links<double>(p.thO + (size_t)ch * 2 * V2, 1, S.uo64, g);
-  S.init(p.x0 + (size_t)ch * 4 * V2);
+  const float* x0 = p.hist + (size_t)ch * 4 * V2;
+  if (p.K > 1) {
+    S.init_sites();
+    x0 = mre_forecast(S, p, ch);
+  }
+  S.init(x0);
 
   int iters;
   const bool conv = ru_loop(S, p, iters);
@@ -763,9 +991,14 @@ __global__ void __launch_bounds__(kThreads, 1) solve_ru_cluster_kernel(const RuP
   // visible after the first sync
   make_links_range<double>(thE, 0, S.ue64, g, rank * Vl, (rank + 1) * Vl);
   make_links_range<double>(thO, 1, S.uo64, g, rank * Vl, (rank + 1) * Vl);
-  S.init(p.x0 + (size_t)ch * 4 * V2);
   // every block of the cluster runs before any writes into another's halo
   S.sync();
+  const float* x0 = p.hist + (size_t)ch * 4 * V2;
+  if (p.K > 1) {
+    S.init_sites();
+    x0 = mre_forecast(S, p, ch);
+  }
+  S.init(x0);
 
   int iters;
   const bool conv = ru_loop(S, p, iters);
@@ -796,7 +1029,11 @@ __global__ void __launch_bounds__(kThreads) solve_ru_global_kernel(const RuParam
   make_links<float>(p.thO + (size_t)ch * 2 * V2, 1, S.uo, g);
   make_links<double>(p.thE + (size_t)ch * 2 * V2, 0, S.ue64, g);
   make_links<double>(p.thO + (size_t)ch * 2 * V2, 1, S.uo64, g);
-  const float* x0 = p.x0 + (size_t)ch * n;
+  const float* x0 = p.hist + (size_t)ch * n;
+  if (p.K > 1) {
+    x0 = mre_forecast(S, p, ch);
+    __syncthreads();  // x0 was written by the owners of its sites
+  }
   for (int i = threadIdx.x; i < n; i += kThreads) S.x64[i] = static_cast<double>(x0[i]);
 
   int iters;
@@ -806,7 +1043,9 @@ __global__ void __launch_bounds__(kThreads) solve_ru_global_kernel(const RuParam
 
 }  // namespace sm
 
-// thE, thO: f32 [C, 2, Nx, Nth]; b, x0, x: f32 and x64: f64 [C, 2, 2, Nx, Nth];
+// thE, thO: f32 [C, 2, Nx, Nth]; b, x: f32 and x64: f64 [C, 2, 2, Nx, Nth];
+// hist: f32 [K, C, 2, 2, Nx, Nth], the start (K = 1) or the MRE history,
+// newest first; mre: for K >= 2 f32 [C, mre_values(K) V2], else unused;
 // iters, fb_iters: int32 [C]; conv: one byte per chain; clocks: null or int64
 // [C, 2]. path 0: every vector in the scratch, s32 f32 [C, 28 V2] and s64 f64
 // [C, 20 V2] (32 V2 with the fallback); path 1: the f32 recursion in the
@@ -816,16 +1055,20 @@ __global__ void __launch_bounds__(kThreads) solve_ru_global_kernel(const RuParam
 // path 3: `cluster` blocks a chain (2 to 8, a divisor of Nx; a block's
 // Nx / cluster rows hold at most 2048 sites and, with two halo rows, 220
 // KiB), scratch as on path 1.
-extern "C" int solve_ru_launch(const void* thE, const void* thO, const void* b, const void* x0,
-                               void* x, void* x64, void* iters, void* fb_iters, void* conv,
+extern "C" int solve_ru_launch(const void* thE, const void* thO, const void* b, const void* hist,
+                               int K, void* mre, void* x, void* x64, void* iters, void* fb_iters, void* conv,
                                void* s32, void* s64, void* clocks, int C, int Nx, int Nth,
                                double m0, double tol, double tau, int max_iter, int max_outer,
                                int certify, int cert_k, int fallback, int fb_max_iter,
                                int fb_max_rounds, int path, int cluster, void* stream) {
+  if (K < 1 || (K > 1 && mre == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   const sm::RuParams p{static_cast<const float*>(thE),
                        static_cast<const float*>(thO),
                        static_cast<const float*>(b),
-                       static_cast<const float*>(x0),
+                       static_cast<const float*>(hist),
+                       static_cast<float*>(mre),
+                       K,
+                       C,
                        static_cast<float*>(x),
                        static_cast<double*>(x64),
                        static_cast<int*>(iters),

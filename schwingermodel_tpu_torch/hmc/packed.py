@@ -2,10 +2,11 @@
 
 Counterpart of ``trajectory_packed_given_noise`` and
 ``hmc_trajectory_packed`` in ``schwingermodel_tpu/hmc/packed.py``, every
-branch of it except MRE forecasting: even-odd pseudofermions, f32 working
-precision, either solver contract, the leapfrog or the Omelyan 2MN
-integrator, one pseudofermion or the Hasenbusch split, the
-chronological forecast (or none).
+branch of it: even-odd pseudofermions, f32 working precision, either
+solver contract, the leapfrog or the Omelyan 2MN integrator, one
+pseudofermion or the Hasenbusch split, the chronological forecast (or
+none), and under the refined contract the MRE forecast over the last
+mre_history force solutions.
 
 - Refined contract (cg.refine): every solve is one launch of K3, which
   under cg.fallback ends with K4's f64 CG for the chains its f32 recursion
@@ -14,6 +15,11 @@ chronological forecast (or none).
   force step is K1 with_solve=False.
 - Loose contract: the force step is K1 with_solve=True (the f32 CG in the
   same launch), every other solve is K2, all at cg.tol. No K4.
+- MRE forecasting (mre_history = K >= 2; refined, forecasting, one
+  pseudofermion, as the JAX package uses it): the force history is the
+  last K solutions, newest first, pushed after every force solve (K copies
+  of Phi before the first), and every force solve and the action solve
+  start from K3's MRE forecast over it, computed in the same launch.
 - Hasenbusch (hasenbusch_dm): phi1 = Dhat1 chi1, phi2 = Dhat1^+ y with
   Dhat1 Dhat1^+ y = Dhat0 chi2 solved at the full cg.tol, so that
   S1_old + S2_old = |chi1|^2 + |chi2|^2. Each force evaluation is the heavy
@@ -74,17 +80,12 @@ def packed_eligible(model: SchwingerModel) -> bool:
 
 def packed_supported(model: SchwingerModel) -> None:
     """Raise NotImplementedError unless the packed trajectory runs this
-    model: it is off the packed path, or it asks for MRE forecasting, which
-    is not ported yet."""
+    model: it is off the packed path."""
     off = _off_path(model)
     if off:
         raise NotImplementedError(
             "the packed trajectory does not run " + "; ".join(off)
             + " (the unpacked sampler, hmc/sampler.py, does)")
-    if uses_mre(model):
-        raise NotImplementedError(
-            "not yet ported to schwingermodel_tpu_torch: MRE forecasting "
-            "(mre_history >= 2)")
 
 
 def uses_mre(model: SchwingerModel) -> bool:
@@ -126,7 +127,8 @@ def trajectory_packed_given_noise(model: SchwingerModel, theta, pi, chi, r,
     cert_k = int(cg.cert_k) if cg.certify_forces else max_iter
 
     def solve(thE, thO, b, x0, tol_, certify, mass):
-        """Refined: K3 with the f64 fallback in the same launch; loose: K2
+        """Refined: K3 with the f64 fallback in the same launch, from the
+        start x0 or the MRE forecast over a history [K, C, ...]; loose: K2
         at cg.tol (the JAX loose branch has no separate force tolerance and
         no fallback)."""
         if not refined:
@@ -178,10 +180,15 @@ def trajectory_packed_given_noise(model: SchwingerModel, theta, pi, chi, r,
 
     # forecast histories [psi_1, psi_2]: the (heavy) system of rhs phi, and
     # under Hasenbusch the light/ratio system of rhs Dhat1 phi2, which
-    # equals Dhat0 chi2 = b_hb at the initial theta
-    fc = [[phi, phi]] + ([[b_hb, b_hb]] if hb else [])
+    # equals Dhat0 chi2 = b_hb at the initial theta; under MRE the last K
+    # solutions of the one system
+    mre = uses_mre(model)
+    fc = ([[phi] * h.mre_history] if mre
+          else [[phi, phi]] + ([[b_hb, b_hb]] if hb else []))
 
     def x0_of(hist, default):
+        if mre:
+            return torch.stack(hist)
         if not forecast:
             return default
         return 2.0 * hist[0] - hist[1] if leap else hist[0]
@@ -199,8 +206,8 @@ def trajectory_packed_given_noise(model: SchwingerModel, theta, pi, chi, r,
                                       beta=beta)
             FE, FO, new = res.FE + FE2, res.FO + FO2, [psi1, sol2.x]
             it, cv = it1 + sol2.iters, cv1 & sol2.converged
-        if forecast:
-            fc = [[psi, hist[0]] for psi, hist in zip(new, fc)]
+        if forecast:       # push, newest first
+            fc = [[psi] + hist[:-1] for psi, hist in zip(new, fc)]
         return FE, FO, fc, iters + it, conv & cv
 
     thE, thO = th0E, th0O
@@ -210,7 +217,8 @@ def trajectory_packed_given_noise(model: SchwingerModel, theta, pi, chi, r,
         thE = thE + (0.5 * dt) * piE
         thO = thO + (0.5 * dt) * piO
         FE, FO, fc, iters, conv = force(thE, thO, fc, iters, conv)
-        fc = [[hist[0], hist[0]] for hist in fc]    # no history yet: x0 = psi_1
+        if not mre:         # no history yet: x0 = psi_1
+            fc = [[hist[0], hist[0]] for hist in fc]
         for _ in range(h.md_steps - 2):
             piE = piE + dt * FE
             piO = piO + dt * FO
@@ -223,6 +231,8 @@ def trajectory_packed_given_noise(model: SchwingerModel, theta, pi, chi, r,
         thO = thO + (0.5 * dt) * piO
         # the action solve sits half a step beyond the last force solve
         x_act = [1.5 * hist[0] - 0.5 * hist[1] for hist in fc]
+        if mre:             # or starts from the MRE forecast over the history
+            x_act = [torch.stack(fc[0])]
     else:
         # Omelyan 2MN (hmc/integrators.omelyan): 2 md_steps force
         # evaluations, the forecast from psi_1
@@ -250,7 +260,7 @@ def trajectory_packed_given_noise(model: SchwingerModel, theta, pi, chi, r,
         for step in range(h.md_steps):
             carry = half_step(*carry, step < h.md_steps - 1)
         thE, thO, piE, piO, FE, FO, fc, iters, conv = carry
-        x_act = [hist[0] for hist in fc]
+        x_act = [torch.stack(fc[0])] if mre else [hist[0] for hist in fc]
 
     # action solves at cg.tol, certified; S_f(new) in f64
     if hb:

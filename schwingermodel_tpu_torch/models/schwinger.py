@@ -280,7 +280,7 @@ class SchwingerModel:
         """The plain CG of every non-fused solve."""
         return cg_solve_single_reduction(
             apply_A, b, self._dot_re, self._dot_batch_re, x0=x0, tol=tol,
-            max_iter=int(self.hmc.cg.max_iter))
+            max_iter=int(self.hmc.cg.max_iter), graph=self.geom.graph_safe)
 
     def _use_fused_cg(self, b: torch.Tensor) -> bool:
         """hmc.fused_cg without a mesh: True = K6 (its plain twin on CPU

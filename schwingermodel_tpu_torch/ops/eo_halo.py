@@ -66,9 +66,9 @@ def extend(geom: ShardedGeometry, a: torch.Tensor, w: int = W) -> torch.Tensor:
 
 def _ext_offsets(geom: ShardedGeometry, Nx: int, w: int, device=None):
     """(off_e, off_o) of the extended rows, int32 site tensors
-    [1, rx, 1, Nx+2w, 1], from the global row index."""
-    rx = geom.mesh.axis_size(geom.x_name)
-    ix = geom.mesh.axis_index(geom.x_name, device).reshape(1, rx, 1, 1, 1)
+    [1, rx, 1, Nx+2w, 1] (or [1, 1, 1, ...]: this process's shard), from
+    the global row index."""
+    ix = geom.mesh.axis_index(geom.x_name, device).reshape(1, -1, 1, 1, 1)
     j = torch.arange(Nx + 2 * w, device=device).reshape(1, 1, 1, -1, 1)
     off_e = ((ix * Nx + j - w) % 2).to(torch.int32)
     return off_e, 1 - off_e

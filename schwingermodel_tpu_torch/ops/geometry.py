@@ -10,7 +10,8 @@ and every operator it uses are written against
 ``ShardedGeometry`` is a lattice cut into rx x rt blocks over a mesh
 (parallel/mesh.py): shift is a local roll plus a one-slice halo fix through
 ``mesh.ppermute``, reductions are local sums plus ``mesh.psum``, and the
-global coordinates come from the shard index.
+global coordinates come from the shard index. The mesh holds every shard
+on one device, or this process's shard of a mesh across processes.
 
 Layouts. x is axis -2, t is axis -1 of every field. The leading axes are
 batch axes: ``[C, ...]`` without a mesh, ``[C, rx, rt, ...]`` on one (a JAX
@@ -55,6 +56,9 @@ class Geometry:
 
     is_sharded = False
     batch_ndim = 1
+    # whether a CUDA graph may capture an operator through this geometry
+    # (a mesh across processes communicates through the host)
+    graph_safe = True
 
     def shift(self, a: torch.Tensor, axis: int, delta: int) -> torch.Tensor:
         """b with b[..., n] = a[..., n + delta * hat(axis)]: gathering the
@@ -94,6 +98,7 @@ class ShardedGeometry(Geometry):
     def __init__(self, mesh):
         self.mesh = mesh
         self.x_name, self.t_name = mesh.axis_names
+        self.graph_safe = mesh.graph_safe
 
     def _mesh_axis(self, axis: int) -> str:
         # fields are [..., x, t]: axis -2 (even) -> x, axis -1 (odd) -> t
@@ -127,14 +132,14 @@ class ShardedGeometry(Geometry):
         return self.mesh.psum(torch.stack(locals_, dim=-1))
 
     def global_coords(self, Nx: int, Nt: int, device=None):
-        """Global coordinates of every shard's sites, site tensors
-        [1, rx, rt, Nx, Nt]; Nx, Nt are the local extents."""
-        rx, rt = self.mesh.shape
-        ix = self.mesh.axis_index(self.x_name, device).reshape(1, rx, 1, 1, 1)
-        it = self.mesh.axis_index(self.t_name, device).reshape(1, 1, rt, 1, 1)
+        """Global coordinates of the shards' sites, site tensors
+        [1, rx, rt, Nx, Nt] (every shard) or [1, 1, 1, Nx, Nt] (this
+        process's); Nx, Nt are the local extents."""
+        ix = self.mesh.axis_index(self.x_name, device).reshape(1, -1, 1, 1, 1)
+        it = self.mesh.axis_index(self.t_name, device).reshape(1, 1, -1, 1, 1)
         x = torch.arange(Nx, device=device).reshape(1, 1, 1, Nx, 1) + ix * Nx
         t = torch.arange(Nt, device=device).reshape(1, 1, 1, 1, Nt) + it * Nt
-        shape = (1, rx, rt, Nx, Nt)
+        shape = (1, ix.shape[1], it.shape[2], Nx, Nt)
         return x.expand(shape), t.expand(shape)
 
 

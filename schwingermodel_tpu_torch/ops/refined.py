@@ -11,7 +11,10 @@ algorithm and uses f64 for that half.
   accumulated in f64 and reliable updates of the residual by the f64 true
   residual. With ``fallback=True`` the chains it leaves unconverged go on
   as K4's f64 CG at the end of the same launch (the ``lax.cond`` of
-  ``solve_refined_fused``): one launch per refined solve.
+  ``solve_refined_fused``): one launch per refined solve. Given a history
+  of K >= 2 earlier solutions in place of the start, the launch begins
+  with the MRE forecast over it (``mre_forecast_reference`` is its plain
+  twin).
 - ``solve_f64_cg_fallback`` is K4 as an entry of its own
   (``csrc/cg_fallback.cu``, replacing ``pallas_df._df_cg_fb_kernel``): the
   same f64 CG continuation (``csrc/cg_fallback.cuh``) for the entries the
@@ -119,12 +122,79 @@ def _solve_ru_chain(ue, uo, ue64, uo64, b, x0, m0, tol, tau, max_iter,
     return x, iters, bool(rho_df < stop2)
 
 
+def mre_forecast_reference(thE, thO, b, hist, *, m0) -> torch.Tensor:
+    """Plain twin of K3's MRE forecast (chronological inversion, the K > 1
+    branch of ``pallas_df._solve_ru_kernel``): the start x0 = psi_1 + d, d
+    the minimum-residual correction over span{psi_i - psi_1}, taken in the
+    difference space about the newest solution psi_1 = hist[0].
+
+    thE/thO f32 [C, 2, Nx, Nth]; b [C, 2, 2, Nx, Nth]; hist [K, C, 2, 2,
+    Nx, Nth], newest first, f32 (as the TPU kernel) or f64. The working
+    precision is hist's: the operator A = Dhat Dhat^+ from links of that
+    precision, every vector operation in it, each dot the real Re<u, v>
+    accumulated in f64 and rounded to it. Per chain: w0 = A psi_1, r1 = b -
+    w0; for i = 1..K-1, v = psi_i - psi_1 and w = A psi_i - w0, modified
+    Gram-Schmidt of (w, v) against the earlier pairs, w and v scaled to a
+    unit w where |w|^2 > 1e-8 of the largest |w|^2 so far (else dropped:
+    a duplicate history gives x0 = psi_1 exactly), x0 += <r1, w> v.
+    Returns x0 [C, 2, 2, Nx, Nth] in hist's dtype."""
+    real = hist.dtype
+    ue, uo = gauge.links(thE, thO, torch.complex64 if real == torch.float32
+                         else torch.complex128)
+
+    def A(v):
+        return to_planar(eo.normal(ue, uo, to_complex(v), m0))
+
+    def dot(u, v):
+        return (u.double() * v.double()).sum(dim=(1, 2, 3, 4),
+                                             keepdim=True).to(real)
+
+    tiny = torch.finfo(real).tiny
+    base = hist[0]
+    w0 = A(base)
+    r1 = b.to(real) - w0
+    x0 = base
+    vs, ws, nrm_max = [], [], None
+    for i in range(1, hist.shape[0]):
+        # about the fixed base, not the accumulating x0: (v, w = A v) stay
+        # a consistent pair
+        v = hist[i] - base
+        w = A(hist[i]) - w0
+        for vj, wj in zip(vs, ws):
+            c = dot(w, wj)
+            w = w - c * wj
+            v = v - c * vj
+        nrm = dot(w, w)
+        nrm_max = nrm if nrm_max is None else torch.maximum(nrm_max, nrm)
+        inv = torch.where(nrm > 1e-8 * nrm_max,
+                          torch.rsqrt(torch.clamp(nrm, min=tiny)),
+                          torch.zeros_like(nrm))
+        w, v = inv * w, inv * v
+        x0 = x0 + dot(r1, w) * v
+        vs.append(v)
+        ws.append(w)
+    return x0
+
+
+def _start(thE, thO, b, x0, m0):
+    """The start of a solve from K3's x0 argument: a start [C, ...] as it
+    is, a history [K, C, ...] its newest entry (K = 1) or its MRE
+    forecast."""
+    if x0.ndim == b.ndim:
+        return x0
+    if x0.shape[0] == 1:
+        return x0[0]
+    return mre_forecast_reference(thE, thO, b, x0, m0=m0)
+
+
 def solve_refined_reference(thE, thO, b, x0, *, m0, tol, tau=1e-5,
                             max_iter=10000, max_outer=12, certify=True,
                             cert_k=192, fallback=False,
                             fb_max_iter=None) -> RefinedSolveResult:
-    """Plain twin of K3, chain by chain; with the fallback, the plain twin
-    of K4 on its result."""
+    """Plain twin of K3, chain by chain, from the start or the history x0
+    (``solve_refined``); with the fallback, the plain twin of K4 on its
+    result."""
+    x0 = _start(thE, thO, b, x0, m0)
     ue, uo = gauge.links(thE, thO)
     ue64, uo64 = gauge.links(thE, thO, torch.complex128)
     bc, x0c = to_complex(b), to_complex(x0)
@@ -196,6 +266,13 @@ def ru_path_name(Nx: int, Nth: int, C: int, sms: int = _cuda.H100_SMS) -> str:
     return ("global", "shared", "all shared", f"cluster of {n}")[path]
 
 
+def _mre_values(K: int) -> int:
+    """f32 values per half-lattice site and chain of K3's MRE scratch
+    (solve_ru.cu mre_values): A hist[0], r1, x0 and the K - 1 pairs (v, w),
+    a spinor of 4 floats each."""
+    return 4 * (3 + 2 * (K - 1))
+
+
 def _ru_scratch(path: int, fallback: bool):
     """(f32, f64) scratch values per half-lattice site and chain
     (solve_ru.cu): the f32 planes on the global path; the f64 links (8)
@@ -210,9 +287,14 @@ def solve_refined(thE, thO, b, x0, *, m0, tol, tau=1e-5, max_iter=10000,
                   max_outer=12, certify=True, cert_k=192, fallback=False,
                   fb_max_iter=None, clocks=None) -> RefinedSolveResult:
     """K3: (Dhat Dhat^+)^{-1} b to relative tolerance `tol`, certified on
-    the f64 true residual, from the start x0.
+    the f64 true residual, from the start x0, or from the MRE forecast over
+    a history of earlier solutions.
 
-    thE/thO f32 [C, 2, Nx, Nth]; b, x0 f32 [C, 2, 2, Nx, Nth]. tau: the
+    thE/thO f32 [C, 2, Nx, Nth]; b f32 [C, 2, 2, Nx, Nth]; x0 f32 the start
+    [C, 2, 2, Nx, Nth] or a history [K, C, 2, 2, Nx, Nth], newest first
+    (``pallas_df.solve_refined_fused``'s hist): K = 1 starts from hist[0],
+    K >= 2 from the MRE forecast over it (``mre_forecast_reference``),
+    computed at the start of the same launch. tau: the
     contraction of the recursive residual between true-residual
     replacements. certify=False (the MD force solves) trusts the recursive
     exit for segments shorter than cert_k iterations. converged: the last
@@ -236,7 +318,9 @@ def solve_refined(thE, thO, b, x0, *, m0, tol, tau=1e-5, max_iter=10000,
     _cuda.check(thE, "thE", torch.float32, (C, 2, Nx, Nth))
     _cuda.check(thO, "thO", torch.float32, (C, 2, Nx, Nth))
     _cuda.check(b, "b", torch.float32, (C, 2, 2, Nx, Nth))
-    _cuda.check(x0, "x0", torch.float32, (C, 2, 2, Nx, Nth))
+    hist = x0 if x0.ndim == 6 else x0[None]
+    K = hist.shape[0]
+    _cuda.check(hist, "x0", torch.float32, (K, C, 2, 2, Nx, Nth))
     if clocks is not None:
         _cuda.check(clocks, "clocks", torch.int64, (C, 2))
     dev = b.device
@@ -248,9 +332,12 @@ def solve_refined(thE, thO, b, x0, *, m0, tol, tau=1e-5, max_iter=10000,
     conv = torch.empty(C, dtype=torch.bool, device=dev)
     s32 = torch.empty(C * n32 * Nx * Nth, dtype=torch.float32, device=dev)
     s64 = torch.empty(C * n64 * Nx * Nth, dtype=torch.float64, device=dev)
+    mre = (torch.empty(C * _mre_values(K) * Nx * Nth, dtype=torch.float32,
+                       device=dev) if K > 1 else None)
     p = _cuda.ptr
     _cuda.KERNELS.call(
-        "solve_ru_launch", p(thE), p(thO), p(b), p(x0), p(x), p(x64),
+        "solve_ru_launch", p(thE), p(thO), p(b), p(hist), K,
+        None if mre is None else p(mre), p(x), p(x64),
         p(counts[0]), p(counts[1]), p(conv), p(s32), p(s64),
         None if clocks is None else p(clocks), C, Nx, Nth, float(m0),
         float(tol), float(tau), int(max_iter), int(max_outer),

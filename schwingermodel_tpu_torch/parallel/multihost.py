@@ -1,15 +1,28 @@
-"""Multi-process runs: one chain group per process.
+"""Multi-process runs: chain groups, each over one process or a lattice
+mesh of them.
 
 Counterpart of ``schwingermodel_tpu/parallel/multihost.py``. The reference
 scales with one flat MPI world (``mpirun -n N``, include/mpi_setup.h:39-71);
 the JAX package brings up ``jax.distributed`` and builds a global
-('chain', 'x', 't') mesh whose chain axis spans the processes. Here a run
-of N processes is N chain groups: process i holds chains
-[i C/N, (i+1) C/N) on its own device, with the lattice whole there, and no
-collective runs inside a trajectory (the chains are independent). What
-crosses processes is small: the block statistics and the observables,
-gathered once per block, the pooled acceptance of the step-size warm-up,
-once per warm-up trajectory, and the configuration for I/O.
+('chain', 'x', 't') mesh over the devices of every process. Here a process
+drives one device, so a run of N processes is the mesh (rc, rx, rt) with
+rc rx rt = N, rank r at (c, i, j) chain-major (r = c rx rt + i rt + j), as
+JAX's device grid:
+
+- rx = rt = 1 (``multihost_mesh()``): N chain groups, process i holds
+  chains [i C/N, (i+1) C/N) on its own device, with the lattice whole
+  there, and no collective runs inside a trajectory (the chains are
+  independent);
+- a lattice mesh (``multihost_mesh(rx, rt)``): rc chain groups, each cut
+  over the rx rt processes of its plane, one shard a process, through a
+  ``parallel.mesh.DistLatticeMesh`` (halo exchanges and psums inside the
+  trajectory; the configuration gathered on the plane after each).
+
+What crosses the chain groups is small: the block statistics and the
+observables, gathered once per block, the pooled acceptance of the
+step-size warm-up, once per warm-up trajectory, and the configuration for
+I/O. Every process of a plane holds its group's results bit for bit, so a
+gather takes one process a plane.
 
 I/O follows the reference's rank-0 pattern (gauge_conf.cpp:378-419): every
 process computes, only the primary writes; ``gather_global`` assembles the
@@ -34,7 +47,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-_state = {"initialized": False, "nccl": None, "devices": 1, "backend": None}
+# plane: the processes of one chain group (rx rt of a lattice mesh, else 1)
+_state = {"initialized": False, "nccl": None, "devices": 1, "backend": None,
+          "plane": 1}
 
 
 def _multi(var: str) -> bool:
@@ -110,7 +125,8 @@ def shutdown() -> None:
 
     if _state["initialized"]:
         dist.destroy_process_group()
-        _state.update(initialized=False, nccl=None, devices=1, backend=None)
+        _state.update(initialized=False, nccl=None, devices=1, backend=None,
+                      plane=1)
 
 
 def _dist():
@@ -151,12 +167,15 @@ def local_device(device: str = "cuda") -> torch.device:
 
 @dataclasses.dataclass(frozen=True)
 class ChainMesh:
-    """The multi-process layout ('chain', 'x', 't') = (processes, 1, 1):
-    chain group ``index`` of ``shape[0]``, each with the lattice whole on
-    its process's device."""
+    """The multi-process layout ('chain', 'x', 't') = (rc, rx, rt): chain
+    group ``index`` of ``shape[0]``, with the lattice whole on its
+    process's device (rx = rt = 1), or cut over the rx rt processes of its
+    plane, this process's shard through ``lattice`` (a
+    parallel.mesh.DistLatticeMesh)."""
 
     shape: Tuple[int, int, int]
     index: int
+    lattice: Optional[object] = dataclasses.field(default=None, compare=False)
 
     @property
     def groups(self) -> int:
@@ -171,20 +190,59 @@ class ChainMesh:
         return slice(self.index * n, (self.index + 1) * n)
 
 
-def multihost_mesh() -> ChainMesh:
-    """The default multi-process mesh: the chain axis across processes and
-    the lattice whole on each process's one device, (process_count, 1, 1).
-    The JAX package tiles a process's local devices with the lattice axes
-    (``choose_mesh_shape``); a process here drives one device, so that
-    tiling is 1 x 1."""
-    return ChainMesh((process_count(), 1, 1), process_index())
+def multihost_mesh(rx: int = 1, rt: int = 1) -> ChainMesh:
+    """The multi-process mesh (process_count / (rx rt), rx, rt): by default
+    the chain axis across processes and the lattice whole on each
+    process's one device (the JAX package tiles a process's local devices
+    with the lattice axes, ``choose_mesh_shape``; a process here drives one
+    device, so that tiling is 1 x 1); with rx rt > 1 a lattice mesh of one
+    shard a process, ranks chain-major. Every process must call it, with
+    the same shape: it creates the process groups of every plane."""
+    world, rank = process_count(), process_index()
+    n = rx * rt
+    if n < 1 or world % n:
+        raise ValueError(f"mesh {rx}x{rt} does not divide {world} processes")
+    _state["plane"] = n
+    lattice = _dist_lattice_mesh(rx, rt) if n > 1 else None
+    return ChainMesh((world // n, rx, rt), rank // n, lattice)
+
+
+def _dist_lattice_mesh(rx: int, rt: int):
+    """This process's DistLatticeMesh, after creating every plane's process
+    groups (the plane, its x rings, its t rings) in the same order on every
+    process, as torch.distributed requires; on NCCL where each process has
+    its own card."""
+    import torch.distributed as dist
+
+    from schwingermodel_tpu_torch.parallel.mesh import DistLatticeMesh
+
+    world, rank, n = process_count(), process_index(), rx * rt
+    nccl = _state["backend"] == "nccl"
+    mine = {}
+    for base in range(0, world, n):
+        spans = [(("x", "t"), [base + k for k in range(n)])]
+        if rx > 1:
+            spans += [(("x",), [base + i * rt + j for i in range(rx)])
+                      for j in range(rt)]
+        if rt > 1:
+            spans += [(("t",), [base + i * rt + j for j in range(rt)])
+                      for i in range(rx)]
+        for key, ranks in spans:
+            group = dist.new_group(ranks, backend="nccl" if nccl else None)
+            if rank in ranks:
+                mine[key] = group
+    base, k = divmod(rank, n)
+    return DistLatticeMesh((rx, rt), divmod(k, rt),
+                           tuple(base * n + q for q in range(n)), mine,
+                           nccl=nccl, p2p=_state["nccl"])
 
 
 def gather_chains(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
     """A per-chain tensor of this process's chains along ``dim`` -> the
-    global one, every process's chains in global (rank) order, as a CPU
-    tensor on every process (one process: a CPU copy). A 0-d tensor
-    becomes one entry a process."""
+    global one, every chain group's chains in global (rank) order, as a CPU
+    tensor on every process (one process: a CPU copy); of a lattice mesh's
+    plane, whose processes hold the same values, its first process's. A
+    0-d tensor becomes one entry a chain group."""
     src = (x.reshape(1) if x.ndim == 0 else x).detach()
     dist = _dist()
     if dist is None:
@@ -195,7 +253,8 @@ def gather_chains(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
         wire = wire.cpu()
     parts = [torch.empty_like(wire) for _ in range(dist.get_world_size())]
     dist.all_gather(parts, wire, group=group)
-    return torch.cat([p.cpu().to(src.dtype) for p in parts], dim=dim)
+    return torch.cat([p.cpu().to(src.dtype) for p in parts[::_state["plane"]]],
+                     dim=dim)
 
 
 def gather_global(x) -> np.ndarray:
@@ -219,6 +278,12 @@ def broadcast_scalar(value: float) -> float:
 def describe() -> Tuple[int, int, int]:
     """(process_index, process_count, local_device_count) for banners."""
     return process_index(), process_count(), torch.cuda.device_count()
+
+
+def shares_devices() -> bool:
+    """True where the processes share cards (or a host's CPU): fewer
+    distinct devices than processes, which is not a multi-GPU run."""
+    return _state["devices"] < process_count()
 
 
 def layout() -> str:

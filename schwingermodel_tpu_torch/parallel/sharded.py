@@ -20,7 +20,13 @@ Across processes (parallel/multihost.py) the chains are cut into groups,
 one a process, each with the lattice whole on its device:
 ``make_chain_sharded_packed_traj_fn`` runs a group's chains through the
 packed main path (K1, K3 with K4 inside its launch) with no collective,
-each chain on the noise of its global index.
+each chain on the noise of its global index. On a lattice mesh across
+processes (a ``DistLatticeMesh``, one shard a process) each chain group is
+cut over its plane's processes: ``make_sharded_traj_fn`` with that mesh
+runs the same step on this process's shard, the global configuration of
+the group on every process of the plane before and after it (its blocks
+gathered on the plane after each trajectory), so the measurements are the
+one-process mesh's.
 """
 
 from __future__ import annotations
@@ -32,24 +38,26 @@ from schwingermodel_tpu_torch.hmc import sampler
 from schwingermodel_tpu_torch.models.schwinger import SchwingerModel
 from schwingermodel_tpu_torch.ops.geometry import ShardedGeometry
 from schwingermodel_tpu_torch.parallel.multihost import ChainMesh
-from schwingermodel_tpu_torch.parallel.mesh import (
-    T_AXIS_NAME, LatticeMesh, shard, unshard,
-)
+from schwingermodel_tpu_torch.parallel.mesh import T_AXIS_NAME, shard, unshard
 
 
-def sharded_model(model: SchwingerModel, mesh: LatticeMesh) -> SchwingerModel:
+def sharded_model(model: SchwingerModel, mesh) -> SchwingerModel:
     """The same model with the mesh's ppermute/psum geometry."""
     return dataclasses.replace(model, geom=ShardedGeometry(mesh))
 
 
-def make_sharded_traj_fn(model: SchwingerModel, mesh: LatticeMesh):
+def make_sharded_traj_fn(model: SchwingerModel, mesh, chain_group: int = 0):
     """The sharded HMC step ``step(theta, seed, traj_index, dt=None,
     beta=None) -> (theta', stats)`` on the global theta [C, 2, Nx, Nt]; the
-    noise is that of the unsharded paths (``sampler.draw_chain_noise``).
+    noise is that of the unsharded paths (``sampler.draw_chain_noise``), of
+    the chains chain_group x C .. (a chain group of several).
     ``step.given_noise(theta, pi, chi, r, dt=None, beta=None)`` is the same
     update on pre-drawn global noise. Every mode of the sampler runs here;
     under Hasenbusch the heavy and the ratio solves go through K7's sharded
-    CG and the forces through the plain geometry."""
+    CG and the forces through the plain geometry. mesh: a LatticeMesh (every
+    shard here) or a DistLatticeMesh (this process's shard; theta and the
+    noise are the group's global fields on every process of its plane, and
+    so is theta')."""
     rx, rt = mesh.shape
     lat = model.lattice
     if lat.Nx % rx or lat.Nt % rt:
@@ -68,8 +76,9 @@ def make_sharded_traj_fn(model: SchwingerModel, mesh: LatticeMesh):
         return unshard(theta_s, mesh), st
 
     def step(theta, seed: int, traj_index: int, dt=None, beta=None):
-        pi, chi, r = sampler.draw_chain_noise(model, seed, traj_index,
-                                              theta.shape[0], theta.device)
+        C = theta.shape[0]
+        pi, chi, r = sampler.draw_chain_noise(model, seed, traj_index, C,
+                                              theta.device, chain_group * C)
         return given_noise(theta, pi, chi, r, dt, beta)
 
     step.given_noise = given_noise

@@ -29,12 +29,13 @@ are the same with and without a mesh. The warm-up reads the pooled
 acceptance once per trajectory (the next step size depends on it).
 
 Across processes (``mesh=parallel.multihost.multihost_mesh()``, one
-chain group a process) each process holds its slice of the chains: its
-slice of the one-process hot start, and the noise of each chain's global
-index. The block statistics are kept per chain and gathered once per block
-in global chain order, then reduced in that order on the host, as the
-observables are at the end of the run, so the averages are those of one
-process holding every chain. SimData, configurations and ill
+chain group a process, or ``multihost_mesh(rx, rt)``, one a plane of rx rt
+processes, each with one shard of its group's lattice) each process holds
+its group's slice of the chains: its slice of the one-process hot start,
+and the noise of each chain's global index. The block statistics are kept
+per chain and gathered once per block in global chain order, then reduced
+in that order on the host, as the observables are at the end of the run,
+so the averages are those of one process holding every chain. SimData, configurations and ill
 configurations are written by the primary only, after the gather (JAX
 runner.py:262,339-356,535-537).
 """
@@ -69,12 +70,14 @@ def _traj_fn(model: SchwingerModel, mesh, chains=None) -> Callable:
     """The trajectory step (theta, seed, traj_index, dt=None) -> (theta',
     stats): the sharded step on a mesh; without one the packed main path
     where the model is on it, else the unpacked sampler; with ``chains``
-    (a multihost.ChainMesh) either of the last two on this process's chain
-    group. Raises NotImplementedError for MRE forecasting on the packed
-    path."""
+    (a multihost.ChainMesh) any of them on this process's chain group, the
+    sharded step on this process's shard of the group's lattice mesh."""
     if chains is not None:
         from schwingermodel_tpu_torch.parallel import sharded
 
+        if chains.lattice is not None:
+            return sharded.make_sharded_traj_fn(model, chains.lattice,
+                                                chain_group=chains.index)
         if sharded.chain_packed_supported(model, chains):
             return sharded.make_chain_sharded_packed_traj_fn(model, chains)
         return lambda theta, seed, i, dt=None: sampler.hmc_trajectory(
@@ -85,7 +88,6 @@ def _traj_fn(model: SchwingerModel, mesh, chains=None) -> Callable:
 
         return make_sharded_traj_fn(model, mesh)
     if hp.packed_eligible(model):
-        hp.packed_supported(model)
         return lambda theta, seed, i, dt=None: hp.hmc_trajectory_packed(
             model, theta, seed, i, dt=dt)
     return lambda theta, seed, i, dt=None: sampler.hmc_trajectory(
@@ -219,7 +221,7 @@ def run_hmc(
         raise RuntimeError("device 'cuda' requested but CUDA is not available")
     chain_mesh = None
     if isinstance(mesh, mh.ChainMesh):
-        if run.mesh_shape not in (None, (1, 1), mesh.shape):
+        if run.mesh_shape not in (None, (1, 1), mesh.shape, mesh.shape[1:]):
             raise ValueError(f"run.mesh_shape {run.mesh_shape} disagrees with "
                              f"the chain mesh {mesh.shape}")
         chain_mesh, mesh = mesh, None
@@ -271,7 +273,8 @@ def run_hmc(
     if write_simdata and mh.is_primary():
         simdata = SimData(os.path.join(
             run.out_dir, simdata_filename(lattice.Nx, lattice.Nt, hmc.m0)))
-        rx, rt = mesh.shape if mesh is not None else (1, 1)
+        rx, rt = (mesh.shape if mesh is not None else chain_mesh.shape[1:]
+                  if chain_mesh is not None else (1, 1))
         simdata.write_header(
             Nx=lattice.Nx, Nt=lattice.Nt, ranks_x=rx, ranks_t=rt,
             beta=hmc.beta, n_therm=run.n_therm, n_meas=run.n_meas,

@@ -97,13 +97,16 @@ def cg_solve_single_reduction(
     x0: torch.Tensor | None = None,
     tol: float = 1e-10,
     max_iter: int = 10000,
+    graph: bool = True,
 ) -> CGResult:
     """Solve A x = b per chain for hermitian positive-definite A, from x0
     (default b), until ||r|| < tol ||b|| or max_iter iterations.
 
     dot_re(x, y): Re<x, y> over the global lattice, a chain scalar.
     dot_batch_re(pairs): the same for a list of pairs with one reduction,
-    stacked along the last axis."""
+    stacked along the last axis. graph=False runs the loop eagerly on the
+    card too (an operator whose collectives leave the card cannot be
+    captured)."""
     x = b if x0 is None else x0
     b_norm2 = dot_re(b, b)
     stop2 = (tol * tol) * b_norm2
@@ -134,7 +137,7 @@ def cg_solve_single_reduction(
     def any_live() -> bool:
         return bool((rho >= stop2).any())
 
-    (_loop_graphed if b.is_cuda else _loop)(step, any_live, max_iter)
+    (_loop_graphed if b.is_cuda and graph else _loop)(step, any_live, max_iter)
     rho_exact = dot_re(r, r)                 # un-drifted exit check
     return CGResult(x=x, iters=iters, converged=rho_exact < stop2,
                     rel_residual=rel_residual(rho_exact, b_norm2))

@@ -227,10 +227,19 @@ def test_cli_runs_the_sampler_options(tmp_path, argv, shows):
 
 
 @pytest.mark.parametrize("argv", [
-    # chain groups with a lattice mesh (a torch.distributed lattice mesh)
+    # chain groups of a lattice mesh: one process a shard, so 8 processes
     ["--ranks-chain", "2", "--ranks-x", "2", "--ranks-t", "2"],
     ["--mre-history", "2"]])
 def test_cli_still_refuses(tmp_path, argv):
+    """Both used to exit 2 ("not yet ported"). A lattice mesh with chain
+    groups now runs one shard a process, so in one process it exits 1
+    naming the processes it needs; --mre-history 2 runs on the packed
+    refined path."""
     out = _cli(*FLAGS, "--out-dir", str(tmp_path), *argv)
-    assert out.returncode == 2
-    assert "not yet ported" in out.stderr
+    if "--ranks-chain" in argv:
+        assert out.returncode == 1
+        assert "error: mesh 2x2x2 needs 8 processes, have 1" in out.stderr
+    else:
+        assert out.returncode == 0, out.stderr
+        assert "all solves converged: True" in out.stdout
+        assert list(tmp_path.glob("*SimData*"))

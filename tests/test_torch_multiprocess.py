@@ -95,9 +95,10 @@ def runs(tmp_path_factory):
     --chains 3, each writing a checkpoint; then at once: the first two
     resumed from their checkpoints for 2 more measurements, one and two
     processes with the warm-up and the condensate (TUNED), and the
-    refusals of test_cli_refuses_chain_layouts_it_cannot_run."""
-    one, two, trun, tune1, tune2 = (tmp_path_factory.mktemp(n) for n in (
-        "one", "two", "trun", "tune1", "tune2"))
+    runs of test_cli_refuses_chain_layouts_it_cannot_run: its refusals and
+    a 2x1 lattice mesh in two processes and in one."""
+    one, two, trun, tune1, tune2, mesh1, mesh2 = (tmp_path_factory.mktemp(n) for n in (
+        "one", "two", "trun", "tune1", "tune2", "mesh1", "mesh2"))
     outs = _launch(
         [_cli(*FLAGS, "--chains", "4", "--out-dir", str(one),
               "--checkpoint", str(one / "ck.npz"))]
@@ -125,12 +126,15 @@ def runs(tmp_path_factory):
                "--checkpoint", str(tune2 / "ck.npz"))
         + [_cli(*FLAGS, "--ranks-chain", "2")]
         + _two(_free_port(), "--chains", "3", "--ranks-chain", "2")
-        + _two(_free_port(), "--ranks-x", "2", "--ranks-t", "1"))
+        + _two(_free_port(), "--ranks-x", "2", "--ranks-t", "1", "--chains", "2",
+               "--out-dir", str(mesh2), "--checkpoint", str(mesh2 / "ck.npz"))
+        + [_cli(*FLAGS, "--ranks-x", "2", "--ranks-t", "1", "--chains", "2",
+                "--out-dir", str(mesh1), "--checkpoint", str(mesh1 / "ck.npz"))])
     _ok(later[:6])
     return {"one": one, "two": two, "trun": trun, "outs2": outs[1:3],
             "torchrun": outs[3], "res1": later[:1], "res2": later[1:3],
             "tune1": tune1, "tune2": tune2, "tuned": later[3:6],
-            "refused": later[6:]}
+            "refused": later[6:], "mesh": (mesh1, mesh2)}
 
 
 def test_cli_two_processes_end_to_end_and_resume(runs):
@@ -216,15 +220,23 @@ def test_torchrun_rounds_chains_up_and_matches(runs):
 
 def test_cli_refuses_chain_layouts_it_cannot_run(runs):
     """--ranks-chain 2 in one process exits 1 naming both sizes; in two
-    processes --chains 3 --ranks-chain 2 exits 1, and a lattice mesh exits 2
-    (a torch.distributed lattice mesh is not ported yet)."""
+    processes --chains 3 --ranks-chain 2 exits 1. A 2x1 lattice mesh in two
+    processes, which exited 2 before the lattice mesh across processes was
+    ported, runs one shard a process and equals the one-process mesh: every
+    chain's theta and the printed results bit for bit."""
     outs = runs["refused"]
     assert outs[0][0] == 1
     assert "error: --ranks-chain 2 needs 2 processes, have 1" in outs[0][2]
     for rc, _, err in outs[1:3]:
         assert rc == 1 and "--chains 3 not divisible by --ranks-chain 2" in err
-    for rc, _, err in outs[3:5]:
-        assert rc == 2 and "not yet ported" in err and "lattice mesh" in err
+    _ok(outs[3:6])
+    (_, o2, _), (_, o2b, _), (_, o1, _) = outs[3:6]
+    assert "* Device mesh = 2x1 shards, one a process: 2 processes" in o2
+    assert o2b == "" and "all solves converged: True" in o2
+    assert _results(o2) == _results(o1) and len(_results(o1)) == 4
+    mesh1, mesh2 = runs["mesh"]
+    np.testing.assert_array_equal(np.load(mesh1 / "ck.npz")["theta"],
+                                  np.load(mesh2 / "ck.npz")["theta"])
 
 
 def _jax_model(refine: bool):

@@ -167,28 +167,31 @@ def test_cli_runs_the_ported_options(tmp_path, argv):
 
 
 def test_cli_refuses_mre_where_jax_uses_it(tmp_path):
+    """--mre-history 4 on the packed refined path, where the JAX package
+    uses MRE, used to exit 2 ("not yet ported"); it runs now: exit 0, every
+    solve converged (K3 starts each solve from the MRE forecast)."""
     out = _cli(tmp_path, "--mre-history", "4")
-    assert out.returncode == 2
-    assert "not yet ported" in out.stderr and "--mre-history" in out.stderr
+    assert out.returncode == 0, out.stderr
+    assert "Acceptance rate:" in out.stdout
+    assert "all solves converged: True" in out.stdout
+    assert "WARNING" not in out.stdout
 
 
-@pytest.mark.parametrize("refine,forecast,dm,refused", [
+@pytest.mark.parametrize("refine,forecast,dm,uses", [
     (True, True, None, True),
     (True, False, None, False),
     (False, True, None, False),
     (True, True, 0.4, False),
 ])
 def test_packed_supported_refuses_mre_only_where_jax_uses_it(refine, forecast,
-                                                             dm, refused):
+                                                             dm, uses):
     """hmc/packed.py:219: use_mre = refined and forecast and K >= 2 and not
-    Hasenbusch; elsewhere mre_history is ignored."""
+    Hasenbusch; elsewhere mre_history is ignored. The packed trajectory runs
+    every case (MRE is ported: the first case, which it used to refuse)."""
     lat, hmc, _ = from_jax_config(
         LatticeParams(Nx=8, Nt=8),
         HMCParams(even_odd=True, mre_history=4, cg_forecast=forecast,
                   hasenbusch_dm=dm, cg=CGParams(refine=refine)))
     model = TorchModel(lattice=lat, hmc=hmc)
-    if refused:
-        with pytest.raises(NotImplementedError, match="MRE"):
-            hp.packed_supported(model)
-    else:
-        hp.packed_supported(model)
+    hp.packed_supported(model)
+    assert hp.uses_mre(model) == uses

@@ -416,9 +416,9 @@ def test_cli_mesh_from_the_prompts(tmp_path):
 @pytest.mark.parametrize("extra,code,message", [
     (["--ranks-x", "3", "--ranks-t", "1"], 1, "not divisible"),
     (["--ranks-x", "1", "--ranks-t", "8"], 1, "even local Nt"),
-    # chain groups on a lattice mesh need a torch.distributed lattice mesh
-    (["--ranks-chain", "2", "--ranks-x", "2", "--ranks-t", "2"], 2,
-     "not yet ported"),
+    # chain groups on a lattice mesh: one process a shard, 8 processes
+    (["--ranks-chain", "2", "--ranks-x", "2", "--ranks-t", "2"], 1,
+     "error: mesh 2x2x2 needs 8 processes, have 1"),
     (["--ranks-x", "2", "--ranks-t", "2", "--hasenbusch-dm", "0.4"], 0,
      "Hasenbusch split"),
 ])

@@ -84,8 +84,7 @@ def test_trajectory_stats_are_consistent(same_noise_pair):
 
 def test_unported_configurations_are_refused():
     """The packed trajectory refuses what is off its path (the runner sends
-    those to the unpacked sampler), and nothing else is unported on one
-    device but MRE forecasting."""
+    those to the unpacked sampler), and nothing else."""
     lat, hmc, _ = from_jax_config(
         LatticeParams(Nx=8, Nt=8),
         HMCParams(even_odd=True, quenched=True, cg=CGParams(refine=True)))
@@ -166,9 +165,9 @@ def test_cli_runs_reference_pipe_on_cpu(tmp_path):
     (["--no-even-odd"], "all solves converged: True"),
     (["--dtype", "float64"], "dtype = float64"),
     (["--nx", "7", "--nt", "8"], "Nx = 7, Nt = 8"),
-    # chain groups with a lattice mesh: a torch.distributed lattice mesh
+    # chain groups with a lattice mesh: one process a shard, 8 processes
     (["--ranks-chain", "2", "--ranks-x", "2", "--ranks-t", "2"],
-     "not yet ported"),
+     "error: mesh 2x2x2 needs 8 processes, have 1\n"),
     (["--device", "cuda"], "CUDA is not available"),
     # a multi-host flag alone: the three go together
     (["--coordinator", "localhost:1234"],
@@ -193,7 +192,8 @@ def test_cli_runs_reference_pipe_on_cpu(tmp_path):
 ])
 def test_cli_refuses_what_it_cannot_run(argv, message, tmp_path):
     """What the CLI refuses and what it no longer does: --ranks-chain 2
-    with a lattice mesh exits 2 with "not yet ported", a multi-host flag
+    with a 2x2 lattice mesh in one process exits 1 naming the 8 processes
+    it needs (it used to exit 2, "not yet ported"), a multi-host flag
     without the other two exits 2 naming them (multi-process runs:
     tests/test_torch_multiprocess.py); the three flags of the JAX parser
     that the port drops exit 2 and name what replaces them (exact
@@ -215,8 +215,9 @@ def test_cli_refuses_what_it_cannot_run(argv, message, tmp_path):
         + "0.1\n4\n0.4\n2\n2\n2\n0\n0\n", cwd=REPO,
         capture_output=True, text=True, timeout=300,
         env={**os.environ, "OMP_NUM_THREADS": "1"})
-    if message == "not yet ported":
-        assert out.returncode == 2 and message in out.stderr
+    if message.startswith("error: mesh"):
+        assert out.returncode == 1 and out.stderr == message
+        assert out.stdout == ""
     elif message.startswith("error: "):
         assert out.returncode == 2 and out.stderr == message
         assert out.stdout == ""
