@@ -200,7 +200,17 @@ Phases (any failure raises, and the script exits non-zero):
    machine of 4 or more): every chain's theta and the printed results bit
    for bit, or theta within 2e-4 with the difference printed, one SimData
    and one checkpoint each, the banner, and each process's K7 and K8
-   launches. Every run has the kernels' launch counters set
+   launches; (s) the bench tools (tools/bench_sharded_kernel.py,
+   bench_kernels.py, bench_points.py, bench_scaling.py) through their
+   module-level functions at a short length: K7 and K8 on the shard tool's
+   32x32 block against their plain twins (1e-5 max|y|, 3e-5 max(scale, 1)),
+   then each tool's rows (the shard tool's five; bench_kernels' seven at
+   64x64; bench_points' run_packed at the 128x128 C=8 point under both
+   contracts and at the 32x32 near-critical Hasenbusch point refined, 2 + 4
+   trajectories; bench_scaling's measure on 1x1 and 2x2 at 64x64, 2 + 2),
+   each finite and positive with every solve converged but on the
+   near-critical row (flags and acceptance printed), K1, K3, K5, K6, K7 and
+   K8 launched by the phase. Every run has the kernels' launch counters set
    to 0 just before it and read just after it, and fails if a kernel of its
    path was not launched; the packed refined runs must launch K3 once per
    solve and K4's own entry never (the fallback runs inside K3's launch; each
@@ -800,6 +810,123 @@ def mre_path(cli, counted, card):
               f"{got['force_step'] / n_traj:g} K1 and {got['solve_f64_cg_fallback']} K4 "
               f"launches; card {card}", flush=True)
     return out
+
+
+def bench_tools(counted, card, dev):
+    """Phase 3 (s): the four bench tools' module-level functions on the
+    card at a short length. K7 and K8 on the shard tool's 32x32 block
+    against their plain twins (K7 within 1e-5 max|y| of halo_normal_reference
+    and of the plain hops, K8 within 3e-5 max(scale, 1) of the plain force);
+    then each tool's rows under the launch counters: bench_sharded_kernel
+    (the interpret-mode windows; K7, K8), bench_kernels at 64x64 (its CPU
+    windows: 10 thermalization trajectories, 20/120 applies, 2/12 solves,
+    1/3 trajectories; K6), bench_points' run_packed at the 128x128 C=8 point
+    under both contracts (K1 with its CG and K2; K1 and K3) and at the
+    32x32 near-critical Hasenbusch point, refined (K1, K3, K5), 2 + 4
+    trajectories each, and bench_scaling's measure on 1x1 (K6) and 2x2 (K7,
+    K8) at 64x64, 2 + 2. Every row finite and positive, every solve
+    converged but on the near-critical row, whose flags and acceptance are
+    printed, not gated. Returns the launches of the counted runs."""
+    from schwingermodel_tpu_torch.ops import halo
+    from schwingermodel_tpu_torch.ops.traj import to_complex, to_planar
+    from schwingermodel_tpu_torch.parallel.mesh import shard
+    from schwingermodel_tpu_torch.tools import bench_kernels as bk
+    from schwingermodel_tpu_torch.tools import bench_points as bp
+    from schwingermodel_tpu_torch.tools import bench_scaling as bsc
+    from schwingermodel_tpu_torch.tools import bench_sharded_kernel as bsk
+
+    totals = {}
+
+    def rows_ok(label, rows):
+        for r in rows:
+            check(math.isfinite(r["value"]) and r["value"] > 0, f"(s) {label}: {r}")
+        print(f"phase 3: (s) {label}: " + "; ".join(
+            f"{r['metric']} {r.get('contract', '')} {r['value']} {r['unit']}".replace("  ", " ")
+            for r in rows) + f"; card {card}", flush=True)
+
+    def add(got):
+        for k, n in got.items():
+            totals[k] = totals.get(k, 0) + n
+
+    # K7 and K8 against their twins on the shard tool's own block
+    theta, v, _, psi = bsk.draw_inputs(32, 16, 1)
+    model, inner = bsk.block_model(32, 32, M0)
+    blk = bsk.block_links(model, inner, torch.from_numpy(theta).to(dev))
+    vt = torch.from_numpy(v).to(dev)[None]
+    vp = to_planar(vt).contiguous()
+    y = bsk.local_apply_fused(inner, blk, vp, M0)
+    y_twin = halo.halo_normal_reference(blk.ue_ext, blk.uo_ext, blk.off_ext,
+                                        bsk.self_extend(inner, vp), m0=M0)
+    y_plain = bsk.local_apply_plain(inner, blk, vt, M0)
+    scale = y_twin.abs().max().item()
+    e7 = max((y - y_twin).abs().max().item(),
+             (to_complex(y) - y_plain).abs().max().item())
+    check(e7 <= 1e-5 * scale, f"(s) K7 on the 32x32 block: {e7:.3e} of {scale:.3e}")
+    th_s = shard(torch.from_numpy(theta).to(dev)[None], inner.geom.mesh)
+    psi_s = shard(torch.from_numpy(psi).to(dev)[None], inner.geom.mesh)
+    F = bsk.force_fused(inner, th_s, psi_s, M0)
+    F_plain = bsk.force_plain(inner, th_s, psi_s, M0)
+    fscale = max(F_plain.abs().max().item(), 1.0)
+    e8 = (F - F_plain).abs().max().item()
+    check(e8 <= 3e-5 * fscale, f"(s) K8 on the 32x32 block: {e8:.3e} of {fscale:.3e}")
+    print(f"phase 3: (s) bench_sharded_kernel 32x32 block: K7 max |y - y_twin| and "
+          f"|y - y_plain hops| {e7:.3e} (max|y| {scale:.3e}), K8 max |F - F_plain| "
+          f"{e8:.3e} (scale {fscale:.3e})", flush=True)
+
+    rows, wall, got = counted(
+        "(s) bench_sharded_kernel.measure 32x32", ("halo_normal", "halo_force"),
+        lambda: bsk.measure(32, 32, M0, dev, bsk.WINDOWS["cpu"], reps=3))
+    rows_ok(f"bench_sharded_kernel ({wall:.2f} s)", rows)
+    add(got)
+
+    rows, wall, got = counted(
+        "(s) bench_kernels.measure 64x64", ("cg_solve_eo",),
+        lambda: bk.measure(64, 64, BETA, M0, "float32", dev, bk.WINDOWS["cpu"], reps=3))
+    rows_ok(f"bench_kernels ({wall:.2f} s)", rows)
+    check("converged=True" in rows[5]["unit"], f"(s) bench_kernels: {rows[5]}")
+    add(got)
+
+    points = {p[0]: p for p in bp.POINTS}
+    for name, contracts, uses in (
+            ("128x128_b4_tau0.1", bp.contracts({}, 10000),
+             ("with_solve=True,with_gauge=True", "solve_fused",
+              "with_solve=False,with_gauge=True", "solve_refined")),
+            ("32x32_b2_m-0.19_tau1_hb", bp.contracts({"refined_only": True}, 20000),
+             ("with_solve=False,with_gauge=False", "ratio_force", "solve_refined"))):
+        point = points[name]
+        C, m0 = point[7], point[4]
+
+        def drive(point=point, contracts=contracts, C=C, m0=m0):
+            return [bp.make_row(point, label, bp.run_packed(
+                bp.point_model(point, cg), C, 2, 4, anneal=bp.anneal_schedule(m0),
+                device=dev), dev, card) for label, cg in contracts]
+
+        rows, wall, got = counted(f"(s) bench_points.run_packed {name}, 2 + 4", uses,
+                                  drive, ("solve_f64_cg_fallback",))
+        rows_ok(f"bench_points ({wall:.2f} s)", rows)
+        for r in rows:
+            if m0 < 0:
+                print(f"phase 3: (s) near-critical {name} {r['contract']}: "
+                      f"all_converged {r['all_converged']}, acceptance "
+                      f"{r['acceptance']} (recorded, not gated)", flush=True)
+            else:
+                check(r["all_converged"], f"(s) {name}: a solve did not converge: {r}")
+        add(got)
+
+    sargs = bsc.build_parser().parse_args(["--device", "cuda"])
+    smodel = bsc.make_model(sargs)
+    for mesh_shape, uses in (((1, 1), ("cg_solve_eo",)),
+                             ((2, 2), ("halo_normal", "halo_force"))):
+        (tps, iters), wall, got = counted(
+            f"(s) bench_scaling.measure {mesh_shape[0]}x{mesh_shape[1]}, 2 + 2", uses,
+            lambda mesh_shape=mesh_shape: bsc.measure(smodel, mesh_shape, 2, 2, dev))
+        check(math.isfinite(tps) and tps > 0 and iters > 0,
+              f"(s) bench_scaling {mesh_shape}: {tps} traj/s, {iters} iterations")
+        print(f"phase 3: (s) bench_scaling {mesh_shape[0]}x{mesh_shape[1]} at "
+              f"{NX}x{NT} in {wall:.2f} s: {tps:.3f} traj/s, {iters} CG iterations "
+              f"(timed pass; all shards on one device); card {card}", flush=True)
+        add(got)
+    return totals
 
 
 R_FLAGS = ["--device", "cuda", "--nx", str(NX), "--nt", str(NT), "--beta", str(BETA),
@@ -2157,6 +2284,13 @@ def main() -> int:
     # (r) the lattice mesh across processes against the one-process mesh
     for k, n in dist_mesh(card).items():
         launches[k] += n
+    # (s) the bench tools at a short length (the counted runs add to the
+    # kernels line's launches through `counted`)
+    s_launches = bench_tools(counted, card, dev)
+    check(all(s_launches.get(k, 0) > 0 for k in (
+        "force_step", "solve_refined", "ratio_force", "cg_solve_eo", "halo_normal",
+        "halo_force")), f"(s): a kernel of the tools was not launched: {s_launches}")
+    print(f"phase 3: (s) the bench tools' launches: {s_launches}", flush=True)
 
     # where the time goes (--profile): three batch trajectories of each path
     # under torch.profiler
