@@ -7,11 +7,21 @@ Run from the repository root on a machine with one CUDA card:
 Phases (any failure raises, and the script exits non-zero):
 
 0. the card's name and power limit; no CUDA, no run;
-1. build the ten CUDA kernels from csrc/ with nvcc (sm_90a), one nvcc per
-   source, all started together;
+1. build the eleven CUDA kernels from csrc/ with nvcc (sm_90a), one nvcc
+   per source, all started together;
 2. each kernel against its plain PyTorch twin on the card at m0=0.2,
    beta=4, random angles, on the main path's shape 64x64 C=32, on 64x64
    C=1 and on 8x12 C=3:
+   noise chain_noise    (Philox4x32-10, csrc/noise.cu) the three
+                        known-answer vectors of Random123 out of the
+                        kernel's bijection; at 64x64 C=32 with the
+                        trajectory counter on the card, under every chi
+                        shape (even-odd, Hasenbusch, full-D) and in f32 and
+                        f64: the Philox words equal the twin's, the values
+                        equal but for counted ties; chains 2-3 of C=4 equal
+                        C=2 at chain_offset 2, the int index equals the
+                        counter; timed in turns with its twin and with
+                        torch.randn of as many values (library_ms);
    K1 force_step        all four variants: forces to atol
                         3e-5 * max(scale, 1), psi to 2e-4 and equal flags
                         (with_solve); also at K3's other shapes below, so
@@ -142,8 +152,19 @@ Phases (any failure raises, and the script exits non-zero):
    must launch K6;
 3. the main paths, built as the CLI builds them: runner.run_hmc at 64x64,
    beta=4, m0=0.2, tau=0.1, C=32, 10 thermalization + 20 measured
-   trajectories: the refined demo (md=10), the loose contract (md=10),
-   Hasenbusch dm=0.4 (refined, md=10) and Omelyan (refined, md=5); then the
+   trajectories, each packed path on its device program (one CUDA graph
+   replay a trajectory, hmc/program.py): the refined demo (md=10), the
+   loose contract (md=10), Hasenbusch dm=0.4 (refined, md=10) and Omelyan
+   (refined, md=5), each launching the noise kernel; (t) the device
+   program: the refined demo, loose, Hasenbusch, Omelyan md=5, MRE K=4 and
+   128x128 C=8 (K3 on a cluster), 10 replays after the capture against 11
+   eager calls at the same indices: theta, every block accumulator and the
+   counter bit for bit, the launch counts equal (the demo: K3 10, K1 9,
+   K4's entry 0, noise 1 a trajectory), a replay and an eager call timed in
+   turns; the CLI at the demo point on the graph (10 + 20, the main gates,
+   one capture and 29 replays); the demo graphed and eager in turns
+   through run_hmc (chain-traj/s) and under torch.profiler (busy share,
+   launches a batch trajectory, K1, K3 and the noise kernel by name); then the
    near-critical Hasenbusch row (32x32, beta=2, m0=-0.19, dm=0.4, md=26,
    tau=1, C=32, refined, max_iter 20000, cold start, 4 + 8 trajectories);
    then the measurement path: (d) the refined demo with --condensate
@@ -183,9 +204,9 @@ Phases (any failure raises, and the script exits non-zero):
    bits move named), then the CLI at the demo config with --chains 32,
    10 + 20 trajectories and a checkpoint, in one process and under torchrun
    in two processes with --ranks-chain 2 on this one card (gloo; two
-   processes time-slicing one card, not multi-GPU): every chain's theta bit
-   for bit (else within 2e-4 with the kernel named), the printed averages
-   equal, one SimData and one checkpoint each, the results printed by
+   processes time-slicing one card, not multi-GPU), each on its device
+   program (one capture, 29 replays): every chain's theta bit for bit, the
+   printed averages equal, one SimData and one checkpoint each, the results printed by
    process 0 only, and each process's K1 and K3 launches on cuda:0 (its
    own stderr line), both runs' chain-traj/s printed; (q) the MRE path,
    tools/bench_points.py:51-52's point through the CLI in this process
@@ -216,12 +237,14 @@ Phases (any failure raises, and the script exits non-zero):
    solve and K4's own entry never (the fallback runs inside K3's launch; each
    run prints how many chain solves took it), (d) and the mesons launch K4's
    entry through the restart refinement. With --profile, three batch trajectories of the
-   packed demo, of the packed loose (a), and of (f) and (g) then run under
+   packed demo and of the packed loose (a), graphed and eager in turns
+   (graph, eager, eager, graph), and of (f) and (g) then run under
    torch.profiler (launches, device-busy share, the top kernels by device
-   time, and K1's and K2's device time), then one K6 launch (C=32, B=8) and
+   time, and K1's, K2's and the noise kernel's device time), then one K6 launch (C=32, B=8) and
    one K5 launch at 64x64, whose shared kernels must appear by name;
-4. the kernels line (ten entry points; K3's with ms_mre4, its time at
-   K = 4 in turns with K = 1, and launches_mre_path, its launches in (q)),
+4. the kernels line (eleven entry points; K3's with ms_mre4, its time at
+   K = 4 in turns with K = 1, and launches_mre_path, its launches in (q);
+   the noise kernel's with its ties and (t)'s device-program details),
    the card line, and the last line {"ok": true, "device": {...}}.
 
 Imports nothing of jax or of the JAX package.
@@ -640,17 +663,20 @@ def chain_groups(hp, rs, tr, sms, card, lattice, hmc, dev):
               f"(p) process {rank} on {where}: launches {got}")
         print(f"phase 3: (p) process {rank} of {nproc} on {where}: launches {got}",
               flush=True)
+    # both runs on the device program: one capture, 29 replays a process
+    for label, o in outs.items():
+        check(re.search(r"perf: graph: 1 capture\(s\), 29 replays", o["stdout"]),
+              f"(p) {label}: no graph line of one capture and 29 replays")
     bits = np.array_equal(one["theta"], two["theta"])
     d = np.remainder(one["theta"] - two["theta"] + np.pi, 2 * np.pi) - np.pi
     dmax = float(np.abs(d).max())
-    if bits:
-        check(one["results"] == two["results"] and len(one["results"]) == 4,
-              f"(p) printed averages differ: {one['results']} against {two['results']}")
-    else:
-        check(dmax <= 2e-4 and moved, f"(p) theta differs by {dmax:.3e} "
-              f"(kernels whose bits move: {moved or 'none'})")
+    check(bits and one["results"] == two["results"] and len(one["results"]) == 4,
+          f"(p) theta differs by {dmax:.3e} (kernels whose bits move: "
+          f"{moved or 'none'}), or the printed averages: {one['results']} against "
+          f"{two['results']}")
     print(f"phase 3: (p) the CLI at {NX}x{NT} C={C_MAIN}, 10 + 20 trajectories, one "
-          f"process against {nproc} (--ranks-chain {nproc}, torchrun): every chain's theta bit "
+          f"process against {nproc} (--ranks-chain {nproc}, torchrun), each on its "
+          f"device program (one CUDA graph a process): every chain's theta bit "
           f"for bit {bits} (max |dtheta| {dmax:.3e}), printed averages "
           f"{'equal' if one['results'] == two['results'] else 'differ'}: "
           f"{two['results']}; one SimData and one checkpoint each, the results "
@@ -1023,6 +1049,318 @@ def dist_mesh(card):
     return total
 
 
+# Random123's known-answer vectors of philox4x32_10: (counter, key, words)
+PHILOX_KAT = [
+    ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+    ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2,
+     (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+    ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344), (0xA4093822, 0x299F31D0),
+     (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+]
+# f64 operations of a Box-Muller pair counted for the noise kernel's bound:
+# its 8 products and its log, sqrt, sin and cos counted as one each (a
+# lower bound; Philox's integer operations are not counted: the table of
+# peaks has no integer rate)
+F_NOISE_PAIR = 12
+
+
+def noise_kernel_checks(dev, card):
+    """Phase 2 for the noise kernel (ops/noise.chain_noise, csrc/noise.cu)
+    against its plain twin (utils/prng.trajectory_noise_reference) on the
+    card: the three known-answer vectors of Philox4x32-10 out of the
+    kernel's own bijection; at the demo shape (64x64 C=32, the counter on
+    the card at 123) under every chi shape (even-odd, Hasenbusch, full-D)
+    and both dtypes, the Philox words equal and the values equal but for
+    counted ties (at most 1e-5 of them, within 1e-5 (f32) or 1e-13 (f64) of
+    each other), r in [0, 1); the invariants (chains 2-3 of C=4 equal C=2
+    at chain_offset 2; the int index equals the counter); then the kernel,
+    its twin and torch.randn of as many values from one CUDA generator
+    timed in turns at the main path's draw (f32, even-odd, C=32). Returns
+    (max_abs_err, (ms, plain_ms, device_ms), (bound_ms, bound_by),
+    library_ms, detail)."""
+    from schwingermodel_tpu_torch.ops import noise
+    from schwingermodel_tpu_torch.utils import prng
+
+    for ctr, key, want in PHILOX_KAT:
+        got = noise.philox(torch.tensor([ctr], dtype=torch.int64, device=dev), key)
+        check(got[0].tolist() == list(want),
+              f"noise: Philox of {ctr} under {key}: {[hex(w) for w in got[0].tolist()]}")
+    seed, C, pi_shape = 5, C_MAIN, (2, NX, NT)
+    traj = torch.full((), 123, dtype=torch.int64, device=dev)
+    chi_shapes = {"even-odd": (2, NX, NT // 2), "Hasenbusch": (2, 2, NX, NT // 2),
+                  "full-D": (2, NX, NT)}
+    worst, ties = 0.0, {}
+    for label, chi_shape in chi_shapes.items():
+        for rdtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-13)):
+            pi, chi, r, w = noise.chain_noise(seed, traj, C, pi_shape, chi_shape, rdtype,
+                                              dev, words=True)
+            pp, cp, rp, wp = prng.trajectory_noise_reference(
+                seed, 123, C, 0, math.prod(pi_shape), math.prod(chi_shape), rdtype, dev,
+                words=True)
+            torch.cuda.synchronize()
+            name = f"{label} {str(rdtype)[6:]}"
+            check(torch.equal(w, wp), f"noise {name}: Philox words differ from the twin's")
+            a = torch.cat([pi.flatten(), torch.view_as_real(chi).flatten(), r])
+            b = torch.cat([pp.flatten(), torch.view_as_real(cp).flatten(), rp])
+            check(bool(torch.isfinite(a).all()) and bool(((r >= 0) & (r < 1)).all()),
+                  f"noise {name}: non-finite values or r outside [0, 1)")
+            n_ties = int((a != b).sum())
+            err = float((a - b).abs().max())
+            check(n_ties <= 1e-5 * a.numel() and err <= tol,
+                  f"noise {name}: {n_ties} values differ from the twin's, by up to {err:.3e}")
+            ties[name] = n_ties
+            if rdtype == torch.float32:
+                worst = max(worst, err)
+    whole = noise.chain_noise(seed, traj, 4, pi_shape, chi_shapes["even-odd"],
+                              torch.float32, dev)
+    part = noise.chain_noise(seed, 123, 2, pi_shape, chi_shapes["even-odd"],
+                             torch.float32, dev, chain_offset=2)
+    check(all(torch.equal(x[2:], y) for x, y in zip(whole, part)),
+          "noise: chains 2-3 of C=4 differ from C=2 at chain_offset 2, or the counter "
+          "from the int index")
+    print(f"phase 2: noise kernel: the three Philox4x32-10 known-answer vectors out of "
+          f"the kernel; at {NX}x{NT} C={C} the words of every chi shape and dtype equal "
+          f"the twin's, values differing (ties) {ties}, max |v - v_plain| (f32) "
+          f"{worst:.3e}; chains 2-3 of C=4 equal C=2 at offset 2 and the int index "
+          f"equals the counter on the card", flush=True)
+
+    eo = chi_shapes["even-odd"]
+    n_pi, n_chi = math.prod(pi_shape), math.prod(eo)
+    kernel = lambda: noise.chain_noise(seed, traj, C, pi_shape, eo, torch.float32, dev)
+    plain = lambda: prng.trajectory_noise_reference(seed, traj, C, 0, n_pi, n_chi,
+                                                    torch.float32, dev)
+    times = in_turns(plain, kernel, 20, 200)
+    g = torch.Generator(device=dev).manual_seed(0)
+    n_values = C * (n_pi + 2 * n_chi + 1)
+    library = lambda: torch.randn(n_values, generator=g, device=dev)
+    l1, k1 = timed(library, 200), timed(kernel, 200)
+    k2, l2 = timed(kernel, 200), timed(library, 200)
+    library_ms = (l1 + l2) / 2
+    n_pairs = C * (n_pi // 2 + n_chi)
+    bound = roofline(4 * n_values + 8, f64_ops=F_NOISE_PAIR * n_pairs)
+    print(f"phase 2: noise kernel at {NX}x{NT} C={C} (f32, even-odd chi; {card}): kernel "
+          f"{times[0]:.4f} ms ({times[2]:.4f} ms queued behind a spin), plain twin "
+          f"{times[1]:.4f} ms, torch.randn of its {n_values} values {library_ms:.4f} ms "
+          f"(kernel {(k1 + k2) / 2:.4f} ms in turns with it), bound {bound[0]:.5f} ms by "
+          f"{bound[1]}", flush=True)
+    detail = {"ties": ties, "ms_in_turns_with_library": (k1 + k2) / 2}
+    return worst, times, bound, library_ms, detail
+
+
+def profile_window(step, n, reps_label=""):
+    """torch.profiler over n calls of step(): (wall ms per call, device
+    launches per call, device-busy share, [(kernel, count, device us)]
+    by device time)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # the trace may miss the first kernels of its window: a spin of the
+        # card and a pause of the host before the calls timed
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev = [(e.key, e.count, getattr(e, "self_device_time_total",
+                                   getattr(e, "self_cuda_time_total", 0.0)))
+          for e in prof.key_averages() if "spin_kernel" not in e.key]
+    dev_ev = sorted((e for e in ev if e[2] > 0), key=lambda e: -e[2])
+    busy = sum(e[2] for e in dev_ev) * 1e-6
+    check(dev_ev, f"profile {reps_label}: no device time in the trace")
+    return 1e3 * wall / n, sum(e[1] for e in dev_ev) / n, busy / wall, dev_ev
+
+
+# the demo point through the CLI on the device program
+T_FLAGS = [*MP_FLAGS, "--no-simdata"]
+
+
+def device_program(counters, hmc_params, lattice, dev, card, cli, counted):
+    """Phase 3 (t): the packed trajectory as a device program
+    (hmc/program.TrajectoryProgram: one CUDA graph replay a trajectory).
+
+    For the refined demo (64x64 C=32 md=10), loose, Hasenbusch dm=0.4,
+    Omelyan md=5, MRE K=4 and 128x128 C=8 (K3 on a cluster): one step (the
+    warm-up and the capture), then 10 replays, against 11 eager
+    hmc_trajectory_packed calls at the same indices into a Block: theta and
+    every accumulator bit for bit, the counter, and the launch counts of the
+    replays equal those of the 10 eager calls (the demo: K3 10, K1 9, K4's
+    entry 0, noise 1 a trajectory); each replay and eager call timed in
+    turns. Then the CLI at the demo point on the graph, 10 + 20 trajectories,
+    the main gates and the graph's line (one capture, 29 replays); the
+    demo through runner.run_hmc graphed and eager in turns (graph, eager,
+    eager, graph) for the measure phase's chain-traj/s; and three batch
+    trajectories of each under torch.profiler (busy share, launches a batch
+    trajectory, K1, K3 and the noise kernel by name). Returns the details
+    for the kernels line."""
+    import contextlib
+    import io
+
+    from schwingermodel_tpu_torch.config import LatticeParams, RunParams
+    from schwingermodel_tpu_torch.hmc import packed as hp
+    from schwingermodel_tpu_torch.hmc.program import Block, TrajectoryProgram
+    from schwingermodel_tpu_torch.models.schwinger import SchwingerModel
+    from schwingermodel_tpu_torch.ops import traj as tr
+    from schwingermodel_tpu_torch.runner import hot_start, run_hmc
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+        tr.force_step.variants.clear()
+
+    def read():
+        return ({k: fn.launches for k, fn in counters.items()},
+                dict(tr.force_step.variants))
+
+    accumulators = ("accepted", "cg_iters", "converged", "exp_mdH", "fallbacks",
+                    "fail_theta", "fail_seen", "fail_index")
+    big = LatticeParams(Nx=128, Nt=128, real_dtype="float32")
+    out = {"ms_per_trajectory": {}}
+    n = 10
+    for label, lat, C, hmc in (
+            ("refined demo md=10", lattice, C_MAIN, hmc_params()),
+            ("loose md=10", lattice, C_MAIN, hmc_params(refine=False)),
+            ("Hasenbusch dm=0.4 md=10", lattice, C_MAIN, hmc_params(hasenbusch_dm=0.4)),
+            ("Omelyan md=5", lattice, C_MAIN, hmc_params(md_steps=5, integrator="omelyan")),
+            ("MRE K=4 md=10", lattice, C_MAIN, hmc_params(mre_history=4)),
+            ("128x128 C=8 refined md=10", big, 8, hmc_params())):
+        model = SchwingerModel(lattice=lat, hmc=hmc)
+        theta0 = hot_start(lat, 0, C, dev)
+        prog = TrajectoryProgram(model, theta0, 0, 0)
+        prog.step()
+        zero()
+        prog.run(n)
+        torch.cuda.synchronize()
+        graph_counts = read()
+        theta, blk = theta0.clone(), Block(theta0)
+        for i in range(n + 1):
+            if i == 1:
+                zero()
+            theta_next, st = hp.hmc_trajectory_packed(model, theta, 0, i)
+            blk.add(theta, st, i)
+            theta = theta_next
+        torch.cuda.synchronize()
+        eager_counts = read()
+        same = [a for a in accumulators
+                if not torch.equal(getattr(prog.block, a), getattr(blk, a))]
+        check(torch.equal(prog.theta, theta) and not same and int(prog.index) == n + 1
+              and prog.block.updates == blk.updates,
+              f"(t) {label}: replays against eager calls: theta bit for bit "
+              f"{torch.equal(prog.theta, theta)}, accumulators that differ {same}, "
+              f"counter {int(prog.index)}")
+        check(graph_counts == eager_counts, f"(t) {label}: launches of {n} replays "
+              f"{graph_counts} against {n} eager calls {eager_counts}")
+        got = graph_counts[0]
+        check(got["chain_noise"] == n and got["solve_f64_cg_fallback"] == 0,
+              f"(t) {label}: launches {got}")
+        if label.startswith("refined demo"):
+            check(got["solve_refined"] == 10 * n and got["force_step"] == 9 * n,
+                  f"(t) {label}: K3 {got['solve_refined']} and K1 {got['force_step']} "
+                  f"launches in {n} replays")
+        # replays and eager calls in turns
+        eager_theta = [theta]
+
+        def eager():
+            eager_theta[0], _ = hp.hmc_trajectory_packed(model, eager_theta[0], 0, 99)
+
+        g1, e1 = timed(prog.step, 5), timed(eager, 5)
+        e2, g2 = timed(eager, 5), timed(prog.step, 5)
+        out["ms_per_trajectory"][label] = {"graph": (g1 + g2) / 2, "eager": (e1 + e2) / 2}
+        per = {k: v / n for k, v in got.items() if v}
+        print(f"phase 3: (t) {label} at {lat.Nx}x{lat.Nt} C={C}: captured once "
+              f"({prog.kernel_nodes} kernel nodes), {n} replays against {n + 1} eager "
+              f"calls: theta, every accumulator and the counter bit for bit, launches "
+              f"equal, per batch trajectory {per}; {(g1 + g2) / 2:.3f} ms a replay "
+              f"against {(e1 + e2) / 2:.3f} ms an eager call (in turns; {card})",
+              flush=True)
+        if label.startswith("refined demo"):
+            # a new step size is captured anew
+            prog.dt = 0.5 * hmc.step_size
+            prog.step()
+            torch.cuda.synchronize()
+            check(prog.captures == 2, f"(t) {label}: {prog.captures} captures after "
+                  f"a change of dt")
+
+    # the CLI at the demo point on the graph
+    buf = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(buf):
+        rc, wall, got = counted(
+            "(t) the CLI on the graph", ("with_solve=False,with_gauge=True",
+                                         "solve_refined", "chain_noise"),
+            lambda: cli.main([*T_FLAGS, "--out-dir", tmp]), ("solve_f64_cg_fallback",))
+    text = buf.getvalue()
+    print("\n".join(ln for ln in text.splitlines() if ln.startswith("phase 3")), flush=True)
+    check(rc == 0 and "all solves converged: True" in text,
+          f"(t) the CLI: exit {rc}\n{text[-3000:]}")
+    rate = re.search(r"perf: measure: \S+ s\s+(\S+) traj/s", text)
+    acc = re.search(r"Acceptance rate: (\S+)", text)
+    em = re.search(r"<exp\(-dH\)> = (\S+),", text)
+    ep = re.search(r"Ep = (\S+)", text)
+    graph_line = re.search(r"perf: graph: 1 capture\(s\), 29 replays, (\d+) kernel nodes, "
+                           r"(\S+) us of host per replay", text)
+    check(rate and acc and em and ep and graph_line, f"(t) the CLI: no result or graph "
+          f"line\n{text[-3000:]}")
+    acc, em, ep = float(acc.group(1)), float(em.group(1)), float(ep.group(1))
+    check(0.3 < acc <= 1.0 and abs(em - 1.0) < 0.1 and 0.0 < ep < 1.0,
+          f"(t) the CLI: acceptance {acc}, <exp(-dH)> {em}, <P> {ep}")
+    check(got["solve_refined"] == 300 and got["chain_noise"] == 30,
+          f"(t) the CLI: launches {got}")
+    print(f"phase 3: (t) the CLI at {NX}x{NT} C={C_MAIN} md=10 on the graph, 10 + 20 "
+          f"trajectories in {wall:.2f} s: <P> {ep:.6f}, acceptance {acc:.4f}, "
+          f"<exp(-dH)> {em:.6f}, measure phase {float(rate.group(1)):.2f} chain-traj/s; "
+          f"graph of {graph_line.group(1)} kernel nodes, {graph_line.group(2)} us of host "
+          f"a replay; card {card}", flush=True)
+
+    # graphed and eager in turns, and under the profiler
+    run = RunParams(n_therm=10, n_meas=20, n_steps=0, n_chains=C_MAIN, seed=0)
+    rates = {True: [], False: []}
+    for graph in (True, False, False, True):
+        res = run_hmc(lattice, hmc_params(), run, device=dev, graph=graph)
+        check(res.all_converged and 0.3 < res.acceptance_rate <= 1.0,
+              f"(t) run_hmc graph={graph}: converged {res.all_converged}, acceptance "
+              f"{res.acceptance_rate}")
+        rates[graph].append(res.perf["measure"]["traj_per_s"])
+    model = SchwingerModel(lattice=lattice, hmc=hmc_params())
+    prog = TrajectoryProgram(model, hot_start(lattice, 0, C_MAIN, dev), 0, 0)
+    prog.step()
+    eager_theta = [prog.theta.clone()]
+
+    def eager():
+        eager_theta[0], _ = hp.hmc_trajectory_packed(model, eager_theta[0], 0, 1)
+
+    eager()
+    prof = {}
+    for label, step in (("graph", prog.step), ("eager", eager), ("eager ", eager),
+                        ("graph ", prog.step)):
+        ms, launches, busy, dev_ev = profile_window(step, 3, label)
+        names = {k for k, _, _ in dev_ev}
+        for kname, marks in (("K1", ("force_shared_kernel", "force_step_kernel")),
+                             ("K3", ("solve_ru",)), ("noise", ("noise_kernel",))):
+            check(any(m in k for k in names for m in marks),
+                  f"(t) profile {label.strip()}: {kname} missing from {sorted(names)[:20]}")
+        prof.setdefault(label.strip(), []).append((ms, launches, busy))
+    summary = {}
+    for label, rows in prof.items():
+        summary[label] = {
+            "chain_traj_per_s": float(np.mean(rates[label == "graph"])),
+            "ms_per_batch_trajectory_profiled": float(np.mean([r[0] for r in rows])),
+            "launches_per_batch_trajectory": float(np.mean([r[1] for r in rows])),
+            "busy_share": float(np.mean([r[2] for r in rows]))}
+    for label, s in summary.items():
+        print(f"phase 3: (t) the demo at {NX}x{NT} C={C_MAIN} {label}: measure phase "
+              f"{s['chain_traj_per_s']:.2f} chain-traj/s (run_hmc, two runs in turns); "
+              f"under torch.profiler {s['ms_per_batch_trajectory_profiled']:.3f} ms a "
+              f"batch trajectory, {s['launches_per_batch_trajectory']:.0f} device launches "
+              f"a batch trajectory, device busy {100 * s['busy_share']:.1f}% (K1, K3 and "
+              f"the noise kernel by name); card {card}", flush=True)
+    out["demo"] = summary
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("error: CUDA is not available", file=sys.stderr)
@@ -1035,7 +1373,7 @@ def main() -> int:
     from schwingermodel_tpu_torch.hmc import sampler
     from schwingermodel_tpu_torch.io import checkpoint
     from schwingermodel_tpu_torch.models.schwinger import SchwingerModel
-    from schwingermodel_tpu_torch.ops import _cuda, cg_eo, eo, gauge, halo
+    from schwingermodel_tpu_torch.ops import _cuda, cg_eo, eo, gauge, halo, noise
     from schwingermodel_tpu_torch.ops import refined as rs
     from schwingermodel_tpu_torch.ops import traj as tr
     from schwingermodel_tpu_torch.parallel.mesh import lattice_mesh
@@ -1066,6 +1404,8 @@ def main() -> int:
     sms = _cuda.sm_count(dev)
 
     # ---- phase 2: kernels against their plain twins ----
+    noise_err, noise_times, noise_bound, noise_library_ms, noise_detail = (
+        noise_kernel_checks(dev, card))
     # K10's twin shifts by a plain f32 matmul with a one-hot matrix, exact
     # on the card only in full f32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1846,7 +2186,8 @@ def main() -> int:
                 "solve_fused_mxu": tr.solve_fused_mxu, "ratio_force": tr.ratio_force, "solve_refined": rs.solve_refined,
                 "solve_f64_cg_fallback": rs.solve_f64_cg_fallback,
                 "cg_solve_eo": cg_eo.cg_solve_eo, "residual_f64": rs.residual_f64,
-                "halo_normal": halo.halo_normal, "halo_force": halo.halo_force}
+                "halo_normal": halo.halo_normal, "halo_force": halo.halo_force,
+                "chain_noise": noise.chain_noise}
     launches = dict.fromkeys(counters, 0)
     variants = {}
 
@@ -1910,14 +2251,15 @@ def main() -> int:
 
     for label, hmc, uses in (
             ("refined demo md=10", hmc_params(),
-             ("with_solve=False,with_gauge=True", *refined_k)),
+             ("with_solve=False,with_gauge=True", "chain_noise", *refined_k)),
             ("(a) --no-cg-refine md=10", hmc_params(refine=False),
-             ("with_solve=True,with_gauge=True", "solve_fused")),
+             ("with_solve=True,with_gauge=True", "solve_fused", "chain_noise")),
             ("(b) --hasenbusch-dm 0.4 md=10", hmc_params(hasenbusch_dm=0.4),
-             ("with_solve=False,with_gauge=False", "ratio_force", *refined_k)),
+             ("with_solve=False,with_gauge=False", "ratio_force", "chain_noise",
+              *refined_k)),
             ("(c) --integrator omelyan md=5", hmc_params(
                 md_steps=5, integrator="omelyan"),
-             ("with_solve=False,with_gauge=True", *refined_k))):
+             ("with_solve=False,with_gauge=True", "chain_noise", *refined_k))):
         res, wall, got = counted(
             label, uses, lambda: run_hmc(lattice, hmc, run, device=dev),
             no_k4 if hmc.cg.refine else ())
@@ -1929,6 +2271,10 @@ def main() -> int:
                   f"{got['solve_f64_cg_fallback'] / n_traj:g} K4 launches; "
                   f"{res.cg_fallback_solves} of {got['solve_refined'] * C_MAIN} chain "
                   f"solves ran the fallback inside K3's launch", flush=True)
+
+    # (t) the device program: replays against eager calls, the CLI on the
+    # graph, graphed and eager in turns
+    t_detail = device_program(counters, hmc_params, lattice, dev, card, cli, counted)
 
     # the near-critical Hasenbusch row (tools/bench_points.py:60-61)
     nc_lat = LatticeParams(Nx=32, Nt=32, real_dtype="float32")
@@ -2294,68 +2640,72 @@ def main() -> int:
 
     # where the time goes (--profile): three batch trajectories of each path
     # under torch.profiler
-    def profile(label, model, mesh):
-        from torch.profiler import ProfilerActivity
-        from torch.profiler import profile as torch_profile
+    def profile(label, model, mesh, graph=False):
+        from schwingermodel_tpu_torch.hmc.program import TrajectoryProgram
 
-        step = (make_sharded_traj_fn(model, mesh) if mesh is not None else
-                lambda th, seed, i: hp.hmc_trajectory_packed(model, th, seed, i))
-        theta = torch.as_tensor(final_d)
-        theta, _ = step(theta, 7, 0)                       # warm-up
-        torch.cuda.synchronize()
         n = 3
-        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for i in range(1, n + 1):
-                theta, st = step(theta, 7, i)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        ev = [(e.key, e.count, getattr(e, "self_device_time_total",
-                                       getattr(e, "self_cuda_time_total", 0.0)))
-              for e in prof.key_averages()]
-        dev_ev = sorted((e for e in ev if e[2] > 0), key=lambda e: -e[2])
-        busy = sum(e[2] for e in dev_ev) * 1e-6
-        top = ", ".join(f"{k[:48]} {1e-3 * t / n:.3f} ms ({c // n} launches)"
+        theta0 = torch.as_tensor(final_d)
+        if graph:
+            prog = TrajectoryProgram(model, theta0, 7, 0)
+            prog.step()                                    # warm-up and capture
+            prog.block.reset()
+            step = prog.step
+            iters = lambda: prog.block.cg_iters.double().mean().item() / n
+        else:
+            fn = (make_sharded_traj_fn(model, mesh) if mesh is not None else
+                  lambda th, seed, i: hp.hmc_trajectory_packed(model, th, seed, i))
+            state = {"theta": fn(theta0, 7, 0)[0], "i": 1}   # warm-up
+
+            def step():
+                state["theta"], state["st"] = fn(state["theta"], 7, state["i"])
+                state["i"] += 1
+
+            iters = lambda: state["st"].cg_iters.double().mean().item()
+        ms, launches, busy, dev_ev = profile_window(step, n, label)
+        top = ", ".join(f"{k[:48]} {1e-3 * t / n:.3f} ms ({c / n:g} launches)"
                         for k, c, t in dev_ev[:5])
-        # K1 and K2 by their kernels' names, on every path
+        # K1, K2 and the noise kernel by their kernels' names, on every path
         for kname, names in (("K1", ("force_step_kernel", "force_shared_kernel")),
-                             ("K2", ("solve_fused_kernel", "solve_shared_kernel"))):
+                             ("K2", ("solve_fused_kernel", "solve_shared_kernel")),
+                             ("noise", ("noise_kernel",))):
             mine = [(c, t) for k, c, t in dev_ev if any(m in k for m in names)]
             top += (f"; {kname} {1e-3 * sum(t for _, t in mine) / n:.3f} ms "
-                    f"({sum(c for c, _ in mine) // n} launches)")
-        print(f"phase 3: profile {label}: {1e3 * wall / n:.2f} ms per batch trajectory "
-              f"of {C_MAIN} chains, {sum(e[1] for e in dev_ev) // n} device launches, "
-              f"device busy {100 * busy / wall:.1f}%, CG iterations per chain "
-              f"{st.cg_iters.double().mean().item():.1f}; top by device time per "
+                    f"({sum(c for c, _ in mine) / n:g} launches)")
+        print(f"phase 3: profile {label}: {ms:.2f} ms per batch trajectory "
+              f"of {C_MAIN} chains, {launches:.0f} device launches, "
+              f"device busy {100 * busy:.1f}%, CG iterations per chain "
+              f"{iters():.1f}; top by device time per "
               f"trajectory: {top}; card {card}", flush=True)
 
     if "--profile" in sys.argv[1:]:
+        # the packed paths graphed (hmc/program.py) and eager in turns
+        for label, hmc in (("packed refined demo", hmc_params()),
+                           ("(a) packed loose", hmc_params(refine=False))):
+            model = SchwingerModel(lattice=lattice, hmc=hmc)
+            for graph in (True, False, False, True):
+                profile(f"{label}, {'graphed' if graph else 'eager'}", model, None,
+                        graph)
         for label, hmc, mesh in (
-                ("packed refined demo", hmc_params(), None),
-                ("(a) packed loose", hmc_params(refine=False), None),
                 ("(f) refined on 2x2 shards", hmc_params(), mesh22),
                 ("(g) loose on 2x2 shards", hmc_params(refine=False), mesh22)):
             profile(label, SchwingerModel(lattice=lattice, hmc=hmc), mesh)
         # K6 as the condensate calls it (B=8) and K5 as the Hasenbusch
         # force does, at 64x64 C=32: their kernels by name
-        from torch.profiler import ProfilerActivity
-        from torch.profiler import profile as torch_profile
-
         thE, thO, b = inputs(C_MAIN)
         ue, uo = SchwingerModel.fermion_links(thE, thO)
         bb = torch.randn((C_MAIN, RHS[C_MAIN], 2, 2, NX, NT // 2), generator=gen,
                          device=dev)
         phi2 = torch.randn(b.shape, generator=gen, device=dev)
         zero = torch.zeros_like(bb)
-        torch.cuda.synchronize()
-        # three of each: the trace may miss the first kernel of its window
-        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                cg_eo.cg_solve_eo(ue, uo, bb, zero, m0=M0, tol=1e-5, max_iter=MAX_ITER)
-                tr.ratio_force(thE, thO, b, phi2, m0=M0_HB, m1=M1_HB, beta=BETA)
-            torch.cuda.synchronize()
-        names = {e.key: e.count for e in prof.key_averages()
-                 if "cg_eo" in e.key or "force_shared_kernel" in e.key}
+
+        def k6_k5():
+            cg_eo.cg_solve_eo(ue, uo, bb, zero, m0=M0, tol=1e-5, max_iter=MAX_ITER)
+            tr.ratio_force(thE, thO, b, phi2, m0=M0_HB, m1=M1_HB, beta=BETA)
+
+        k6_k5()
+        _, _, _, dev_ev = profile_window(k6_k5, 5, "K6 and K5")
+        names = {k: c for k, c, _ in dev_ev
+                 if "cg_eo" in k or "force_shared_kernel" in k}
         check(any("cg_eo_shared_kernel" in k for k in names)
               and any("force_shared_kernel" in k for k in names),
               f"profile: K6's or K5's shared kernel missing from {names}")
@@ -2377,7 +2727,12 @@ def main() -> int:
         "residual_f64": ("csrc/residual.cu", "schwingermodel_tpu/ops/pallas_df.py:145"),
         "halo_normal": ("csrc/halo_normal.cu", "schwingermodel_tpu/ops/pallas_halo.py:48"),
         "halo_force": ("csrc/halo_force.cu", "schwingermodel_tpu/ops/pallas_halo.py:178"),
+        # jax.random inside the jitted trajectory (not a Pallas kernel)
+        "chain_noise": ("csrc/noise.cu", "schwingermodel_tpu/hmc/packed.py:485"),
     }
+    errs["chain_noise"] = noise_err
+    times["chain_noise"] = noise_times
+    bounds["chain_noise"] = noise_bound
     kernels = [{"name": k, "route": "cuda",
                 "source": "schwingermodel_tpu_torch/" + src, "replaces": rep,
                 "launches": launches[k], "max_abs_err": errs[k],
@@ -2388,8 +2743,9 @@ def main() -> int:
                 "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
                 # no single PyTorch call computes a CG solve to a stop rule
                 # (with or without its shifts as products), a fused force
-                # step, an f64 true residual or a halo stencil
-                "library_ms": None}
+                # step, an f64 true residual or a halo stencil; the noise
+                # kernel's is torch.randn of as many values
+                "library_ms": noise_library_ms if k == "chain_noise" else None}
                for k, (src, rep) in replaces.items()]
     kernels[0]["launches_by_variant"] = variants
     kernels[0]["ms_by_variant"] = {v: t[0] for v, t in k1_times.items()}
@@ -2421,6 +2777,10 @@ def main() -> int:
     by_name["solve_fused_mxu"].update(k12_detail["solve_fused_mxu"])
     by_name["halo_normal"].update(halo_detail["halo_normal"])
     by_name["halo_force"].update(halo_detail["halo_force"])
+    by_name["chain_noise"].update(noise_detail)
+    # the device program (t): a replay's and an eager call's ms a batch
+    # trajectory, and the demo graphed and eager under the profiler
+    by_name["chain_noise"]["device_program"] = t_detail
     by_name["solve_fused_mxu"]["ms_k2_in_turns"] = k2_vs_k10[1]
     by_name["solve_fused_mxu"]["ms_in_turns_with_k2"] = k2_vs_k10[0]
     check(all(e["launches"] > 0 for e in kernels), "a kernel was never launched")

@@ -3,6 +3,7 @@
 # repository root, on a machine with one CUDA card):
 #
 #   sh docs/physics_tables_torch.sh packed        # 16 rows, packed refined
+#   sh docs/physics_tables_torch.sh packed64      # its 64x64 demo row alone
 #   sh docs/physics_tables_torch.sh fulld S1 S2.. # full-D f64 rows
 #   sh docs/physics_tables_torch.sh mass          # the two critical-mass scans
 #
@@ -38,6 +39,8 @@ point() {  # table point extra-flags..
 case $1 in
 packed)
   for pt in $PACKED; do point packed $pt --even-odd --plaquette-only; done ;;
+packed64)
+  point packed 64:4:0.2 --even-odd --plaquette-only ;;
 fulld)
   shift
   for s in "$@"; do

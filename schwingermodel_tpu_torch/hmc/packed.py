@@ -293,9 +293,12 @@ def trajectory_packed_given_noise(model: SchwingerModel, theta, pi, chi, r,
 
 
 def hmc_trajectory_packed(model: SchwingerModel, theta, seed: int,
-                          traj_index: int, dt=None, chain_offset: int = 0):
+                          traj_index, dt=None, chain_offset: int = 0):
     """One trajectory of theta [C, 2, Nx, Nt] with noise drawn from
-    (seed, traj_index, chain_offset + chain)."""
+    (seed, traj_index, chain_offset + chain). traj_index: a Python int, or
+    the 0-d int64 trajectory counter on theta's device (hmc/program.py),
+    read there: on the card nothing here reads the host, so a CUDA graph
+    can capture the call."""
     pi, chi, r = draw_chain_noise(model, seed, traj_index, theta.shape[0],
                                   theta.device, chain_offset)
     return trajectory_packed_given_noise(model, theta, pi, chi, r, dt)

@@ -1,0 +1,233 @@
+"""The device program of the packed main path: one trajectory a CUDA graph replay.
+
+Counterpart of the JAX runner's jitted ``block`` (schwingermodel_tpu/
+runner.py:290-305, and the measurement phase's ``lax.scan`` at :426-445),
+which runs a block of trajectories as one compiled program with the noise
+drawn inside it. Here a ``TrajectoryProgram`` holds the static state of C
+chains on the card: theta, a 0-d int64 trajectory counter and the block's
+accumulators (``Block``). One step draws the noise at the counter
+(ops/noise.py), runs the packed trajectory (hmc/packed.py: K1, K3 with K4
+inside its launch, K2 and K5 on their branches), adds the statistics to the
+block with the counter as the failure index, advances the counter and
+copies theta' into theta. On the card the first step runs eagerly on a side
+stream (the capture's warm-up) and the step is then captured once into a
+``torch.cuda.CUDAGraph``; every later step is one replay, with no host read
+and one launch from the host. On the CPU the same step runs eagerly (the
+caller asked for the CPU). A capture or replay that fails raises: there is
+no fallback to the eager loop. A change of dt or md_steps is captured anew.
+
+The kernel wrappers count their launches in Python (``.launches``, K1's
+``.variants``), and the block counts its updates there, so a replay would
+run none of that: the program records how much each count rose during the
+capture, puts it back, and adds it on every replay, so that the counts are
+those of as many eager steps.
+
+The runner reads ``theta`` only through a clone (the graph writes the same
+storage on every replay) and the block once per block, then resets it in
+place.
+"""
+
+from __future__ import annotations
+
+import collections
+import time
+
+import torch
+
+from schwingermodel_tpu_torch.hmc import packed as hp
+from schwingermodel_tpu_torch.models.schwinger import SchwingerModel
+from schwingermodel_tpu_torch.ops import _cuda
+from schwingermodel_tpu_torch.ops import traj as tr
+from schwingermodel_tpu_torch.parallel import multihost as mh
+from schwingermodel_tpu_torch.utils.metrics import counted_kernels
+
+
+class Block:
+    """Device-side accumulators of one host-visible block, per chain:
+    accepted trajectories, CG iterations, all-converged flag, the sum of
+    exp(-dH), fallback solves, and the pre-trajectory configuration and
+    index of the first trajectory whose solve failed. Every update is in
+    place, so that a CUDA graph of ``add`` accumulates into the same
+    storage on every replay; ``updates`` counts chain-trajectories on the
+    host."""
+
+    def __init__(self, theta):
+        C = theta.shape[0]
+        dev = theta.device
+        self.accepted = torch.zeros(C, dtype=torch.int64, device=dev)
+        self.cg_iters = torch.zeros(C, dtype=torch.int64, device=dev)
+        self.converged = torch.ones(C, dtype=torch.bool, device=dev)
+        self.exp_mdH = torch.zeros(C, dtype=torch.float64, device=dev)
+        self.fallbacks = torch.zeros(C, dtype=torch.int64, device=dev)
+        self.fail_theta = torch.zeros_like(theta)
+        self.fail_seen = torch.zeros(C, dtype=torch.bool, device=dev)
+        self.fail_index = torch.full((C,), -1, dtype=torch.int64, device=dev)
+        self.updates = 0
+
+    def reset(self):
+        """Zero the block in place (the next block's start)."""
+        for t in (self.accepted, self.cg_iters, self.exp_mdH, self.fallbacks,
+                  self.fail_theta, self.fail_seen):
+            t.zero_()
+        self.converged.fill_(True)
+        self.fail_index.fill_(-1)
+        self.updates = 0
+
+    def add(self, theta_before, st, index):
+        """Add one trajectory's statistics; index: the trajectory's index, a
+        Python int or a 0-d int64 tensor on the block's device."""
+        self.accepted += st.accepted
+        self.cg_iters += st.cg_iters
+        self.converged &= st.cg_converged
+        self.exp_mdH += st.exp_mdH
+        if st.cg_fallbacks is not None:
+            self.fallbacks += st.cg_fallbacks
+        bad = ~st.cg_converged & ~self.fail_seen
+        self.fail_theta.copy_(torch.where(bad.reshape(-1, 1, 1, 1), theta_before,
+                                          self.fail_theta))
+        self.fail_index.copy_(torch.where(bad, index, self.fail_index))
+        self.fail_seen |= bad
+        self.updates += st.accepted.numel()
+
+    def read(self):
+        """One host read (one gather of every process's chains): the sums
+        over all chains, in global chain order, of (accepted, cg_iters,
+        all_converged, exp(-dH), fallback solves)."""
+        per_chain = mh.gather_chains(torch.stack([
+            self.accepted.double(), self.cg_iters.double(),
+            self.converged.double(), self.exp_mdH,
+            self.fallbacks.double()]), dim=1)
+        acc, it, em, fb = per_chain[[0, 1, 3, 4]].sum(dim=1).tolist()
+        return int(acc), int(it), bool(per_chain[2].all()), em, int(fb)
+
+
+class TrajectoryProgram:
+    """The packed trajectory of C chains as a device program (module
+    docstring). model: on the packed path (hp.packed_supported); theta
+    [C, 2, Nx, Nt] f32, copied into the program's static theta; the noise of
+    trajectory i is that of (seed, i, chain_offset + chain), i from
+    start_index on; dt overrides the model's step size. ``step()`` runs one
+    trajectory, ``run(n)`` n of them; ``theta``, ``index`` and ``block`` are
+    the static state (read ``theta`` through a clone)."""
+
+    def __init__(self, model: SchwingerModel, theta, seed: int,
+                 start_index: int, chain_offset: int = 0, dt=None):
+        hp.packed_supported(model)
+        self.model, self.seed, self.chain_offset, self.dt = (
+            model, int(seed), int(chain_offset), dt)
+        self.theta = theta.detach().clone()
+        self.index = torch.full((), int(start_index), dtype=torch.int64,
+                                device=theta.device)
+        self.block = Block(self.theta)
+        self.graphed = self.theta.is_cuda
+        self._graph = None
+        self._graph_key = None
+        self._delta = None
+        self.captures = 0
+        self.replays = 0
+        self.kernel_nodes = None         # kernel nodes of the captured graph
+        self.replay_host_seconds = 0.0   # host time spent issuing replays
+
+    def _body(self):
+        """One trajectory from the static state into it (the captured step)."""
+        theta_next, st = hp.hmc_trajectory_packed(
+            self.model, self.theta, self.seed, self.index, dt=self.dt,
+            chain_offset=self.chain_offset)
+        self.block.add(self.theta, st, self.index)
+        self.index.add_(1)
+        self.theta.copy_(theta_next)
+
+    def _counts(self):
+        """The Python-side counts a step raises: each kernel wrapper's
+        launches, K1's launches by variant, the block's updates."""
+        c = collections.Counter({fn: fn.launches for fn in counted_kernels()})
+        c.update({("variant", k): n for k, n in tr.force_step.variants.items()})
+        c["updates"] = self.block.updates
+        return c
+
+    def _apply(self, delta, sign=1):
+        """Add sign * delta to the counts of ``_counts``."""
+        for k, n in delta.items():
+            if k == "updates":
+                self.block.updates += sign * n
+            elif isinstance(k, tuple):
+                tr.force_step.variants[k[1]] += sign * n
+            else:
+                k.launches += sign * n
+
+    def _capture(self):
+        """The warm-up step on a side stream (a real trajectory), then the
+        capture of the step; the counts the capture raised are taken back
+        and kept as the replay's."""
+        _cuda.KERNELS.build()              # nvcc and dlopen outside the capture
+        cur = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            self._body()
+        cur.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = self._counts()
+        with torch.cuda.graph(graph):
+            self._body()
+            nodes = _cuda.captured_kernel_nodes(
+                torch.cuda.current_stream().cuda_stream)
+        after = self._counts()
+        delta = collections.Counter(after)
+        delta.subtract(before)
+        self._apply(delta, -1)
+        self._graph, self._delta = graph, +delta
+        self._graph_key = self._key()
+        self.kernel_nodes = nodes
+        self.captures += 1
+
+    def _key(self):
+        # C is fixed by the static buffers
+        return (self.dt, self.model.hmc.md_steps)
+
+    def step(self):
+        """One trajectory: eager on the CPU; on the card a replay of the
+        captured step (the first step, and the first after a change of dt
+        or md_steps, warms up and captures)."""
+        if not self.graphed:
+            self._body()
+            return
+        if self._graph is None or self._graph_key != self._key():
+            self._capture()
+            return
+        t0 = time.perf_counter()
+        self._graph.replay()
+        self.replay_host_seconds += time.perf_counter() - t0
+        self.replays += 1
+        self._apply(self._delta)
+
+    def run(self, n: int):
+        for _ in range(n):
+            self.step()
+
+    def stats(self) -> dict:
+        """Captures, replays, kernel nodes of the graph and host microseconds
+        per replay (None off the card)."""
+        return {"captures": self.captures, "replays": self.replays,
+                "kernel_nodes": self.kernel_nodes,
+                "host_us_per_replay": (1e6 * self.replay_host_seconds
+                                       / self.replays if self.replays else None)}
+
+
+def packed_step(model: SchwingerModel, group: int = 0):
+    """The packed trajectory as the runner calls it, ``step(theta, seed,
+    traj_index, dt=None) -> (theta', stats)``, eager, on the C chains
+    group x C .. group x C + C - 1 of the global index (a chain group of
+    several, parallel/sharded.py; 0 for all chains);
+    ``step.program(theta, seed, start_index)`` is its TrajectoryProgram."""
+
+    def step(theta, seed, traj_index, dt=None):
+        return hp.hmc_trajectory_packed(model, theta, seed, traj_index, dt=dt,
+                                        chain_offset=group * theta.shape[0])
+
+    def program(theta, seed, start_index):
+        return TrajectoryProgram(model, theta, seed, start_index,
+                                 group * theta.shape[0])
+
+    step.program = program
+    return step

@@ -22,8 +22,8 @@ import torch
 
 from schwingermodel_tpu_torch.hmc.integrators import integrate
 from schwingermodel_tpu_torch.models.schwinger import SchwingerModel, SolveStats
+from schwingermodel_tpu_torch.ops import noise
 from schwingermodel_tpu_torch.ops.geometry import bcast
-from schwingermodel_tpu_torch.utils import prng
 
 
 class TrajectoryStats(NamedTuple):
@@ -37,31 +37,22 @@ class TrajectoryStats(NamedTuple):
     cg_fallbacks: Optional[torch.Tensor] = None
 
 
-def draw_noise(model: SchwingerModel, shape, gen: torch.Generator, device):
-    """(pi, chi, r) of one chain for one trajectory: pi ~ N(0,1) of theta's
-    shape, chi the pseudofermion noise of ``model.chi_shape`` (complex, each
-    part N(0, 1/sqrt(2)); drawn in quenched mode too, so that the streams do
-    not depend on the mode), r ~ U[0,1) the Metropolis draw."""
-    rdtype = model.lattice.rdtype
-    pi = prng.normal_real(gen, shape, rdtype, device)
-    chi = prng.normal_complex(gen, model.chi_shape(shape), rdtype, device)
-    r = prng.uniform_scalar(gen, rdtype, device)
-    return pi, chi, r
-
-
-def draw_chain_noise(model: SchwingerModel, seed: int, traj_index: int,
+def draw_chain_noise(model: SchwingerModel, seed: int, traj_index,
                      n_chains: int, device, chain_offset: int = 0):
-    """(pi, chi, r) for chains chain_offset .. chain_offset + n_chains - 1
-    of one trajectory on the global lattice, each chain from its own
-    generator of its global index (utils/prng.py), so that a chain draws
-    the same noise in whichever process holds it."""
+    """(pi, chi, r) of one trajectory for chains chain_offset ..
+    chain_offset + n_chains - 1 on the global lattice, in one call
+    (ops/noise.py: one kernel launch on the card): pi ~ N(0,1) of
+    [C, 2, Nx, Nt], chi the pseudofermion noise of ``model.chi_shape``
+    (complex, each part of variance 1/2; drawn in quenched mode too, so
+    that the streams do not depend on the mode), r ~ U[0,1) the Metropolis
+    draw [C], in the working precision. A chain's draw depends on (seed,
+    traj_index, its global index) only, so a chain draws the same noise in
+    whichever process holds it and beside however many others.
+    traj_index: a Python int or a 0-d int64 tensor on `device`."""
     shape = (2, model.lattice.Nx, model.lattice.Nt)
-    draws = [draw_noise(model, shape,
-                        prng.chain_generator(seed, traj_index, c, device),
-                        device)
-             for c in range(chain_offset, chain_offset + n_chains)]
-    pi, chi, r = (torch.stack(v) for v in zip(*draws))
-    return pi, chi, r
+    return noise.chain_noise(seed, traj_index, n_chains, shape,
+                             model.chi_shape(shape), model.lattice.rdtype,
+                             device, chain_offset)
 
 
 def trajectory_given_noise(model: SchwingerModel, theta, pi, chi, r, dt=None,
@@ -115,7 +106,7 @@ def trajectory_given_noise(model: SchwingerModel, theta, pi, chi, r, dt=None,
         cg_converged=stats.all_converged.reshape(C))
 
 
-def hmc_trajectory(model: SchwingerModel, theta, seed: int, traj_index: int,
+def hmc_trajectory(model: SchwingerModel, theta, seed: int, traj_index,
                    dt=None, beta=None, chain_offset: int = 0):
     """One trajectory of theta [C, 2, Nx, Nt] (one lattice per chain) with
     noise drawn from (seed, traj_index, chain_offset + chain)."""

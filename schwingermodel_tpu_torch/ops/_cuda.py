@@ -33,6 +33,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
 P, I, F, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
+L, U = ctypes.c_longlong, ctypes.c_uint
 
 # Dynamic shared memory a kernel may ask for (csrc/stencil.cuh kSharedMax):
 # the wrappers of K1, K2, K3, K7, K8, K9 and K10 choose a kernel's path by
@@ -84,6 +85,11 @@ SIGNATURES = {
     # ue, uo, off, psi, FE, FO, scratch, n_blocks, Nxe, Nthe, m0, beta, path,
     # blocks, stream
     "halo_force_launch": [P, P, P, P, P, P, P, I, I, I, D, D, I, I, P],
+    # traj, traj_value, key0, key1, chain_offset, pi, chi, r, words, C,
+    # n_pairs, n_chi, f64, stream
+    "noise_launch": [P, L, U, U, L, P, P, P, P, I, I, I, I, P],
+    # ctr, key0, key1, out, n, stream
+    "philox_launch": [P, U, U, P, I, P],
     # Nx, Nth, path -> K6's blocks a multiprocessor runs at once (no stream)
     "cg_eo_blocks_per_sm": [I, I, I],
 }
@@ -206,3 +212,46 @@ def check(t: torch.Tensor, name: str, dtype, shape, cuda: bool = True) -> None:
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+@functools.lru_cache(maxsize=None)
+def _driver():
+    """The CUDA driver library, for the graph queries below."""
+    return ctypes.CDLL("libcuda.so.1")
+
+
+def captured_kernel_nodes(stream: int) -> int:
+    """Kernel nodes of the graph that `stream` (a raw cudaStream_t, as
+    ``torch.cuda.current_stream().cuda_stream``) is capturing, by the CUDA
+    driver's stream-capture and graph queries; raise where the stream is not
+    capturing or a query fails."""
+    drv = _driver()
+    status, cid = ctypes.c_int(), ctypes.c_uint64()
+    graph, deps, n_deps = ctypes.c_void_p(), ctypes.c_void_p(), ctypes.c_size_t()
+    if hasattr(drv, "cuStreamGetCaptureInfo_v2"):
+        err = drv.cuStreamGetCaptureInfo_v2(
+            P(stream), ctypes.byref(status), ctypes.byref(cid),
+            ctypes.byref(graph), ctypes.byref(deps), ctypes.byref(n_deps))
+    else:                                  # drivers that export only v3
+        edges = ctypes.c_void_p()
+        err = drv.cuStreamGetCaptureInfo_v3(
+            P(stream), ctypes.byref(status), ctypes.byref(cid),
+            ctypes.byref(graph), ctypes.byref(deps), ctypes.byref(edges),
+            ctypes.byref(n_deps))
+    if err != 0 or status.value != 1 or not graph.value:  # 1: ACTIVE
+        raise RuntimeError(f"stream capture query: CUDA error {err}, status "
+                           f"{status.value}")
+    n = ctypes.c_size_t(0)
+    err = drv.cuGraphGetNodes(graph, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * n.value)()
+    if err == 0 and n.value:
+        err = drv.cuGraphGetNodes(graph, nodes, ctypes.byref(n))
+    kind, kernels = ctypes.c_int(), 0
+    for node in nodes:
+        if err != 0:
+            break
+        err = drv.cuGraphNodeGetType(P(node), ctypes.byref(kind))
+        kernels += kind.value == 0         # CU_GRAPH_NODE_TYPE_KERNEL
+    if err != 0:
+        raise RuntimeError(f"graph node query: CUDA error {err}")
+    return kernels

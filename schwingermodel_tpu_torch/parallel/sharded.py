@@ -35,6 +35,7 @@ import dataclasses
 
 from schwingermodel_tpu_torch.hmc import packed as hp
 from schwingermodel_tpu_torch.hmc import sampler
+from schwingermodel_tpu_torch.hmc.program import packed_step
 from schwingermodel_tpu_torch.models.schwinger import SchwingerModel
 from schwingermodel_tpu_torch.ops.geometry import ShardedGeometry
 from schwingermodel_tpu_torch.parallel.multihost import ChainMesh
@@ -75,7 +76,7 @@ def make_sharded_traj_fn(model: SchwingerModel, mesh, chain_group: int = 0):
             r.reshape(-1, 1, 1), dt, beta)
         return unshard(theta_s, mesh), st
 
-    def step(theta, seed: int, traj_index: int, dt=None, beta=None):
+    def step(theta, seed: int, traj_index, dt=None, beta=None):
         C = theta.shape[0]
         pi, chi, r = sampler.draw_chain_noise(model, seed, traj_index, C,
                                               theta.device, chain_group * C)
@@ -107,9 +108,7 @@ def make_chain_sharded_packed_traj_fn(model: SchwingerModel, mesh: ChainMesh):
                          f"mesh {mesh}")
     hp.packed_supported(model)
 
-    def step(theta, seed: int, traj_index: int, dt=None):
-        return hp.hmc_trajectory_packed(model, theta, seed, traj_index, dt=dt,
-                                        chain_offset=mesh.index * theta.shape[0])
+    step = packed_step(model, group=mesh.index)
 
     def given_noise(theta, pi, chi, r, dt=None):
         return hp.trajectory_packed_given_noise(model, theta, pi, chi, r, dt)

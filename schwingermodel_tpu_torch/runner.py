@@ -15,6 +15,13 @@ n_steps decorrelation updates, none after the last measurement), the
 20-bin jackknife with multi-chain pooling, the dump of the configuration
 that preceded a failed solve, and the SimData summary.
 
+On the packed paths the trajectories of a block run as the JAX runner runs
+its jitted ``block``: as a device program (hmc/program.py), on the card one
+replay of a CUDA graph a trajectory that draws the noise at a trajectory
+counter on the card, runs the trajectory and adds to the block's
+accumulators; the measurements, configurations and the first-failure dump
+read clones of its static theta. The warm-up stays eager.
+
 Per-trajectory statistics (accept flags, CG iterations, convergence flags)
 and the first-failure capture stay on the device and are read once per
 block, as the JAX runner's ``_stat_scalars`` does: a thermalization block
@@ -54,6 +61,7 @@ import torch
 from schwingermodel_tpu_torch import observables as obs
 from schwingermodel_tpu_torch.config import HMCParams, LatticeParams, RunParams
 from schwingermodel_tpu_torch.hmc import packed as hp
+from schwingermodel_tpu_torch.hmc import program
 from schwingermodel_tpu_torch.hmc import sampler
 from schwingermodel_tpu_torch.io import ctxt
 from schwingermodel_tpu_torch.io.checkpoint import seed_key
@@ -71,7 +79,9 @@ def _traj_fn(model: SchwingerModel, mesh, chains=None) -> Callable:
     stats): the sharded step on a mesh; without one the packed main path
     where the model is on it, else the unpacked sampler; with ``chains``
     (a multihost.ChainMesh) any of them on this process's chain group, the
-    sharded step on this process's shard of the group's lattice mesh."""
+    sharded step on this process's shard of the group's lattice mesh. The
+    packed steps carry ``.program(theta, seed, start_index)``, their
+    hmc/program.TrajectoryProgram."""
     if chains is not None:
         from schwingermodel_tpu_torch.parallel import sharded
 
@@ -88,8 +98,7 @@ def _traj_fn(model: SchwingerModel, mesh, chains=None) -> Callable:
 
         return make_sharded_traj_fn(model, mesh)
     if hp.packed_eligible(model):
-        return lambda theta, seed, i, dt=None: hp.hmc_trajectory_packed(
-            model, theta, seed, i, dt=dt)
+        return program.packed_step(model)
     return lambda theta, seed, i, dt=None: sampler.hmc_trajectory(
         model, theta, seed, i, dt=dt)
 
@@ -141,52 +150,6 @@ def cold_start(lattice: LatticeParams, n_chains: int = 1, device="cpu"):
     return torch.zeros(shape, dtype=lattice.rdtype, device=device)
 
 
-class _Block:
-    """Device-side accumulators of one host-visible block, per chain:
-    accepted trajectories, CG iterations, all-converged flag, the sum of
-    exp(-dH), fallback solves, and the pre-trajectory configuration and
-    index of the first trajectory whose solve failed."""
-
-    def __init__(self, theta):
-        C = theta.shape[0]
-        dev = theta.device
-        self.accepted = torch.zeros(C, dtype=torch.int64, device=dev)
-        self.cg_iters = torch.zeros(C, dtype=torch.int64, device=dev)
-        self.converged = torch.ones(C, dtype=torch.bool, device=dev)
-        self.exp_mdH = torch.zeros(C, dtype=torch.float64, device=dev)
-        self.fallbacks = torch.zeros(C, dtype=torch.int64, device=dev)
-        self.fail_theta = torch.zeros_like(theta)
-        self.fail_seen = torch.zeros(C, dtype=torch.bool, device=dev)
-        self.fail_index = torch.full((C,), -1, dtype=torch.int64, device=dev)
-        self.updates = 0
-
-    def add(self, theta_before, st, index: int):
-        self.accepted += st.accepted
-        self.cg_iters += st.cg_iters
-        self.converged &= st.cg_converged
-        self.exp_mdH += st.exp_mdH
-        if st.cg_fallbacks is not None:
-            self.fallbacks += st.cg_fallbacks
-        bad = ~st.cg_converged & ~self.fail_seen
-        self.fail_theta = torch.where(bad.reshape(-1, 1, 1, 1), theta_before,
-                                      self.fail_theta)
-        self.fail_index = torch.where(bad, torch.full_like(self.fail_index, index),
-                                      self.fail_index)
-        self.fail_seen |= bad
-        self.updates += st.accepted.numel()
-
-    def read(self):
-        """One host read (one gather of every process's chains): the sums
-        over all chains, in global chain order, of (accepted, cg_iters,
-        all_converged, exp(-dH), fallback solves)."""
-        per_chain = mh.gather_chains(torch.stack([
-            self.accepted.double(), self.cg_iters.double(),
-            self.converged.double(), self.exp_mdH,
-            self.fallbacks.double()]), dim=1)
-        acc, it, em, fb = per_chain[[0, 1, 3, 4]].sum(dim=1).tolist()
-        return int(acc), int(it), bool(per_chain[2].all()), em, int(fb)
-
-
 def run_hmc(
     lattice: LatticeParams,
     hmc: HMCParams,
@@ -200,6 +163,7 @@ def run_hmc(
     measure_condensate: bool = False,
     n_noise: int = 8,
     mesh=None,
+    graph: bool = True,
 ) -> RunResult:
     """Full simulation on one device (reference main.cpp:148-174 +
     hmc.cpp:183-215). The lattice mesh is run.mesh_shape = (rx, rt): the
@@ -213,7 +177,11 @@ def run_hmc(
     process's chain group of the run.n_chains chains (module docstring);
     initial_theta is then the configuration of every chain (or one, for
     all), and the result's theta and chains are every chain's on every
-    process."""
+    process. The packed paths (one process, or its chain group) run their
+    thermalization and measurement trajectories as a device program
+    (hmc/program.py: on the card one CUDA graph replay each, captured once
+    after the warm-up); graph=False issues them from the host one eager
+    call each instead (the on-card comparison)."""
     t_begin = time.perf_counter()
     log = progress or (lambda s: None)
     device = torch.device(device)
@@ -291,8 +259,25 @@ def run_hmc(
     all_converged = True
     ill_records = []
 
-    def advance(theta, blk: _Block, n: int):
+    # the packed paths run as a device program (hmc/program.py): on the card
+    # one CUDA graph replay a trajectory, eager on the CPU
+    prog = (traj.program(theta, run.seed, traj_index)
+            if graph and hasattr(traj, "program") else None)
+
+    def new_block(theta) -> program.Block:
+        if prog is None:
+            return program.Block(theta)
+        prog.block.reset()
+        return prog.block
+
+    def advance(theta, blk: program.Block, n: int):
         nonlocal traj_index
+        if prog is not None:
+            replays = prog.replays
+            prog.run(n)
+            perf.add(replays=prog.replays - replays)
+            traj_index += n
+            return prog.theta.clone()
         for _ in range(n):
             theta_next, st = traj(theta, run.seed, traj_index)
             blk.add(theta, st, traj_index)
@@ -300,7 +285,7 @@ def run_hmc(
             traj_index += 1
         return theta
 
-    def close(blk: _Block):
+    def close(blk: program.Block):
         """Read the block's statistics once; dump the captured first-failure
         configurations (reference dumps from inside Force,
         src/hmc.cpp:48-56)."""
@@ -335,7 +320,7 @@ def run_hmc(
     with perf.phase("thermalize"):
         while done < n_therm_left:
             n = min(THERM_BLOCK, n_therm_left - done)
-            blk = _Block(theta)
+            blk = new_block(theta)
             theta = advance(theta, blk, n)
             _, it, _ = close(blk)
             perf.add(trajectories=blk.updates * n_groups, cg_iters=it)
@@ -353,7 +338,7 @@ def run_hmc(
     updates_total = 0
     exp_mdH_sum = 0.0
     with perf.phase("measure"):
-        blk = _Block(theta)
+        blk = new_block(theta)
         for i in range(run.n_meas):
             theta = advance(theta, blk, 1 if i == 0 else 1 + run.n_steps)
             meas["plaquette"].append(obs.mean_plaquette(theta))
@@ -372,7 +357,7 @@ def run_hmc(
                 updates_total += blk.updates * n_groups
                 exp_mdH_sum += em
                 _save_confs(theta, i, lattice, hmc, run)
-                blk = _Block(theta)
+                blk = new_block(theta)
         if blk.updates:
             acc, _, em = close(blk)
             accepted_total += acc
@@ -390,6 +375,8 @@ def run_hmc(
         perf.add(trajectories=updates_total,
                  cg_iters=cg_iters_total
                  - sum(p.cg_iters for p in perf.phases.values()))
+    if prog is not None:
+        perf.graph = prog.stats()
     for line in perf.report_lines():
         log("perf: " + line)
     if fallback_solves:

@@ -60,18 +60,25 @@ def card_label(device) -> str:
         return torch.cuda.get_device_name(device)
 
 
-def kernel_launches() -> dict:
-    """Every CUDA kernel wrapper's launch counter (each adds one where it
-    launches its kernel; a CPU tensor runs the plain twin and counts
-    nothing): entry point -> launches since the counter was last set."""
-    from schwingermodel_tpu_torch.ops import cg_eo, halo
+def counted_kernels() -> tuple:
+    """Every CUDA kernel wrapper with a launch counter (each adds one to
+    ``.launches`` where it launches its kernel; a CPU tensor runs the plain
+    twin and counts nothing)."""
+    from schwingermodel_tpu_torch.ops import cg_eo, halo, noise
     from schwingermodel_tpu_torch.ops import refined as rs
     from schwingermodel_tpu_torch.ops import traj as tr
 
-    fns = (tr.force_step, tr.solve_fused, tr.solve_fused_mxu, tr.ratio_force,
-           rs.solve_refined, rs.solve_f64_cg_fallback, cg_eo.cg_solve_eo,
-           rs.residual_f64, halo.halo_normal, halo.halo_force)
-    return {fn.__name__: fn.launches for fn in fns}
+    return (tr.force_step, tr.solve_fused, tr.solve_fused_mxu, tr.ratio_force,
+            rs.solve_refined, rs.solve_f64_cg_fallback, cg_eo.cg_solve_eo,
+            rs.residual_f64, halo.halo_normal, halo.halo_force,
+            noise.chain_noise)
+
+
+def kernel_launches() -> dict:
+    """Entry point -> launches since its counter was last set, of every
+    wrapper of ``counted_kernels`` (a graph replay counts as the launches
+    its capture recorded, hmc/program.py)."""
+    return {fn.__name__: fn.launches for fn in counted_kernels()}
 
 
 def cg_iteration_flops(volume: int, even_odd: bool) -> float:
@@ -86,6 +93,7 @@ class PhaseStats:
     seconds: float = 0.0
     trajectories: int = 0
     cg_iters: int = 0
+    replays: int = 0          # CUDA graph replays (hmc/program.py)
 
 
 class PerfMonitor:
@@ -103,6 +111,8 @@ class PerfMonitor:
         self.even_odd = even_odd
         self.phases: Dict[str, PhaseStats] = {}
         self._current: Optional[str] = None
+        # the device program's TrajectoryProgram.stats(), where one ran
+        self.graph: Optional[dict] = None
 
     @contextlib.contextmanager
     def phase(self, name: str):
@@ -117,13 +127,14 @@ class PerfMonitor:
             self._current = prev
 
     def add(self, trajectories: int = 0, cg_iters: int = 0,
-            phase: Optional[str] = None):
+            phase: Optional[str] = None, replays: int = 0):
         name = phase or self._current
         if name is None:
             return
         st = self.phases.setdefault(name, PhaseStats())
         st.trajectories += trajectories
         st.cg_iters += cg_iters
+        st.replays += replays
 
     # ---- derived metrics ----
 
@@ -140,12 +151,18 @@ class PerfMonitor:
                     / st.seconds / 1e9)
             if st.trajectories:
                 d["cg_iters_per_traj"] = st.cg_iters / max(st.trajectories, 1)
+            if st.replays:
+                d["replays"] = st.replays
             out[name] = d
+        if self.graph is not None:
+            out["graph"] = dict(self.graph)
         return out
 
     def report_lines(self) -> list[str]:
         lines = []
-        for name, d in self.summary().items():
+        summary = self.summary()
+        graph = summary.pop("graph", None)
+        for name, d in summary.items():
             parts = [f"{name}: {d['seconds']:.2f} s"]
             if "traj_per_s" in d:
                 parts.append(f"{d['traj_per_s']:.1f} traj/s")
@@ -153,7 +170,16 @@ class PerfMonitor:
                 parts.append(f"{d['cg_iters_per_traj']:.0f} CG iters/traj")
             if "cg_gflops" in d:
                 parts.append(f"{d['cg_gflops']:.2f} GFLOP/s (CG)")
+            if "replays" in d:
+                parts.append(f"{d['replays']} graph replays")
             lines.append("  ".join(parts))
+        if graph is not None and graph["captures"]:
+            us = graph["host_us_per_replay"]
+            lines.append(
+                f"graph: {graph['captures']} capture(s), {graph['replays']} "
+                f"replays, {graph['kernel_nodes']} kernel nodes, "
+                + (f"{us:.1f} us of host per replay" if us is not None
+                   else "no replay"))
         return lines
 
 

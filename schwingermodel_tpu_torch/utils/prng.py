@@ -1,22 +1,48 @@
-"""Random-number discipline: explicit torch.Generators from one root seed.
+"""Random-number discipline: one root seed, a counter-based trajectory stream.
 
 Counterpart of ``schwingermodel_tpu/utils/prng.py``. The JAX package folds
-a threefry key per trajectory and splits it per chain; here the root seed,
-the trajectory index and the chain index are mixed by NumPy's
-``SeedSequence`` into the seed of one ``torch.Generator`` (Philox on CUDA),
-so a chain's noise depends on (seed, trajectory, chain) only, not on the
-number of chains or on the device's other work. The streams differ from
-threefry's: tests feed both packages the same noise instead.
+a threefry key per trajectory and splits it per chain, all inside its
+jitted program. Here the trajectory noise comes from Philox4x32-10 (Salmon
+et al., SC'11; the Random123 constants), keyed by the seed and a stream tag
+and counted by (element, field, chain, trajectory), so a chain's noise
+depends on (seed, trajectory, global chain index) only: not on the number
+of chains, the chain offset, the process or the device's other work. On
+the card one kernel draws every chain's noise of a trajectory
+(``ops/noise.py``, ``csrc/noise.cu``), reading the trajectory index from a
+counter on the card; ``trajectory_noise_reference`` below is its plain
+twin, the same Philox rounds in torch integer ops on any device. The
+streams differ from threefry's: tests feed both packages the same noise.
+
+Layout (``csrc/noise.cu`` says the same):
+
+- key: k0 = seed mod 2^32, k1 = (seed >> 32) mod 2^24 | tag << 24, for
+  seeds in [0, 2^56) (``philox_key``);
+- counter: c0 = q, the pair or element index within its field; c1 = field
+  | (trajectory >> 32) << 8, the field 0 for pi, 1 for chi, 2 for r;
+  c2 = the chain's global index; c3 = trajectory mod 2^32. Distinct
+  (seed, stream, trajectory < 2^56, chain < 2^32, field, q < 2^32) never
+  share a (key, counter).
+- one counter's words (w0, w1, w2, w3) give m1 = the 53 high bits of
+  (w1 w0) and m2 those of (w3 w2); u1 = (m1 + 1) 2^-53 in (0, 1],
+  u2 = m2 2^-53 in [0, 1); Box-Muller in f64, z0 = sqrt(-2 log u1)
+  cos(2 pi u2), z1 = ... sin(2 pi u2), rounded once to the working dtype.
+  pi ~ N(0, 1): elements 2q and 2q + 1 of a chain from pair q; chi, each
+  part ~ N(0, 1/2): element q = (z0 + i z1) / sqrt(2); r ~ U[0, 1):
+  m1 2^-53 in f64, (m1 >> 29) 2^-24 in f32 (exact in both).
 
 Distributions (reference src/hmc.cpp:5-28, include/statistics.h:20-24):
-pi ~ N(0, 1); chi has real and imaginary parts each ~ N(0, 1/sqrt(2)), so
-E|chi|^2 = 1 per component; r ~ U[0, 1). The condensate's noise is Z2xZ2,
-(+-1 +- i)/sqrt(2) per component, from one generator per (measurement,
-chain) of its own stream, as JAX keys the measurement apart from the
-trajectories (``fold_in(k_run, 10_000_000 + i)``, runner.py:253-258).
+pi ~ N(0, 1); chi has real and imaginary parts each of variance 1/2, so
+E|chi|^2 = 1 per component; r ~ U[0, 1). The hot start (one draw a run)
+and the condensate's Z2xZ2 noise, (+-1 +- i)/sqrt(2) per component, keep
+a ``torch.Generator`` each, seeded through NumPy's ``SeedSequence``: the
+condensate from one generator per (measurement, chain) of its own stream,
+as JAX keys the measurement apart from the trajectories
+(``fold_in(k_run, 10_000_000 + i)``, runner.py:253-258).
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -24,6 +50,14 @@ import torch
 # stream tags, so that the hot start, the trajectories and the measurements
 # never share seeds
 _INIT, _TRAJ, _MEAS = 0, 1, 2
+
+# Philox4x32-10 (Random123): the round multipliers and the key increments
+PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_MASK32 = 0xFFFFFFFF
+# fields of the trajectory stream's counter
+FIELD_PI, FIELD_CHI, FIELD_R = 0, 1, 2
+_SEED_LIMIT = 1 << 56
 
 
 def _generator(entropy, device) -> torch.Generator:
@@ -38,32 +72,10 @@ def init_generator(seed: int, device) -> torch.Generator:
     return _generator([seed, _INIT], device)
 
 
-def chain_generator(seed: int, traj_index: int, chain: int, device) -> torch.Generator:
-    """Generator of one chain's noise for one trajectory."""
-    return _generator([seed, _TRAJ, traj_index, chain], device)
-
-
 def measurement_generator(seed: int, meas_index: int, chain: int,
                           device) -> torch.Generator:
     """Generator of one chain's condensate noise for one measurement."""
     return _generator([seed, _MEAS, meas_index, chain], device)
-
-
-def normal_real(gen, shape, dtype, device) -> torch.Tensor:
-    """pi ~ N(0, 1) per component."""
-    return torch.randn(shape, generator=gen, dtype=dtype, device=device)
-
-
-def normal_complex(gen, shape, rdtype, device) -> torch.Tensor:
-    """Complex field with real and imaginary parts each ~ N(0, 1/sqrt(2))."""
-    z = torch.randn((2,) + tuple(shape), generator=gen, dtype=rdtype,
-                    device=device) * (2.0 ** -0.5)
-    return torch.complex(z[0], z[1])
-
-
-def uniform_scalar(gen, dtype, device) -> torch.Tensor:
-    """Metropolis draw r in [0, 1)."""
-    return torch.rand((), generator=gen, dtype=dtype, device=device)
 
 
 def z2_complex(gen, shape, rdtype, device) -> torch.Tensor:
@@ -72,3 +84,98 @@ def z2_complex(gen, shape, rdtype, device) -> torch.Tensor:
                          device=device)
     s = (2 * bits - 1).to(rdtype) * (2.0 ** -0.5)
     return torch.complex(s[0], s[1])
+
+
+# ---------- the trajectory stream: Philox4x32-10 ----------
+
+def philox_key(seed: int, tag: int = _TRAJ) -> tuple:
+    """(k0, k1) of the stream `tag` under `seed` (module docstring)."""
+    seed = int(seed)
+    if not 0 <= seed < _SEED_LIMIT:
+        raise ValueError(f"seed {seed} outside [0, 2^56)")
+    return seed & _MASK32, ((seed >> 32) & 0xFFFFFF) | (int(tag) << 24)
+
+
+def _mulhilo(m: int, x: torch.Tensor):
+    """(hi, lo) 32-bit halves of m * x for a 32-bit constant m and int64 x
+    holding 32-bit values, in int64 arithmetic that never overflows."""
+    a = (x & 0xFFFF) * m                 # < 2^48
+    b = (x >> 16) * m                    # < 2^48
+    lo = (((b & 0xFFFF) << 16) + a) & _MASK32
+    hi = (b + (a >> 16)) >> 16
+    return hi, lo
+
+
+def philox4x32_10(ctr: torch.Tensor, key) -> torch.Tensor:
+    """Plain twin of the Philox4x32-10 bijection: counters int64 [..., 4]
+    holding 32-bit words, key (k0, k1) ints or int64 tensors broadcasting
+    against ctr[..., 0]; the words int64 [..., 4]."""
+    c0, c1, c2, c3 = ctr.unbind(-1)
+    k0, k1 = key
+    for i in range(10):
+        if i:
+            k0 = (k0 + PHILOX_W[0]) & _MASK32
+            k1 = (k1 + PHILOX_W[1]) & _MASK32
+        hi0, lo0 = _mulhilo(PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return torch.stack([c0, c1, c2, c3], dim=-1)
+
+
+def trajectory_counters(traj_index, n_chains: int, chain_offset: int,
+                        n_pairs: int, n_chi: int, device) -> torch.Tensor:
+    """The counters of one trajectory's noise, int64 [C, n_pairs + n_chi + 1,
+    4]: the n_pairs pairs of pi, the n_chi elements of chi, then r, each
+    chain at its global index. traj_index: a Python int or a 0-d int64
+    tensor (read on its device, never on the host)."""
+    traj = torch.as_tensor(traj_index, dtype=torch.int64, device=device)
+    q = torch.cat([torch.arange(n_pairs, device=device),
+                   torch.arange(n_chi, device=device),
+                   torch.zeros(1, dtype=torch.int64, device=device)])
+    field = torch.cat([
+        torch.full((n_pairs,), FIELD_PI, dtype=torch.int64, device=device),
+        torch.full((n_chi,), FIELD_CHI, dtype=torch.int64, device=device),
+        torch.full((1,), FIELD_R, dtype=torch.int64, device=device)])
+    chain = (torch.arange(n_chains, dtype=torch.int64, device=device)
+             + int(chain_offset)).reshape(-1, 1)
+    n = q.numel()
+    return torch.stack([
+        q.expand(n_chains, n),
+        (field | ((traj >> 32) << 8)).expand(n_chains, n),
+        (chain & _MASK32).expand(n_chains, n),
+        (traj & _MASK32).expand(n_chains, n)], dim=-1)
+
+
+def _bits53(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    return (hi << 21) | (lo >> 11)
+
+
+def trajectory_noise_reference(seed: int, traj_index, n_chains: int,
+                               chain_offset: int, n_pi: int, n_chi: int,
+                               rdtype, device, words: bool = False):
+    """Plain twin of the noise kernel (ops/noise.py): for the chains
+    chain_offset .. chain_offset + n_chains - 1 of one trajectory, pi
+    [C, n_pi] (n_pi even), chi complex [C, n_chi] and r [C] in the real
+    dtype `rdtype` (f32 or f64) on `device`; with `words`, also the Philox
+    words int64 [C, n_pi / 2 + n_chi + 1, 4]."""
+    n_pairs = n_pi // 2
+    ctr = trajectory_counters(traj_index, n_chains, chain_offset, n_pairs,
+                              n_chi, device)
+    w = philox4x32_10(ctr, philox_key(seed))
+    m1 = _bits53(w[..., 0], w[..., 1])
+    m2 = _bits53(w[..., 2], w[..., 3])
+    u1 = (m1[:, :-1] + 1).double() * 2.0 ** -53
+    u2 = m2[:, :-1].double() * 2.0 ** -53
+    rad = torch.sqrt(-2.0 * torch.log(u1))
+    ang = (2.0 * math.pi) * u2
+    z0, z1 = rad * torch.cos(ang), rad * torch.sin(ang)
+    pi = torch.stack([z0[:, :n_pairs], z1[:, :n_pairs]], dim=-1)
+    pi = pi.reshape(n_chains, n_pi).to(rdtype)
+    s = 2.0 ** -0.5
+    chi = torch.complex((z0[:, n_pairs:] * s).to(rdtype),
+                        (z1[:, n_pairs:] * s).to(rdtype))
+    if rdtype == torch.float64:
+        r = m1[:, -1].double() * 2.0 ** -53
+    else:
+        r = (m1[:, -1] >> 29).float() * 2.0 ** -24
+    return (pi, chi, r, w) if words else (pi, chi, r)

@@ -152,9 +152,7 @@ def _start(model, seed):
     heat bath from the port's noise draw."""
     rng = np.random.default_rng(seed)
     theta = torch.from_numpy(rng.uniform(-math.pi, math.pi, (1, 2, 8, 8)))
-    gen = torch.Generator().manual_seed(seed)
-    pi, chi, _ = sampler.draw_noise(model, (2, 8, 8), gen, torch.device("cpu"))
-    pi, chi = pi[None], chi[None]
+    pi, chi, _ = sampler.draw_chain_noise(model, seed, 0, 1, "cpu")
     phi, stats = model.pseudofermion_fields(theta, chi, SolveStats.zero(theta[:, 0, 0, 0]))
     return theta, pi, chi, phi, stats
 
