@@ -7,7 +7,8 @@ Run from the repository root on a machine with one CUDA card:
 Phases (any failure raises, and the script exits non-zero):
 
 0. the card's name and power limit; no CUDA, no run;
-1. build the eleven CUDA kernels from csrc/ with nvcc (sm_90a), one nvcc
+1. build the eleven CUDA kernels (the noise kernel with its Z2 mode) from
+   csrc/ with nvcc (sm_90a), one nvcc
    per source, all started together;
 2. each kernel against its plain PyTorch twin on the card at m0=0.2,
    beta=4, random angles, on the main path's shape 64x64 C=32, on 64x64
@@ -201,7 +202,7 @@ Phases (any failure raises, and the script exits non-zero):
    processes (parallel/multihost.py): one refined trajectory of C=32 chains
    against its two halves, each on the noise of its global chains, and K1
    and K3 on the batch against its halves (bits equal, or the kernel whose
-   bits move named), then the CLI at the demo config with --chains 32,
+   bits move named), then the CLI at the demo config with --chains 32 --condensate,
    10 + 20 trajectories and a checkpoint, in one process and under torchrun
    in two processes with --ranks-chain 2 on this one card (gloo; two
    processes time-slicing one card, not multi-GPU), each on its device
@@ -231,7 +232,21 @@ Phases (any failure raises, and the script exits non-zero):
    trajectories; bench_scaling's measure on 1x1 and 2x2 at 64x64, 2 + 2),
    each finite and positive with every solve converged but on the
    near-critical row (flags and acceptance printed), K1, K3, K5, K6, K7 and
-   K8 launched by the phase. Every run has the kernels' launch counters set
+   K8 launched by the phase; (u), after the mesons, the measurement phase as
+   a device program: the noise kernel's Z2 mode against its twin at 64x64
+   C=32, 8 vectors (words and values exact, the counter on the card),
+   timed with its twin and torch.randint in turns (and torch.randn's device
+   time for the trajectory row); K6 and K9 with a mask against the unmasked
+   kernels (bit for bit on the active entries, the others untouched) and
+   their twins, and timed with no entry active; the refined and the loose
+   measurement on (d)'s final configurations as a MeasurementProgram, 10
+   replays against 10 eager calls bit for bit (values, flags, iterations,
+   launch counts), timed in turns; the refined (in turns) and loose demos
+   with --condensate on the graph, their measurement phase under
+   torch.cuda.set_sync_debug_mode("error") but the block read, the final
+   gathers and the captures, against graph=False bit for bit; and
+   tools/critical_mass.run_point at 8x8 C=8 on its device programs against
+   its eager run. Every run has the kernels' launch counters set
    to 0 just before it and read just after it, and fails if a kernel of its
    path was not launched; the packed refined runs must launch K3 once per
    solve and K4's own entry never (the fallback runs inside K3's launch; each
@@ -241,10 +256,15 @@ Phases (any failure raises, and the script exits non-zero):
    (graph, eager, eager, graph), and of (f) and (g) then run under
    torch.profiler (launches, device-busy share, the top kernels by device
    time, and K1's, K2's and the noise kernel's device time), then one K6 launch (C=32, B=8) and
-   one K5 launch at 64x64, whose shared kernels must appear by name;
-4. the kernels line (eleven entry points; K3's with ms_mre4, its time at
-   K = 4 in turns with K = 1, and launches_mre_path, its launches in (q);
-   the noise kernel's with its ties and (t)'s device-program details),
+   one K5 launch at 64x64, whose shared kernels must appear by name, and a
+   refined condensate measurement graphed and eager in turns (launches,
+   busy share; the Z2 mode by name);
+4. the kernels line (eleven entry points and the noise kernel's Z2 mode,
+   z2_noise, a row of its own; K3's with ms_mre4, its time at K = 4 in
+   turns with K = 1, and launches_mre_path, its launches in (q); the noise
+   kernel's with its ties, torch.randn's device time and (t)'s
+   device-program details; K6's and K9's with their masked times; the Z2
+   row with (u)'s measurement and demo times),
    the card line, and the last line {"ok": true, "device": {...}}.
 
 Imports nothing of jax or of the JAX package.
@@ -613,8 +633,10 @@ def chain_groups(hp, rs, tr, sms, card, lattice, hmc, dev):
         for label, n in (("1 process", 1), ("processes", nproc)):
             out_dir = Path(tmp) / f"p{n}"
             out_dir.mkdir()
-            argv = [*MP_FLAGS, "--out-dir", str(out_dir),
-                    "--checkpoint", str(out_dir / "ck.npz")]
+            # with the condensate: each process draws its chains' Z2 noise
+            # at their global indices on its measurement program
+            argv = [*MP_FLAGS, "--condensate", "--n-noise", "8", "--out-dir",
+                    str(out_dir), "--checkpoint", str(out_dir / "ck.npz")]
             if n > 1:
                 cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
                        "--nproc-per-node", str(n), "-m", "schwingermodel_tpu_torch",
@@ -633,10 +655,11 @@ def chain_groups(hp, rs, tr, sms, card, lattice, hmc, dev):
                 "stdout": proc.stdout, "stderr": proc.stderr, "wall": wall,
                 "rate": float(rate.group(1)),
                 "theta": np.load(out_dir / "ck.npz")["theta"],
+                "condensate": np.load(out_dir / "ck.npz")["chain_chiral_condensate"],
                 "simdata": len(list(out_dir.glob("*SimData*"))),
                 "checkpoints": len(list(out_dir.glob("*.npz"))),
                 "results": [ln for ln in proc.stdout.splitlines()
-                            if ln.startswith(MP_RESULTS)]}
+                            if ln.startswith((*MP_RESULTS, "Chiral condensate"))]}
     one, two = outs["1 process"], outs["processes"]
     layout = (f"{nproc} processes on {cards} device{'s' if cards > 1 else ''} "
               f"({'nccl' if cards > 1 else 'gloo'})")
@@ -659,25 +682,31 @@ def chain_groups(hp, rs, tr, sms, card, lattice, hmc, dev):
     check(sorted(per_proc) == list(range(nproc)), f"(p) per-process lines: {per_proc}")
     for rank, (where, got) in sorted(per_proc.items()):
         check(where == f"cuda:{rank % cards}" and got["force_step"] > 0
-              and got["solve_refined"] > 0 and got["solve_f64_cg_fallback"] == 0,
+              and got["solve_refined"] > 0 and got["z2_noise"] > 0
+              and got["solve_f64_cg_fallback"] == 20,
               f"(p) process {rank} on {where}: launches {got}")
         print(f"phase 3: (p) process {rank} of {nproc} on {where}: launches {got}",
               flush=True)
-    # both runs on the device program: one capture, 29 replays a process
+    # both runs on the device programs: one capture, 29 trajectory and 19
+    # measurement replays a process
     for label, o in outs.items():
-        check(re.search(r"perf: graph: 1 capture\(s\), 29 replays", o["stdout"]),
-              f"(p) {label}: no graph line of one capture and 29 replays")
-    bits = np.array_equal(one["theta"], two["theta"])
+        check(re.search(r"perf: graph: 1 capture\(s\), 29 replays", o["stdout"])
+              and re.search(r"perf: measurement graph: 1 capture\(s\), 19 replays",
+                            o["stdout"]),
+              f"(p) {label}: no graph lines of one capture and 29 and 19 replays")
+    bits = (np.array_equal(one["theta"], two["theta"])
+            and np.array_equal(one["condensate"], two["condensate"]))
     d = np.remainder(one["theta"] - two["theta"] + np.pi, 2 * np.pi) - np.pi
     dmax = float(np.abs(d).max())
-    check(bits and one["results"] == two["results"] and len(one["results"]) == 4,
+    check(bits and one["results"] == two["results"] and len(one["results"]) == 5,
           f"(p) theta differs by {dmax:.3e} (kernels whose bits move: "
           f"{moved or 'none'}), or the printed averages: {one['results']} against "
           f"{two['results']}")
-    print(f"phase 3: (p) the CLI at {NX}x{NT} C={C_MAIN}, 10 + 20 trajectories, one "
-          f"process against {nproc} (--ranks-chain {nproc}, torchrun), each on its "
-          f"device program (one CUDA graph a process): every chain's theta bit "
-          f"for bit {bits} (max |dtheta| {dmax:.3e}), printed averages "
+    print(f"phase 3: (p) the CLI at {NX}x{NT} C={C_MAIN} with --condensate --n-noise 8, "
+          f"10 + 20 trajectories, one process against {nproc} (--ranks-chain {nproc}, "
+          f"torchrun), each on its device programs (a trajectory and a measurement "
+          f"graph a process): every chain's theta and condensate bit for bit {bits} "
+          f"(max |dtheta| {dmax:.3e}), printed averages "
           f"{'equal' if one['results'] == two['results'] else 'differ'}: "
           f"{two['results']}; one SimData and one checkpoint each, the results "
           f"printed by process 0 only", flush=True)
@@ -1358,6 +1387,313 @@ def device_program(counters, hmc_params, lattice, dev, card, cli, counted):
               f"a batch trajectory, device busy {100 * s['busy_share']:.1f}% (K1, K3 and "
               f"the noise kernel by name); card {card}", flush=True)
     out["demo"] = summary
+    return out
+
+
+# bytes of one Z2xZ2 entry (complex64) that the Z2 mode writes
+Z2_ENTRY_BYTES = 8
+
+
+@dataclasses.dataclass
+class _SyncGuard:
+    """Turns torch.cuda.set_sync_debug_mode("error") on for the runner's
+    measurement phase, off for its block reads, its final gathers and the
+    programs' one-time captures (a host read inside a capture fails the
+    capture itself)."""
+    phases: int = 0
+
+    def install(self, stack):
+        import contextlib
+
+        from schwingermodel_tpu_torch.hmc import program
+        from schwingermodel_tpu_torch.parallel import multihost as mh
+        from schwingermodel_tpu_torch.utils import metrics
+
+        guard = self
+        orig_phase = metrics.PerfMonitor.phase
+
+        @contextlib.contextmanager
+        def phase(mon, name):
+            with orig_phase(mon, name) as st:
+                if name != "measure":
+                    yield st
+                    return
+                guard.phases += 1
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    yield st
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+
+        def allowed(fn):
+            def call(*a, **k):
+                mode = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode(0)
+                try:
+                    return fn(*a, **k)
+                finally:
+                    torch.cuda.set_sync_debug_mode(mode)
+            return call
+
+        for owner, name, wrap in (
+                (metrics.PerfMonitor, "phase", phase),
+                (program.Block, "read", allowed(program.Block.read)),
+                (program._GraphedStep, "_capture", allowed(program._GraphedStep._capture)),
+                (mh, "gather_chains", allowed(mh.gather_chains))):
+            old = getattr(owner, name)
+            setattr(owner, name, wrap)
+            stack.callback(setattr, owner, name, old)
+
+
+def condensate_measurement(model, n_noise):
+    """The runner's measurement with the condensate as a function of
+    (theta, measurement index): plaquette, action density, charge, the
+    condensate's value, flags and iterations per solve."""
+    from schwingermodel_tpu_torch import observables as obs
+
+    def measure(th, i):
+        o = obs.measure_all(model, th)
+        cc = obs.chiral_condensate(model, th, 1, i, n_noise)
+        o.update(chiral_condensate=cc.value, converged=cc.converged, iters=cc.iters)
+        return o
+    return measure
+
+
+def measurement_program(counted, hmc_params, lattice, dev, card, theta_d):
+    """Phase 3 (u): the measurement phase as a device program.
+
+    The noise kernel's Z2 mode against its twin at 64x64 C=32, 8 vectors
+    (words and values exact, the counter on the card, chains at an offset),
+    timed with the twin and torch.randint of as many values in turns; K6
+    and K9 with a mask (half the 256 entries active) against the unmasked
+    kernels (bit for bit on the active entries, the inactive ones left:
+    x = x0 and 0 iterations, r and ||r||^2 as given) and their twins (K6
+    x to 2e-4 and equal flags, K9 r to 1e-12 (max|b| + max|A x|)), and
+    each timed with every entry inactive (a trailing pass) against all
+    active; on (d)'s final configurations the refined and the loose
+    measurement (plaquette, action, charge, the condensate of 8 vectors
+    with its flags and iterations) as a MeasurementProgram: 10 replays
+    against 10 eager calls at the same indices, bit for bit, the launch
+    counts equal, a replay and an eager call timed in turns; the demo with
+    --condensate on the graph with torch.cuda.set_sync_debug_mode("error")
+    over its measurement phase but the block read, the final gathers and
+    the captures, against graph=False: theta and every observable bit for
+    bit, the refined demo's measure-phase chain-traj/s graphed and eager in
+    turns; tools/critical_mass.run_point at 8x8 C=8 on the programs against
+    its eager run: the row equal. Returns the details for the kernels
+    line."""
+    import contextlib
+
+    from schwingermodel_tpu_torch.config import LatticeParams, RunParams
+    from schwingermodel_tpu_torch.hmc.program import MeasurementProgram
+    from schwingermodel_tpu_torch.models.schwinger import SchwingerModel
+    from schwingermodel_tpu_torch.ops import cg_eo, noise
+    from schwingermodel_tpu_torch.ops import refined as rs
+    from schwingermodel_tpu_torch.ops import traj as tr
+    from schwingermodel_tpu_torch.runner import run_hmc
+    from schwingermodel_tpu_torch.tools import critical_mass
+    from schwingermodel_tpu_torch.utils import prng
+    from schwingermodel_tpu_torch.utils.metrics import device_ms, kernel_launches
+
+    out = {}
+    C, n_noise, sites = C_MAIN, 8, (2, NX, NT)
+    n_el = math.prod(sites)
+    # the Z2 mode against its twin: words and values exact
+    meas = torch.full((), 123, dtype=torch.int64, device=dev)
+    z, w = noise.z2_noise(5, meas, C, n_noise, sites, dev, words=True)
+    zp, wp = prng.z2_noise_reference(5, 123, C, 0, n_noise, n_el, dev, words=True)
+    torch.cuda.synchronize()
+    check(torch.equal(w, wp), "(u) Z2 mode: Philox words differ from the twin's")
+    check(torch.equal(z.reshape(C, n_noise, n_el), zp), "(u) Z2 mode: values differ")
+    part = noise.z2_noise(5, 123, C - 1, n_noise, sites, dev, chain_offset=1)
+    check(torch.equal(z[1:], part), f"(u) Z2 mode: chains 1.. of C={C} differ from "
+          f"C={C - 1} at chain_offset 1, or the counter from the int index")
+    kernel = lambda: noise.z2_noise(5, meas, C, n_noise, sites, dev)
+    plain = lambda: prng.z2_noise_reference(5, meas, C, 0, n_noise, n_el, dev)
+    times = in_turns(plain, kernel, 20, 200)
+    n_values = 2 * C * n_noise * n_el
+    g = torch.Generator(device=dev).manual_seed(0)
+    library = lambda: torch.randint(0, 2, (n_values,), generator=g, device=dev)
+    l1, k1 = timed(library, 200), timed(kernel, 200)
+    k2, l2 = timed(kernel, 200), timed(library, 200)
+    bound = roofline(Z2_ENTRY_BYTES * C * n_noise * n_el)
+    out["z2"] = dict(max_abs_err=0.0, times=times, bound=bound,
+                     library_ms=(l1 + l2) / 2,
+                     library_device_ms=device_ms(library, 200),
+                     ms_in_turns_with_library=(k1 + k2) / 2)
+    print(f"phase 3: (u) Z2 mode at {NX}x{NT} C={C}, {n_noise} vectors ({card}): words "
+          f"and values equal the twin's (exact), chains at an offset equal; kernel "
+          f"{times[0]:.4f} ms ({times[2]:.4f} ms queued behind a spin), twin "
+          f"{times[1]:.4f} ms, torch.randint of its {n_values} values "
+          f"{out['z2']['library_ms']:.4f} ms [{out['z2']['library_device_ms']:.4f}] "
+          f"(kernel {(k1 + k2) / 2:.4f} ms in turns with it), bound {bound[0]:.5f} ms "
+          f"by {bound[1]}", flush=True)
+    # torch.randn of the trajectory noise's values, its device time in the
+    # same harness as the noise kernel's
+    n_traj_values = C * (NX * NT * 2 + 2 * 2 * NX * NT // 2 + 1)
+    out["randn_device_ms"] = device_ms(
+        lambda: torch.randn(n_traj_values, generator=g, device=dev), 200)
+
+    # K6 and K9 with a mask
+    model = SchwingerModel(lattice=lattice, hmc=hmc_params())
+    thE, thO = tr.pack_planes(theta_d)
+    ue, uo = SchwingerModel.fermion_links(thE, thO)
+    gen = torch.Generator(device=dev).manual_seed(77)
+    B = n_noise
+    bb = torch.randn((C, B, 2, 2, NX, NT // 2), generator=gen, device=dev)
+    x0 = torch.randn(bb.shape, generator=gen, device=dev)
+    active = torch.rand((C, B), generator=gen, device=dev) < 0.5
+    none = torch.zeros_like(active)
+    kw = dict(m0=M0, tol=1e-5, max_iter=10000)
+    full = cg_eo.cg_solve_eo(ue, uo, bb, x0, **kw)
+    masked = cg_eo.cg_solve_eo(ue, uo, bb, x0, active=active, **kw)
+    twin = cg_eo.cg_solve_eo_reference(ue, uo, bb, x0, active=active, **kw)
+    torch.cuda.synchronize()
+    a6 = active[:, :, None, None, None, None].expand_as(bb)
+    check(torch.equal(masked.x[a6], full.x[a6])
+          and torch.equal(masked.iters[active], full.iters[active])
+          and torch.equal(masked.converged[active], full.converged[active]),
+          "(u) K6 with a mask: the active entries differ from the unmasked launch")
+    check(torch.equal(masked.x[~a6], x0[~a6]) and not bool(masked.iters[~active].any())
+          and not bool(masked.converged[~active].any()),
+          "(u) K6 with a mask: an inactive entry was touched")
+    scale = twin.x.abs().max().item()
+    dx6 = (masked.x - twin.x).abs().max().item()
+    check(dx6 <= 2e-4 * scale and torch.equal(masked.converged, twin.converged),
+          f"(u) K6 with a mask against its twin: max |dx| {dx6:.3e} (scale {scale:.3f})")
+    x64 = torch.randn(bb.shape, generator=gen, device=dev, dtype=torch.float64)
+    r_full, n_full = rs.residual_f64(thE, thO, bb, x64, m0=M0)
+    buf = (torch.full_like(r_full, 7.0), torch.full_like(n_full, -1.0))
+    r_m, n_m = rs.residual_f64(thE, thO, bb, x64, m0=M0, active=active, out=buf)
+    buf_p = (torch.full_like(r_full, 7.0), torch.full_like(n_full, -1.0))
+    r_p, n_p = rs.residual_f64_reference(thE, thO, bb, x64, m0=M0, active=active, out=buf_p)
+    torch.cuda.synchronize()
+    check(torch.equal(r_m[a6], r_full[a6]) and torch.equal(n_m[active], n_full[active]),
+          "(u) K9 with a mask: the active entries differ from the unmasked launch")
+    check(bool((r_m[~a6] == 7.0).all()) and bool((n_m[~active] == -1.0).all()),
+          "(u) K9 with a mask: an inactive entry was written")
+    scale9 = bb.abs().max().item() + (bb.double() - r_p).abs().max().item()
+    dr9 = (r_m - r_p).abs().max().item()
+    dn9 = ((n_m - n_p).abs() / n_p.abs()).max().item()
+    check(dr9 <= 1e-12 * scale9 and dn9 <= 1e-12,
+          f"(u) K9 with a mask against its twin: max |dr| {dr9:.3e}, ||r||^2 rel {dn9:.3e}")
+    zero = torch.zeros_like(bb)
+    calls = {
+        "K6 all active": (lambda: cg_eo.cg_solve_eo(ue, uo, bb, zero, **kw), 10),
+        "K6 none active": (lambda: cg_eo.cg_solve_eo(ue, uo, bb, zero, active=none,
+                                                     **kw), 200),
+        "K9 all active": (lambda: rs.residual_f64(thE, thO, bb, x64, m0=M0), 100),
+        "K9 none active": (lambda: rs.residual_f64(thE, thO, bb, x64, m0=M0,
+                                                   active=none, out=buf), 200)}
+    # CUDA events around the launches as the host issues them, and the same
+    # queued behind a spin of the card ([device])
+    mask_ms = {k: timed(fn, reps) for k, (fn, reps) in calls.items()}
+    mask_dev = {k: device_ms(fn, reps) for k, (fn, reps) in calls.items()}
+    out["mask_ms"], out["mask_device_ms"] = mask_ms, mask_dev
+    print(f"phase 3: (u) K6 and K9 with a mask of {int(active.sum())} of {C * B} entries "
+          f"at {NX}x{NT} C={C} B={B}: the active entries bit for bit the unmasked "
+          f"launches', the others untouched; against the twins K6 max |dx| {dx6:.3e} "
+          f"(scale {scale:.3f}), flags equal, K9 max |dr| {dr9:.3e}, ||r||^2 rel "
+          f"{dn9:.3e}; ms [device] " + ", ".join(
+              f"{k} {v:.4f} [{mask_dev[k]:.4f}]" for k, v in mask_ms.items())
+          + f" ({card})", flush=True)
+
+    # the measurement as a captured graph against eager calls
+    n = 10
+    out["ms_per_measurement"] = {}
+    for label, hmc in (("refined", hmc_params()), ("loose", hmc_params(refine=False))):
+        model = SchwingerModel(lattice=lattice, hmc=hmc)
+        measure = condensate_measurement(model, n_noise)
+        static = theta_d.clone()
+        # rows: the warm-up, n replays, and two timings of 1 + 5 replays
+        prog = MeasurementProgram(measure, static, n + 13)
+        prog.step()                                    # warm-up and capture
+        before = kernel_launches()
+        prog.run(n)
+        torch.cuda.synchronize()
+        after = kernel_launches()
+        graph_counts = {k: after[k] - before[k] for k in after}
+        rows = [measure(static, i) for i in range(1, n + 1)]
+        torch.cuda.synchronize()
+        eager_counts = {k: kernel_launches()[k] - after[k] for k in after}
+        same = all(torch.equal(prog.out[k][i + 1], row[k])
+                   for i, row in enumerate(rows) for k in row)
+        check(same, f"(u) {label}: {n} measurement replays differ from {n} eager calls")
+        check(graph_counts == eager_counts and graph_counts["z2_noise"] == n,
+              f"(u) {label}: launches of the replays {graph_counts} against the eager "
+              f"calls {eager_counts}")
+        check(bool(prog.out["converged"][:n + 1].all()), f"(u) {label}: a condensate solve did "
+              "not converge")
+        eager = lambda: measure(static, 99)
+        g1, e1 = timed(prog.step, 5), timed(eager, 5)
+        e2, g2 = timed(eager, 5), timed(prog.step, 5)
+        out["ms_per_measurement"][label] = {"graph": (g1 + g2) / 2, "eager": (e1 + e2) / 2,
+                                            "kernel_nodes": prog.kernel_nodes}
+        per = {k: v / n for k, v in graph_counts.items() if v}
+        print(f"phase 3: (u) the {label} measurement at {NX}x{NT} C={C}, {n_noise} "
+              f"vectors, on (d)'s final configurations: captured once "
+              f"({prog.kernel_nodes} kernel nodes), {n} replays against {n} eager calls "
+              f"bit for bit (values, flags, iterations), launches equal, per "
+              f"measurement {per}; {(g1 + g2) / 2:.3f} ms a replay against "
+              f"{(e1 + e2) / 2:.3f} ms an eager call (in turns; {card})", flush=True)
+
+    # the runner: the measurement phase reads the host only in the block read
+    run = RunParams(n_therm=10, n_meas=20, n_steps=0, n_chains=C_MAIN, seed=0)
+    rates = {True: [], False: []}
+    for label, hmc, graphs in (("refined", hmc_params(), (True, False, False, True)),
+                               ("loose", hmc_params(refine=False), (True, False))):
+        res = {}
+        for graph in graphs:
+            guard = _SyncGuard()
+            with contextlib.ExitStack() as stack:
+                if graph:
+                    guard.install(stack)
+                r, _, _ = counted(
+                    f"(u) {label} demo --condensate --n-noise {n_noise}, graph={graph}",
+                    ("cg_solve_eo", "z2_noise", "chain_noise")
+                    + (("residual_f64",) if hmc.cg.refine else ()),
+                    lambda: run_hmc(lattice, hmc, run, device=dev, measure_condensate=True,
+                                    n_noise=n_noise, graph=graph))
+            check(guard.phases == int(graph), f"(u) {label}: the sync guard saw "
+                  f"{guard.phases} measurement phases")
+            check(r.all_converged and r.condensate_converged,
+                  f"(u) {label} graph={graph}: a solve did not converge")
+            if graph:
+                mg = r.perf.get("measurement_graph", {})
+                check(mg.get("captures") == 1 and mg.get("replays") == run.n_meas - 1,
+                      f"(u) {label}: measurement graph {mg}")
+            res.setdefault(graph, r)
+            if label == "refined":
+                rates[graph].append(r.perf["measure"]["traj_per_s"])
+        a, b = res[True], res[False]
+        check(np.array_equal(a.theta, b.theta)
+              and all(np.array_equal(a.chains[k], b.chains[k]) for k in a.chains)
+              and a.condensate_iters == b.condensate_iters,
+              f"(u) {label}: the graphed run differs from graph=False")
+        print(f"phase 3: (u) the {label} demo --condensate on the graph, its measurement "
+              f"phase under set_sync_debug_mode('error') but the block read: theta, "
+              f"{sorted(a.chains)} and the condensate's {a.condensate_iters} iterations "
+              f"bit for bit graph=False's; measurement graph "
+              f"{a.perf['measurement_graph']['kernel_nodes']} kernel nodes, "
+              f"{a.perf['measurement_graph']['host_us_per_replay'] or math.nan:.1f} us "
+              f"of host a replay", flush=True)
+    out["demo_condensate_chain_traj_per_s"] = {
+        "graph": float(np.mean(rates[True])), "eager": float(np.mean(rates[False]))}
+    print(f"phase 3: (u) the refined demo --condensate --n-noise {n_noise}: measure phase "
+          f"{out['demo_condensate_chain_traj_per_s']['graph']:.2f} chain-traj/s graphed "
+          f"against {out['demo_condensate_chain_traj_per_s']['eager']:.2f} eager (two "
+          f"runs each, in turns; {card})", flush=True)
+
+    # the critical-mass tool on its device programs against its eager run
+    args = argparse.Namespace(beta=2.0, md_steps=20, tau=1.0, chains=8, n_therm=20,
+                              n_blocks=4, n_skip=2, seed=3)
+    lat8 = LatticeParams(Nx=8, Nt=8, real_dtype="float32")
+    rows = {g: critical_mass.run_point(args, -0.1, dev, lat8, graph=g) for g in (True, False)}
+    check(rows[True] == rows[False], f"(u) critical_mass 8x8: on the programs {rows[True]} "
+          f"against eager {rows[False]}")
+    print(f"phase 3: (u) critical_mass.run_point 8x8 beta=2 m0=-0.1 C=8 (2 x 10 annealing "
+          f"+ 20 + 4 x 2 trajectories, 4 correlator sets) on its device programs equals "
+          f"its eager run: {rows[True]}", flush=True)
     return out
 
 
@@ -2187,7 +2523,7 @@ def main() -> int:
                 "solve_f64_cg_fallback": rs.solve_f64_cg_fallback,
                 "cg_solve_eo": cg_eo.cg_solve_eo, "residual_f64": rs.residual_f64,
                 "halo_normal": halo.halo_normal, "halo_force": halo.halo_force,
-                "chain_noise": noise.chain_noise}
+                "chain_noise": noise.chain_noise, "z2_noise": noise.z2_noise}
     launches = dict.fromkeys(counters, 0)
     variants = {}
 
@@ -2434,6 +2770,9 @@ def main() -> int:
           f"scale {merr}; iterations {mk.iters.tolist()}; C_PP(t=0..3) "
           f"{mk.C_PP[0, :4].tolist()}; PCAC mass plateau (mean over t = {t0}..{t1}) "
           f"{plateau}; card {card}", flush=True)
+
+    # (u) the measurement phase as a device program
+    u_detail = measurement_program(counted, hmc_params, lattice, dev, card, final_d)
 
     # the lattice mesh: the demo on 2x2 shards under each contract
     packed_of = {"(f)": "refined demo md=10", "(g)": "(a) --no-cg-refine md=10"}
@@ -2689,6 +3028,34 @@ def main() -> int:
                 ("(f) refined on 2x2 shards", hmc_params(), mesh22),
                 ("(g) loose on 2x2 shards", hmc_params(refine=False), mesh22)):
             profile(label, SchwingerModel(lattice=lattice, hmc=hmc), mesh)
+        # a refined condensate measurement, graphed (the measurement
+        # program) and eager in turns
+        from schwingermodel_tpu_torch.hmc.program import MeasurementProgram
+
+        measure = condensate_measurement(SchwingerModel(lattice=lattice, hmc=hmc_params()),
+                                         N_NOISE)
+        static = torch.as_tensor(final_d).clone()
+        mprog = MeasurementProgram(measure, static, 8)
+        mprog.step()                                       # warm-up and capture
+        eager_m = lambda: measure(static, 99)
+        eager_m()
+        m_prof = {}
+        for label, step in (("graph", mprog.step), ("eager", eager_m), ("eager ", eager_m),
+                            ("graph ", mprog.step)):
+            ms, n_launch, busy, dev_ev = profile_window(step, 3, f"measurement {label}")
+            check(any("z2_kernel" in k for k, _, _ in dev_ev),
+                  f"profile measurement {label}: the Z2 mode missing")
+            m_prof.setdefault(label.strip(), []).append((ms, n_launch, busy))
+            top = ", ".join(f"{k[:40]} {1e-3 * t / 3:.3f} ms ({c / 3:g})"
+                            for k, c, t in dev_ev[:4])
+            print(f"phase 3: profile a refined condensate measurement at {NX}x{NT} "
+                  f"C={C_MAIN}, {N_NOISE} vectors, {label.strip()}: {ms:.3f} ms, "
+                  f"{n_launch:.0f} device launches, device busy {100 * busy:.1f}%; top "
+                  f"by device time: {top}; card {card}", flush=True)
+        u_detail["profile"] = {k: {"ms": float(np.mean([r[0] for r in v])),
+                                   "launches": float(np.mean([r[1] for r in v])),
+                                   "busy_share": float(np.mean([r[2] for r in v]))}
+                               for k, v in m_prof.items()}
         # K6 as the condensate calls it (B=8) and K5 as the Hasenbusch
         # force does, at 64x64 C=32: their kernels by name
         thE, thO, b = inputs(C_MAIN)
@@ -2729,10 +3096,17 @@ def main() -> int:
         "halo_force": ("csrc/halo_force.cu", "schwingermodel_tpu/ops/pallas_halo.py:178"),
         # jax.random inside the jitted trajectory (not a Pallas kernel)
         "chain_noise": ("csrc/noise.cu", "schwingermodel_tpu/hmc/packed.py:485"),
+        # the noise kernel's Z2 mode: jax.random inside the jitted
+        # measurement's condensate (not a Pallas kernel)
+        "z2_noise": ("csrc/noise.cu", "schwingermodel_tpu/observables.py:53"),
     }
     errs["chain_noise"] = noise_err
     times["chain_noise"] = noise_times
     bounds["chain_noise"] = noise_bound
+    errs["z2_noise"] = u_detail["z2"]["max_abs_err"]
+    times["z2_noise"] = u_detail["z2"]["times"]
+    bounds["z2_noise"] = u_detail["z2"]["bound"]
+    library = {"chain_noise": noise_library_ms, "z2_noise": u_detail["z2"]["library_ms"]}
     kernels = [{"name": k, "route": "cuda",
                 "source": "schwingermodel_tpu_torch/" + src, "replaces": rep,
                 "launches": launches[k], "max_abs_err": errs[k],
@@ -2744,8 +3118,9 @@ def main() -> int:
                 # no single PyTorch call computes a CG solve to a stop rule
                 # (with or without its shifts as products), a fused force
                 # step, an f64 true residual or a halo stencil; the noise
-                # kernel's is torch.randn of as many values
-                "library_ms": noise_library_ms if k == "chain_noise" else None}
+                # kernel's is torch.randn of as many values, its Z2 mode's
+                # torch.randint
+                "library_ms": library.get(k)}
                for k, (src, rep) in replaces.items()]
     kernels[0]["launches_by_variant"] = variants
     kernels[0]["ms_by_variant"] = {v: t[0] for v, t in k1_times.items()}
@@ -2778,6 +3153,18 @@ def main() -> int:
     by_name["halo_normal"].update(halo_detail["halo_normal"])
     by_name["halo_force"].update(halo_detail["halo_force"])
     by_name["chain_noise"].update(noise_detail)
+    by_name["chain_noise"]["library_device_ms"] = u_detail["randn_device_ms"]
+    by_name["chain_noise"]["modes"] = ["trajectory", "z2 (z2_noise)"]
+    by_name["z2_noise"].update(
+        mode_of="chain_noise", library_device_ms=u_detail["z2"]["library_device_ms"],
+        ms_in_turns_with_library=u_detail["z2"]["ms_in_turns_with_library"],
+        ms_per_measurement=u_detail["ms_per_measurement"],
+        demo_condensate_chain_traj_per_s=u_detail["demo_condensate_chain_traj_per_s"],
+        measurement_profile=u_detail.get("profile"))
+    for k_name, tag in (("cg_solve_eo", "K6"), ("residual_f64", "K9")):
+        for key in ("mask_ms", "mask_device_ms"):
+            by_name[k_name][key] = {k: v for k, v in u_detail[key].items()
+                                    if k.startswith(tag)}
     # the device program (t): a replay's and an eager call's ms a batch
     # trajectory, and the demo graphed and eager under the profiler
     by_name["chain_noise"]["device_program"] = t_detail

@@ -11,7 +11,11 @@
 // loop is cg_f32's without its breakdown guards, as the Pallas loop has
 // none (a zero b runs one iteration to a NaN x, unconverged); the per-entry
 // loop replaces the lockstep jnp.any of K6b and its block-indicator dots (a
-// NaN entry stops only itself here). Outputs per entry: x, the iterations,
+// NaN entry stops only itself here). With a mask `active` (bool [C, B], or
+// null for every entry) an inactive entry's block returns at once with x =
+// x0, 0 iterations and rho = ||b||^2 = 0, and the active entries run as
+// without it: the restart refinement's trailing passes (solvers/refine.py)
+// cost a launch, not a solve. Outputs per entry: x, the iterations,
 // the last recursive rho and ||b||^2; the wrapper forms
 // converged = rho < f32(tol^2) ||b||^2 and the relative residual, as
 // pallas_eo.py:315-323 and :494-503 do.
@@ -40,18 +44,36 @@ namespace sm {
 
 constexpr int kCgEoScratch = 24;  // f32 values per half-lattice site and entry
 
+// An entry the mask leaves out: x = x0, no iteration, rho = ||b||^2 = 0.
+__device__ __forceinline__ void skip_entry(const float* __restrict__ x0, float* __restrict__ x,
+                                           int n, size_t e, int* __restrict__ iters_out,
+                                           float* __restrict__ rho_out,
+                                           float* __restrict__ bnorm_out) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) x[i] = x0[i];
+  if (threadIdx.x == 0) {
+    iters_out[e] = 0;
+    rho_out[e] = 0.0f;
+    bnorm_out[e] = 0.0f;
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 cg_eo_kernel(const float* __restrict__ ue_all, const float* __restrict__ uo_all,
              const float* __restrict__ b_all, const float* __restrict__ x0_all,
              float* __restrict__ x_all, int* __restrict__ iters_out,
              float* __restrict__ rho_out, float* __restrict__ bnorm_out,
-             float* __restrict__ scratch, int B, int Nx, int Nth, float m, float c,
-             double tol, int max_iter) {
+             float* __restrict__ scratch, const bool* __restrict__ active, int B, int Nx,
+             int Nth, float m, float c, double tol, int max_iter) {
   __shared__ double sh[33];
   const Geo g{Nx, Nth, Nx * Nth};
   const int V2 = g.V2;
   const int e = blockIdx.x;
   const int cfg = e / B;
+  if (active != nullptr && !active[e]) {
+    const size_t off = (size_t)e * 4 * V2;
+    skip_entry(x0_all + off, x_all + off, 4 * V2, e, iters_out, rho_out, bnorm_out);
+    return;
+  }
   const float* ue = ue_all + (size_t)cfg * 4 * V2;
   const float* uo = uo_all + (size_t)cfg * 4 * V2;
   float* sc = scratch + (size_t)e * kCgEoScratch * V2;
@@ -70,12 +92,18 @@ __global__ void __launch_bounds__(kThreads)
 cg_eo_shared_kernel(const float* __restrict__ ue_all, const float* __restrict__ uo_all,
                     const float* __restrict__ b_all, const float* __restrict__ x0_all,
                     float* __restrict__ x_all, int* __restrict__ iters_out,
-                    float* __restrict__ rho_out, float* __restrict__ bnorm_out, int B, int Nx,
-                    int Nth, float m, float c, double tol, int max_iter) {
+                    float* __restrict__ rho_out, float* __restrict__ bnorm_out,
+                    const bool* __restrict__ active, int B, int Nx, int Nth, float m, float c,
+                    double tol, int max_iter) {
   extern __shared__ __align__(16) float smem[];
   __shared__ double sh[2 * (kThreads / 32)];
   const Geo g{Nx, Nth, Nx * Nth};
   const size_t e = blockIdx.x, cfg = e / B;
+  if (active != nullptr && !active[e]) {
+    skip_entry(x0_all + e * 4 * g.V2, x_all + e * 4 * g.V2, 4 * g.V2, e, iters_out, rho_out,
+               bnorm_out);
+    return;
+  }
   CgShared S = cg_shared(smem, sh, g, m, c);
   // visible after the CG's first barrier
   load_links_shared(ue_all + cfg * 4 * g.V2, S.ue, g);
@@ -100,21 +128,23 @@ size_t cg_eo_shared_bytes(int Nx, int Nth) {
 }  // namespace sm
 
 // path 0: the global scratch, f32 [C * B, 24 V2]; path 1: shared memory (at
-// most 2048 sites, 96 V2 bytes), no scratch.
+// most 2048 sites, 96 V2 bytes), no scratch. active: bool [C, B], or null
+// for every entry.
 extern "C" int cg_eo_launch(const void* ue, const void* uo, const void* b, const void* x0,
                             void* x, void* iters, void* rho, void* bnorm, void* scratch, int C,
                             int B, int Nx, int Nth, double m0, double tol, int max_iter,
-                            int path, void* stream) {
+                            const void* active, int path, void* stream) {
   const float m = static_cast<float>(m0 + 2.0);
   const float c = static_cast<float>(1.0 / (4.0 * (m0 + 2.0)));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float *u_e = static_cast<const float*>(ue), *u_o = static_cast<const float*>(uo);
   const float *bb = static_cast<const float*>(b), *xx0 = static_cast<const float*>(x0);
+  const bool* act = static_cast<const bool*>(active);
   if (path == 0) {
     sm::cg_eo_kernel<<<C * B, sm::kThreads, 0, s>>>(
         u_e, u_o, bb, xx0, static_cast<float*>(x), static_cast<int*>(iters),
-        static_cast<float*>(rho), static_cast<float*>(bnorm), static_cast<float*>(scratch), B,
-        Nx, Nth, m, c, tol, max_iter);
+        static_cast<float*>(rho), static_cast<float*>(bnorm), static_cast<float*>(scratch), act,
+        B, Nx, Nth, m, c, tol, max_iter);
     return static_cast<int>(cudaGetLastError());
   }
   const size_t bytes = sm::cg_eo_shared_bytes(Nx, Nth);
@@ -124,7 +154,8 @@ extern "C" int cg_eo_launch(const void* ue, const void* uo, const void* b, const
   if (e != cudaSuccess) return static_cast<int>(e);
   sm::cg_eo_shared_kernel<<<C * B, sm::kThreads, bytes, s>>>(
       u_e, u_o, bb, xx0, static_cast<float*>(x), static_cast<int*>(iters),
-      static_cast<float*>(rho), static_cast<float*>(bnorm), B, Nx, Nth, m, c, tol, max_iter);
+      static_cast<float*>(rho), static_cast<float*>(bnorm), act, B, Nx, Nth, m, c, tol,
+      max_iter);
   return static_cast<int>(cudaGetLastError());
 }
 

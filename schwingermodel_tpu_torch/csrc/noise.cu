@@ -29,6 +29,23 @@
 // 64x64 C=32, ~0.6 us at 3.35 TB/s) against ten Philox rounds and an f64
 // log, sin and cos per pair: one thread a pair, a grid of chains x pairs,
 // no shared memory, every store coalesced.
+//
+// The Z2 mode (z2_kernel): the condensate's Z2xZ2 noise of one measurement,
+// n_noise vectors of 2 Nx Nt complex64 entries (+-1 +- i)/sqrt(2) for C
+// chains, replacing what the JAX runner draws inside its jitted measurement
+// (jax.random under jit, schwingermodel_tpu/runner.py:253-258, and
+// schwingermodel_tpu/observables.py condensate_noise): the key of stream
+// tag 2 (_MEAS), so never a (key, counter) of the trajectory stream (tag
+// 1), and the measurement index read on the card where a CUDA graph of the
+// measurement advances it.
+//   counter c0 = q, the group of 4 elements of one vector,
+//           c1 = the vector j | (measurement >> 32) << 16,
+//           c2 = the chain's global index, c3 = measurement mod 2^32;
+// element 4q + k takes word w_k: real part -f32(2^-1/2) where bit 31 is
+// set, else +f32(2^-1/2); imaginary part the same by bit 30. One thread a
+// counter writes its 32 bytes in two 16-byte stores; the bound is those
+// bytes (16.8 MB at 64x64 C=32, 8 vectors: 5.0 us at 3.35 TB/s), ten Philox
+// rounds a counter beside them.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -40,6 +57,7 @@ constexpr double kTwoPi = 6.283185307179586;        // f64(2 pi)
 constexpr double kSqrtHalf = 0.7071067811865476;    // f64(2^-1/2)
 constexpr double kTwoM53 = 0x1p-53;
 constexpr float kTwoM24 = 0x1p-24f;
+constexpr float kZ2 = 0x1.6a09e6p-1f;                 // f32(2^-1/2)
 constexpr int kThreads = 256;
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
@@ -131,6 +149,47 @@ noise_kernel(const long long* __restrict__ traj_ptr, long long traj_value, uint2
   }
 }
 
+// The Z2 mode: block (x, j, chain), one thread a counter q of vector j.
+__global__ void __launch_bounds__(kThreads)
+z2_kernel(const long long* __restrict__ meas_ptr, long long meas_value, uint2 key,
+          long long chain_offset, int n_el, float2* __restrict__ z,
+          uint32_t* __restrict__ words) {
+  const int n_groups = (n_el + 3) / 4;
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= n_groups) return;
+  const int j = blockIdx.y, chain = blockIdx.z;
+  const unsigned long long meas =
+      static_cast<unsigned long long>(meas_ptr ? *meas_ptr : meas_value);
+  const uint4 w = philox4x32_10(
+      make_uint4(static_cast<uint32_t>(q),
+                 static_cast<uint32_t>(j) | static_cast<uint32_t>(meas >> 32) << 16,
+                 static_cast<uint32_t>(chain_offset + chain), static_cast<uint32_t>(meas)),
+      key);
+  const size_t vec = static_cast<size_t>(chain) * gridDim.y + j;
+  if (words) {
+    uint32_t* o = words + 4 * (vec * n_groups + q);
+    o[0] = w.x;
+    o[1] = w.y;
+    o[2] = w.z;
+    o[3] = w.w;
+  }
+  const uint32_t ww[4] = {w.x, w.y, w.z, w.w};
+  float v[8];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    v[2 * k] = ww[k] >> 31 ? -kZ2 : kZ2;
+    v[2 * k + 1] = (ww[k] >> 30) & 1u ? -kZ2 : kZ2;
+  }
+  float2* out = z + vec * n_el + 4 * static_cast<size_t>(q);
+  if (n_el % 4 == 0) {  // 32-byte aligned: two 16-byte stores
+    float4* o4 = reinterpret_cast<float4*>(out);
+    o4[0] = make_float4(v[0], v[1], v[2], v[3]);
+    o4[1] = make_float4(v[4], v[5], v[6], v[7]);
+    return;
+  }
+  for (int k = 0; k < 4 && 4 * q + k < n_el; ++k) out[k] = make_float2(v[2 * k], v[2 * k + 1]);
+}
+
 }  // namespace noise
 
 // (pi, chi, r) of C chains: pi [C, 2 n_pairs], chi [C, n_chi] complex
@@ -156,6 +215,22 @@ extern "C" int noise_launch(const void* traj, long long traj_value, unsigned int
     noise::noise_kernel<float><<<grid, noise::kThreads, 0, s>>>(
         tp, traj_value, key, chain_offset, n_pairs, n_chi, static_cast<float*>(pi),
         static_cast<float*>(chi), static_cast<float*>(r), w);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The Z2 mode: z complex64 [C, n_noise, n_el] (interleaved re, im) of one
+// measurement, its index read from meas (an int64 on the card) or, where meas
+// is null, meas_value; words, where not null, uint32 [C, n_noise,
+// ceil(n_el / 4), 4].
+extern "C" int z2_launch(const void* meas, long long meas_value, unsigned int key0,
+                         unsigned int key1, long long chain_offset, void* z, void* words, int C,
+                         int n_noise, int n_el, void* stream) {
+  if (C < 1 || C > 65535 || n_noise < 1 || n_noise > 65535 || n_el < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(((n_el + 3) / 4 + noise::kThreads - 1) / noise::kThreads, n_noise, C);
+  noise::z2_kernel<<<grid, noise::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(meas), meas_value, make_uint2(key0, key1), chain_offset,
+      n_el, static_cast<float2*>(z), static_cast<uint32_t*>(words));
   return static_cast<int>(cudaGetLastError());
 }
 

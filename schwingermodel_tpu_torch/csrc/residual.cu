@@ -47,6 +47,12 @@
 //   (links and three stencil temporaries), normal_apply<double> and
 //   block_sum.
 //
+// With a mask `active` (bool [C, B], or null for every entry) an inactive
+// entry is left as it was: r and ||r||^2 are not written and its x is not
+// read, so the caller passes the previous pass's r and ||r||^2 as the
+// outputs (solvers/refine.py), and a block whose entries are all inactive
+// returns before building its links.
+//
 // Both routes give r with the same bits; ||r||^2 differs between them only
 // in the order of its f64 adds, and two launches of one route on the same
 // inputs give the same bits (no atomics on the values: the ticket picks
@@ -63,12 +69,14 @@ __global__ void __launch_bounds__(kThreads)
 residual_kernel(const float* __restrict__ thE, const float* __restrict__ thO,
                 const float* __restrict__ b_all, const double* __restrict__ x_all,
                 double* __restrict__ r_all, double* __restrict__ rnorm_out,
-                double* __restrict__ scratch, int B, int Nx, int Nth, double m, double c) {
+                double* __restrict__ scratch, const bool* __restrict__ active, int B, int Nx,
+                int Nth, double m, double c) {
   __shared__ double sh[33];
   const Geo g{Nx, Nth, Nx * Nth};
   const int V2 = g.V2, n = 4 * V2;
   const int e = blockIdx.x;
   const int cfg = e / B;
+  if (active != nullptr && !active[e]) return;
   double* s = scratch + (size_t)e * kResidualScratch * V2;
   double *ue = s, *uo = s + 4 * V2, *t1 = s + 8 * V2, *t2 = s + 12 * V2, *t3 = s + 16 * V2;
   make_links<double>(thE + (size_t)cfg * 2 * V2, 0, ue, g);
@@ -110,8 +118,9 @@ __global__ void __launch_bounds__(kThreads)
 residual_shared_kernel(const float* __restrict__ thE, const float* __restrict__ thO,
                        const float* __restrict__ b_all, const double* __restrict__ x_all,
                        double* __restrict__ r_all, double* __restrict__ rnorm_out,
-                       double* __restrict__ parts, unsigned* __restrict__ tickets, int B,
-                       int Nx, int Nth, double m, double c, int blocks, int rhs) {
+                       double* __restrict__ parts, unsigned* __restrict__ tickets,
+                       const bool* __restrict__ active, int B, int Nx, int Nth, double m,
+                       double c, int blocks, int rhs) {
   extern __shared__ __align__(16) double2 smem2[];
   __shared__ double warp_sums[kResidualMaxRhs * (kThreads / 32)];
   __shared__ bool last;
@@ -120,6 +129,11 @@ residual_shared_kernel(const float* __restrict__ thE, const float* __restrict__ 
   const int unit = blockIdx.x / blocks, rank = blockIdx.x - unit * blocks;
   const int groups = B / rhs, cfg = unit / groups;
   const size_t e0 = static_cast<size_t>(cfg) * B + (unit - cfg * groups) * rhs;
+  // every block of a unit reads the same flags, so a unit with no active
+  // entry takes no ticket
+  bool any = active == nullptr;
+  for (int q = 0; q < rhs && !any; ++q) any = active[e0 + q];
+  if (!any) return;
   // the slab: global rows [first, first + rows + 2 halo), modulo Nx
   const int halo = blocks > 1 ? kHaloW : 0;
   const int rows = Nx / blocks, first = rank * rows - halo;
@@ -143,6 +157,7 @@ residual_shared_kernel(const float* __restrict__ thE, const float* __restrict__ 
 
   for (int q = 0; q < rhs; ++q) {
     const size_t e = e0 + q;
+    if (active != nullptr && !active[e]) continue;  // the same for the whole block
     const double* x = x_all + e * 4 * V2;
     // v at the own sites, in registers, then Dhat^+ v there
     Cx<double> w[kOwnSites][2];
@@ -220,7 +235,8 @@ residual_shared_kernel(const float* __restrict__ thE, const float* __restrict__ 
     if (lane == 0) warp_sums[q * (kThreads / 32) + warp] = acc;
   }
   __syncthreads();
-  if (threadIdx.x < rhs) {
+  const bool mine = threadIdx.x < rhs && (active == nullptr || active[e0 + threadIdx.x]);
+  if (mine) {
     const double tot = warp_partials_sum(warp_sums + threadIdx.x * (kThreads / 32));
     if (blocks == 1) {
       rnorm_out[e0 + threadIdx.x] = tot;
@@ -236,7 +252,7 @@ residual_shared_kernel(const float* __restrict__ thE, const float* __restrict__ 
   if (threadIdx.x == 0) last = atomicAdd(tickets + unit, 1u) == static_cast<unsigned>(blocks - 1);
   __syncthreads();
   if (!last) return;
-  if (threadIdx.x < rhs) {
+  if (mine) {
     __threadfence();
     const double* part = parts + (e0 + threadIdx.x) * blocks;
     double sum = __ldcg(part);
@@ -254,20 +270,22 @@ residual_shared_kernel(const float* __restrict__ thE, const float* __restrict__ 
 // sites and 220 KB at 128 bytes a site) and `rhs` right-hand sides a block
 // (1 to 8, dividing B); with blocks > 1 the scratch is f64 [C * B * blocks]
 // for the slabs' partials and tickets uint32 [C * B / rhs], zeroed here on
-// the stream before the kernel, else both null.
+// the stream before the kernel, else both null. active: bool [C, B], or null
+// for every entry.
 extern "C" int residual_launch(const void* thE, const void* thO, const void* b, const void* x,
                                void* r, void* rnorm, void* scratch, void* tickets, int C, int B,
-                               int Nx, int Nth, double m0, int path, int blocks, int rhs,
-                               void* stream) {
+                               int Nx, int Nth, double m0, const void* active, int path,
+                               int blocks, int rhs, void* stream) {
   const double m = m0 + 2.0, c = 1.0 / (4.0 * (m0 + 2.0));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float *th_e = static_cast<const float*>(thE), *th_o = static_cast<const float*>(thO);
   const float* bb = static_cast<const float*>(b);
   const double* xx = static_cast<const double*>(x);
+  const bool* act = static_cast<const bool*>(active);
   if (path == 0) {
     sm::residual_kernel<<<C * B, sm::kThreads, 0, st>>>(
         th_e, th_o, bb, xx, static_cast<double*>(r), static_cast<double*>(rnorm),
-        static_cast<double*>(scratch), B, Nx, Nth, m, c);
+        static_cast<double*>(scratch), act, B, Nx, Nth, m, c);
     return static_cast<int>(cudaGetLastError());
   }
   const int rows = blocks > 0 ? Nx / blocks : 0;
@@ -285,7 +303,7 @@ extern "C" int residual_launch(const void* thE, const void* thO, const void* b, 
   if (e != cudaSuccess) return static_cast<int>(e);
   sm::residual_shared_kernel<<<C * (B / rhs) * blocks, sm::kThreads, bytes, st>>>(
       th_e, th_o, bb, xx, static_cast<double*>(r), static_cast<double*>(rnorm),
-      static_cast<double*>(scratch), static_cast<unsigned*>(tickets), B, Nx, Nth, m, c, blocks,
-      rhs);
+      static_cast<double*>(scratch), static_cast<unsigned*>(tickets), act, B, Nx, Nth, m, c,
+      blocks, rhs);
   return static_cast<int>(cudaGetLastError());
 }

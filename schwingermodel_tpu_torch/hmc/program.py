@@ -1,8 +1,10 @@
-"""The device program of the packed main path: one trajectory a CUDA graph replay.
+"""The device program of the packed main path: one trajectory, and one
+measurement, a CUDA graph replay.
 
 Counterpart of the JAX runner's jitted ``block`` (schwingermodel_tpu/
-runner.py:290-305, and the measurement phase's ``lax.scan`` at :426-445),
-which runs a block of trajectories as one compiled program with the noise
+runner.py:290-305, and the measurement phase's ``lax.scan`` at :426-445,
+which runs ``block`` and then ``measure_v``), which runs a block of
+trajectories and the measurements as one compiled program with the noise
 drawn inside it. Here a ``TrajectoryProgram`` holds the static state of C
 chains on the card: theta, a 0-d int64 trajectory counter and the block's
 accumulators (``Block``). One step draws the noise at the counter
@@ -22,9 +24,19 @@ run none of that: the program records how much each count rose during the
 capture, puts it back, and adds it on every replay, so that the counts are
 those of as many eager steps.
 
+A ``MeasurementProgram`` runs a measurement of a static theta (the
+trajectory program's, which its replays rewrite in place) the same way:
+a function of (theta, measurement counter) -> per-chain tensors, its
+values written into row `counter` of [n, ...] buffers on the card and the
+counter advanced, the first call eager on a side stream and then captured
+once. The runner's measurement (plaquette, action density, charge, and the
+chiral condensate with its noise drawn at the counter and the read-free
+restart refinement) and the critical-mass tool's meson correlators run on
+it.
+
 The runner reads ``theta`` only through a clone (the graph writes the same
-storage on every replay) and the block once per block, then resets it in
-place.
+storage on every replay), the block once per block, then resets it in
+place, and the measurement buffers once at the end of the phase.
 """
 
 from __future__ import annotations
@@ -101,25 +113,15 @@ class Block:
         return int(acc), int(it), bool(per_chain[2].all()), em, int(fb)
 
 
-class TrajectoryProgram:
-    """The packed trajectory of C chains as a device program (module
-    docstring). model: on the packed path (hp.packed_supported); theta
-    [C, 2, Nx, Nt] f32, copied into the program's static theta; the noise of
-    trajectory i is that of (seed, i, chain_offset + chain), i from
-    start_index on; dt overrides the model's step size. ``step()`` runs one
-    trajectory, ``run(n)`` n of them; ``theta``, ``index`` and ``block`` are
-    the static state (read ``theta`` through a clone)."""
+class _GraphedStep:
+    """A step on static state: on the card the first call eager on a side
+    stream, then one capture into a CUDA graph and a replay every call
+    (captured anew when ``_key()`` changes); eager on the CPU. Subclasses
+    give ``_body`` and may add counts of their own (``_counts``,
+    ``_add_count``)."""
 
-    def __init__(self, model: SchwingerModel, theta, seed: int,
-                 start_index: int, chain_offset: int = 0, dt=None):
-        hp.packed_supported(model)
-        self.model, self.seed, self.chain_offset, self.dt = (
-            model, int(seed), int(chain_offset), dt)
-        self.theta = theta.detach().clone()
-        self.index = torch.full((), int(start_index), dtype=torch.int64,
-                                device=theta.device)
-        self.block = Block(self.theta)
-        self.graphed = self.theta.is_cuda
+    def __init__(self, device):
+        self.graphed = torch.device(device).type == "cuda"
         self._graph = None
         self._graph_key = None
         self._delta = None
@@ -129,36 +131,35 @@ class TrajectoryProgram:
         self.replay_host_seconds = 0.0   # host time spent issuing replays
 
     def _body(self):
-        """One trajectory from the static state into it (the captured step)."""
-        theta_next, st = hp.hmc_trajectory_packed(
-            self.model, self.theta, self.seed, self.index, dt=self.dt,
-            chain_offset=self.chain_offset)
-        self.block.add(self.theta, st, self.index)
-        self.index.add_(1)
-        self.theta.copy_(theta_next)
+        raise NotImplementedError
+
+    def _key(self):
+        return None
 
     def _counts(self):
         """The Python-side counts a step raises: each kernel wrapper's
-        launches, K1's launches by variant, the block's updates."""
+        launches and K1's launches by variant."""
         c = collections.Counter({fn: fn.launches for fn in counted_kernels()})
         c.update({("variant", k): n for k, n in tr.force_step.variants.items()})
-        c["updates"] = self.block.updates
         return c
+
+    def _add_count(self, name: str, n: int):
+        raise KeyError(name)
 
     def _apply(self, delta, sign=1):
         """Add sign * delta to the counts of ``_counts``."""
         for k, n in delta.items():
-            if k == "updates":
-                self.block.updates += sign * n
+            if isinstance(k, str):
+                self._add_count(k, sign * n)
             elif isinstance(k, tuple):
                 tr.force_step.variants[k[1]] += sign * n
             else:
                 k.launches += sign * n
 
     def _capture(self):
-        """The warm-up step on a side stream (a real trajectory), then the
-        capture of the step; the counts the capture raised are taken back
-        and kept as the replay's."""
+        """The warm-up step on a side stream (a real step), then the capture
+        of the step; the counts the capture raised are taken back and kept
+        as the replay's."""
         _cuda.KERNELS.build()              # nvcc and dlopen outside the capture
         cur = torch.cuda.current_stream()
         side = torch.cuda.Stream()
@@ -181,14 +182,10 @@ class TrajectoryProgram:
         self.kernel_nodes = nodes
         self.captures += 1
 
-    def _key(self):
-        # C is fixed by the static buffers
-        return (self.dt, self.model.hmc.md_steps)
-
     def step(self):
-        """One trajectory: eager on the CPU; on the card a replay of the
-        captured step (the first step, and the first after a change of dt
-        or md_steps, warms up and captures)."""
+        """One step: eager on the CPU; on the card a replay of the captured
+        step (the first step, and the first after a change of ``_key()``,
+        warms up and captures)."""
         if not self.graphed:
             self._body()
             return
@@ -212,6 +209,86 @@ class TrajectoryProgram:
                 "kernel_nodes": self.kernel_nodes,
                 "host_us_per_replay": (1e6 * self.replay_host_seconds
                                        / self.replays if self.replays else None)}
+
+
+class TrajectoryProgram(_GraphedStep):
+    """The packed trajectory of C chains as a device program (module
+    docstring). model: on the packed path (hp.packed_supported); theta
+    [C, 2, Nx, Nt] f32, copied into the program's static theta; the noise of
+    trajectory i is that of (seed, i, chain_offset + chain), i from
+    start_index on; dt overrides the model's step size. ``step()`` runs one
+    trajectory, ``run(n)`` n of them; ``theta``, ``index`` and ``block`` are
+    the static state (read ``theta`` through a clone)."""
+
+    def __init__(self, model: SchwingerModel, theta, seed: int,
+                 start_index: int, chain_offset: int = 0, dt=None):
+        hp.packed_supported(model)
+        super().__init__(theta.device)
+        self.model, self.seed, self.chain_offset, self.dt = (
+            model, int(seed), int(chain_offset), dt)
+        self.theta = theta.detach().clone()
+        self.index = torch.full((), int(start_index), dtype=torch.int64,
+                                device=theta.device)
+        self.block = Block(self.theta)
+
+    def _body(self):
+        """One trajectory from the static state into it (the captured step)."""
+        theta_next, st = hp.hmc_trajectory_packed(
+            self.model, self.theta, self.seed, self.index, dt=self.dt,
+            chain_offset=self.chain_offset)
+        self.block.add(self.theta, st, self.index)
+        self.index.add_(1)
+        self.theta.copy_(theta_next)
+
+    def _counts(self):
+        """The kernels' counts and the block's updates."""
+        c = super()._counts()
+        c["updates"] = self.block.updates
+        return c
+
+    def _add_count(self, name: str, n: int):
+        if name != "updates":
+            raise KeyError(name)
+        self.block.updates += n
+
+    def _key(self):
+        # C is fixed by the static buffers
+        return (self.dt, self.model.hmc.md_steps)
+
+
+class MeasurementProgram(_GraphedStep):
+    """A measurement of a static theta as a device program (module
+    docstring). measure(theta, index) -> {name: per-chain tensor}: reads
+    only the device (no host read, so that it can be captured), index a
+    0-d int64 counter on theta's device. Each ``step()`` measures `theta`
+    as it then is and writes row `index` of ``out[name]``, [n, *shape] on
+    theta's device, then advances the counter; n steps fill the rows
+    0 .. n - 1, and a step beyond them raises (on the card a row out of
+    range would be a device-side fault)."""
+
+    def __init__(self, measure, theta, n: int):
+        super().__init__(theta.device)
+        self.measure, self.theta, self.n = measure, theta, int(n)
+        self.index = torch.zeros((), dtype=torch.int64, device=theta.device)
+        self.out = None
+        self.steps = 0
+
+    def step(self):
+        if self.steps >= self.n:
+            raise IndexError(f"measurement program: its {self.n} rows are written")
+        super().step()
+        self.steps += 1
+
+    def _body(self):
+        vals = self.measure(self.theta, self.index)
+        if self.out is None:
+            self.out = {k: torch.zeros((self.n, *v.shape), dtype=v.dtype,
+                                       device=v.device)
+                        for k, v in vals.items()}
+        row = self.index.reshape(1)
+        for k, v in vals.items():
+            self.out[k].index_copy_(0, row, v.unsqueeze(0))
+        self.index.add_(1)
 
 
 def packed_step(model: SchwingerModel, group: int = 0):

@@ -4,9 +4,12 @@ Counterpart of ``schwingermodel_tpu/observables.py``: the plaquette, the
 gauge action density and the topological charge (reference MeasureSp_HMC /
 Compute_gaugeAction, src/gauge_conf.cpp:427-449), evaluated in f64 from the
 stored angles; the chiral condensate by Z2xZ2 stochastic estimation of
-Tr D^{-1}; the point-source meson correlators and the PCAC mass. The
-condensate and the correlators solve through ``SchwingerModel.
-dirac_inverse`` (K6, and under the refined contract K9 and K4).
+Tr D^{-1}, its noise drawn by the noise kernel's Z2 mode (ops/noise.py)
+at a measurement index that may live on the card; the point-source meson
+correlators and the PCAC mass. The condensate and the correlators solve
+through ``SchwingerModel.dirac_inverse`` (K6, and under the refined
+contract K9 and K4). Nothing here reads the host, so a CUDA graph captures
+a measurement (hmc/program.MeasurementProgram).
 
 theta is [C, 2, Nx, Nt] throughout; per-chain results are [C].
 """
@@ -20,10 +23,9 @@ import numpy as np
 import torch
 
 from schwingermodel_tpu_torch.models.schwinger import SchwingerModel
-from schwingermodel_tpu_torch.ops import gauge
+from schwingermodel_tpu_torch.ops import gauge, noise
 from schwingermodel_tpu_torch.ops.geometry import LOCAL
 from schwingermodel_tpu_torch.ops.traj import pack_planes
-from schwingermodel_tpu_torch.utils import prng
 
 
 def _plaquettes(theta):
@@ -64,16 +66,14 @@ class CondensateResult(NamedTuple):
     converged: torch.Tensor   # bool [C, n_noise], per solve
 
 
-def condensate_noise(seed: int, meas_index: int, n_chains: int, theta_shape,
+def condensate_noise(seed: int, meas_index, n_chains: int, theta_shape,
                      n_noise: int, device, chain_offset: int = 0) -> torch.Tensor:
-    """[C, n_noise, 2, Nx, Nt] complex64 Z2xZ2 noise, each chain's from its
-    own generator of (seed, measurement, chain_offset + chain), drawn on the
-    device."""
-    shape = (n_noise, *tuple(theta_shape)[-3:])
-    return torch.stack([
-        prng.z2_complex(prng.measurement_generator(seed, meas_index, c, device),
-                        shape, torch.float32, device)
-        for c in range(chain_offset, chain_offset + n_chains)])
+    """[C, n_noise, 2, Nx, Nt] complex64 Z2xZ2 noise of measurement
+    `meas_index` (a Python int, or a 0-d int64 counter on `device`), each
+    chain's keyed by (seed, measurement, chain_offset + chain): one launch
+    of the noise kernel's Z2 mode on the card (ops/noise.z2_noise)."""
+    return noise.z2_noise(seed, meas_index, n_chains, n_noise,
+                          tuple(theta_shape)[-3:], device, chain_offset)
 
 
 def chiral_condensate_given_noise(model: SchwingerModel, theta, zs
@@ -88,19 +88,21 @@ def chiral_condensate_given_noise(model: SchwingerModel, theta, zs
                             converged=res.converged)
 
 
-def chiral_condensate(model: SchwingerModel, theta, seed: int, meas_index: int,
+def chiral_condensate(model: SchwingerModel, theta, seed: int, meas_index,
                       n_noise: int = 8, chain_offset: int = 0) -> CondensateResult:
     """(1/V) Tr D^{-1} per chain by Z2xZ2 stochastic estimation, with the
-    noise of measurement `meas_index` (chain c's of global chain
-    chain_offset + c)."""
+    noise of measurement `meas_index` (an int or a 0-d int64 counter on
+    theta's device; chain c's of global chain chain_offset + c)."""
     zs = condensate_noise(seed, meas_index, theta.shape[0], theta.shape,
                           n_noise, theta.device, chain_offset)
     return chiral_condensate_given_noise(model, theta, zs)
 
 
 def measure_all(model: SchwingerModel, theta, *, with_condensate=False,
-                seed: int = 0, meas_index: int = 0, n_noise: int = 8) -> dict:
-    """One measurement sweep -> dict of per-chain observables [C]."""
+                seed: int = 0, meas_index=0, n_noise: int = 8) -> dict:
+    """One measurement sweep -> dict of per-chain observables [C]; the
+    condensate's noise that of measurement `meas_index` (an int or a 0-d
+    int64 counter on theta's device)."""
     out = {
         "plaquette": mean_plaquette(theta),
         "gauge_action_density": gauge_action_density(theta, model.hmc.beta),

@@ -74,11 +74,11 @@ SIGNATURES = {
     "cg_fallback_launch": [P, P, P, P, P, P, P, P, P, P, P, P,
                            I, I, I, D, D, D, I, I, P],
     # ue, uo, b, x0, x, iters, rho, bnorm2, scratch,
-    # C, B, Nx, Nth, m0, tol, max_iter, path, stream
-    "cg_eo_launch": [P, P, P, P, P, P, P, P, P, I, I, I, I, D, D, I, I, P],
-    # thE, thO, b, x, r, rnorm2, scratch, tickets, C, B, Nx, Nth, m0, path,
-    # blocks, rhs, stream
-    "residual_launch": [P, P, P, P, P, P, P, P, I, I, I, I, D, I, I, I, P],
+    # C, B, Nx, Nth, m0, tol, max_iter, active, path, stream
+    "cg_eo_launch": [P, P, P, P, P, P, P, P, P, I, I, I, I, D, D, I, P, I, P],
+    # thE, thO, b, x, r, rnorm2, scratch, tickets, C, B, Nx, Nth, m0,
+    # active, path, blocks, rhs, stream
+    "residual_launch": [P, P, P, P, P, P, P, P, I, I, I, I, D, P, I, I, I, P],
     # ue, uo, off, v, r, out, dots, scratch, n_blocks, Nxe, Nthe, m0,
     # with_dots, path, blocks, stream
     "halo_normal_launch": [P, P, P, P, P, P, P, P, I, I, I, D, I, I, I, P],
@@ -88,6 +88,9 @@ SIGNATURES = {
     # traj, traj_value, key0, key1, chain_offset, pi, chi, r, words, C,
     # n_pairs, n_chi, f64, stream
     "noise_launch": [P, L, U, U, L, P, P, P, P, I, I, I, I, P],
+    # meas, meas_value, key0, key1, chain_offset, z, words, C, n_noise,
+    # n_el, stream
+    "z2_launch": [P, L, U, U, L, P, P, I, I, I, P],
     # ctr, key0, key1, out, n, stream
     "philox_launch": [P, U, U, P, I, P],
     # Nx, Nth, path -> K6's blocks a multiprocessor runs at once (no stream)

@@ -8,8 +8,12 @@ jax.random inside its jitted trajectory, schwingermodel_tpu/hmc/packed.py:
 478-488), reading the trajectory index from a 0-d int64 counter on the
 card where it is given one, so that a CUDA graph of the trajectory draws
 the noise of the trajectory it is at; on the CPU it runs the plain twin
-``prng.trajectory_noise_reference``. ``philox`` is the bijection alone,
-for the known-answer vectors.
+``prng.trajectory_noise_reference``. ``z2_noise`` is the kernel's Z2 mode:
+the condensate's Z2xZ2 noise of one measurement (the key of the _MEAS
+stream tag, counted by element group, noise vector, global chain and the
+measurement index, an int or a counter on the card; twin
+``prng.z2_noise_reference``). ``philox`` is the bijection alone, for the
+known-answer vectors.
 """
 
 from __future__ import annotations
@@ -22,13 +26,13 @@ from schwingermodel_tpu_torch.ops import _cuda
 from schwingermodel_tpu_torch.utils import prng
 
 
-def _traj_arg(traj_index, device):
-    """(pointer, value) of the kernel's trajectory argument: the counter on
-    the card, or a Python int passed by value."""
+def _traj_arg(traj_index, device, name="traj_index"):
+    """(pointer, value) of the kernel's trajectory (or measurement) argument:
+    the counter on the card, or a Python int passed by value."""
     if isinstance(traj_index, torch.Tensor):
         if traj_index.device != device or traj_index.dtype != torch.int64 \
                 or traj_index.ndim != 0:
-            raise ValueError("traj_index: expected a 0-d int64 tensor on "
+            raise ValueError(f"{name}: expected a 0-d int64 tensor on "
                              f"{device}, got {traj_index.dtype} "
                              f"{tuple(traj_index.shape)} on {traj_index.device}")
         return _cuda.ptr(traj_index), 0
@@ -76,6 +80,41 @@ def chain_noise(seed: int, traj_index, n_chains: int, pi_shape, chi_shape,
 
 
 chain_noise.launches = 0
+
+
+def z2_noise(seed: int, meas_index, n_chains: int, n_noise: int, site_shape,
+             device, chain_offset: int = 0, words: bool = False):
+    """One measurement's Z2xZ2 noise of C = n_chains chains at the global
+    indices chain_offset .. chain_offset + C - 1: complex64 [C, n_noise,
+    *site_shape], each entry (+-1 +- i)/sqrt(2). meas_index: a Python int,
+    or a 0-d int64 tensor on `device`, read there. With `words`, also the
+    Philox words int64 [C, n_noise, ceil(n_el / 4), 4], n_el the entries of
+    one vector. CUDA devices run the kernel's Z2 mode (one launch), CPU
+    devices the twin ``prng.z2_noise_reference``."""
+    device = torch.device(device)
+    n_el = math.prod(site_shape)
+    if device.type != "cuda":
+        out = prng.z2_noise_reference(seed, meas_index, n_chains, chain_offset,
+                                      n_noise, n_el, device, words)
+        z = (out[0] if words else out).reshape(n_chains, n_noise, *site_shape)
+        return (z, out[1]) if words else z
+    prng.check_z2_range(meas_index, n_noise)
+    key0, key1 = prng.philox_key(seed, prng._MEAS)
+    z = torch.empty((n_chains, n_noise, *site_shape), dtype=torch.complex64,
+                    device=device)
+    mptr, mval = _traj_arg(meas_index, z.device, "meas_index")
+    w = (torch.empty((n_chains, n_noise, -(-n_el // 4), 4), dtype=torch.int32,
+                     device=device) if words else None)
+    _cuda.KERNELS.call("z2_launch", mptr, mval, key0, key1, int(chain_offset),
+                       _cuda.ptr(z), None if w is None else _cuda.ptr(w),
+                       n_chains, n_noise, n_el)
+    z2_noise.launches += 1
+    if words:
+        return z, w.to(torch.int64) & 0xFFFFFFFF
+    return z
+
+
+z2_noise.launches = 0
 
 
 def philox(ctr: torch.Tensor, key) -> torch.Tensor:

@@ -23,7 +23,11 @@ algorithm and uses f64 for that half.
   ``pallas_df._df_residual_kernel``): the f64 true residual
   r = b - (Dhat Dhat^+) x of the restart refinement, for C configurations
   of B right-hand sides each, on slabs of rows in shared memory where a
-  split of at most 8 holds the lattice (``residual_path``).
+  split of at most 8 holds the lattice (``residual_path``); a mask leaves
+  entries as they were in buffers the caller passes. Its scratch (the
+  slabs' partials, the tickets the launch zeroes on its stream) is
+  allocated on every call, which is legal inside a CUDA graph capture (the
+  graph's memory pool, a memset node).
 
 Per-chain semantics. The Pallas kernels advance all chains in lockstep and
 couple them in three places: ``jnp.any`` over chains in the outer
@@ -482,13 +486,23 @@ solve_f64_cg_fallback.launches = 0
 
 # ---------- K9 ----------
 
-def residual_f64_reference(thE, thO, b, x, *, m0):
-    """Plain twin of K9: (r f64 [C, B, 2, 2, Nx, Nth], ||r||^2 f64 [C, B])."""
+def residual_f64_reference(thE, thO, b, x, *, m0, active=None, out=None):
+    """Plain twin of K9: (r f64 [C, B, 2, 2, Nx, Nth], ||r||^2 f64 [C, B]);
+    with `out` written into it, only at the entries of `active` where a
+    mask is given (residual_f64)."""
     ue64, uo64 = gauge.links(thE, thO, torch.complex128)
     r = (to_complex(b).to(torch.complex128)
          - eo.normal(ue64[:, None], uo64[:, None], to_complex(x), m0))
     rp = to_planar(r)
-    return rp, (rp * rp).sum(dim=(2, 3, 4, 5))
+    rn = (rp * rp).sum(dim=(2, 3, 4, 5))
+    if out is None:
+        return rp, rn
+    if active is not None:
+        rp = torch.where(active[:, :, None, None, None, None], rp, out[0])
+        rn = torch.where(active, rn, out[1])
+    out[0].copy_(rp)
+    out[1].copy_(rn)
+    return out
 
 
 # Bytes a half-lattice site of K9's shared route (csrc/residual.cu
@@ -561,41 +575,59 @@ def _residual_scratch(C, B, Nx, Nth, route, device):
     return None, None
 
 
-def _launch_residual(thE, thO, b, x, m0, sms, route=None):
+def _launch_residual(thE, thO, b, x, m0, sms, route=None, active=None,
+                     out=None):
     """K9's launch on b's device on ``residual_path``'s route, or on `route`
     (path, blocks, rhs) where the caller names one (the tools time and
     compare every route): the global scratch only on the global path, the
     slabs' f64 partials and the tickets only where a configuration spans
-    several blocks; (r, rnorm2)."""
+    several blocks; into `out` (r, rnorm2) where given, only at the entries
+    of the mask `active` where one is given; (r, rnorm2)."""
     C, B, _, _, Nx, Nth = b.shape
     route = route or residual_path(Nx, Nth, C, B, sms)
-    r = torch.empty_like(x)
-    rnorm2 = torch.empty((C, B), dtype=torch.float64, device=b.device)
+    if out is None:
+        out = (torch.empty_like(x),
+               torch.empty((C, B), dtype=torch.float64, device=b.device))
+    r, rnorm2 = out
     scratch, tickets = _residual_scratch(C, B, Nx, Nth, route, b.device)
     p = _cuda.ptr
     _cuda.KERNELS.call("residual_launch", p(thE), p(thO), p(b), p(x), p(r),
                        p(rnorm2), None if scratch is None else p(scratch),
                        None if tickets is None else p(tickets), C, B, Nx, Nth,
-                       float(m0), *route)
+                       float(m0), None if active is None else p(active), *route)
     return r, rnorm2
 
 
-def residual_f64(thE, thO, b, x, *, m0):
+def residual_f64(thE, thO, b, x, *, m0, active=None, out=None):
     """K9: r = b - (Dhat Dhat^+) x in f64, with the links evaluated in f64
     from the f32 angles, and each entry's f64 ||r||^2.
 
     thE/thO f32 [C, 2, Nx, Nth]; b f32 and x f64 [C, B, 2, 2, Nx, Nth].
-    Returns (r f64 [C, B, 2, 2, Nx, Nth], rnorm2 f64 [C, B]). CUDA tensors
-    run csrc/residual.cu on the route ``residual_path`` gives; CPU tensors
-    run residual_f64_reference."""
+    Returns (r f64 [C, B, 2, 2, Nx, Nth], rnorm2 f64 [C, B]): new tensors,
+    or `out` (r, rnorm2) written in place where given. active: bool [C, B]
+    on b's device, or None for every entry; with a mask `out` is required
+    and its entries outside the mask stay as they were (the kernel neither
+    reads their x nor computes them). CUDA tensors run csrc/residual.cu on
+    the route ``residual_path`` gives; CPU tensors run
+    residual_f64_reference."""
+    if active is not None and out is None:
+        raise ValueError("residual_f64: a mask needs the buffers `out` it "
+                         "leaves unchanged outside the mask")
     if not b.is_cuda:
-        return residual_f64_reference(thE, thO, b, x, m0=m0)
+        return residual_f64_reference(thE, thO, b, x, m0=m0, active=active,
+                                      out=out)
     C, B, _, _, Nx, Nth = b.shape
     _cuda.check(thE, "thE", torch.float32, (C, 2, Nx, Nth))
     _cuda.check(thO, "thO", torch.float32, (C, 2, Nx, Nth))
     _cuda.check(b, "b", torch.float32, (C, B, 2, 2, Nx, Nth))
     _cuda.check(x, "x", torch.float64, (C, B, 2, 2, Nx, Nth))
-    out = _launch_residual(thE, thO, b, x, m0, _cuda.sm_count(b.device))
+    if active is not None:
+        _cuda.check(active, "active", torch.bool, (C, B))
+    if out is not None:
+        _cuda.check(out[0], "out[0]", torch.float64, (C, B, 2, 2, Nx, Nth))
+        _cuda.check(out[1], "out[1]", torch.float64, (C, B))
+    out = _launch_residual(thE, thO, b, x, m0, _cuda.sm_count(b.device),
+                           active=active, out=out)
     residual_f64.launches += 1
     return out
 

@@ -141,13 +141,14 @@ def _converged(rho, bnorm2, tol):
     return rho < _tol2(tol) * bnorm2
 
 
-def _cg_f32(apply_A, b, x0, tol, max_iter, guards=True):
+def _cg_f32(apply_A, b, x0, tol, max_iter, guards=True, active=None):
     """Plain twin of stencil.cuh cg_f32 (pallas_traj._cg_planes) on complex
     [C, 2, Nx, Nth]: all chains batched, each with its own live mask, so a
     frozen chain does not change (torch.where, never 0 * d, which would
     turn an inf in d into NaN). guards=False drops the breakdown guards,
-    as cg_f32<false> does (K6). Returns (x, iters int32, rho f32,
-    bnorm2 f32), all per chain."""
+    as cg_f32<false> does (K6); a chain that `active` (bool [C]) leaves out
+    never starts. Returns (x, iters int32, rho f32, bnorm2 f32), all per
+    chain."""
     C = b.shape[0]
     bnorm2 = _dot32(b, b)
     stop2 = _tol2(tol) * bnorm2
@@ -157,6 +158,8 @@ def _cg_f32(apply_A, b, x0, tol, max_iter, guards=True):
     rho = _dot32(r, r)
     iters = torch.zeros(C, dtype=torch.int32, device=b.device)
     live = rho >= stop2                       # a NaN rho never starts
+    if active is not None:
+        live = live & active
     zero = torch.zeros((), dtype=torch.float32, device=b.device)
 
     def per_chain(v):

@@ -19,8 +19,15 @@ On the packed paths the trajectories of a block run as the JAX runner runs
 its jitted ``block``: as a device program (hmc/program.py), on the card one
 replay of a CUDA graph a trajectory that draws the noise at a trajectory
 counter on the card, runs the trajectory and adds to the block's
-accumulators; the measurements, configurations and the first-failure dump
-read clones of its static theta. The warm-up stays eager.
+accumulators; and each measurement as one replay of a second graph
+(``MeasurementProgram``) that measures the program's static theta, draws
+the condensate's noise at a measurement counter on the card and writes
+its row of the phase's buffers on the card. So nothing reads the host
+inside the measurement phase but the block's read (once a phase, or once
+a measurement with ``save_conf``) and the final gather. The
+configurations and the first-failure dump read clones of the static
+theta. The warm-up stays eager; so do the mesh and the unpacked paths
+and ``graph=False``, on the same noise.
 
 Per-trajectory statistics (accept flags, CG iterations, convergence flags)
 and the first-failure capture stay on the device and are read once per
@@ -29,8 +36,8 @@ is 100 trajectories, the measurement phase is one block (or one per
 measurement when configurations are saved). With ``measure_condensate``
 each measurement adds the chiral condensate of every chain
 (observables.chiral_condensate, ``n_noise`` Z2xZ2 vectors per chain, all
-C * n_noise solves in one batch); its values and flags stay on the device
-until the phase ends (the refinement itself reads the host once per pass).
+C * n_noise solves in one batch, the restart refinement with no host
+read); its values and flags stay on the device until the phase ends.
 The configuration stays global between trajectories, so the measurements
 are the same with and without a mesh. The warm-up reads the pooled
 acceptance once per trajectory (the next step size depends on it).
@@ -329,11 +336,23 @@ def run_hmc(
 
     # ---- measurements (hmc.cpp:196-212): update, measure, then n_steps
     # decorrelation updates (none after the last measurement) ----
-    meas = {"plaquette": [], "gauge_action_density": [], "top_charge": []}
-    if measure_condensate:
-        meas["chiral_condensate"] = []
-        cond_conv = torch.ones(theta.shape[0], dtype=torch.bool, device=device)
-        cond_iters = torch.zeros(theta.shape[0], dtype=torch.int64, device=device)
+    def measure(th, i):
+        """The measurement of configuration(s) th at measurement index i (an
+        int, or the measurement program's counter on the card)."""
+        out = obs.measure_all(model, th)
+        if measure_condensate:
+            cc = obs.chiral_condensate(model, th, run.seed, i, n_noise,
+                                       chain_offset=mine.start)
+            out["chiral_condensate"] = cc.value
+            out["condensate_converged"] = cc.converged.all(dim=1)
+            out["condensate_iters"] = cc.iters.sum(dim=1, dtype=torch.int64)
+        return out
+
+    # the packed paths measure the program's static theta as a device
+    # program too: on the card one CUDA graph replay a measurement
+    mprog = (program.MeasurementProgram(measure, prog.theta, run.n_meas)
+             if prog is not None else None)
+    rows = []
     accepted_total = 0
     updates_total = 0
     exp_mdH_sum = 0.0
@@ -341,16 +360,10 @@ def run_hmc(
         blk = new_block(theta)
         for i in range(run.n_meas):
             theta = advance(theta, blk, 1 if i == 0 else 1 + run.n_steps)
-            meas["plaquette"].append(obs.mean_plaquette(theta))
-            meas["gauge_action_density"].append(
-                obs.gauge_action_density(theta, hmc.beta))
-            meas["top_charge"].append(obs.topological_charge(theta))
-            if measure_condensate:
-                cc = obs.chiral_condensate(model, theta, run.seed, i, n_noise,
-                                           chain_offset=mine.start)
-                meas["chiral_condensate"].append(cc.value)
-                cond_conv &= cc.converged.all(dim=1)
-                cond_iters += cc.iters.sum(dim=1)
+            if mprog is not None:
+                mprog.step()
+            else:
+                rows.append(measure(theta, i))
             if run.save_conf:
                 acc, _, em = close(blk)
                 accepted_total += acc
@@ -364,19 +377,24 @@ def run_hmc(
             updates_total += blk.updates * n_groups
             exp_mdH_sum += em
         # [n_meas, every chain], one gather per observable
-        chains = {k: mh.gather_chains(torch.stack(v), dim=1).numpy()
-                  for k, v in meas.items()}
+        meas = (mprog.out if mprog is not None else
+                {k: torch.stack([r[k] for r in rows]) for k in rows[0]})
+        chains = {k: mh.gather_chains(v, dim=1).numpy() for k, v in meas.items()
+                  if not k.startswith("condensate_")}
         condensate_converged, condensate_iters = True, 0
         if measure_condensate:
-            condensate_converged = bool(mh.gather_chains(cond_conv).all())
-            condensate_iters = int(mh.gather_chains(cond_iters).sum())
+            condensate_converged = bool(mh.gather_chains(
+                meas["condensate_converged"], dim=1).all())
+            condensate_iters = int(mh.gather_chains(
+                meas["condensate_iters"], dim=1).sum())
             if not condensate_converged:
                 log("a condensate solve did not converge")
         perf.add(trajectories=updates_total,
                  cg_iters=cg_iters_total
                  - sum(p.cg_iters for p in perf.phases.values()))
     if prog is not None:
-        perf.graph = prog.stats()
+        perf.graphs["graph"] = prog.stats()
+        perf.graphs["measurement_graph"] = mprog.stats()
     for line in perf.report_lines():
         log("perf: " + line)
     if fallback_solves:

@@ -9,21 +9,26 @@ configurations of B right-hand sides each. The measurement solves
 refined contract::
 
     x = 0, in f64;  r, rho = K9(b, x)
-    while rho >= stop2, passes < max_outer, and (first pass or
-          rho * 4 <= rho_prev):
-        d = K6(f32(r), x0 = 0, tol = inner_tol)
-        x += d (f64);  r, rho = K9(b, x)
+    max_outer times:
+        active = rho >= stop2 and (first pass or rho * 4 <= rho_prev)
+        d = K6(f32(r), x0 = 0, tol = inner_tol, active)
+        x += d (f64) where active;  r, rho = K9(b, x, active)
 
 with stop2 = tol^2 ||b||^2 in f64 and every test per entry: an entry that
 stops keeps its state while the others go on, as the batched while_loop
-of JAX's vmapped cg_refine does. iters sums the inner iterations. With
-``fallback`` the entries still above stop2 continue in K4 from the f64 x
-(the ``cg_refine_df`` fallback ``_df_cg_finish``, with native f64
-vectors and its round contraction tau = 1e-5, not inner_tol); K4 reads the
-flags on the device, so a converged entry passes through.
+of JAX's vmapped cg_refine does. An entry that stopped never starts again
+(its rho and rho_prev stay as they were), so the passes after the last
+active one change nothing: JAX's loop ends there, and here K6 and K9 skip
+every entry outside the mask at once (their blocks return before any
+work), so those passes cost their launches and no solve. iters sums the
+inner iterations. With ``fallback`` the entries still above stop2
+continue in K4 from the f64 x (the ``cg_refine_df`` fallback
+``_df_cg_finish``, with native f64 vectors and its round contraction
+tau = 1e-5, not inner_tol); K4 reads the flags on the device, so a
+converged entry passes through.
 
-Host reads: one per pass (whether any entry is still active). The K4 call
-needs none.
+Host reads: none, so a CUDA graph captures the whole refinement (the
+measurement program, hmc/program.py).
 
 ``cg_refine_geom`` is the same refinement for the unpacked sampler, on the
 fields of a geometry (ops/geometry.py), with or without a mesh: the
@@ -32,7 +37,9 @@ counterpart of ``cg_refine`` with ``_f64_cg_finish`` as
 f64 operator and the f32 inner solve (on a mesh the sharded K7 CG); the
 true residual and the fallback, a plain f64 CG, are PyTorch through the
 geometry, as JAX computes both outside any Pallas kernel. Both entry points
-run the passes of ``_refine_passes``.
+run the passes of ``_refine_passes``; this one ends them at the first pass
+with no active entry, one host read a pass (its plain CG reads the host on
+every iteration anyway).
 """
 
 from __future__ import annotations
@@ -63,16 +70,21 @@ PLAIN = EOKernels(cg_eo.cg_solve_eo_reference, rs.residual_f64_reference,
                   rs.solve_f64_cg_fallback_reference)
 
 
-def _refine_passes(residual, inner, x, stop2, max_outer):
+def _refine_passes(residual, inner, x, stop2, max_outer, early_exit=False):
     """The passes of the restart refinement, per entry.
 
-    residual(x) -> (r, rho): the f64 true residual of the f64 x and its
-    squared norm; inner(r) -> (d, iters): the f32 solve of A d = r from 0.
-    rho, stop2 and iters have one value per entry (any shape that
-    ``bcast`` extends to x). An entry is active while rho >= stop2, fewer
-    than max_outer passes ran and its last pass contracted rho at least
-    4x; one that stops keeps its state. One host read per pass. Returns
-    (x, r, rho, iters)."""
+    residual(x, active=None, out=None) -> (r, rho): the f64 true residual
+    of the f64 x and its squared norm; given a mask `active` and `out`, the
+    previous (r, rho), it may leave the entries outside the mask as they
+    are in `out` (K9 writes only the others). inner(r, active) -> (d,
+    iters): the f32 solve of A d = r from 0 at the active entries (what it
+    returns elsewhere is discarded). rho, stop2 and iters have one value
+    per entry (any shape that ``bcast`` extends to x). An entry is active
+    while rho >= stop2 and, after the first pass, its last pass contracted
+    rho at least 4x; one that stops keeps its state and never starts
+    again. All max_outer passes run, each masked, with no host read; with
+    `early_exit` the loop ends at the first pass with no active entry (one
+    host read a pass), with the same result. Returns (x, r, rho, iters)."""
     r, rho = residual(x)
     rho_prev = torch.full_like(rho, float("inf"))
     iters = torch.zeros(rho.shape, dtype=torch.int32, device=rho.device)
@@ -80,12 +92,12 @@ def _refine_passes(residual, inner, x, stop2, max_outer):
         active = rho >= stop2
         if k:
             active &= rho * 4.0 <= rho_prev      # stagnation: < 4x per pass
-        if not bool(active.any()):
+        if early_exit and not bool(active.any()):
             break
-        d, it = inner(r)
+        d, it = inner(r, active)
         x = torch.where(bcast(active, x), x + d, x)
-        r, rho_new = residual(x)
         rho_prev = torch.where(active, rho, rho_prev)
+        r, rho_new = residual(x, active, (r, rho))
         rho = torch.where(active, rho_new, rho)
         iters = iters + torch.where(active, it, 0)
     return x, r, rho, iters
@@ -107,13 +119,16 @@ def cg_refine(thE, thO, ue, uo, b, *, m0, tol, inner_tol, max_iter,
     stop2 = (tol * tol) * bnorm2
     zero = torch.zeros_like(b)
 
-    def inner(r):
+    def inner(r, active):
         d = kernels.cg(ue, uo, r.float(), zero, m0=m0, tol=inner_tol,
-                       max_iter=max_iter)
+                       max_iter=max_iter, active=active)
         return d.x.double(), d.iters
 
+    def residual(x, active=None, out=None):
+        return kernels.residual(thE, thO, b, x, m0=m0, active=active, out=out)
+
     x, _, rho, iters = _refine_passes(
-        lambda x: kernels.residual(thE, thO, b, x, m0=m0), inner,
+        residual, inner,
         torch.zeros(b.shape, dtype=torch.float64, device=b.device), stop2,
         max_outer)
     res = RefinedSolveResult(x=x.float(), x64=x, iters=iters,
@@ -122,9 +137,12 @@ def cg_refine(thE, thO, ue, uo, b, *, m0, tol, inner_tol, max_iter,
     if not fallback:
         return res
     flat = RefinedSolveResult(*(t.reshape(C * B, *t.shape[2:]) for t in res))
-    # K4 takes the angles per entry: each configuration's repeated B times
-    fb = kernels.fallback(thE.repeat_interleave(B, dim=0),
-                          thO.repeat_interleave(B, dim=0),
+
+    def per_entry(th):
+        """K4 takes the angles per entry: each configuration's B times."""
+        return th[:, None].expand(C, B, *th.shape[1:]).reshape(C * B, *th.shape[1:])
+
+    fb = kernels.fallback(per_entry(thE), per_entry(thO),
                           b.reshape(C * B, *b.shape[2:]), flat, m0=m0,
                           tol=tol, max_iter=max_iter)
     return RefinedSolveResult(*(t.reshape(C, B, *t.shape[1:]) for t in fb))
@@ -177,16 +195,17 @@ def cg_refine_geom(apply_A_hi, inner_solve, b, dot_re_hi, *, tol=1e-10,
     b_norm2 = dot_re_hi(b_hi, b_hi)
     stop2 = (tol * tol) * b_norm2
 
-    def residual(x):
+    def residual(x, active=None, out=None):
         r = b_hi - apply_A_hi(x)
         return r, dot_re_hi(r, r)
 
-    def inner(r):
+    def inner(r, active):
         r_lo = r.to(torch.complex64)
         d, it = inner_solve(r_lo, torch.zeros_like(r_lo))
         return d.to(torch.complex128), it
 
-    x, r, rho, iters = _refine_passes(residual, inner, x, stop2, max_outer)
+    x, r, rho, iters = _refine_passes(residual, inner, x, stop2, max_outer,
+                                      early_exit=True)
     if fallback_max_iter > 0:
         x, rho, it_fb = _f64_cg_finish(apply_A_hi, b_hi, x, r, rho, stop2,
                                        dot_re_hi, fallback_max_iter)

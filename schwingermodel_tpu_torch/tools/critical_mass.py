@@ -11,10 +11,16 @@ fermions m_PCAC vanishes at m0 = m_crit, linearly up to O(a) artifacts.
 On the card the trajectories run on the packed path (hmc/packed.py: K1 and
 K3, C chains together, f32 under the 1e-10 refined contract) and the
 correlator solves through dirac_inverse (K6, K9, K4); on the CPU in f64 on
-the unpacked sampler. The hot start comes from the generator of --seed
-(runner.hot_start); each stream (the two annealing runs, the
-thermalization, each block) takes its own range of trajectory indices, so
-no two trajectories share noise.
+the unpacked sampler. On the packed path both of the JAX tool's jitted
+pieces (its trajectory blocks and its meson measurement,
+schwingermodel_tpu/tools/critical_mass.py:144-185) run as device programs
+(hmc/program.py): a TrajectoryProgram for each mass the thermalization
+anneals through and a MeasurementProgram of the correlators, on the card
+CUDA graph replays with one host read a point; ``run_point(...,
+graph=False)`` issues them eagerly, with the same bits. The hot start
+comes from the generator of --seed (runner.hot_start); each stream (the
+two annealing runs, the thermalization, each block) takes its own range
+of trajectory indices, so no two trajectories share noise.
 
     python -m schwingermodel_tpu_torch.tools.critical_mass \\
         --beta 2 --nx 16 --nt 16 --chains 16 --md-steps 36 \\
@@ -93,6 +99,93 @@ def fit_zero_crossing(m0s, ms, errs):
     return float(m_crit), float(err), float(a)
 
 
+def run_point(args, m0: float, device, lat, graph: bool = True):
+    """One mass of the scan -> (m_PCAC, err, acceptance, all_converged).
+    args: the parsed flags (beta, md_steps, tau, chains, n_therm, n_blocks,
+    n_skip, seed); lat: the LatticeParams (f32: the packed path under the
+    refined contract; f64: the unpacked sampler, loose). On the packed path
+    the trajectories and the correlators run as device programs (module
+    docstring), eagerly with graph=False; elsewhere eagerly."""
+    import torch
+
+    from schwingermodel_tpu_torch import observables as obs
+    from schwingermodel_tpu_torch.config import CGParams, HMCParams
+    from schwingermodel_tpu_torch.hmc import packed as hp
+    from schwingermodel_tpu_torch.hmc import sampler
+    from schwingermodel_tpu_torch.hmc.program import (MeasurementProgram,
+                                                      TrajectoryProgram)
+    from schwingermodel_tpu_torch.models.schwinger import SchwingerModel
+    from schwingermodel_tpu_torch.runner import hot_start
+
+    C, Nt = args.chains, lat.Nt
+    cg = CGParams(tol=1e-10, max_iter=20000, refine=lat.real_dtype == "float32")
+    model = SchwingerModel(lattice=lat, hmc=HMCParams(
+        beta=args.beta, m0=m0, md_steps=args.md_steps,
+        trajectory_length=args.tau, even_odd=True, cg=cg))
+    packed = hp.packed_eligible(model)
+    # anneal the thermalization through a safe mass (hot starts near
+    # m_crit otherwise stick on exceptional configurations)
+    stages = [(dataclasses.replace(model, hmc=dataclasses.replace(
+        model.hmc, m0=m0_a)), args.n_therm // 2)
+        for m0_a in ((0.0, m0 / 2) if m0 < -0.05 and packed else ())]
+    th = hot_start(lat, args.seed, C, device)
+    next_index = 0
+
+    def correlators(th, _index):
+        return obs.meson_correlators(model, th)._asdict()
+
+    if packed and graph:
+        for m_a, n in stages:
+            prog = TrajectoryProgram(m_a, th, args.seed, next_index)
+            prog.run(n)
+            th, next_index = prog.theta, next_index + n
+        prog = TrajectoryProgram(model, th, args.seed, next_index)
+        prog.run(args.n_therm)
+        mprog = MeasurementProgram(correlators, prog.theta, args.n_blocks)
+        for _ in range(args.n_blocks):
+            prog.run(args.n_skip)
+            mprog.step()
+        out = {k: v.cpu() for k, v in mprog.out.items()}
+        acc_count = int(prog.block.accepted.sum())
+        all_conv = bool(out["converged"].all())
+        C_PP = out["C_PP"].reshape(-1, Nt).numpy()
+        C_A0P = out["C_A0P"].reshape(-1, Nt).numpy()
+    else:
+        step = hp.hmc_trajectory_packed if packed else sampler.hmc_trajectory
+
+        def block(th, model, n):
+            """n trajectories on the next n indices; the accepted count
+            stays on the device until the caller reads it."""
+            nonlocal next_index
+            acc = torch.zeros((), dtype=torch.int64, device=device)
+            for i in range(next_index, next_index + n):
+                th, st = step(model, th, args.seed, i)
+                acc += st.accepted.sum()
+            next_index += n
+            return th, acc
+
+        for m_a, n in stages:
+            th, a_ = block(th, m_a, n)
+            int(a_)
+        th, acc = block(th, model, args.n_therm)
+        acc_count = int(acc)
+        pps, aps = [], []
+        all_conv = True
+        for _ in range(args.n_blocks):
+            th, acc = block(th, model, args.n_skip)
+            acc_count += int(acc)
+            r = correlators(th, None)
+            all_conv &= bool(r["converged"].all())
+            pps.append(r["C_PP"].cpu().numpy())
+            aps.append(r["C_A0P"].cpu().numpy())
+        C_PP = np.concatenate(pps, axis=0)
+        C_A0P = np.concatenate(aps, axis=0)
+    n_traj = (args.n_therm + args.n_blocks * args.n_skip) * C
+    window = (3, max(5, Nt // 2 - 1))
+    m, err = pcac_plateau(C_PP, C_A0P, window)
+    return m, err, acc_count / n_traj, all_conv
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="python -m schwingermodel_tpu_torch.tools.critical_mass")
@@ -129,12 +222,7 @@ def main(argv=None) -> int:
         print("error: --device cuda but CUDA is not available", file=sys.stderr)
         return 1
 
-    from schwingermodel_tpu_torch import observables as obs
-    from schwingermodel_tpu_torch.config import CGParams, HMCParams, LatticeParams
-    from schwingermodel_tpu_torch.hmc import packed as hp
-    from schwingermodel_tpu_torch.hmc import sampler
-    from schwingermodel_tpu_torch.models.schwinger import SchwingerModel
-    from schwingermodel_tpu_torch.runner import hot_start
+    from schwingermodel_tpu_torch.config import LatticeParams
     from schwingermodel_tpu_torch.utils.metrics import card_label
 
     device = torch.device(args.device)
@@ -143,58 +231,10 @@ def main(argv=None) -> int:
     lat = LatticeParams(
         Nx=Nx, Nt=Nt, real_dtype="float32" if on_card else "float64")
 
-    def run_point(m0: float):
-        cg = CGParams(tol=1e-10, max_iter=20000, refine=on_card)
-        model = SchwingerModel(lattice=lat, hmc=HMCParams(
-            beta=args.beta, m0=m0, md_steps=args.md_steps,
-            trajectory_length=args.tau, even_odd=True, cg=cg))
-        step = (hp.hmc_trajectory_packed if hp.packed_eligible(model)
-                else sampler.hmc_trajectory)
-        th = hot_start(lat, args.seed, C, device)
-        next_index = 0
-
-        def block(th, model, n):
-            """n trajectories on the next n indices; the accepted count
-            stays on the device until the caller reads it."""
-            nonlocal next_index
-            acc = torch.zeros((), dtype=torch.int64, device=device)
-            for i in range(next_index, next_index + n):
-                th, st = step(model, th, args.seed, i)
-                acc += st.accepted.sum()
-            next_index += n
-            return th, acc
-
-        # anneal the thermalization through a safe mass (hot starts near
-        # m_crit otherwise stick on exceptional configurations)
-        if m0 < -0.05 and hp.packed_eligible(model):
-            for m0_a in (0.0, m0 / 2):
-                m_a = dataclasses.replace(
-                    model, hmc=dataclasses.replace(model.hmc, m0=m0_a))
-                th, a_ = block(th, m_a, args.n_therm // 2)
-                int(a_)
-        th, acc = block(th, model, args.n_therm)
-        acc_count = int(acc)
-        pps, aps = [], []
-        all_conv = True
-        for _ in range(args.n_blocks):
-            th, acc = block(th, model, args.n_skip)
-            acc_count += int(acc)
-            r = obs.meson_correlators(model, th)
-            all_conv &= bool(r.converged.all())
-            pps.append(r.C_PP.cpu().numpy())
-            aps.append(r.C_A0P.cpu().numpy())
-        n_traj = (args.n_therm + args.n_blocks * args.n_skip) * C
-        acc_rate = acc_count / n_traj
-        C_PP = np.concatenate(pps, axis=0)
-        C_A0P = np.concatenate(aps, axis=0)
-        window = (3, max(5, Nt // 2 - 1))
-        m, err = pcac_plateau(C_PP, C_A0P, window)
-        return m, err, acc_rate, all_conv
-
     m0s = [float(x) for x in args.m0_list.split(",")]
     rows = []
     for m0 in m0s:
-        m, err, acc, conv = run_point(m0)
+        m, err, acc, conv = run_point(args, m0, device, lat)
         row = {"m0": m0, "m_pcac": m, "err": err,
                "acceptance": round(acc, 3), "all_converged": conv}
         rows.append(row)

@@ -71,7 +71,7 @@ def counted_kernels() -> tuple:
     return (tr.force_step, tr.solve_fused, tr.solve_fused_mxu, tr.ratio_force,
             rs.solve_refined, rs.solve_f64_cg_fallback, cg_eo.cg_solve_eo,
             rs.residual_f64, halo.halo_normal, halo.halo_force,
-            noise.chain_noise)
+            noise.chain_noise, noise.z2_noise)
 
 
 def kernel_launches() -> dict:
@@ -111,8 +111,9 @@ class PerfMonitor:
         self.even_odd = even_odd
         self.phases: Dict[str, PhaseStats] = {}
         self._current: Optional[str] = None
-        # the device program's TrajectoryProgram.stats(), where one ran
-        self.graph: Optional[dict] = None
+        # the device programs' stats() (hmc/program.py), where they ran:
+        # "graph" the trajectory's, "measurement_graph" the measurement's
+        self.graphs: Dict[str, dict] = {}
 
     @contextlib.contextmanager
     def phase(self, name: str):
@@ -154,14 +155,13 @@ class PerfMonitor:
             if st.replays:
                 d["replays"] = st.replays
             out[name] = d
-        if self.graph is not None:
-            out["graph"] = dict(self.graph)
+        out.update({k: dict(v) for k, v in self.graphs.items()})
         return out
 
     def report_lines(self) -> list[str]:
         lines = []
         summary = self.summary()
-        graph = summary.pop("graph", None)
+        graphs = {k: summary.pop(k) for k in self.graphs}
         for name, d in summary.items():
             parts = [f"{name}: {d['seconds']:.2f} s"]
             if "traj_per_s" in d:
@@ -173,13 +173,15 @@ class PerfMonitor:
             if "replays" in d:
                 parts.append(f"{d['replays']} graph replays")
             lines.append("  ".join(parts))
-        if graph is not None and graph["captures"]:
+        for name, graph in graphs.items():
+            if not graph["captures"]:
+                continue
             us = graph["host_us_per_replay"]
             lines.append(
-                f"graph: {graph['captures']} capture(s), {graph['replays']} "
-                f"replays, {graph['kernel_nodes']} kernel nodes, "
-                + (f"{us:.1f} us of host per replay" if us is not None
-                   else "no replay"))
+                f"{name.replace('_', ' ')}: {graph['captures']} capture(s), "
+                f"{graph['replays']} replays, {graph['kernel_nodes']} kernel "
+                "nodes, " + (f"{us:.1f} us of host per replay" if us is not None
+                             else "no replay"))
         return lines
 
 

@@ -32,12 +32,29 @@ Layout (``csrc/noise.cu`` says the same):
 
 Distributions (reference src/hmc.cpp:5-28, include/statistics.h:20-24):
 pi ~ N(0, 1); chi has real and imaginary parts each of variance 1/2, so
-E|chi|^2 = 1 per component; r ~ U[0, 1). The hot start (one draw a run)
-and the condensate's Z2xZ2 noise, (+-1 +- i)/sqrt(2) per component, keep
-a ``torch.Generator`` each, seeded through NumPy's ``SeedSequence``: the
-condensate from one generator per (measurement, chain) of its own stream,
-as JAX keys the measurement apart from the trajectories
-(``fold_in(k_run, 10_000_000 + i)``, runner.py:253-258).
+E|chi|^2 = 1 per component; r ~ U[0, 1).
+
+The condensate's Z2xZ2 noise, (+-1 +- i)/sqrt(2) per component, comes from
+the same bijection under the key of its own stream tag (_MEAS, as JAX keys
+the measurement apart from the trajectories, ``fold_in(k_run, 10_000_000 +
+i)``, runner.py:253-258), so it never shares a (key, counter) with the
+trajectory stream; on the card one kernel draws every chain's vectors of a
+measurement (``ops/noise.z2_noise``), ``z2_noise_reference`` below is its
+twin. Layout (``csrc/noise.cu`` says the same):
+
+- key: ``philox_key(seed, _MEAS)``;
+- counter: c0 = q, the group of 4 elements of one noise vector (elements
+  4q .. 4q + 3 of its 2 Nx Nt, spin-major); c1 = the noise vector j |
+  (measurement >> 32) << 16; c2 = the chain's global index; c3 =
+  measurement mod 2^32. Distinct (seed, measurement < 2^48, chain < 2^32,
+  vector < 2^16, q < 2^32) never share a (key, counter).
+- element 4q + k takes word w_k: its real part is -f32(2^-1/2) where bit
+  31 of w_k is set, else +f32(2^-1/2); its imaginary part the same by bit
+  30 (exact: no rounding). A vector whose element count is not a multiple
+  of 4 drops the last group's spare words.
+
+The hot start (one draw a run) keeps a ``torch.Generator``, seeded through
+NumPy's ``SeedSequence`` (``init_generator``).
 """
 
 from __future__ import annotations
@@ -70,20 +87,6 @@ def _generator(entropy, device) -> torch.Generator:
 def init_generator(seed: int, device) -> torch.Generator:
     """Generator of the hot-start configuration."""
     return _generator([seed, _INIT], device)
-
-
-def measurement_generator(seed: int, meas_index: int, chain: int,
-                          device) -> torch.Generator:
-    """Generator of one chain's condensate noise for one measurement."""
-    return _generator([seed, _MEAS, meas_index, chain], device)
-
-
-def z2_complex(gen, shape, rdtype, device) -> torch.Tensor:
-    """Complex Z2xZ2 noise: entries (+-1 +- i)/sqrt(2), so E[z z^+] = I."""
-    bits = torch.randint(0, 2, (2,) + tuple(shape), generator=gen,
-                         device=device)
-    s = (2 * bits - 1).to(rdtype) * (2.0 ** -0.5)
-    return torch.complex(s[0], s[1])
 
 
 # ---------- the trajectory stream: Philox4x32-10 ----------
@@ -179,3 +182,55 @@ def trajectory_noise_reference(seed: int, traj_index, n_chains: int,
     else:
         r = (m1[:, -1] >> 29).float() * 2.0 ** -24
     return (pi, chi, r, w) if words else (pi, chi, r)
+
+
+# ---------- the condensate's Z2xZ2 stream: the same bijection, tag _MEAS ----------
+
+# f32(2^-1/2): the magnitude of each part of a Z2xZ2 entry
+Z2_SCALE = 0.70710677
+_MEAS_LIMIT, _NOISE_LIMIT = 1 << 48, 1 << 16
+
+
+def z2_counters(meas_index, n_chains: int, chain_offset: int, n_noise: int,
+                n_groups: int, device) -> torch.Tensor:
+    """The counters of one measurement's Z2 noise, int64 [C, n_noise,
+    n_groups, 4] (module docstring), each chain at its global index.
+    meas_index: a Python int or a 0-d int64 tensor (read on its device,
+    never on the host)."""
+    meas = torch.as_tensor(meas_index, dtype=torch.int64, device=device)
+    shape = (n_chains, n_noise, n_groups)
+    q = torch.arange(n_groups, dtype=torch.int64, device=device)
+    j = torch.arange(n_noise, dtype=torch.int64, device=device).reshape(-1, 1)
+    chain = (torch.arange(n_chains, dtype=torch.int64, device=device)
+             + int(chain_offset)).reshape(-1, 1, 1)
+    return torch.stack([
+        q.expand(shape), (j | ((meas >> 32) << 16)).expand(shape),
+        (chain & _MASK32).expand(shape), (meas & _MASK32).expand(shape)], dim=-1)
+
+
+def check_z2_range(meas_index, n_noise: int) -> None:
+    """Raise where a Python-int measurement index or the vector count lies
+    outside the counter layout (a tensor index is read only on its
+    device)."""
+    if not isinstance(meas_index, torch.Tensor) and not 0 <= int(meas_index) < _MEAS_LIMIT:
+        raise ValueError(f"measurement index {meas_index} outside [0, 2^48)")
+    if not 0 < n_noise < _NOISE_LIMIT:
+        raise ValueError(f"{n_noise} noise vectors: expected 1 .. 2^16 - 1")
+
+
+def z2_noise_reference(seed: int, meas_index, n_chains: int, chain_offset: int,
+                       n_noise: int, n_el: int, device, words: bool = False):
+    """Plain twin of the Z2 noise kernel (ops/noise.z2_noise): for the chains
+    chain_offset .. chain_offset + n_chains - 1 of one measurement, n_noise
+    vectors of n_el complex64 entries (+-1 +- i)/sqrt(2), [C, n_noise, n_el];
+    with `words`, also the Philox words int64 [C, n_noise, ceil(n_el / 4),
+    4]."""
+    check_z2_range(meas_index, n_noise)
+    n_groups = -(-n_el // 4)
+    ctr = z2_counters(meas_index, n_chains, chain_offset, n_noise, n_groups, device)
+    w = philox4x32_10(ctr, philox_key(seed, _MEAS))
+    bits = w.reshape(n_chains, n_noise, 4 * n_groups)[..., :n_el]
+    s = torch.tensor(Z2_SCALE, dtype=torch.float32, device=device)
+    z = torch.complex(torch.where((bits >> 31) & 1 == 1, -s, s),
+                      torch.where((bits >> 30) & 1 == 1, -s, s))
+    return (z, w) if words else z
