@@ -649,7 +649,7 @@ def chain_groups(hp, rs, tr, sms, card, lattice, hmc, dev):
             wall = time.perf_counter() - t0
             check(proc.returncode == 0, f"(p) {label}: exit {proc.returncode}\n"
                   f"{proc.stdout[-3000:]}\n{proc.stderr[-4000:]}")
-            rate = re.search(r"perf: measure: \S+ s\s+(\S+) traj/s", proc.stdout)
+            rate = re.search(r"perf: hmc\.measure: \S+ s \([^)]*\)\s+(\S+) traj/s", proc.stdout)
             check(rate is not None, f"(p) {label}: no measure-phase rate")
             outs[label] = {
                 "stdout": proc.stdout, "stderr": proc.stderr, "wall": wall,
@@ -849,7 +849,7 @@ def mre_path(cli, counted, card):
               f"(q) --mre-history {K}: exit {rc}\n{text[-3000:]}")
         check(got["solve_refined"] == 40 * n_traj,
               f"(q) --mre-history {K}: {got['solve_refined']} K3 launches")
-        rate = re.search(r"perf: measure: \S+ s\s+(\S+) traj/s\s+(\S+) CG iters/traj", text)
+        rate = re.search(r"perf: hmc\.measure: \S+ s \([^)]*\)\s+(\S+) traj/s\s+(\S+) CG iters/traj", text)
         acc = re.search(r"Acceptance rate: (\S+)", text)
         em = re.search(r"<exp\(-dH\)> = (\S+),", text)
         check(rate and acc and em, f"(q) --mre-history {K}: no result lines")
@@ -1022,7 +1022,7 @@ def dist_mesh(card):
             check(proc.returncode == 0, f"(r) {label}: exit {proc.returncode}\n"
                   f"{proc.stdout[-3000:]}\n{proc.stderr[-4000:]}")
             check("all solves converged: True" in proc.stdout, f"(r) {label}: a solve failed")
-            rate = re.search(r"perf: measure: \S+ s\s+(\S+) traj/s\s+(\S+) CG", proc.stdout)
+            rate = re.search(r"perf: hmc\.measure: \S+ s \([^)]*\)\s+(\S+) traj/s\s+(\S+) CG", proc.stdout)
             check(rate is not None, f"(r) {label}: no measure-phase rate")
             outs[label] = {
                 "stdout": proc.stdout, "stderr": proc.stderr, "wall": wall,
@@ -1195,9 +1195,13 @@ def profile_window(step, n, reps_label=""):
             step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    # the program's hmc.* spans are host ranges, to which the profiler also
+    # credits the device time of a graph replay's kernels: left out, so that
+    # no kernel is counted twice
     ev = [(e.key, e.count, getattr(e, "self_device_time_total",
                                    getattr(e, "self_cuda_time_total", 0.0)))
-          for e in prof.key_averages() if "spin_kernel" not in e.key]
+          for e in prof.key_averages()
+          if "spin_kernel" not in e.key and not e.key.startswith("hmc.")]
     dev_ev = sorted((e for e in ev if e[2] > 0), key=lambda e: -e[2])
     busy = sum(e[2] for e in dev_ev) * 1e-6
     check(dev_ev, f"profile {reps_label}: no device time in the trace")
@@ -1246,6 +1250,7 @@ def device_program(counters, hmc_params, lattice, dev, card, cli, counted):
                 dict(tr.force_step.variants))
 
     accumulators = ("accepted", "cg_iters", "converged", "exp_mdH", "fallbacks",
+                    "action_iters", "unconverged",
                     "fail_theta", "fail_seen", "fail_index")
     big = LatticeParams(Nx=128, Nt=128, real_dtype="float32")
     out = {"ms_per_trajectory": {}}
@@ -1286,6 +1291,11 @@ def device_program(counters, hmc_params, lattice, dev, card, cli, counted):
         got = graph_counts[0]
         check(got["chain_noise"] == n and got["solve_f64_cg_fallback"] == 0,
               f"(t) {label}: launches {got}")
+        # K3's clocks, added into the block by the eager step and every replay
+        if hmc.cg.refine:
+            cyc = prog.block.clocks
+            check(bool((cyc[:, 0] > cyc[:, 1]).all() and (cyc[:, 1] > 0).all()),
+                  f"(t) {label}: K3's clocks in the block {cyc[:2].tolist()}")
         if label.startswith("refined demo"):
             check(got["solve_refined"] == 10 * n and got["force_step"] == 9 * n,
                   f"(t) {label}: K3 {got['solve_refined']} and K1 {got['force_step']} "
@@ -1325,7 +1335,7 @@ def device_program(counters, hmc_params, lattice, dev, card, cli, counted):
     print("\n".join(ln for ln in text.splitlines() if ln.startswith("phase 3")), flush=True)
     check(rc == 0 and "all solves converged: True" in text,
           f"(t) the CLI: exit {rc}\n{text[-3000:]}")
-    rate = re.search(r"perf: measure: \S+ s\s+(\S+) traj/s", text)
+    rate = re.search(r"perf: hmc\.measure: \S+ s \([^)]*\)\s+(\S+) traj/s", text)
     acc = re.search(r"Acceptance rate: (\S+)", text)
     em = re.search(r"<exp\(-dH\)> = (\S+),", text)
     ep = re.search(r"Ep = (\S+)", text)
@@ -1352,7 +1362,7 @@ def device_program(counters, hmc_params, lattice, dev, card, cli, counted):
         check(res.all_converged and 0.3 < res.acceptance_rate <= 1.0,
               f"(t) run_hmc graph={graph}: converged {res.all_converged}, acceptance "
               f"{res.acceptance_rate}")
-        rates[graph].append(res.perf["measure"]["traj_per_s"])
+        rates[graph].append(res.perf["spans"]["hmc.measure"]["traj_per_s"])
     model = SchwingerModel(lattice=lattice, hmc=hmc_params())
     prog = TrajectoryProgram(model, hot_start(lattice, 0, C_MAIN, dev), 0, 0)
     prog.step()
@@ -1410,12 +1420,12 @@ class _SyncGuard:
         from schwingermodel_tpu_torch.utils import metrics
 
         guard = self
-        orig_phase = metrics.PerfMonitor.phase
+        orig_span = metrics.PerfMonitor.span
 
         @contextlib.contextmanager
-        def phase(mon, name):
-            with orig_phase(mon, name) as st:
-                if name != "measure":
+        def span(mon, name):
+            with orig_span(mon, name) as st:
+                if name != "hmc.measure":
                     yield st
                     return
                 guard.phases += 1
@@ -1436,7 +1446,7 @@ class _SyncGuard:
             return call
 
         for owner, name, wrap in (
-                (metrics.PerfMonitor, "phase", phase),
+                (metrics.PerfMonitor, "span", span),
                 (program.Block, "read", allowed(program.Block.read)),
                 (program._GraphedStep, "_capture", allowed(program._GraphedStep._capture)),
                 (mh, "gather_chains", allowed(mh.gather_chains))):
@@ -1664,7 +1674,7 @@ def measurement_program(counted, hmc_params, lattice, dev, card, theta_d):
                       f"(u) {label}: measurement graph {mg}")
             res.setdefault(graph, r)
             if label == "refined":
-                rates[graph].append(r.perf["measure"]["traj_per_s"])
+                rates[graph].append(r.perf["spans"]["hmc.measure"]["traj_per_s"])
         a, b = res[True], res[False]
         check(np.array_equal(a.theta, b.theta)
               and all(np.array_equal(a.chains[k], b.chains[k]) for k in a.chains)
@@ -2572,7 +2582,7 @@ def main() -> int:
               and res.theta.shape == (C_MAIN, 2, NX, NT), f"{label}: final configuration")
         check(abs(res.exp_mdH_mean - 1.0) < 0.1,
               f"{label}: <exp(-dH)> {res.exp_mdH_mean}")
-        meas = res.perf["measure"]
+        meas = res.perf["spans"]["hmc.measure"]
         n_traj = run.n_therm + run.n_meas
         print(f"phase 3: {label}: {NX}x{NT} beta=4 m0=0.2 tau=0.1 C={C_MAIN}, "
               f"{run.n_therm}+{run.n_meas} trajectories in {wall:.2f} s: "

@@ -29,7 +29,9 @@ CKPT`` continues from one (its configuration, parameters and trajectory
 counter; ``--nmeas`` extends the run without thermalization; the warm-up
 of ``--autotune`` is switched off, since the checkpoint carries the tuned
 md_steps), also from a checkpoint the JAX package wrote. ``--profile DIR``
-writes a ``torch.profiler`` trace of the run to ``DIR/trace.json``.
+writes a ``torch.profiler`` trace of the run to ``DIR/trace.json``, the
+run's ``hmc.*`` spans among its ranges, and on the card prints the device's
+idle share in ``hmc.run``, starved and queued (``utils.metrics.idle_split``).
 ``--mre-history K`` (K >= 2) starts every solve of the packed refined path
 from the MRE forecast over the last K force solutions, computed in K3's
 launch; it is ignored where the JAX package ignores it (the loose
@@ -405,7 +407,7 @@ def _main(args) -> int:
          f"seed = {run.seed}")
     echo("*" * 70)
 
-    with profiler_trace(args.profile):
+    with profiler_trace(args.profile) as trace:
         result = run_hmc(lattice, hmc, run, device=device,
                          initial_theta=initial_theta,
                          start_traj_index=start_traj, progress=echo,
@@ -414,6 +416,13 @@ def _main(args) -> int:
                          n_noise=args.n_noise, mesh=mesh)
     if args.profile:
         print(f"Profiler trace written to {args.profile}")
+        idle = trace["idle"]
+        if idle is not None:
+            pct = {k: 100.0 * idle[k] / idle["window_s"]
+                   for k in ("idle_s", "starved_s", "queued_s")}
+            print(f"Device idle in hmc.run: {pct['idle_s']:.2f}% of "
+                  f"{idle['window_s']:.4f} s (starved {pct['starved_s']:.2f}%, "
+                  f"queued {pct['queued_s']:.2f}%)")
 
     echo(f"Average plaquette value / volume: Ep = {result.Ep:.17g} "
          f"dEp = {result.dEp:.17g}")
@@ -425,7 +434,8 @@ def _main(args) -> int:
              f"(tau_int {s['tau_int']:.2f})")
     echo(f"Acceptance rate: {result.acceptance_rate:.17g}")
     echo(f"<exp(-dH)> = {result.exp_mdH_mean:.6f}, all solves converged: "
-         f"{result.all_converged}")
+         f"{result.all_converged} (unconverged chain-trajectories: "
+         f"{result.unconverged_chain_trajs})")
     echo(f"Execution time = {result.elapsed_seconds:.6f} s")
     echo("-------------------------------")
     if result.n_ill:

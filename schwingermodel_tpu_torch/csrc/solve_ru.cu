@@ -901,9 +901,9 @@ __device__ __forceinline__ void ru_finish(const RuParams& p, const RuF64& f, int
     p.iters[ch] = iters;
     p.fb_iters[ch] = 0;
     p.conv[ch] = conv ? 1 : 0;
-    if (p.clocks != nullptr) {
-      p.clocks[2 * ch] = clock64() - t_begin;
-      p.clocks[2 * ch + 1] = f.t_res;
+    if (p.clocks != nullptr) {  // added, so that one buffer sums a run's launches
+      p.clocks[2 * ch] += clock64() - t_begin;
+      p.clocks[2 * ch + 1] += f.t_res;
     }
   }
   if (conv || !p.fallback) return;
@@ -1047,7 +1047,8 @@ __global__ void __launch_bounds__(kThreads) solve_ru_global_kernel(const RuParam
 // hist: f32 [K, C, 2, 2, Nx, Nth], the start (K = 1) or the MRE history,
 // newest first; mre: for K >= 2 f32 [C, mre_values(K) V2], else unused;
 // iters, fb_iters: int32 [C]; conv: one byte per chain; clocks: null or int64
-// [C, 2]. path 0: every vector in the scratch, s32 f32 [C, 28 V2] and s64 f64
+// [C, 2], to which each chain's cycles (total, true residuals) are added.
+// path 0: every vector in the scratch, s32 f32 [C, 28 V2] and s64 f64
 // [C, 20 V2] (32 V2 with the fallback); path 1: the f32 recursion in the
 // shared memory of one block (at most 2048 sites, 96 V2 bytes <= 220 KiB),
 // no s32, s64 as on path 0; path 2: the f64 set in shared memory too (160 V2

@@ -105,12 +105,14 @@ class _Solved(NamedTuple):
 
 
 def trajectory_packed_given_noise(model: SchwingerModel, theta, pi, chi, r,
-                                  dt=None):
+                                  dt=None, clocks=None):
     """Deterministic HMC update of C chains given pre-drawn noise.
 
     theta, pi: f32 [C, 2, Nx, Nt]; chi: complex [C, 2, Nx, Nt/2], or
-    [C, 2, 2, Nx, Nt/2] under Hasenbusch; r: [C]. Returns (theta'
-    [C, 2, Nx, Nt] folded to [-pi, pi], TrajectoryStats).
+    [C, 2, 2, Nx, Nt/2] under Hasenbusch; r: [C]. clocks: on the card, an
+    int64 [C, 2] buffer into which every refined solve (K3) adds its clock
+    cycles (``rs.solve_refined``). Returns (theta' [C, 2, Nx, Nt] folded to
+    [-pi, pi], TrajectoryStats).
     """
     packed_supported(model)
     h, cg = model.hmc, model.hmc.cg
@@ -138,7 +140,7 @@ def trajectory_packed_given_noise(model: SchwingerModel, theta, pi, chi, r,
         sol = rs.solve_refined(
             thE, thO, b, x0, m0=mass, tol=tol_, tau=float(cg.inner_tol),
             max_iter=max_iter, max_outer=int(cg.max_outer), certify=certify,
-            cert_k=cert_k, fallback=bool(cg.fallback))
+            cert_k=cert_k, fallback=bool(cg.fallback), clocks=clocks)
         fell_back.append(sol.fb_iters)
         return _Solved(sol.x, sol.x64, sol.iters, sol.converged)
 
@@ -268,13 +270,15 @@ def trajectory_packed_given_noise(model: SchwingerModel, theta, pi, chi, r,
         x1, x2 = x_act if forecast else (phi, b2n)
         sol1 = solve(thE, thO, phi, x1, tol, True, m1)
         sol2 = solve(thE, thO, b2n, x2, tol, True, m0)
-        iters = iters + sol1.iters + sol2.iters
+        action_iters = sol1.iters + sol2.iters
+        iters = iters + action_iters
         conv = conv & sol1.converged & sol2.converged
         sf_new = tr.dot_re(phi, sol1.hi) + tr.dot_re(b2n, sol2.hi)
     else:
         sol = solve(thE, thO, phi, x_act[0] if forecast else phi, tol, True,
                     m0)
-        iters = iters + sol.iters
+        action_iters = sol.iters
+        iters = iters + action_iters
         conv = conv & sol.converged
         sf_new = tr.dot_re(phi, sol.hi)
     H_new = tr.kinetic(piE, piO) + tr.gauge_action(thE, thO, beta) + sf_new
@@ -289,16 +293,18 @@ def trajectory_packed_given_noise(model: SchwingerModel, theta, pi, chi, r,
     return theta_new, TrajectoryStats(accepted=accept, delta_H=dH,
                                       exp_mdH=exp_mdH, cg_iters=iters,
                                       cg_converged=conv,
-                                      cg_fallbacks=fallbacks)
+                                      cg_fallbacks=fallbacks,
+                                      action_iters=action_iters)
 
 
 def hmc_trajectory_packed(model: SchwingerModel, theta, seed: int,
-                          traj_index, dt=None, chain_offset: int = 0):
+                          traj_index, dt=None, chain_offset: int = 0,
+                          clocks=None):
     """One trajectory of theta [C, 2, Nx, Nt] with noise drawn from
     (seed, traj_index, chain_offset + chain). traj_index: a Python int, or
     the 0-d int64 trajectory counter on theta's device (hmc/program.py),
     read there: on the card nothing here reads the host, so a CUDA graph
-    can capture the call."""
+    can capture the call. clocks: as in ``trajectory_packed_given_noise``."""
     pi, chi, r = draw_chain_noise(model, seed, traj_index, theta.shape[0],
                                   theta.device, chain_offset)
-    return trajectory_packed_given_noise(model, theta, pi, chi, r, dt)
+    return trajectory_packed_given_noise(model, theta, pi, chi, r, dt, clocks)

@@ -36,13 +36,22 @@ it.
 
 The runner reads ``theta`` only through a clone (the graph writes the same
 storage on every replay), the block once per block, then resets it in
-place, and the measurement buffers once at the end of the phase.
+place, and the measurement buffers once at the end of the phase. The
+block's counters are kept where the work happens and read with it: the
+unconverged chain-trajectories, the action solves' iterations and, on the
+card, K3's clock cycles, which K3 adds into the block's buffer (every
+refined solve of the trajectory, no node of its own).
+
+Each program's capture (with its eager warm-up) and each replay is a span
+of a ``utils.metrics.PerfMonitor`` (the runner's, or one of the program's
+own): ``hmc.traj.capture`` and ``hmc.traj.replay``, ``hmc.meas.capture``
+and ``hmc.meas.replay``.
 """
 
 from __future__ import annotations
 
 import collections
-import time
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -51,19 +60,35 @@ from schwingermodel_tpu_torch.models.schwinger import SchwingerModel
 from schwingermodel_tpu_torch.ops import _cuda
 from schwingermodel_tpu_torch.ops import traj as tr
 from schwingermodel_tpu_torch.parallel import multihost as mh
-from schwingermodel_tpu_torch.utils.metrics import counted_kernels
+from schwingermodel_tpu_torch.utils.metrics import PerfMonitor, counted_kernels
+
+
+class BlockSums(NamedTuple):
+    """A block's sums over every chain (``Block.read``)."""
+    accepted: int
+    cg_iters: int
+    all_converged: bool
+    exp_mdH: float
+    fallbacks: int
+    action_iters: int
+    unconverged: int                # chain-trajectories with an unconverged solve
+    k3_cycles: Optional[int]        # K3's clock cycles; None without clocks
+    k3_res_cycles: Optional[int]    # of those, in its f64 true residuals
 
 
 class Block:
     """Device-side accumulators of one host-visible block, per chain:
     accepted trajectories, CG iterations, all-converged flag, the sum of
-    exp(-dH), fallback solves, and the pre-trajectory configuration and
-    index of the first trajectory whose solve failed. Every update is in
-    place, so that a CUDA graph of ``add`` accumulates into the same
-    storage on every replay; ``updates`` counts chain-trajectories on the
-    host."""
+    exp(-dH), fallback solves, the action solves' CG iterations, the
+    trajectories with an unconverged solve, and the pre-trajectory
+    configuration and index of the first trajectory whose solve failed;
+    with ``clocks``, K3's clock cycles [C, 2] (its total and its f64 true
+    residuals'), which the trajectory's refined solves add into. Every
+    update is in place, so that a CUDA graph of ``add`` accumulates into
+    the same storage on every replay; ``updates`` counts chain-trajectories
+    on the host."""
 
-    def __init__(self, theta):
+    def __init__(self, theta, clocks: bool = False):
         C = theta.shape[0]
         dev = theta.device
         self.accepted = torch.zeros(C, dtype=torch.int64, device=dev)
@@ -71,6 +96,10 @@ class Block:
         self.converged = torch.ones(C, dtype=torch.bool, device=dev)
         self.exp_mdH = torch.zeros(C, dtype=torch.float64, device=dev)
         self.fallbacks = torch.zeros(C, dtype=torch.int64, device=dev)
+        self.action_iters = torch.zeros(C, dtype=torch.int64, device=dev)
+        self.unconverged = torch.zeros(C, dtype=torch.int64, device=dev)
+        self.clocks = (torch.zeros((C, 2), dtype=torch.int64, device=dev)
+                       if clocks else None)
         self.fail_theta = torch.zeros_like(theta)
         self.fail_seen = torch.zeros(C, dtype=torch.bool, device=dev)
         self.fail_index = torch.full((C,), -1, dtype=torch.int64, device=dev)
@@ -79,8 +108,11 @@ class Block:
     def reset(self):
         """Zero the block in place (the next block's start)."""
         for t in (self.accepted, self.cg_iters, self.exp_mdH, self.fallbacks,
-                  self.fail_theta, self.fail_seen):
+                  self.action_iters, self.unconverged, self.fail_theta,
+                  self.fail_seen):
             t.zero_()
+        if self.clocks is not None:
+            self.clocks.zero_()
         self.converged.fill_(True)
         self.fail_index.fill_(-1)
         self.updates = 0
@@ -94,41 +126,53 @@ class Block:
         self.exp_mdH += st.exp_mdH
         if st.cg_fallbacks is not None:
             self.fallbacks += st.cg_fallbacks
-        bad = ~st.cg_converged & ~self.fail_seen
+        if st.action_iters is not None:
+            self.action_iters += st.action_iters
+        failed = ~st.cg_converged
+        self.unconverged += failed
+        bad = failed & ~self.fail_seen
         self.fail_theta.copy_(torch.where(bad.reshape(-1, 1, 1, 1), theta_before,
                                           self.fail_theta))
         self.fail_index.copy_(torch.where(bad, index, self.fail_index))
         self.fail_seen |= bad
         self.updates += st.accepted.numel()
 
-    def read(self):
+    def read(self) -> BlockSums:
         """One host read (one gather of every process's chains): the sums
-        over all chains, in global chain order, of (accepted, cg_iters,
-        all_converged, exp(-dH), fallback solves)."""
-        per_chain = mh.gather_chains(torch.stack([
-            self.accepted.double(), self.cg_iters.double(),
-            self.converged.double(), self.exp_mdH,
-            self.fallbacks.double()]), dim=1)
-        acc, it, em, fb = per_chain[[0, 1, 3, 4]].sum(dim=1).tolist()
-        return int(acc), int(it), bool(per_chain[2].all()), em, int(fb)
+        over all chains, in global chain order (float64, exact for the
+        counts)."""
+        rows = [self.accepted, self.cg_iters, self.converged, self.exp_mdH,
+                self.fallbacks, self.action_iters, self.unconverged]
+        if self.clocks is not None:
+            rows += [self.clocks[:, 0], self.clocks[:, 1]]
+        per_chain = mh.gather_chains(torch.stack([r.double() for r in rows]),
+                                     dim=1)
+        acc, it, _, em, fb, act, bad, *cycles = per_chain.sum(dim=1).tolist()
+        cycles = [int(c) for c in cycles] or [None, None]
+        return BlockSums(int(acc), int(it), bool(per_chain[2].all()), em,
+                         int(fb), int(act), int(bad), *cycles)
 
 
 class _GraphedStep:
     """A step on static state: on the card the first call eager on a side
     stream, then one capture into a CUDA graph and a replay every call
     (captured anew when ``_key()`` changes); eager on the CPU. Subclasses
-    give ``_body`` and may add counts of their own (``_counts``,
-    ``_add_count``)."""
+    give ``_body`` and the prefix of their spans (``SPAN``) and may add
+    counts of their own (``_counts``, ``_add_count``). tracer: the
+    PerfMonitor that takes the capture and replay spans (a new one by
+    default)."""
 
-    def __init__(self, device):
+    SPAN: str
+
+    def __init__(self, device, tracer: Optional[PerfMonitor] = None):
         self.graphed = torch.device(device).type == "cuda"
+        self.tracer = PerfMonitor() if tracer is None else tracer
         self._graph = None
         self._graph_key = None
         self._delta = None
         self.captures = 0
         self.replays = 0
         self.kernel_nodes = None         # kernel nodes of the captured graph
-        self.replay_host_seconds = 0.0   # host time spent issuing replays
 
     def _body(self):
         raise NotImplementedError
@@ -158,21 +202,22 @@ class _GraphedStep:
 
     def _capture(self):
         """The warm-up step on a side stream (a real step), then the capture
-        of the step; the counts the capture raised are taken back and kept
-        as the replay's."""
+        of the step, in one span; the counts the capture raised are taken
+        back and kept as the replay's."""
         _cuda.KERNELS.build()              # nvcc and dlopen outside the capture
-        cur = torch.cuda.current_stream()
-        side = torch.cuda.Stream()
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            self._body()
-        cur.wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        before = self._counts()
-        with torch.cuda.graph(graph):
-            self._body()
-            nodes = _cuda.captured_kernel_nodes(
-                torch.cuda.current_stream().cuda_stream)
+        with self.tracer.span(self.SPAN + ".capture"):
+            cur = torch.cuda.current_stream()
+            side = torch.cuda.Stream()
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                self._body()
+            cur.wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            before = self._counts()
+            with torch.cuda.graph(graph):
+                self._body()
+                nodes = _cuda.captured_kernel_nodes(
+                    torch.cuda.current_stream().cuda_stream)
         after = self._counts()
         delta = collections.Counter(after)
         delta.subtract(before)
@@ -192,9 +237,8 @@ class _GraphedStep:
         if self._graph is None or self._graph_key != self._key():
             self._capture()
             return
-        t0 = time.perf_counter()
-        self._graph.replay()
-        self.replay_host_seconds += time.perf_counter() - t0
+        with self.tracer.span(self.SPAN + ".replay"):
+            self._graph.replay()
         self.replays += 1
         self._apply(self._delta)
 
@@ -204,11 +248,12 @@ class _GraphedStep:
 
     def stats(self) -> dict:
         """Captures, replays, kernel nodes of the graph and host microseconds
-        per replay (None off the card)."""
+        per replay, from the replay spans (None without a replay)."""
+        st = self.tracer.spans.get(self.SPAN + ".replay")
         return {"captures": self.captures, "replays": self.replays,
                 "kernel_nodes": self.kernel_nodes,
-                "host_us_per_replay": (1e6 * self.replay_host_seconds
-                                       / self.replays if self.replays else None)}
+                "host_us_per_replay": (1e6 * st.seconds / st.count
+                                       if st is not None and st.count else None)}
 
 
 class TrajectoryProgram(_GraphedStep):
@@ -218,24 +263,28 @@ class TrajectoryProgram(_GraphedStep):
     trajectory i is that of (seed, i, chain_offset + chain), i from
     start_index on; dt overrides the model's step size. ``step()`` runs one
     trajectory, ``run(n)`` n of them; ``theta``, ``index`` and ``block`` are
-    the static state (read ``theta`` through a clone)."""
+    the static state (read ``theta`` through a clone); on the card the
+    block keeps K3's clock cycles."""
+
+    SPAN = "hmc.traj"
 
     def __init__(self, model: SchwingerModel, theta, seed: int,
-                 start_index: int, chain_offset: int = 0, dt=None):
+                 start_index: int, chain_offset: int = 0, dt=None,
+                 tracer: Optional[PerfMonitor] = None):
         hp.packed_supported(model)
-        super().__init__(theta.device)
+        super().__init__(theta.device, tracer)
         self.model, self.seed, self.chain_offset, self.dt = (
             model, int(seed), int(chain_offset), dt)
         self.theta = theta.detach().clone()
         self.index = torch.full((), int(start_index), dtype=torch.int64,
                                 device=theta.device)
-        self.block = Block(self.theta)
+        self.block = Block(self.theta, clocks=theta.is_cuda)
 
     def _body(self):
         """One trajectory from the static state into it (the captured step)."""
         theta_next, st = hp.hmc_trajectory_packed(
             self.model, self.theta, self.seed, self.index, dt=self.dt,
-            chain_offset=self.chain_offset)
+            chain_offset=self.chain_offset, clocks=self.block.clocks)
         self.block.add(self.theta, st, self.index)
         self.index.add_(1)
         self.theta.copy_(theta_next)
@@ -266,8 +315,11 @@ class MeasurementProgram(_GraphedStep):
     0 .. n - 1, and a step beyond them raises (on the card a row out of
     range would be a device-side fault)."""
 
-    def __init__(self, measure, theta, n: int):
-        super().__init__(theta.device)
+    SPAN = "hmc.meas"
+
+    def __init__(self, measure, theta, n: int,
+                 tracer: Optional[PerfMonitor] = None):
+        super().__init__(theta.device, tracer)
         self.measure, self.theta, self.n = measure, theta, int(n)
         self.index = torch.zeros((), dtype=torch.int64, device=theta.device)
         self.out = None
@@ -296,15 +348,16 @@ def packed_step(model: SchwingerModel, group: int = 0):
     traj_index, dt=None) -> (theta', stats)``, eager, on the C chains
     group x C .. group x C + C - 1 of the global index (a chain group of
     several, parallel/sharded.py; 0 for all chains);
-    ``step.program(theta, seed, start_index)`` is its TrajectoryProgram."""
+    ``step.program(theta, seed, start_index, tracer=None)`` is its
+    TrajectoryProgram."""
 
     def step(theta, seed, traj_index, dt=None):
         return hp.hmc_trajectory_packed(model, theta, seed, traj_index, dt=dt,
                                         chain_offset=group * theta.shape[0])
 
-    def program(theta, seed, start_index):
+    def program(theta, seed, start_index, tracer=None):
         return TrajectoryProgram(model, theta, seed, start_index,
-                                 group * theta.shape[0])
+                                 group * theta.shape[0], tracer=tracer)
 
     step.program = program
     return step

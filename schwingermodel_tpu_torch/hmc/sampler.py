@@ -35,6 +35,9 @@ class TrajectoryStats(NamedTuple):
     # int [C], refined solves of the packed path that ran the f64 fallback;
     # None where the path does not count them
     cg_fallbacks: Optional[torch.Tensor] = None
+    # int [C], CG iterations of the Metropolis action solve(s), of cg_iters;
+    # None where the path does not count them
+    action_iters: Optional[torch.Tensor] = None
 
 
 def draw_chain_noise(model: SchwingerModel, seed: int, traj_index,

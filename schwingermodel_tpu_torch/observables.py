@@ -17,7 +17,7 @@ theta is [C, 2, Nx, Nt] throughout; per-chain results are [C].
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -64,6 +64,9 @@ class CondensateResult(NamedTuple):
     value: torch.Tensor       # f64 [C], stochastic <psibar psi> per flavour
     iters: torch.Tensor       # int32 [C, n_noise], CG iterations per solve
     converged: torch.Tensor   # bool [C, n_noise], per solve
+    # int32 [C, n_noise], restart passes in which each solve was active;
+    # None where the solve is not the restart refinement
+    passes: Optional[torch.Tensor] = None
 
 
 def condensate_noise(seed: int, meas_index, n_chains: int, theta_shape,
@@ -85,7 +88,8 @@ def chiral_condensate_given_noise(model: SchwingerModel, theta, zs
     est = (zs.to(torch.complex128).conj() * w.to(torch.complex128)).real
     value = est.sum(dim=(2, 3, 4)).mean(dim=1) / model.lattice.volume
     return CondensateResult(value=value, iters=res.iters,
-                            converged=res.converged)
+                            converged=res.converged,
+                            passes=getattr(res, "passes", None))
 
 
 def chiral_condensate(model: SchwingerModel, theta, seed: int, meas_index,

@@ -21,11 +21,13 @@ of JAX's vmapped cg_refine does. An entry that stopped never starts again
 active one change nothing: JAX's loop ends there, and here K6 and K9 skip
 every entry outside the mask at once (their blocks return before any
 work), so those passes cost their launches and no solve. iters sums the
-inner iterations. With ``fallback`` the entries still above stop2
-continue in K4 from the f64 x (the ``cg_refine_df`` fallback
-``_df_cg_finish``, with native f64 vectors and its round contraction
-tau = 1e-5, not inner_tol); K4 reads the flags on the device, so a
-converged entry passes through.
+inner iterations; passes counts, per entry, the passes in which it was
+active (the largest over a batch is the number of passes that solved
+anything; the rest of max_outer ran empty). With ``fallback`` the
+entries still above stop2 continue in K4 from the f64 x (the
+``cg_refine_df`` fallback ``_df_cg_finish``, with native f64 vectors and
+its round contraction tau = 1e-5, not inner_tol); K4 reads the flags on
+the device, so a converged entry passes through.
 
 Host reads: none, so a CUDA graph captures the whole refinement (the
 measurement program, hmc/program.py).
@@ -70,6 +72,17 @@ PLAIN = EOKernels(cg_eo.cg_solve_eo_reference, rs.residual_f64_reference,
                   rs.solve_f64_cg_fallback_reference)
 
 
+class RefineResult(NamedTuple):
+    """``cg_refine``'s result: a RefinedSolveResult's fields and the restart
+    passes in which each entry was active."""
+    x: torch.Tensor
+    x64: torch.Tensor
+    iters: torch.Tensor
+    converged: torch.Tensor
+    fb_iters: torch.Tensor
+    passes: torch.Tensor     # int32
+
+
 def _refine_passes(residual, inner, x, stop2, max_outer, early_exit=False):
     """The passes of the restart refinement, per entry.
 
@@ -84,10 +97,12 @@ def _refine_passes(residual, inner, x, stop2, max_outer, early_exit=False):
     rho at least 4x; one that stops keeps its state and never starts
     again. All max_outer passes run, each masked, with no host read; with
     `early_exit` the loop ends at the first pass with no active entry (one
-    host read a pass), with the same result. Returns (x, r, rho, iters)."""
+    host read a pass), with the same result. Returns (x, r, rho, iters,
+    passes), passes the number of passes in which each entry was active."""
     r, rho = residual(x)
     rho_prev = torch.full_like(rho, float("inf"))
     iters = torch.zeros(rho.shape, dtype=torch.int32, device=rho.device)
+    actives = []
     for k in range(max_outer):
         active = rho >= stop2
         if k:
@@ -100,20 +115,25 @@ def _refine_passes(residual, inner, x, stop2, max_outer, early_exit=False):
         r, rho_new = residual(x, active, (r, rho))
         rho = torch.where(active, rho_new, rho)
         iters = iters + torch.where(active, it, 0)
-    return x, r, rho, iters
+        actives.append(active)
+    # counted once at the end: two operations, not one a pass
+    passes = (torch.stack(actives).sum(dim=0, dtype=torch.int32) if actives
+              else torch.zeros_like(iters))
+    return x, r, rho, iters, passes
 
 
 def cg_refine(thE, thO, ue, uo, b, *, m0, tol, inner_tol, max_iter,
-              max_outer, fallback=True, kernels=KERNELS) -> RefinedSolveResult:
+              max_outer, fallback=True, kernels=KERNELS) -> RefineResult:
     """(Dhat Dhat^+)^{-1} b to the f64 relative tolerance `tol`.
 
     thE/thO f32 [C, 2, Nx, Nth] (K9 and K4 build f64 links from them);
     ue/uo their f32 folded links, planar [C, 2, 2, Nx, Nth] (K6); b f32
     planar [C, B, 2, 2, Nx, Nth]; the solve starts from x = 0 (the
     measurement solves have no forecast, as in JAX). Returns
-    RefinedSolveResult with [C, B] leading axes: x64, its f32 round x, the
-    summed iterations, and converged = ||b - A x||^2 < tol^2 ||b||^2 on the
-    f64 true residual."""
+    RefineResult with [C, B] leading axes: x64, its f32 round x, the
+    summed iterations, converged = ||b - A x||^2 < tol^2 ||b||^2 on the
+    f64 true residual, and the restart passes in which each entry was
+    active."""
     C, B = b.shape[:2]
     bnorm2 = (b.double() ** 2).sum(dim=(2, 3, 4, 5))
     stop2 = (tol * tol) * bnorm2
@@ -127,25 +147,25 @@ def cg_refine(thE, thO, ue, uo, b, *, m0, tol, inner_tol, max_iter,
     def residual(x, active=None, out=None):
         return kernels.residual(thE, thO, b, x, m0=m0, active=active, out=out)
 
-    x, _, rho, iters = _refine_passes(
+    x, _, rho, iters, passes = _refine_passes(
         residual, inner,
         torch.zeros(b.shape, dtype=torch.float64, device=b.device), stop2,
         max_outer)
     res = RefinedSolveResult(x=x.float(), x64=x, iters=iters,
                              converged=rho < stop2,
                              fb_iters=torch.zeros_like(iters))
-    if not fallback:
-        return res
-    flat = RefinedSolveResult(*(t.reshape(C * B, *t.shape[2:]) for t in res))
+    if fallback:
+        flat = RefinedSolveResult(*(t.reshape(C * B, *t.shape[2:]) for t in res))
 
-    def per_entry(th):
-        """K4 takes the angles per entry: each configuration's B times."""
-        return th[:, None].expand(C, B, *th.shape[1:]).reshape(C * B, *th.shape[1:])
+        def per_entry(th):
+            """K4 takes the angles per entry: each configuration's B times."""
+            return th[:, None].expand(C, B, *th.shape[1:]).reshape(C * B, *th.shape[1:])
 
-    fb = kernels.fallback(per_entry(thE), per_entry(thO),
-                          b.reshape(C * B, *b.shape[2:]), flat, m0=m0,
-                          tol=tol, max_iter=max_iter)
-    return RefinedSolveResult(*(t.reshape(C, B, *t.shape[1:]) for t in fb))
+        fb = kernels.fallback(per_entry(thE), per_entry(thO),
+                              b.reshape(C * B, *b.shape[2:]), flat, m0=m0,
+                              tol=tol, max_iter=max_iter)
+        res = RefinedSolveResult(*(t.reshape(C, B, *t.shape[1:]) for t in fb))
+    return RefineResult(*res, passes=passes)
 
 
 # ---------- the refinement on a geometry ----------
@@ -204,8 +224,8 @@ def cg_refine_geom(apply_A_hi, inner_solve, b, dot_re_hi, *, tol=1e-10,
         d, it = inner_solve(r_lo, torch.zeros_like(r_lo))
         return d.to(torch.complex128), it
 
-    x, r, rho, iters = _refine_passes(residual, inner, x, stop2, max_outer,
-                                      early_exit=True)
+    x, r, rho, iters, _ = _refine_passes(residual, inner, x, stop2,
+                                         max_outer, early_exit=True)
     if fallback_max_iter > 0:
         x, rho, it_fb = _f64_cg_finish(apply_A_hi, b_hi, x, r, rho, stop2,
                                        dot_re_hi, fallback_max_iter)

@@ -1,15 +1,18 @@
-"""Performance metrics.
+"""Performance metrics: the run's spans, kernel launches, the profiler.
 
 The reference's only performance instrumentation is end-to-end MPI_Wtime
 (src/main.cpp:152-171) plus a commented-out -g flag "#For profiling"
-(CMakeLists.txt:32). Here per-phase timing, CG-iteration throughput, and
-Dirac-apply GFLOP/s are first-class (SURVEY.md section 5).
+(CMakeLists.txt:32). Here the run is traced by ``PerfMonitor``, a tree of
+named spans on the host's clock (runner.py: ``hmc.run`` and the spans
+inside it); while a ``torch.profiler`` records, each span is also a range
+of the same name in its trace, on the device trace's clock.
+``profiler_trace`` is the CLI's ``--profile``; ``idle_split`` parts the
+card's idle time by whether the host had issued the work that ended it.
 
-Counterpart of ``schwingermodel_tpu/utils/metrics.py``: ``PerfMonitor``,
-the FLOP accounting and ``profiler_trace`` (the CLI's ``--profile``) as a
-``torch.profiler`` trace.
+Counterpart of ``schwingermodel_tpu/utils/metrics.py`` (its per-phase
+``PerfMonitor`` and ``profiler_trace``).
 
-FLOP accounting (documented so the GFLOP/s metric is well-defined):
+FLOP counts of the operators (the bench tools' GFLOP/s, tools/bench_kernels.py):
 
   Full Wilson-Dirac apply (ops/dirac.py::dirac), per lattice site:
     3 shared backward products bt/bx0/bx1   = 3 * (2 add + 6 cmul) = 24
@@ -23,10 +26,6 @@ FLOP accounting (documented so the GFLOP/s metric is well-defined):
   stencils on half-size fields + 2 mass axpbs; a hop costs ~72 flops per
   target site (same structure minus the mass term), so
     ~ 4*72 + 2*8 = 304 flops per even site = 152 flops per lattice site.
-
-  One CG iteration on the normal system adds 2 dots (4 flops/complex
-  component) and 3 axpys (4): ~ (2+3) * 4 * 2 spins / 2 (half lattice)
-  = 20 flops per lattice site.
 """
 
 from __future__ import annotations
@@ -38,9 +37,11 @@ import subprocess
 import time
 from typing import Dict, Optional
 
+import torch
+from torch.autograd import profiler as _autograd_profiler
+
 DIRAC_FLOPS_PER_SITE = 80.0        # full-lattice D apply
 EO_NORMAL_FLOPS_PER_SITE = 152.0   # Dhat Dhat^+ apply, per lattice site
-CG_VECTOR_FLOPS_PER_SITE = 20.0    # dots + axpys per CG iteration
 
 
 def card_label(device) -> str:
@@ -55,8 +56,6 @@ def card_label(device) -> str:
             timeout=60, check=True)
         return out.stdout.strip().splitlines()[0]
     except (OSError, subprocess.SubprocessError):
-        import torch
-
         return torch.cuda.get_device_name(device)
 
 
@@ -81,99 +80,132 @@ def kernel_launches() -> dict:
     return {fn.__name__: fn.launches for fn in counted_kernels()}
 
 
-def cg_iteration_flops(volume: int, even_odd: bool) -> float:
-    """Real flops of one CG iteration on the (even-odd) normal system."""
-    if even_odd:
-        return volume * (EO_NORMAL_FLOPS_PER_SITE + CG_VECTOR_FLOPS_PER_SITE)
-    return volume * (2 * DIRAC_FLOPS_PER_SITE + 2 * CG_VECTOR_FLOPS_PER_SITE)
-
-
 @dataclasses.dataclass
-class PhaseStats:
+class SpanStats:
+    """What the spans of one name add up to: how many closed, their seconds,
+    their seconds outside any span opened inside them, the names of the
+    spans they opened inside, and the trajectories and CG iterations the
+    run added while one was the innermost."""
+    count: int = 0
     seconds: float = 0.0
+    self_seconds: float = 0.0
+    parents: set = dataclasses.field(default_factory=set)
     trajectories: int = 0
     cg_iters: int = 0
-    replays: int = 0          # CUDA graph replays (hmc/program.py)
+
+
+class Span:
+    """One span of a PerfMonitor, a context manager: its name, start and end
+    (``time.perf_counter_ns``) and its parent, the span it opened inside
+    (None at the top). While a torch.profiler records, it is also a range
+    of its name in the trace's host events; else it costs the two clock
+    reads and one check of the profiler's flag, and reads neither the
+    device nor the host.
+
+    The range is the profiler's fast operator range, not
+    ``record_function``: the profiler mirrors a ``record_function`` range
+    around device work onto the device's timeline, where it would read as a
+    device operation as long as the work it launched (a graph replay's
+    range would span all of its nodes and their gaps)."""
+
+    __slots__ = ("name", "parent", "start", "end", "stats", "_monitor",
+                 "_range", "_child_ns")
+
+    def __init__(self, monitor: "PerfMonitor", name: str):
+        self._monitor, self.name = monitor, name
+        self.parent = self.start = self.end = self._range = None
+
+    def __enter__(self) -> "Span":
+        mon = self._monitor
+        self.parent = mon.current
+        self.stats = mon.spans.setdefault(self.name, SpanStats())
+        mon.current = self
+        self._child_ns = 0
+        if _autograd_profiler._is_profiler_enabled:
+            self._range = torch._C._profiler._RecordFunctionFast(self.name)
+            self._range.__enter__()
+        self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.end = time.perf_counter_ns()
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
+        self._monitor.current = self.parent
+        ns = self.end - self.start
+        st = self.stats
+        st.count += 1
+        st.seconds += ns * 1e-9
+        st.self_seconds += (ns - self._child_ns) * 1e-9
+        if self.parent is not None:
+            self.parent._child_ns += ns
+            st.parents.add(self.parent.name)
+        return False
 
 
 class PerfMonitor:
-    """Per-phase wall time + throughput counters for a simulation run.
+    """The spans of a run, nested, with per-name totals (``spans``), and
+    the device programs' stats.
 
     Usage:
-        perf = PerfMonitor(volume=Nx*Nt, even_odd=True)
-        with perf.phase("thermalize"):
-            ... ; perf.add(trajectories=n, cg_iters=it)
-        print(perf.report_lines())
+        perf = PerfMonitor()
+        with perf.span("hmc.run"):
+            with perf.span("hmc.thermalize"):
+                ... ; perf.add(trajectories=n, cg_iters=it)
+        print(perf.summary()["spans"], perf.report_lines())
     """
 
-    def __init__(self, volume: int, even_odd: bool = False):
-        self.volume = volume
-        self.even_odd = even_odd
-        self.phases: Dict[str, PhaseStats] = {}
-        self._current: Optional[str] = None
+    def __init__(self):
+        self.spans: Dict[str, SpanStats] = {}   # by name, in order first opened
+        self.current: Optional[Span] = None     # the innermost open span
         # the device programs' stats() (hmc/program.py), where they ran:
         # "graph" the trajectory's, "measurement_graph" the measurement's
         self.graphs: Dict[str, dict] = {}
 
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        st = self.phases.setdefault(name, PhaseStats())
-        prev = self._current
-        self._current = name
-        t0 = time.perf_counter()
-        try:
-            yield st
-        finally:
-            st.seconds += time.perf_counter() - t0
-            self._current = prev
+    def span(self, name: str) -> Span:
+        return Span(self, name)
 
-    def add(self, trajectories: int = 0, cg_iters: int = 0,
-            phase: Optional[str] = None, replays: int = 0):
-        name = phase or self._current
-        if name is None:
+    def add(self, trajectories: int = 0, cg_iters: int = 0):
+        """Count work done under the innermost open span."""
+        if self.current is None:
             return
-        st = self.phases.setdefault(name, PhaseStats())
+        st = self.current.stats
         st.trajectories += trajectories
         st.cg_iters += cg_iters
-        st.replays += replays
-
-    # ---- derived metrics ----
 
     def summary(self) -> dict:
-        out = {}
-        for name, st in self.phases.items():
-            d = {"seconds": st.seconds}
-            if st.trajectories and st.seconds > 0:
-                d["traj_per_s"] = st.trajectories / st.seconds
-            if st.cg_iters and st.seconds > 0:
-                d["cg_iters_per_s"] = st.cg_iters / st.seconds
-                d["cg_gflops"] = (
-                    st.cg_iters * cg_iteration_flops(self.volume, self.even_odd)
-                    / st.seconds / 1e9)
+        """{"spans": {name: {count, seconds, self_seconds, parents, and
+        where counted trajectories, traj_per_s, cg_iters, cg_iters_per_traj}},
+        and each device program's stats}."""
+        spans = {}
+        for name, st in self.spans.items():
+            d = {"count": st.count, "seconds": st.seconds,
+                 "self_seconds": st.self_seconds,
+                 "parents": sorted(st.parents)}
             if st.trajectories:
-                d["cg_iters_per_traj"] = st.cg_iters / max(st.trajectories, 1)
-            if st.replays:
-                d["replays"] = st.replays
-            out[name] = d
-        out.update({k: dict(v) for k, v in self.graphs.items()})
-        return out
+                d["trajectories"] = st.trajectories
+                d["cg_iters"] = st.cg_iters
+                d["cg_iters_per_traj"] = st.cg_iters / st.trajectories
+                if st.seconds > 0:
+                    d["traj_per_s"] = st.trajectories / st.seconds
+            spans[name] = d
+        return {"spans": spans, **{k: dict(v) for k, v in self.graphs.items()}}
 
     def report_lines(self) -> list[str]:
         lines = []
-        summary = self.summary()
-        graphs = {k: summary.pop(k) for k in self.graphs}
-        for name, d in summary.items():
-            parts = [f"{name}: {d['seconds']:.2f} s"]
-            if "traj_per_s" in d:
-                parts.append(f"{d['traj_per_s']:.1f} traj/s")
-            if "cg_iters_per_traj" in d:
-                parts.append(f"{d['cg_iters_per_traj']:.0f} CG iters/traj")
-            if "cg_gflops" in d:
-                parts.append(f"{d['cg_gflops']:.2f} GFLOP/s (CG)")
-            if "replays" in d:
-                parts.append(f"{d['replays']} graph replays")
+        for name, st in self.spans.items():
+            if not st.count:
+                continue
+            each = (f" {1e6 * st.seconds / st.count:.1f} us" if st.count > 1
+                    else "")
+            parts = [f"{name}: {st.seconds:.4f} s ({st.count} x{each}, self "
+                     f"{st.self_seconds:.4f} s)"]
+            if st.trajectories and st.seconds > 0:
+                parts.append(f"{st.trajectories / st.seconds:.1f} traj/s")
+                parts.append(f"{st.cg_iters / st.trajectories:.0f} CG iters/traj")
             lines.append("  ".join(parts))
-        for name, graph in graphs.items():
+        for name, graph in self.graphs.items():
             if not graph["captures"]:
                 continue
             us = graph["host_us_per_replay"]
@@ -185,16 +217,76 @@ class PerfMonitor:
         return lines
 
 
+def idle_split(ops, window) -> tuple:
+    """(starved, queued) seconds of the card's idle time in window = (a, b),
+    both in ns on the device trace's clock. ops: [(start, end, issued)] of
+    the device operations, issued the start of the host call that launched
+    each (a kernel launch, a copy, or the cudaGraphLaunch of a graph's
+    nodes), None where unknown. A gap in which no operation runs ends at
+    an operation: it is queued where that operation's launch began at or
+    before the gap opened (the card idled with the work issued, as between
+    a graph's nodes), else starved (the host had not issued it yet); the
+    gap after the last operation is starved. starved + queued is the window
+    less the union of the operations."""
+    a, b = window
+    ops = sorted((max(s, a), min(e, b), i) for s, e, i in ops if e > a and s < b)
+    starved = queued = 0
+    edge = a
+    for s, e, issued in ops:
+        if s > edge:
+            if issued is not None and issued <= edge:
+                queued += s - edge
+            else:
+                starved += s - edge
+        edge = max(edge, e)
+    if b > edge:
+        starved += b - edge
+    return starved * 1e-9, queued * 1e-9
+
+
+
+
+def trace_idle(prof, span: str = "hmc.run") -> Optional[dict]:
+    """The card's idle time over the first `span` range of a torch.profiler
+    trace, from its first device operation to the range's end: {"window_s",
+    "idle_s", "starved_s", "queued_s"} (``idle_split``, each operation
+    matched to its launch call by the trace's correlation id); None where
+    the range ran no device operation."""
+    host, launch, dev = None, {}, []
+    for e in prof.profiler.kineto_results.events():
+        start, end = e.start_ns(), e.end_ns()
+        on_card = e.device_type() == torch.autograd.DeviceType.CUDA
+        if e.name() == span:        # the range, and its mirror on the card
+            if host is None and not on_card:
+                host = (start, end)
+        elif on_card:
+            dev.append((start, end, e.correlation_id()))
+        elif e.name().startswith("cu"):     # a CUDA API call: cuda*, cu*
+            launch[e.correlation_id()] = start
+    if host is None:
+        return None
+    dev = [(s, e, launch.get(c)) for s, e, c in dev if host[0] <= s < host[1]]
+    if not dev:
+        return None
+    window = (min(s for s, _, _ in dev), host[1])
+    starved, queued = idle_split(dev, window)
+    return {"window_s": (window[1] - window[0]) * 1e-9,
+            "idle_s": starved + queued, "starved_s": starved,
+            "queued_s": queued}
+
+
 @contextlib.contextmanager
 def profiler_trace(trace_dir: Optional[str]):
     """Wrap a block in a torch.profiler trace when trace_dir is set (CLI
     --profile); no-op otherwise. The trace of the host and, where there is
     one, of the card is written to ``trace_dir/trace.json`` in Chrome's
-    format (view in chrome://tracing or Perfetto)."""
+    format (view in chrome://tracing or Perfetto). Yields a dict whose
+    ``idle``, once the block has ended, is ``trace_idle`` of the trace
+    (None without a trace or a device operation under ``hmc.run``)."""
+    out = {"idle": None}
     if not trace_dir:
-        yield
+        yield out
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(trace_dir, exist_ok=True)
@@ -202,8 +294,9 @@ def profiler_trace(trace_dir: Optional[str]):
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities) as prof:
-        yield
+        yield out
     prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+    out["idle"] = trace_idle(prof)
 
 
 # Cycles a second the card's spin (torch.cuda._sleep) is reckoned at: at
@@ -221,8 +314,6 @@ def device_ms(fn, reps: int) -> float:
     length and not by the host's; a call the host cannot issue that fast
     (a plain twin of thousands of small launches) is timed as the host
     issues it."""
-    import torch
-
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()

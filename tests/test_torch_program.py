@@ -36,6 +36,7 @@ torch.set_num_threads(1)
 
 NX = NT = 8
 ACCUMULATORS = ("accepted", "cg_iters", "converged", "exp_mdH", "fallbacks",
+                "action_iters", "unconverged",
                 "fail_theta", "fail_seen", "fail_index")
 BRANCHES = {
     "refined": dict(),

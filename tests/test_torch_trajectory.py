@@ -199,7 +199,7 @@ def test_cli_refuses_what_it_cannot_run(argv, message, tmp_path):
     that the port drops exit 2 and name what replaces them (exact
     messages); --device cuda without a card
     exits non-zero instead of falling back to the CPU; --profile DIR runs
-    and leaves a trace file in DIR; --quenched,
+    and leaves a trace file in DIR with the run's spans; --quenched,
     --no-even-odd, --dtype float64 and an odd lattice, which used to be
     refused, run the unpacked sampler to the end (exit 0, every solve
     converged, a SimData file)."""
@@ -228,11 +228,13 @@ def test_cli_refuses_what_it_cannot_run(argv, message, tmp_path):
     else:
         assert out.returncode == 0, out.stderr
         assert message in out.stdout
-        assert "all solves converged: True" in out.stdout
+        assert ("all solves converged: True (unconverged chain-trajectories: 0)"
+                in out.stdout)
         assert "WARNING" not in out.stdout
         assert list(tmp_path.glob("*SimData*"))
     if argv[0] == "--profile":
-        assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
+        trace = (tmp_path / "trace" / "trace.json").read_text()
+        assert '"hmc.run"' in trace and '"hmc.thermalize"' in trace
 
 
 def test_ctxt_matches_jax_and_reference_bytes(tmp_path):
