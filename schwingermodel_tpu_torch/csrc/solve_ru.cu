@@ -57,9 +57,11 @@
 // - cluster (a lattice too large for one block, 128x128): the same
 //   recursion (RuCluster) on a thread-block cluster of 2, 4 or 8 blocks a
 //   chain, each with its rows of x between two halo rows, the neighbour
-//   blocks' edge rows, stored through distributed shared memory. A cluster.sync() costs ~0.7 us
-//   where __syncthreads() costs tens of ns, so where one block holds the
-//   lattice a cluster is the slower choice and is not taken;
+//   blocks' edge rows, stored through distributed shared memory and counted
+//   on the receiving block's mbarrier, so that no stage waits at a cluster
+//   barrier (a cluster.sync() costs ~1500 cycles, ~0.75 us, on the H100,
+//   where __syncthreads() costs ~240). Where one block holds the lattice a
+//   cluster is the slower choice and is not taken;
 // - global (what no cluster holds): every vector in a per-chain global
 //   scratch of 28 V2 floats and 20 V2 doubles that stays in L2, 7 barriers
 //   an iteration, 5 of them followed by neighbour reads from L2.
@@ -90,7 +92,10 @@ struct RuParams {
   unsigned char* conv;
   float* s32;
   double* s64;
-  long long* clocks;  // [C, 2]: cycles of the solve and of its true residuals; may be null
+  // [C, 3]: cycles of the solve, of its true residuals and of rank 0's thread
+  // 0 waiting on the other blocks of its cluster (0 on the one-block paths);
+  // may be null
+  long long* clocks;
   int Nx, Nth;
   double m0, tol, tau;
   int max_iter, max_outer, certify, cert_k;
@@ -178,6 +183,9 @@ struct RuF64 {
   // the kernel without them, by a flag of the launch or as an instantiation
   // of its own, was 2-4% slower in turns.
   long long t_res;
+  // cycles spent waiting on the other blocks of a cluster (RuCluster::sync
+  // and wait_for); 0 on the other paths
+  long long t_wait;
 };
 
 // Every vector in the global scratch; a thread owns the planar indices
@@ -466,21 +474,62 @@ constexpr int kRuClusterMax = 8;
 // The same recursion on a thread-block cluster of N blocks a chain. Block
 // `rank` owns the rows [rank * rows, (rank + 1) * rows) of x of every field
 // and holds them, site-major as RuShared does, between two halo rows: row -1
-// and row `rows` are the neighbour blocks' edge rows, stored there through
-// distributed shared memory by the thread that computes them, so a stencil
-// stage reads local shared memory only and x needs no wrap. cluster.sync()
-// stands where one block has __syncthreads(), and a sum is the block's,
-// stored by N of its threads into every block's slots, a cluster.sync(), and
-// the N block sums added in rank order by every thread. The f64 true
-// residual runs through the global scratch, each block its own rows.
+// and row `rows` are the neighbour blocks' edge rows, so a stencil stage
+// reads local shared memory only and x needs no wrap. The f64 true residual
+// runs through the global scratch, each block its own rows, with a full
+// cluster barrier between its stages (2-3 a solve).
+//
+// The f32 recursion exchanges its data without a cluster barrier: on the
+// H100 barrier.cluster.arrive.release blocks its thread ~1150 cycles (the
+// release, measured with no store before it; ~1500 cycles a round with the
+// wait), six times an iteration, and the arrive and wait split around the
+// interior rows only moved that time into the arrive. Instead the thread
+// that computes an edge row's site stores it into the neighbour block's halo
+// row with st.async, which counts its bytes on an mbarrier of that block; a
+// block waits on its own mbarrier for the two halo rows of a stage (~440
+// cycles a round when nothing hides it). A stage computes its edge rows
+// first, sends them, then computes its interior rows (rows 1 .. rows-2, which
+// read the block's own rows only) while the rows travel; the next stage's
+// edge rows wait for the neighbours' rows. A sum is the block's, stored by N
+// of its threads into every block's slots the same way, and the N block sums
+// added in rank order by every thread.
+//
+// Why every store follows the last read of what it overwrites (a block
+// never stores into its own halo rows, and reads one only in an edge phase
+// after its wait):
+// - within the block, every stage starts with a __syncthreads(), so the
+//   previous stage's reads of the block's own rows are done;
+// - into a neighbour's halo row of t1 at stage 3: the sender computes it
+//   after receiving the neighbour's stage-2 edge row, which the neighbour's
+//   thread sent after reading the halo site that stage 3 overwrites (a halo
+//   site is read only by the thread of the edge site beside it);
+// - into the halo rows of d, of t1 at stage 1 and of t2: the sender stores
+//   them after the iteration's sums, which need every block's partials, each
+//   formed after that block's last read of those rows. Between two applies
+//   of the MRE prologue, without a sum, the next apply's d rows follow the
+//   sender's stage-4 wait, which follows the neighbour's stage-3 rows, sent
+//   after its stage-1 reads of d;
+// - the sums' slots alternate between two sets, and a block stores into a set
+//   again only after the sum between, which needs every block's partial,
+//   formed after it read that set.
+// The same chains of dependence keep an mbarrier from receiving a phase's
+// bytes before its previous phase completed. Every block runs the same
+// sequence of exchanges, so each mbarrier's parity is the same everywhere.
 struct RuCluster : RuF64 {
   float* fields;            // the block's dynamic shared memory: 24 Vh floats
   double* csum;             // 2 sets of kRuClusterMax block sums
+  unsigned long long* mb;   // kMbars mbarriers of the block (kMbD .. kMbSum + 1)
   BlockSum& sum;
   int N, rank, rows, Vl, Vh;
   int cset;
+  unsigned parity;          // bit b: the parity of mbarrier b's current phase
+  bool d_sent;              // d's edge rows were sent and not yet waited for
   int sxk[kOwnSites];        // local row << 16 | packed column of each own site
   double x[kOwnSites][4];
+
+  // the mbarriers: the halo rows of d, of t1 from stage 1, of t2, of t1 from
+  // stage 3, and the sums' two slot sets
+  static constexpr int kMbD = 0, kMbT1 = 1, kMbT2 = 2, kMbT3 = 3, kMbSum = 4, kMbars = 6;
 
   // links of 2 Vh float2 a parity, then four spinors of Vh float4 each; Vh
   // sites a field: the block's rows and the two halo rows
@@ -499,11 +548,129 @@ struct RuCluster : RuF64 {
   __device__ __forceinline__ int halo() const { return g.Nth; }
   __device__ __forceinline__ int row0() const { return rank * rows; }
 
-  __device__ __forceinline__ void sync() const { cg::this_cluster().sync(); }
-  // the field f of block r of the cluster
-  template <typename T>
-  __device__ __forceinline__ T* of_block(T* f, int r) const {
-    return cg::this_cluster().map_shared_rank(f, r);
+  // a full cluster barrier (the f64 true residual, the start and the end):
+  // the release makes the block's global stores visible to the others
+  __device__ __forceinline__ void sync() {
+    const long long t0 = clock64();
+    asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+    asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+    t_wait += clock64() - t0;
+  }
+
+  static __device__ __forceinline__ unsigned smem(const void* p) {
+    return static_cast<unsigned>(__cvta_generic_to_shared(p));
+  }
+  // the address of the block's shared location a in block r of the cluster
+  static __device__ __forceinline__ unsigned in_block(unsigned a, int r) {
+    unsigned out;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(a), "r"(r));
+    return out;
+  }
+  __device__ __forceinline__ unsigned mbar(int b) const { return smem(mb + b); }
+
+  // the mbarriers, before the cluster barrier that every block passes before
+  // its first exchange
+  __device__ __forceinline__ void init_mbars() const {
+    if (threadIdx.x == 0) {
+      for (int b = 0; b < kMbars; ++b)
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(mbar(b)) : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+  }
+
+  // Wait for the current phase of mbarrier b: thread 0 arms it with the bytes
+  // the phase receives (the two halo rows, or a block sum from each block);
+  // the threads that read what it brings wait. Every thread flips the parity.
+  // A phase that never completes traps after ~2^35 cycles instead of hanging.
+  __device__ __forceinline__ void wait_for(int b, bool reader) {
+    const int bytes = b >= kMbSum ? 8 * N : 2 * 16 * g.Nth;
+    if (threadIdx.x == 0)
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(mbar(b)),
+                   "r"(bytes)
+                   : "memory");
+    if (reader) {
+      const long long t0 = clock64();
+      unsigned done = 0;
+      while (!done) {
+        asm volatile(
+            "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            " selp.u32 %0, 1, 0, p;\n}"
+            : "=r"(done)
+            : "r"(mbar(b)), "r"((parity >> b) & 1u)
+            : "memory");
+        if (!done && clock64() - t0 > (1ll << 35)) __trap();
+      }
+      t_wait += clock64() - t0;
+    }
+    parity ^= 1u << b;
+  }
+
+  // v into the float4 at the block's shared location a, in block r, counted
+  // on that block's mbarrier b
+  __device__ __forceinline__ void send(const float4* a, int r, int b, float4 v) const {
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+        "[%5];" ::"r"(in_block(smem(a), r)),
+        "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(in_block(mbar(b), r))
+        : "memory");
+  }
+  __device__ __forceinline__ void send(const double* a, int r, int b, double v) const {
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.b64 [%0], %1, [%2];" ::"r"(
+            in_block(smem(a), r)),
+        "l"(__double_as_longlong(v)), "r"(in_block(mbar(b), r))
+        : "memory");
+  }
+
+  // whether own site j lies in one of the block's two edge rows, the rows
+  // whose stencil reads a halo row; a thread with such a site waits for the
+  // halo rows
+  __device__ __forceinline__ bool edge(int j) const {
+    const int xl = sxk[j] >> 16;
+    return xl == 0 || xl == rows - 1;
+  }
+  __device__ __forceinline__ bool edge_thread() const {
+    bool e = false;
+#pragma unroll
+    for (int j = 0; j < kOwnSites; ++j) e |= threadIdx.x + j * kThreads < Vl && edge(j);
+    return e;
+  }
+
+  // One stencil stage: a __syncthreads() for the block's own rows of the
+  // previous stage, the wait for its halo rows (mbarrier b) by the edge
+  // threads, f(true) at the edge rows (which sends them), f(false) at the
+  // interior rows while they travel.
+  template <class F>
+  __device__ __forceinline__ void split_stage(int b, F f) {
+    __syncthreads();
+    wait_for(b, edge_thread());
+    if (b == kMbD) d_sent = false;
+    f(true);
+    f(false);
+  }
+
+  // the first three stages of A d, with d stored and its edge rows sent:
+  // t1 = (H_eo)^+ d, t2 = Dhat^+ d, t1 = H_oe t2
+  __device__ __forceinline__ void three_stages() {
+    split_stage(kMbD, [&](bool e) {
+      stage<true, false>(uo(), ue(), d(), 1, t1(), kMbT1, nullptr, 0.f, 0.f, e);
+    });
+    split_stage(kMbT1, [&](bool e) {
+      stage<true, true>(ue(), uo(), t1(), 0, t2(), kMbT2, d(), m, -c, e);
+    });
+    split_stage(kMbT2, [&](bool e) {
+      stage<false, false>(uo(), ue(), t2(), 1, t1(), kMbT3, nullptr, 0.f, 0.f, e);
+    });
+  }
+
+  // the fourth stage at own site j (index h): Dhat t2 = m t2 - c H_oe t1
+  __device__ __forceinline__ float4 dhat_site(int j, int h) const {
+    Cx<float> h0, h1;
+    hop_site_shared<false>(ue(), uo(), t1(), h, nbrs(j, h, 0), Vh, h0, h1);
+    const float4 vs = t2()[h];
+    h0 = axpby(m, lo(vs), -c, h0);
+    h1 = axpby(m, hi(vs), -c, h1);
+    return f4(h0, h1);
   }
 
   // the links of the block's rows and of its halo rows, from the angles
@@ -552,13 +719,20 @@ struct RuCluster : RuF64 {
   // sum over the chain's blocks, the same bits in every thread of each
   __device__ __forceinline__ double cluster_sum(double v) {
     const double tot = sum(v);
+    const int b = kMbSum + cset;
     double* slot = csum + cset * kRuClusterMax;
     cset ^= 1;
-    if (threadIdx.x < N) of_block(slot, threadIdx.x)[rank] = tot;
-    sync();
+    if (threadIdx.x < N) send(slot + rank, threadIdx.x, b, tot);
+    wait_for(b, true);
     double all = 0.0;
     for (int i = 0; i < N; ++i) all += slot[i];
     return all;
+  }
+
+  // the halo rows of d that the last update sent, before the block leaves
+  __device__ __forceinline__ void drain() {
+    if (d_sent) wait_for(kMbD, edge_thread());
+    d_sent = false;
   }
 
   __device__ __forceinline__ double chain_sum(double v) { return cluster_sum(v); }
@@ -572,48 +746,40 @@ struct RuCluster : RuF64 {
   }
 
   // dst = A src at the block's rows, as RuShared::apply_A_to, the edge rows
-  // also stored into the neighbours' halo rows; every block of the cluster
-  // has passed the previous apply's stages before this one's first sync
+  // also sent into the neighbours' halo rows
   __device__ __forceinline__ void apply_A_to(const float* src, float* dst) {
 #pragma unroll
     for (int j = 0; j < kOwnSites; ++j) {
       const int sl = threadIdx.x + j * kThreads, s = row0() * g.Nth + sl;
       if (sl < Vl)
-        put(d(), sl,
+        put(d(), sl, kMbD,
             make_float4(src[s], src[g.V2 + s], src[2 * g.V2 + s], src[3 * g.V2 + s]));
     }
-    sync();
-    stage<true, false>(uo(), ue(), d(), 1, t1(), nullptr, 0.f, 0.f);
-    sync();
-    stage<true, true>(ue(), uo(), t1(), 0, t2(), d(), m, -c);
-    sync();
-    stage<false, false>(uo(), ue(), t2(), 1, t1(), nullptr, 0.f, 0.f);
-    sync();
+    three_stages();
+    split_stage(kMbT3, [&](bool e) {
 #pragma unroll
-    for (int j = 0; j < kOwnSites; ++j) {
-      const int sl = threadIdx.x + j * kThreads, h = sl + halo(), s = row0() * g.Nth + sl;
-      if (sl < Vl) {
-        Cx<float> h0, h1;
-        hop_site_shared<false>(ue(), uo(), t1(), h, nbrs(j, h, 0), Vh, h0, h1);
-        const float4 vs = t2()[h];
-        h0 = axpby(m, lo(vs), -c, h0);
-        h1 = axpby(m, hi(vs), -c, h1);
-        dst[s] = h0.re;
-        dst[g.V2 + s] = h0.im;
-        dst[2 * g.V2 + s] = h1.re;
-        dst[3 * g.V2 + s] = h1.im;
+      for (int j = 0; j < kOwnSites; ++j) {
+        const int sl = threadIdx.x + j * kThreads, s = row0() * g.Nth + sl;
+        if (sl < Vl && edge(j) == e) {
+          const float4 a = dhat_site(j, sl + halo());
+          dst[s] = a.x;
+          dst[g.V2 + s] = a.y;
+          dst[2 * g.V2 + s] = a.z;
+          dst[3 * g.V2 + s] = a.w;
+        }
       }
-    }
+    });
   }
 
-  // store own site sl of a field, and a site of an edge row also into the
-  // neighbour block's halo row: the first row is the previous block's row
-  // `rows`, the last row the next block's row -1
-  __device__ __forceinline__ void put(float4* f, int sl, float4 v) const {
+  // store own site sl of a field, and send a site of an edge row into the
+  // neighbour block's halo row, counted on its mbarrier b: the first row is
+  // the previous block's row `rows`, the last row the next block's row -1
+  __device__ __forceinline__ void put(float4* f, int sl, int b, float4 v) {
     const int h = sl + halo();
     f[h] = v;
-    if (sl < g.Nth) of_block(f, (rank + N - 1) % N)[h + Vl] = v;
-    if (sl >= Vl - g.Nth) of_block(f, (rank + 1) % N)[h - Vl] = v;
+    if (sl < g.Nth) send(f + h + Vl, (rank + N - 1) % N, b, v);
+    if (sl >= Vl - g.Nth) send(f + h - Vl, (rank + 1) % N, b, v);
+    if (b == kMbD) d_sent = true;
   }
 
   // neighbours of own site j at index h
@@ -628,14 +794,16 @@ struct RuCluster : RuF64 {
     return n;
   }
 
+  // out = hop(S), or a*v + bb*hop(S), at the own sites in the edge rows
+  // (edges; sent on mbarrier b) or in the interior rows
   template <bool DAG, bool AXPBY>
   __device__ __forceinline__ void stage(const float2* Ut, const float2* Us, const float4* S,
-                                        int tgt_parity, float4* out, const float4* v, float a,
-                                        float bb) const {
+                                        int tgt_parity, float4* out, int b, const float4* v,
+                                        float a, float bb, bool edges) {
 #pragma unroll
     for (int j = 0; j < kOwnSites; ++j) {
       const int sl = threadIdx.x + j * kThreads, h = sl + halo();
-      if (sl < Vl) {
+      if (sl < Vl && edge(j) == edges) {
         Cx<float> h0, h1;
         hop_site_shared<DAG>(Ut, Us, S, h, nbrs(j, h, tgt_parity), Vh, h0, h1);
         if (AXPBY) {
@@ -643,7 +811,7 @@ struct RuCluster : RuF64 {
           h0 = axpby(a, lo(vs), bb, h0);
           h1 = axpby(a, hi(vs), bb, h1);
         }
-        put(out, sl, make_float4(h0.re, h0.im, h1.re, h1.im));
+        put(out, sl, b, make_float4(h0.re, h0.im, h1.re, h1.im));
       }
     }
   }
@@ -715,33 +883,34 @@ struct RuCluster : RuF64 {
 #pragma unroll
     for (int j = 0; j < kOwnSites; ++j) {
       const int sl = threadIdx.x + j * kThreads;
-      if (sl < Vl) put(d(), sl, r()[sl + halo()]);
+      if (sl < Vl) put(d(), sl, kMbD, r()[sl + halo()]);
     }
   }
 
+  // Ad in t2's place, as RuShared::apply_dAd; d was stored and sent by
+  // update_d or d_from_r. The fourth stage reads t2 only at the site it
+  // stores, so the edge rows' Ad does not disturb the interior rows'. The
+  // <d, Ad> partial is added after both, own site by own site as one pass
+  // would add it.
   __device__ __forceinline__ float apply_dAd() {
-    sync();
-    stage<true, false>(uo(), ue(), d(), 1, t1(), nullptr, 0.f, 0.f);
-    sync();
-    stage<true, true>(ue(), uo(), t1(), 0, t2(), d(), m, -c);
-    sync();
-    stage<false, false>(uo(), ue(), t2(), 1, t1(), nullptr, 0.f, 0.f);
-    sync();
+    three_stages();
+    split_stage(kMbT3, [&](bool e) {
+#pragma unroll
+      for (int j = 0; j < kOwnSites; ++j) {
+        const int sl = threadIdx.x + j * kThreads, h = sl + halo();
+        if (sl < Vl && edge(j) == e) t2()[h] = dhat_site(j, h);
+      }
+    });
     double acc = 0.0;
 #pragma unroll
     for (int j = 0; j < kOwnSites; ++j) {
       const int h = threadIdx.x + j * kThreads + halo();
       if (h < Vl + halo()) {
-        Cx<float> h0, h1;
-        hop_site_shared<false>(ue(), uo(), t1(), h, nbrs(j, h, 0), Vh, h0, h1);
-        const float4 vs = t2()[h], ds = d()[h];
-        h0 = axpby(m, lo(vs), -c, h0);
-        h1 = axpby(m, hi(vs), -c, h1);
-        t2()[h] = make_float4(h0.re, h0.im, h1.re, h1.im);
-        acc += static_cast<double>(ds.x) * static_cast<double>(h0.re);
-        acc += static_cast<double>(ds.y) * static_cast<double>(h0.im);
-        acc += static_cast<double>(ds.z) * static_cast<double>(h1.re);
-        acc += static_cast<double>(ds.w) * static_cast<double>(h1.im);
+        const float4 as = t2()[h], ds = d()[h];
+        acc += static_cast<double>(ds.x) * static_cast<double>(as.x);
+        acc += static_cast<double>(ds.y) * static_cast<double>(as.y);
+        acc += static_cast<double>(ds.z) * static_cast<double>(as.z);
+        acc += static_cast<double>(ds.w) * static_cast<double>(as.w);
       }
     }
     return static_cast<float>(cluster_sum(acc));
@@ -776,7 +945,7 @@ struct RuCluster : RuF64 {
       const int sl = threadIdx.x + j * kThreads, h = sl + halo();
       if (sl < Vl) {
         const float4 ds = d()[h], rs = r()[h];
-        put(d(), sl, make_float4(fma_rn(beta, ds.x, rs.x), fma_rn(beta, ds.y, rs.y),
+        put(d(), sl, kMbD, make_float4(fma_rn(beta, ds.x, rs.x), fma_rn(beta, ds.y, rs.y),
                                  fma_rn(beta, ds.z, rs.z), fma_rn(beta, ds.w, rs.w)));
       }
     }
@@ -902,8 +1071,9 @@ __device__ __forceinline__ void ru_finish(const RuParams& p, const RuF64& f, int
     p.fb_iters[ch] = 0;
     p.conv[ch] = conv ? 1 : 0;
     if (p.clocks != nullptr) {  // added, so that one buffer sums a run's launches
-      p.clocks[2 * ch] += clock64() - t_begin;
-      p.clocks[2 * ch + 1] += f.t_res;
+      p.clocks[3 * ch] += clock64() - t_begin;
+      p.clocks[3 * ch + 1] += f.t_res;
+      p.clocks[3 * ch + 2] += f.t_wait;
     }
   }
   if (conv || !p.fallback) return;
@@ -930,6 +1100,7 @@ __device__ __forceinline__ RuF64 ru_f64(const RuParams& p, int ch, const Geo& g,
           static_cast<float>(1.0 / (4.0 * (p.m0 + 2.0))),
           p.m0 + 2.0,
           1.0 / (4.0 * (p.m0 + 2.0)),
+          0,
           0};
 }
 
@@ -975,6 +1146,7 @@ __global__ void __launch_bounds__(kThreads, 1) solve_ru_cluster_kernel(const RuP
   extern __shared__ __align__(16) float smem[];
   __shared__ double sh[2 * (kThreads / 32)];
   __shared__ double csum[2 * kRuClusterMax];
+  __shared__ unsigned long long mb[RuCluster::kMbars];
   const long long t_begin = clock64();
   const int N = cg::this_cluster().num_blocks(), rank = cg::this_cluster().block_rank();
   const Geo g{p.Nx, p.Nth, p.Nx * p.Nth};
@@ -982,7 +1154,8 @@ __global__ void __launch_bounds__(kThreads, 1) solve_ru_cluster_kernel(const RuP
   const int rows = p.Nx / N, Vl = rows * p.Nth, Vh = (rows + 2) * p.Nth;
   BlockSum sum{sh, 0};
   double* scratch = p.s64 + (size_t)ch * ru_s64_values(false, p.fallback) * V2;
-  RuCluster S{ru_f64(p, ch, g, scratch), smem, csum, sum, N, rank, rows, Vl, Vh, 0};
+  RuCluster S{ru_f64(p, ch, g, scratch), smem, csum, mb, sum, N, rank, rows, Vl, Vh, 0, 0u, false};
+  S.init_mbars();
   const float* thE = p.thE + (size_t)ch * 2 * V2;
   const float* thO = p.thO + (size_t)ch * 2 * V2;
   S.make_links_rows(thE, 0, S.ue());
@@ -991,7 +1164,8 @@ __global__ void __launch_bounds__(kThreads, 1) solve_ru_cluster_kernel(const RuP
   // visible after the first sync
   make_links_range<double>(thE, 0, S.ue64, g, rank * Vl, (rank + 1) * Vl);
   make_links_range<double>(thO, 1, S.uo64, g, rank * Vl, (rank + 1) * Vl);
-  // every block of the cluster runs before any writes into another's halo
+  // every block of the cluster runs, with its mbarriers set up, before any
+  // writes into another's halo
   S.sync();
   const float* x0 = p.hist + (size_t)ch * 4 * V2;
   if (p.K > 1) {
@@ -1002,6 +1176,7 @@ __global__ void __launch_bounds__(kThreads, 1) solve_ru_cluster_kernel(const RuP
 
   int iters;
   const bool conv = ru_loop(S, p, iters);
+  S.drain();
   S.write_x64();
   S.sync();
   if (rank == 0) ru_finish(p, S, ch, iters, conv, t_begin, scratch + 8 * V2, sum);
@@ -1047,7 +1222,8 @@ __global__ void __launch_bounds__(kThreads) solve_ru_global_kernel(const RuParam
 // hist: f32 [K, C, 2, 2, Nx, Nth], the start (K = 1) or the MRE history,
 // newest first; mre: for K >= 2 f32 [C, mre_values(K) V2], else unused;
 // iters, fb_iters: int32 [C]; conv: one byte per chain; clocks: null or int64
-// [C, 2], to which each chain's cycles (total, true residuals) are added.
+// [C, 3], to which each chain's cycles (total, true residuals, rank 0's
+// thread 0 waiting on the other blocks of its cluster) are added.
 // path 0: every vector in the scratch, s32 f32 [C, 28 V2] and s64 f64
 // [C, 20 V2] (32 V2 with the fallback); path 1: the f32 recursion in the
 // shared memory of one block (at most 2048 sites, 96 V2 bytes <= 220 KiB),

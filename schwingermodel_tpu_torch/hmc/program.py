@@ -74,6 +74,7 @@ class BlockSums(NamedTuple):
     unconverged: int                # chain-trajectories with an unconverged solve
     k3_cycles: Optional[int]        # K3's clock cycles; None without clocks
     k3_res_cycles: Optional[int]    # of those, in its f64 true residuals
+    k3_wait_cycles: Optional[int]   # of those, waiting on the cluster's other blocks
 
 
 class Block:
@@ -82,8 +83,9 @@ class Block:
     exp(-dH), fallback solves, the action solves' CG iterations, the
     trajectories with an unconverged solve, and the pre-trajectory
     configuration and index of the first trajectory whose solve failed;
-    with ``clocks``, K3's clock cycles [C, 2] (its total and its f64 true
-    residuals'), which the trajectory's refined solves add into. Every
+    with ``clocks``, K3's clock cycles [C, 3] (its total, its f64 true
+    residuals' and its cluster waits', ``ops/refined.solve_refined``),
+    which the trajectory's refined solves add into. Every
     update is in place, so that a CUDA graph of ``add`` accumulates into
     the same storage on every replay; ``updates`` counts chain-trajectories
     on the host."""
@@ -98,7 +100,7 @@ class Block:
         self.fallbacks = torch.zeros(C, dtype=torch.int64, device=dev)
         self.action_iters = torch.zeros(C, dtype=torch.int64, device=dev)
         self.unconverged = torch.zeros(C, dtype=torch.int64, device=dev)
-        self.clocks = (torch.zeros((C, 2), dtype=torch.int64, device=dev)
+        self.clocks = (torch.zeros((C, 3), dtype=torch.int64, device=dev)
                        if clocks else None)
         self.fail_theta = torch.zeros_like(theta)
         self.fail_seen = torch.zeros(C, dtype=torch.bool, device=dev)
@@ -144,11 +146,11 @@ class Block:
         rows = [self.accepted, self.cg_iters, self.converged, self.exp_mdH,
                 self.fallbacks, self.action_iters, self.unconverged]
         if self.clocks is not None:
-            rows += [self.clocks[:, 0], self.clocks[:, 1]]
+            rows += list(self.clocks.T)
         per_chain = mh.gather_chains(torch.stack([r.double() for r in rows]),
                                      dim=1)
         acc, it, _, em, fb, act, bad, *cycles = per_chain.sum(dim=1).tolist()
-        cycles = [int(c) for c in cycles] or [None, None]
+        cycles = [int(c) for c in cycles] or [None] * 3
         return BlockSums(int(acc), int(it), bool(per_chain[2].all()), em,
                          int(fb), int(act), int(bad), *cycles)
 

@@ -100,16 +100,19 @@ QUERIES = ("cg_eo_blocks_per_sm",)
 
 
 class KernelLibrary:
-    """The compiled kernels: ``build()`` once, then ``call(name, *args)``."""
+    """The compiled kernels: ``build()`` once, then ``call(name, *args)``.
+    csrc and build_dir: where the sources lie and the library goes (another
+    checkout's, for a tool that times its kernels against these)."""
 
-    def __init__(self):
+    def __init__(self, csrc: Path = CSRC, build_dir: Path = BUILD_DIR):
         self._lib = None
         self.build_seconds = None
         self.build_log = ""
         self.path = None
+        self.csrc, self.build_dir = Path(csrc), Path(build_dir)
 
     def sources(self):
-        return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+        return sorted(self.csrc.glob("*.cu")) + sorted(self.csrc.glob("*.cuh"))
 
     def _digest(self) -> str:
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -125,8 +128,8 @@ class KernelLibrary:
         nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
         if not os.path.exists(nvcc):
             raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        out = BUILD_DIR / f"libschwinger_{self._digest()}.so"
+        self.build_dir.mkdir(parents=True, exist_ok=True)
+        out = self.build_dir / f"libschwinger_{self._digest()}.so"
         t0 = time.perf_counter()
         if not out.exists():
             self._compile(nvcc, out)
@@ -141,12 +144,12 @@ class KernelLibrary:
 
     def _compile(self, nvcc: str, out: Path) -> None:
         """One nvcc per source, all running at once, then one link."""
-        tmp = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+        tmp = Path(tempfile.mkdtemp(dir=self.build_dir))
         try:
             jobs = []
-            for src in sorted(CSRC.glob("*.cu")):
+            for src in sorted(self.csrc.glob("*.cu")):
                 obj = tmp / (src.stem + ".o")
-                cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj),
+                cmd = [nvcc, *NVCC_FLAGS, "-I", str(self.csrc), "-c", "-o", str(obj),
                        str(src)]
                 jobs.append((cmd, obj, subprocess.Popen(
                     cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,

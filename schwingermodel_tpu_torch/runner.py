@@ -136,10 +136,13 @@ class RunResult:
     cg_fallback_solves: int = 0          # chain solves of the packed path that ran the f64 fallback
     action_iters_total: int = 0          # of cg_iters_total, the Metropolis action solves' (packed path)
     unconverged_chain_trajs: int = 0     # chain-trajectories with an unconverged solve
-    # K3's clock cycles summed over its launches and the chains, and of those
-    # in its f64 true residuals: the device program's, on the card; else None
+    # K3's clock cycles summed over its launches and the chains, of those the
+    # cycles in its f64 true residuals, and those its first thread spent
+    # waiting on the other blocks of its cluster (0 off the cluster path): the
+    # device program's, on the card; else None
     k3_cycles: Optional[int] = None
     k3_res_cycles: Optional[int] = None
+    k3_wait_cycles: Optional[int] = None
     # per measurement, the restart passes of the condensate's refinement in
     # which any solve was active (of cg.max_outer); None without it
     condensate_active_passes: Optional[np.ndarray] = None
@@ -280,7 +283,7 @@ def run_hmc(
         fallback_solves = 0
         action_iters_total = 0
         unconverged = 0
-        k3 = None      # K3's [cycles, of those in f64 residuals], on the card
+        k3 = None      # K3's [cycles, of those in f64 residuals, in waits], on the card
         all_converged = True
         ill_records = []
 
@@ -323,7 +326,8 @@ def run_hmc(
             all_converged &= sums.all_converged
             if sums.k3_cycles is not None:
                 k3 = [a + b for a, b in zip(
-                    k3 or (0, 0), (sums.k3_cycles, sums.k3_res_cycles))]
+                    k3 or (0, 0, 0), (sums.k3_cycles, sums.k3_res_cycles,
+                                      sums.k3_wait_cycles))]
             if not sums.all_converged:
                 dump(blk)
             return sums.accepted, sums.cg_iters, sums.exp_mdH
@@ -474,6 +478,7 @@ def run_hmc(
                 unconverged_chain_trajs=unconverged,
                 k3_cycles=None if k3 is None else k3[0],
                 k3_res_cycles=None if k3 is None else k3[1],
+                k3_wait_cycles=None if k3 is None else k3[2],
                 condensate_active_passes=active_passes)
             if simdata is not None:
                 extra = ({"chiral_condensate": _jack("chiral_condensate")}

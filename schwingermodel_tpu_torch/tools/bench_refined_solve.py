@@ -1,27 +1,35 @@
 """Times of the refined solve (K3) on the card.
 
     python -m schwingermodel_tpu_torch.tools.bench_refined_solve \\
-        [--nx 64 --nt 64 --chains 32,128] [--out PATH]
+        [--nx 64 --nt 64 --chains 32,128] [--against DIR] [--out PATH]
 
-For each chain count it solves two inputs made from ``--seed`` at m0 = 0.2:
-the cold certified solve (x0 = b, tol 1e-10) and the force solve of the
+For each chain count it solves three inputs made from ``--seed`` at m0 =
+0.2: the cold certified solve (x0 = b, tol 1e-10), the force solve of the
 main path (certify=False, tol 1e-8, from a forecast start: the certified
-solution perturbed by 1e-3). It prints one JSON row per input with the
-kernel's milliseconds by CUDA events (two turns of ``--reps`` launches, no
+solution perturbed by 1e-3) and the same force solve from the MRE forecast
+over a history of four such starts. It prints one JSON row per input with
+the kernel's milliseconds by CUDA events (turns of ``--reps`` launches, no
 clock read in the kernel), the CG iterations summed over the chains and of
 the slowest chain, microseconds per iteration of the slowest chain, the
-share of the kernel's clock cycles spent in the f64 true residuals (mean
-over the chains, from one more launch with the kernel's own counters on)
-and the path the lattice size and chain count take on this card
-(``ops/refined.ru_path``).
+shares of the kernel's clock cycles spent in the f64 true residuals and
+waiting on the cluster's other blocks (means over the chains, from one more
+launch with the kernel's own counters on) and the path the lattice size and
+chain count take on this card (``ops/refined.ru_path``).
+
+``--against DIR`` also builds the kernels of the checkout at DIR (e.g. a
+``git archive`` of an earlier commit) and times its K3 in turns with this
+one (theirs, ours, ours, theirs) on the same inputs, and says whether x64,
+the iterations, the fallback's iterations and the flags are the same bits.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import sys
+from pathlib import Path
 
 import torch
 
@@ -31,7 +39,11 @@ from schwingermodel_tpu_torch.ops import traj as tr
 from schwingermodel_tpu_torch.utils.metrics import card_label
 
 M0 = 0.2
-INPUTS = (("cold certified 1e-10", 1e-10, True), ("forecast force 1e-8", 1e-8, False))
+# label, tol, certify, start
+INPUTS = (("cold certified 1e-10", 1e-10, True, "b"),
+          ("forecast force 1e-8", 1e-8, False, "forecast"),
+          ("MRE K=4 force 1e-8", 1e-8, False, "history"))
+HISTORY = 4
 
 
 def _timed(fn, reps):
@@ -47,15 +59,32 @@ def _timed(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
+@contextlib.contextmanager
+def _kernels(lib):
+    """K3's wrapper launches from `lib` inside the block."""
+    saved = _cuda.KERNELS
+    _cuda.KERNELS = lib
+    try:
+        yield
+    finally:
+        _cuda.KERNELS = saved
+
+
+def _share(clocks, col):
+    return float((clocks[:, col].double() / clocks[:, 0].double()).mean())
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="python -m schwingermodel_tpu_torch.tools.bench_refined_solve",
-        description="K3 on the card: times, iterations, the f64 share")
+        description="K3 on the card: times, iterations, the f64 and wait shares")
     p.add_argument("--nx", type=int, default=64)
     p.add_argument("--nt", type=int, default=64)
     p.add_argument("--chains", default="32,128", help="chain counts, comma-separated")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--reps", type=int, default=20, help="launches per timing")
+    p.add_argument("--against", default=None, metavar="DIR",
+                   help="a checkout whose K3 is timed in turns with this one")
     p.add_argument("--out", default=None, metavar="PATH", help="also write the rows as JSON")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -63,6 +92,11 @@ def main(argv=None) -> int:
         return 1
     dev = torch.device("cuda")
     card = card_label(dev)
+    theirs = None
+    if args.against:
+        pkg = Path(args.against) / "schwingermodel_tpu_torch"
+        theirs = _cuda.KernelLibrary(pkg / "csrc", pkg / "_build")
+        theirs.build()
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     rows = []
@@ -73,27 +107,53 @@ def main(argv=None) -> int:
         thE, thO = tr.pack_planes(th)
         b = torch.randn((C, 2, 2, args.nx, args.nt // 2), generator=gen, device=dev)
         exact = rs.solve_refined(thE, thO, b, b, m0=M0, tol=1e-10)
-        forecast = exact.x + 1e-3 * exact.x.abs().amax(
-            dim=(1, 2, 3, 4), keepdim=True) * torch.randn(b.shape, generator=gen, device=dev)
-        for label, tol, certify in INPUTS:
-            x0 = b if certify else forecast
-            clocks = torch.zeros((C, 2), dtype=torch.int64, device=dev)
-            sol = rs.solve_refined(thE, thO, b, x0, m0=M0, tol=tol, certify=certify,
-                                   clocks=clocks)
-            turns = [_timed(lambda: rs.solve_refined(thE, thO, b, x0, m0=M0, tol=tol,
-                                                     certify=certify), args.reps)
-                     for _ in range(2)]
-            ms = sum(turns) / 2
+        scale = 1e-3 * exact.x.abs().amax(dim=(1, 2, 3, 4), keepdim=True)
+        near = [exact.x + scale * torch.randn(b.shape, generator=gen, device=dev)
+                for _ in range(HISTORY)]
+        starts = {"b": b, "forecast": near[0], "history": torch.stack(near)}
+        for label, tol, certify, start in INPUTS:
+            x0 = starts[start]
+
+            def solve(clocks=None):
+                return rs.solve_refined(thE, thO, b, x0, m0=M0, tol=tol,
+                                        certify=certify, clocks=clocks)
+
+            clocks = torch.zeros((C, 3), dtype=torch.int64, device=dev)
+            sol = solve(clocks)
             it_max = int(sol.iters.max())
             row = {"metric": "k3_ms", "input": label,
                    "shape": f"{args.nx}x{args.nt} C={C}",
                    "path": rs.ru_path_name(args.nx, args.nt // 2, C, _cuda.sm_count(dev)),
-                   "card": card, "ms": ms, "turns_ms": turns,
-                   "iters_sum": int(sol.iters.sum()), "iters_max": it_max,
-                   "us_per_iter": 1e3 * ms / max(it_max, 1),
-                   "f64_residual_share": float(
-                       (clocks[:, 1].double() / clocks[:, 0].double()).mean()),
-                   "all_converged": bool(sol.converged.all())}
+                   "card": card}
+            if theirs is None:
+                turns = [_timed(solve, args.reps) for _ in range(2)]
+            else:
+                with _kernels(theirs):
+                    ref = solve()
+                    against = [_timed(solve, args.reps)]
+                turns = [_timed(solve, args.reps) for _ in range(2)]
+                with _kernels(theirs):
+                    against.append(_timed(solve, args.reps))
+                ms_against = sum(against) / 2
+                row.update({
+                    "against": args.against, "against_ms": ms_against,
+                    "against_turns_ms": against,
+                    "against_us_per_iter": 1e3 * ms_against / max(int(ref.iters.max()), 1),
+                    "bits_equal": {
+                        "x64": torch.equal(sol.x64, ref.x64),
+                        "iters": torch.equal(sol.iters, ref.iters),
+                        "fb_iters": torch.equal(sol.fb_iters, ref.fb_iters),
+                        "conv": torch.equal(sol.converged, ref.converged)}})
+            ms = sum(turns) / 2
+            row.update({
+                "ms": ms, "turns_ms": turns,
+                "iters_sum": int(sol.iters.sum()), "iters_max": it_max,
+                "us_per_iter": 1e3 * ms / max(it_max, 1),
+                "f64_residual_share": _share(clocks, 1),
+                "cluster_wait_pct": 100.0 * _share(clocks, 2),
+                "all_converged": bool(sol.converged.all())})
+            if theirs is not None:
+                row["speedup"] = row["against_ms"] / ms
             rows.append(row)
             print(json.dumps(row), flush=True)
 

@@ -21,7 +21,7 @@ from schwingermodel_tpu_torch.config import (
     CGParams, HMCParams, LatticeParams, RunParams,
 )
 from schwingermodel_tpu_torch.hmc import packed as hp
-from schwingermodel_tpu_torch.hmc.program import MeasurementProgram
+from schwingermodel_tpu_torch.hmc.program import Block, MeasurementProgram
 from schwingermodel_tpu_torch.models.schwinger import SchwingerModel
 from schwingermodel_tpu_torch.ops import refined as rs
 from schwingermodel_tpu_torch.ops import traj as tr
@@ -272,12 +272,57 @@ def test_benchmark_readers_of_the_counters(tmp_path):
     assert len(new) == 4 and all(m["moves"] == "chain_traj_per_s" for m in new)
 
 
+@pytest.mark.parametrize("result,share", [
+    (None, None),                                   # a run without the counter
+    (dict(k3_cycles=400, k3_res_cycles=100), None),  # the parent's clocks
+    (dict(k3_cycles=0, k3_wait_cycles=0), None),
+    (dict(k3_cycles=None, k3_wait_cycles=None), None),
+    (dict(k3_cycles=400, k3_wait_cycles=0), 0.0),    # a one-block path
+    (dict(k3_cycles=400, k3_wait_cycles=60), 15.0),
+], ids=["cpu-run", "no-counter", "zero-cycles", "none", "one-block", "cluster"])
+def test_cluster_wait_reader(tmp_path, result, share):
+    """cluster_wait_pct.K3 is 100 k3_wait_cycles / k3_cycles, and None where
+    either is missing or K3 counted no cycles; a CPU run keeps no clocks."""
+    res = _run(tmp_path) if result is None else types.SimpleNamespace(**result)
+    if result is None:
+        assert res.k3_wait_cycles is None and res.k3_cycles is None
+    got = _metric("cluster_wait_pct.K3")(types.SimpleNamespace(result=res))
+    assert got == share if share is not None else got is None
+
+
+def test_cluster_wait_metric_is_declared_for_the_cluster_cell():
+    bench = json.loads((REPO / "BENCHMARK.json").read_text())
+    (m,) = [m for m in bench["per_layer"] if m["name"] == "cluster_wait_pct.K3"]
+    assert m == {"name": "cluster_wait_pct.K3", "unit": "%", "better": "lower",
+                 "source": "program_counter", "layer": "kernels",
+                 "moves": "chain_traj_per_s", "workloads": ["vol128.gen"]}
+    assert (REPO / "hmc_bench" / "metrics" / "cluster_wait_pct.K3.py").is_file()
+
+
+def test_block_keeps_the_clock_layout_the_runner_reads():
+    """Block.clocks is K3's [C, 3] buffer (total, f64 residuals, cluster
+    waits: ops/refined.solve_refined's layout), zeroed by reset, and read()
+    sums each column over the chains into the BlockSums fields the runner
+    adds up; without clocks the three are None."""
+    C = 3
+    theta = torch.zeros((C, 2, 4, 4))
+    blk = Block(theta, clocks=True)
+    assert blk.clocks.shape == (C, 3) and blk.clocks.dtype == torch.int64
+    blk.clocks.copy_(torch.tensor([[100, 10, 5], [200, 20, 0], [300, 30, 7]]))
+    sums = blk.read()
+    assert (sums.k3_cycles, sums.k3_res_cycles, sums.k3_wait_cycles) == (600, 60, 12)
+    blk.reset()
+    assert int(blk.clocks.abs().sum()) == 0
+    none = Block(theta).read()
+    assert (none.k3_cycles, none.k3_res_cycles, none.k3_wait_cycles) == (None,) * 3
+
+
 @pytest.mark.card
 def test_k3_adds_its_clocks():
     """On the card: two K3 launches into one zeroed clocks buffer leave each
     chain's total above its first launch's, the residual cycles below the
-    total, and x and the iterations bit for bit those of a call without
-    clocks."""
+    total, no cluster waits on the one-block path, and x and the iterations
+    bit for bit those of a call without clocks."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA card: K3 runs only there")
     dev = torch.device("cuda")
@@ -288,7 +333,7 @@ def test_k3_adds_its_clocks():
     b = torch.randn((C, 2, 2, n, n // 2), generator=g, device=dev)
     kw = dict(m0=0.2, tol=1e-10, fallback=True)
     plain = rs.solve_refined(thE, thO, b, b, **kw)
-    clocks = torch.zeros((C, 2), dtype=torch.int64, device=dev)
+    clocks = torch.zeros((C, 3), dtype=torch.int64, device=dev)
     first = rs.solve_refined(thE, thO, b, b, clocks=clocks, **kw)
     once = clocks.clone()
     rs.solve_refined(thE, thO, b, b, clocks=clocks, **kw)
@@ -298,3 +343,27 @@ def test_k3_adds_its_clocks():
     assert bool((once[:, 1] > 0).all() and (once[:, 1] < once[:, 0]).all())
     assert bool((clocks[:, 0] > once[:, 0]).all())
     assert bool((clocks[:, 1] > once[:, 1]).all() and (clocks[:, 1] < clocks[:, 0]).all())
+    assert int(clocks[:, 2].abs().sum()) == 0
+
+
+@pytest.mark.card
+def test_k3_counts_its_cluster_waits():
+    """On the card, at 128x128 (a cluster of blocks a chain): each chain's
+    cycles waiting on its cluster are above 0 and below its total, and x and
+    the iterations are bit for bit those of a call without clocks."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card: K3 runs only there")
+    dev = torch.device("cuda")
+    C, n = 4, 128
+    assert rs.ru_path_name(n, n // 2, C).startswith("cluster")
+    g = torch.Generator(device=dev).manual_seed(6)
+    th = (2.0 * torch.rand((C, 2, n, n), generator=g, device=dev) - 1.0) * np.pi
+    thE, thO = tr.pack_planes(th)
+    b = torch.randn((C, 2, 2, n, n // 2), generator=g, device=dev)
+    kw = dict(m0=0.2, tol=1e-10, fallback=True)
+    plain = rs.solve_refined(thE, thO, b, b, **kw)
+    clocks = torch.zeros((C, 3), dtype=torch.int64, device=dev)
+    got = rs.solve_refined(thE, thO, b, b, clocks=clocks, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.x64, plain.x64) and torch.equal(got.iters, plain.iters)
+    assert bool(((clocks[:, 2] > 0) & (clocks[:, 2] < clocks[:, 0])).all())
