@@ -3,10 +3,13 @@
     python3 hmc_bench/calibrate.py therm --workload demo64.gen --seed 1 --calls 32 --per-call 25
     python3 hmc_bench/calibrate.py limits --workload demo64.gen --seeds 1,2,3 --n-meas 12 [--loose-seeds 3]
 
-``therm`` runs the cell's chains from the hot start through ``run_hmc``
-in calls of ``--per-call`` trajectories and prints, a line a call, the
-mean plaquette, the CG iterations per chain-trajectory and the seconds:
-the thermalization is where both stop drifting. ``limits`` runs, for each
+``therm`` runs the cell's chains from the hot start through ``run_hmc``,
+through the configuration's anneal masses first (``harness.thermalize``'s
+anneal, a line a mass), in calls of ``--per-call`` trajectories at its m0
+and prints, a line a call, the mean plaquette, the CG iterations per
+chain-trajectory, the unconverged chain-trajectories and fallback solves,
+and the seconds: the thermalization is where the plaquette and the
+iterations stop drifting. ``limits`` runs, for each
 seed, the cell's set-up and a window of ``--n-meas`` measurements, and
 prints the compared numbers of the program and of the two controls (the
 plain reference one precision lower put in the program's place,
@@ -32,16 +35,22 @@ def therm(cell, args, device):
 
     s = harness.Session(cell, args.seed, device)
     s.n_steps, s.condensate = 0, False      # a plaquette every trajectory
-    for i in range(args.calls):
+    anneal = cell.config.get("setup") or {}
+    calls = [(m0, int(anneal["anneal_traj"])) for m0 in anneal.get("anneal_m0", ())]
+    calls += [(None, args.per_call)] * args.calls
+    for i, (m0, n) in enumerate(calls):
         s.sync()
         t0 = time.perf_counter()
-        res = s.call(0, args.per_call)
+        res = s.call(0, n, m0=m0)
         dt = time.perf_counter() - t0
         print(json.dumps({
-            "call": i, "trajectories": s.start,
+            "call": i, "m0": cell.config["physics"]["m0"] if m0 is None else m0,
+            "trajectories": s.start,
             "plaquette": float(np.mean(res.chains["plaquette"])),
             "plaquette_last": float(np.mean(res.chains["plaquette"][-1])),
-            "cg_iters_per_chain_traj": res.cg_iters_total / (s.C * args.per_call),
+            "cg_iters_per_chain_traj": res.cg_iters_total / (s.C * n),
+            "unconverged": res.unconverged_chain_trajs,
+            "fallback_solves": res.cg_fallback_solves,
             "acceptance": res.acceptance_rate, "seconds": dt}), flush=True)
 
 
@@ -53,7 +62,7 @@ def limits(cell, args, device):
         out = {"seed": seed}
         for loose in ((False, True) if i < args.loose_seeds else (False,)):
             s = harness.Session(cell, seed, device, refine=False if loose else None)
-            s.call(int(cell.traffic["n_therm"]), 2)
+            harness.thermalize(s)
             t0 = time.perf_counter()
             w = harness.window(s, args.n_meas)
             gaps = harness.compare(s, w, cell.limits["dH_gap"],
@@ -63,7 +72,8 @@ def limits(cell, args, device):
             else:
                 out.update(gaps, window_s=w.seconds,
                            check_s=time.perf_counter() - t0 - w.seconds,
-                           row=w.row)
+                           row=w.row, failed=harness.count_failed(s, w),
+                           chain_trajs=s.C * s.trajectories(args.n_meas))
         print(json.dumps(out), flush=True)
 
 

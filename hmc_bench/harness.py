@@ -2,7 +2,8 @@
 
 The system under test is ``schwingermodel_tpu_torch.runner.run_hmc`` on
 its graphed packed path. Set-up thermalizes the cell's chains from
-``run_hmc``'s own hot start (one call, which builds or loads the kernel
+``run_hmc``'s own hot start (a call at each of the configuration's anneal
+masses, then one at its m0, each of which builds or loads the kernel
 library and captures both device programs) and times one more call of the
 window's shape to size the window. The window is one ``run_hmc`` call that
 resumes from that state: ``n_meas`` measurements at the mix's cadence,
@@ -16,7 +17,10 @@ replay drawn from the seed, the last before measurement row j). The plain
 reference (``reference/``, float64) recomputes each trajectory from the
 program's theta with the noise of its trajectory index, works out the true
 residual of each kept solve, and measures rows 0 and j from the program's
-theta after it. With ``trace`` a second, shorter call follows the window
+theta after it. A chain the program flags as unconverged in a kept
+trajectory is counted failed and left out of that trajectory's gaps; a
+chain it reports converged on which the reference does not converge reads
+not correct. With ``trace`` a second, shorter call follows the window
 under ``torch.profiler``; its stretch from the first trajectory step after
 both programs' captures and first replays to the call's return gives the
 device metrics.
@@ -26,6 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import math
 import re
 import subprocess
 import warnings
@@ -44,11 +49,22 @@ OBSERVABLES = ("plaquette", "gauge_action_density", "top_charge")
 MIN_MEAS = 3        # the least window, for a card or CPU slower than the probe
 
 
+# numbers every cell compares with a limit fixed by the check itself: the
+# chains the program reports converged on which the reference does not
+FIXED_LIMITS = {"ref_unconverged": 0}
+
+
+def limits(cell: registry.Cell) -> dict:
+    """Every compared number's limit: the cell's, and the fixed ones."""
+    return {**cell.limits, **FIXED_LIMITS}
+
+
 @dataclasses.dataclass
 class Snapshot:
     theta: torch.Tensor
-    exp_mdH: torch.Tensor
+    exp_mdH: torch.Tensor       # after a kept step: that step's exp(-dH)
     accepted: torch.Tensor
+    unconverged: torch.Tensor   # the block's chain-trajectories flagged so far
     solves: list            # [(thE, thO, b, x, m0)] of the certified solves
 
 
@@ -75,7 +91,12 @@ class Probe:
     before and after the trajectories of ``steps`` (their indices within the
     call), and the packed trajectory's certified solves (the refined solves
     with ``certify``, the loose path's action solves) are recorded as they
-    are issued. The hook adds a few clones a kept step and reads nothing
+    are issued. Across a kept step the hook holds the block's exp(-dH) sum
+    aside, so that the step adds its own exp(-dH) to zero (exactly), and
+    adds the sum back after it: the block ends bit for bit as it would
+    have, and the step's exp(-dH) is kept unrounded by the sum (from a sum
+    of hundreds a difference loses an exp(-dH) under ~1e-14, dH over ~30).
+    The hook adds a few clones and additions a kept step and reads nothing
     on the host. A trajectory step that runs Python (the eager warm-up, the
     capture, every step off the card) records its solves; a replay rewrites
     the captured ones in place, which the probe keeps a handle on.
@@ -122,7 +143,8 @@ class Probe:
         def keep(p, solves):
             b = p.block
             return Snapshot(p.theta.clone(), b.exp_mdH.clone(),
-                            b.accepted.clone(), _clone_solves(solves))
+                            b.accepted.clone(), b.unconverged.clone(),
+                            _clone_solves(solves))
 
         class Trajectory(self._saved[0]):
             def __init__(self, *a, **k):
@@ -140,7 +162,11 @@ class Probe:
                 if (probe.stretch and probe.opened is None and k >= 2
                         and probe.meas is not None and probe.meas.steps >= 2):
                     probe.open_stretch(self)
-                before = keep(self, []) if k in probe.steps else None
+                before = held = None
+                if k in probe.steps:
+                    before = keep(self, [])
+                    held = self.block.exp_mdH.clone()
+                    self.block.exp_mdH.zero_()
                 probe.bodies = []
                 try:
                     super().step()
@@ -157,6 +183,7 @@ class Probe:
                     raise RuntimeError("the trajectory issued no certified solve")
                 if before is not None:
                     probe.snaps[k] = (before, keep(self, ran))
+                    self.block.exp_mdH.add_(held)
                 self.calls += 1
 
         class Measurement(self._saved[1]):
@@ -211,6 +238,12 @@ class Session:
         if refine is not None:        # the program's own lower-precision path
             solver.update(refine=refine, tol=1e-6 if not refine else solver["tol"])
         self.hmc = HMCParams(**c["physics"], cg=CGParams(**solver))
+        # the configuration's mass split, and the pseudofermion noise it
+        # draws: [pf, spin, Nx, Nt/2] on the even sites, pf = 2 under
+        # Hasenbusch (chi1, chi2), no pf axis without
+        self.dm = c["physics"].get("hasenbusch_dm") or None
+        Nx, Nt = self.lattice.Nx, self.lattice.Nt
+        self.chi_shape = (2,) * (self.dm is not None) + (2, Nx, Nt // 2)
         self.C, self.n_steps = int(t["chains"]), int(t["n_steps"])
         self.condensate = bool(t["condensate"])
         self.n_noise = int(t["n_noise"]) if self.condensate else 0
@@ -221,13 +254,14 @@ class Session:
     def V2(self) -> int:
         return self.lattice.volume // 2
 
-    def call(self, n_therm: int, n_meas: int):
+    def call(self, n_therm: int, n_meas: int, m0=None):
         """One run_hmc call from the session's state, which it advances; the
         first starts from run_hmc's own hot start, drawn on the device from
-        the seed."""
+        the seed. m0: a mass other than the configuration's (the anneal)."""
         from schwingermodel_tpu_torch import runner
         from schwingermodel_tpu_torch.config import RunParams
 
+        hmc = self.hmc if m0 is None else dataclasses.replace(self.hmc, m0=m0)
         run = RunParams(n_therm=n_therm, n_meas=n_meas, n_steps=self.n_steps,
                         n_chains=self.C, seed=self.seed, out_dir=self.out_dir)
         cond = (dict(measure_condensate=True, n_noise=self.n_noise)
@@ -235,7 +269,7 @@ class Session:
         with warnings.catch_warnings():
             # the summary's jackknife of a call with few measurements
             warnings.simplefilter("ignore", RuntimeWarning)
-            res = runner.run_hmc(self.lattice, self.hmc, run, device=self.device,
+            res = runner.run_hmc(self.lattice, hmc, run, device=self.device,
                                  initial_theta=self.theta,
                                  start_traj_index=self.start, graph=True, **cond)
         self.theta, self.start = res.theta, res.traj_index
@@ -252,20 +286,33 @@ class Session:
     def release(self):
         """Return what earlier calls left (their programs, graphs and cached
         blocks) to the card, so that a capture's own emptying of the cache
-        frees only what its call allocated."""
+        frees only what its call allocated, and no collection of an earlier
+        call's graph falls inside a later capture (which invalidates it)."""
         gc.collect()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
             torch.cuda.empty_cache()
 
 
+def thermalize(s: Session):
+    """From the hot start: the configuration's anneal (``"setup":
+    {"anneal_m0": [...], "anneal_traj": n}``, n trajectories at each mass in
+    turn, one call a mass), then the mix's n_therm trajectories at the
+    configuration's m0 (the last call also warms up and captures both
+    programs)."""
+    anneal = s.cell.config.get("setup") or {}
+    for m0 in anneal.get("anneal_m0", ()):
+        s.call(int(anneal["anneal_traj"]) - 1, 1, m0=float(m0))
+        s.release()
+    s.call(int(s.cell.traffic["n_therm"]), 2)
+
+
 def setup(s: Session, seconds: float) -> int:
-    """Thermalization from the hot start (its last call also warms up and
-    captures both programs), and one call of the window's shape, timed;
-    returns the window's n_meas."""
+    """Thermalization, and one call of the window's shape, timed; returns
+    the window's n_meas."""
     t = s.cell.traffic
-    s.call(int(t["n_therm"]), 2)
-    s.sync()
+    thermalize(s)
+    s.release()
     t0 = time.perf_counter()
     s.call(0, int(t["probe_meas"]))
     probe_s = time.perf_counter() - t0
@@ -326,53 +373,102 @@ def window(s: Session, n_meas: int) -> Window:
 
 # ---------- the check ----------
 
+# the most unknowns (2 V2, a spinor on the even sites) of a chain whose Dhat
+# the reference solves by its dense LU factors, whose time does not grow
+# with the conditioning (32x32: 1024); larger lattices take its CG
+DIRECT_MAX_N = 2048
+
+
+def _reference(s: Session, prec):
+    """The reference's keywords for this cell: its physics, its solver's
+    max_iter, and the dense direct solve where a chain's Dhat is small
+    enough (``DIRECT_MAX_N``)."""
+    c = s.cell.config
+    return dict(beta=c["physics"]["beta"], m0=c["physics"]["m0"],
+                md_steps=c["physics"]["md_steps"],
+                tau=c["physics"]["trajectory_length"], dm=s.dm,
+                prec=prec._replace(max_iter=int(c["solver"]["max_iter"])),
+                direct=2 * s.V2 <= DIRECT_MAX_N)
+
+
+def _largest(v: torch.Tensor) -> float:
+    """The largest entry, 0 where there is none."""
+    return float(v.max()) if v.numel() else 0.0
+
+
+# Metropolis rejects a dH above -ln r for every r the noise draws but 0
+# (r >= 2^-24, so -ln r <= 16.6): the check compares dH up to this
+DH_REJECT = 20.0
+
+
+def certain_reject(dH: torch.Tensor) -> torch.Tensor:
+    """The chains whose dH rejects them whatever its digits (an MD spike
+    or blow-up; an exp(-dH) that underflows to 0 reads dH = inf)."""
+    return dH >= DH_REJECT
+
+
+def dH_gap(dH: torch.Tensor, dH_ref: torch.Tensor) -> torch.Tensor:
+    """Per chain |dH - dH_ref|, and 0 on a chain that both sides reject
+    whatever r (``certain_reject``): near the critical mass a trajectory
+    that ends in a spike (dH in the hundreds to 1e25) carries the float32
+    MD's error in proportion to its dH, and no digit of it decides."""
+    both = certain_reject(dH) & certain_reject(dH_ref)
+    return torch.where(both, torch.zeros_like(dH), (dH - dH_ref).abs())
+
+
 def _compare_step(s: Session, k: int, before: Snapshot, after: Snapshot,
                   band: float, controls: dict) -> dict:
     """The gaps of trajectory k of the window against the float64
     reference, under "program" and under the name of each control (the
     reference at that precision put in the program's place).
 
-    dH_gap: the largest |dH - dH_ref| over the chains. theta_gap: the
-    largest angle between theta after the trajectory and what the reference
-    keeps: its proposal where it accepts, the start where it rejects; where
-    dH_ref lies within `band` of the Metropolis threshold -ln r either
-    outcome is right, and the candidate's own decision picks. act_res: the
-    largest true relative residual, worked out in float64, of the
-    candidate's certified solves (the control's: its action solve). The
-    program's accept_mismatch counts the chains whose decision does not
-    follow its own exp(-dH) (an exact comparison)."""
-    c = s.cell.config["physics"]
+    dH_gap: the largest ``dH_gap`` over the chains. theta_gap: the largest
+    angle between theta after the trajectory and what the reference keeps:
+    its proposal where it accepts, the start where it rejects; where dH_ref
+    lies within `band` of the Metropolis threshold -ln r either outcome is
+    right, and the candidate's own decision picks.
+    act_res: the largest true relative residual, worked out in float64, of
+    the candidate's certified solves (the control's: its action solves).
+    The program's chains flagged unconverged in this trajectory are left
+    out of these three (the run counts them failed); ref_unconverged counts
+    the other chains on which the reference did not converge, but for a
+    spike both sides reject (``certain_reject``), whose reference solves on
+    its numerically singular configuration the outcome does not depend on
+    (a blow-up's dH reads up to 1e25). The program's accept_mismatch counts
+    the chains, all of them, whose decision does not follow its own
+    exp(-dH) (an exact comparison)."""
     Nx, Nt = s.lattice.Nx, s.lattice.Nt
     pi, chi, r = philox.trajectory_noise(s.seed, k, s.C, 2 * Nx * Nt,
-                                         Nx * Nt, s.device)
+                                         math.prod(s.chi_shape), s.device)
     pi = pi.reshape(s.C, 2, Nx, Nt)
-    chi = ref.even_from_packed(chi.reshape(s.C, 2, Nx, Nt // 2), Nt)
-    kw = dict(beta=c["beta"], m0=c["m0"], md_steps=c["md_steps"],
-              tau=c["trajectory_length"])
+    chi = ref.even_from_packed(chi.reshape(s.C, *s.chi_shape), Nt)
     th0 = before.theta.double()
     rd = r.double()
-    exact = ref.trajectory(before.theta, pi, chi, r, prec=ref.F64, **kw)
+    exact = ref.trajectory(before.theta, pi, chi, r, **_reference(s, ref.F64))
     near = (exact.dH + torch.log(rd)).abs() <= band
+    ok = (after.unconverged - before.unconverged) == 0    # not flagged
 
     def gaps(dH, acc, theta_after, residuals):
         keep = torch.where(near, acc, exact.accept).reshape(-1, 1, 1, 1)
         cand = torch.where(keep, exact.theta, th0)
-        return {"dH_gap": float((dH - exact.dH).abs().max()),
-                "theta_gap": float(ref.wrap(theta_after - cand).abs().max()),
-                "act_res": max(float(v.max()) for v in residuals)}
+        return {"dH_gap": _largest(dH_gap(dH, exact.dH)[ok]),
+                "theta_gap": _largest(ref.wrap(theta_after - cand).abs()[ok]),
+                "act_res": max(_largest(v[ok]) for v in residuals)}
 
-    em = after.exp_mdH - before.exp_mdH
+    em = after.exp_mdH
+    dH = -torch.log(em)
     acc = (after.accepted - before.accepted) == 1
-    res = [ref.residual(ref.packed_solve(thE, thO, b, x), m0)
-           for thE, thO, b, x, m0 in after.solves]
-    out = {"program": gaps(-torch.log(em), acc, after.theta.double(), res)}
+    res = [ref.residual(ref.packed_solve(*sv)) for sv in after.solves]
+    out = {"program": gaps(dH, acc, after.theta.double(), res)}
     clear = (rd - em).abs() > 1e-12
     out["program"]["accept_mismatch"] = int((clear & (acc != (rd <= em))).sum())
+    spike = certain_reject(dH) & certain_reject(exact.dH)
+    out["program"]["ref_unconverged"] = int((ok & ~exact.converged & ~spike).sum())
     for name, prec in controls.items():
-        low = ref.trajectory(before.theta, pi, chi, r, prec=prec, **kw)
+        low = ref.trajectory(before.theta, pi, chi, r, **_reference(s, prec))
         kept = torch.where(low.accept.reshape(-1, 1, 1, 1), low.theta.double(), th0)
         out[name] = gaps(low.dH, low.accept, kept,
-                         [ref.residual(low.action_solve, c["m0"])])
+                         [ref.residual(sv) for sv in low.action_solves])
     return out
 
 
@@ -534,12 +630,12 @@ def traced_stretch(s: Session, n_meas: int) -> tuple:
 @dataclasses.dataclass
 class MetricContext:
     """What a per-layer metric reads: the timed window's RunResult, its
-    shape, counts and wall seconds; with a card, the traced stretch's trace
-    and counts."""
+    shape, the configuration's physics, the window's counts and wall
+    seconds; with a card, the traced stretch's trace and counts."""
     result: object
     C: int
     V2: int
-    md_steps: int
+    physics: dict          # the configuration's physics
     n_noise: int
     condensate: bool
     window: Counts
@@ -574,12 +670,13 @@ def _device(dev: torch.device) -> dict:
             "card": card_label(dev)}
 
 
-def _failed(s: Session, w: Window) -> int:
-    """Chain-trajectories with an unconverged solve (each chain's first of
-    the window's one block, as the program keeps them) and, in a cell with
+def count_failed(s: Session, w: Window) -> int:
+    """The window's chain-trajectories with an unconverged solve (every one
+    the program flags, RunResult.unconverged_chain_trajs: a rejected MD
+    blow-up whose solves did not converge counts too) and, in a cell with
     the condensate, chain measurements whose condensate solve did not
     converge."""
-    n = int(w.result.n_ill)
+    n = int(w.result.unconverged_chain_trajs)
     if s.condensate:
         n += int((~w.probe.meas.out["condensate_converged"]).sum())
     return n
@@ -593,7 +690,7 @@ def run_cell(cell: registry.Cell, seed: int, seconds: float, trace: bool,
     n_meas = setup(s, seconds)
     w = window(s, n_meas)
     traj = s.trajectories(n_meas)
-    failed = _failed(s, w)
+    failed = count_failed(s, w)
     counts = Counts(traj, n_meas, int(w.result.cg_iters_total),
                     int(w.result.condensate_iters))
     w.probe.traj = w.probe.meas = None     # free the programs' memory
@@ -603,7 +700,7 @@ def run_cell(cell: registry.Cell, seed: int, seconds: float, trace: bool,
     dev = _device(s.device)
     metrics = {}
     if trace:
-        ctx = MetricContext(w.result, s.C, s.V2, s.hmc.md_steps, s.n_noise,
+        ctx = MetricContext(w.result, s.C, s.V2, cell.config["physics"], s.n_noise,
                             s.condensate, counts, w.seconds, tr, traced)
         for m, read in cell.per_layer:
             v = read(ctx)
@@ -618,7 +715,8 @@ def run_cell(cell: registry.Cell, seed: int, seconds: float, trace: bool,
             metrics[m["name"]] = {"value": values[m["name"]], "unit": m["unit"]}
     s.release()
     gaps = compare(s, w, cell.limits["dH_gap"])["program"]
-    checks = {k: {"value": v, "limit": cell.limits[k]} for k, v in gaps.items()}
+    lim = limits(cell)
+    checks = {k: {"value": v, "limit": lim[k]} for k, v in gaps.items()}
     correct = all(v["value"] <= v["limit"] for v in checks.values())
     line = {"correct": correct, "attempted": s.C * (traj + n_meas),
             "failed": failed, "metrics": metrics, "device": dev}

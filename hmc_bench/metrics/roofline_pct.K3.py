@@ -1,6 +1,7 @@
 """K3 (the refined solve, csrc/solve_ru.cu) against its roofline: the least
-time of the traced stretch's refined solves (md_steps a trajectory) and
-their CG iterations, over K3's device time in the stretch."""
+time of the traced stretch's refined solves (yardstick.solves_per_traj a
+trajectory) and their CG iterations, over K3's device time in the
+stretch."""
 
 from hmc_bench import yardstick
 
@@ -12,6 +13,7 @@ def read(ctx):
     if not t:
         return None
     n = ctx.traced
-    work = yardstick.refined_solves(ctx.C, ctx.V2, n.trajectories * ctx.md_steps,
-                                    n.cg_iters)
+    work = yardstick.refined_solves(
+        ctx.C, ctx.V2, n.trajectories * yardstick.solves_per_traj(ctx.physics),
+        n.cg_iters)
     return 100.0 * work.seconds() / t

@@ -16,6 +16,12 @@ program under test:
   Dhat = m - H_eo H_oe / (4 m), m = m0 + 2, and the action
   S = beta sum_n (1 - cos theta_P(n)) + phi^+ (Dhat Dhat^+)^-1 phi,
   theta_P(n) = theta_0(n) + theta_1(n + t) - theta_0(n + x) - theta_1(n);
+- or, under Hasenbusch mass preconditioning (hep-lat/0107019) with the
+  heavy mass m1 = m0 + dm, two pseudofermions: phi1 = Dhat1 chi1 and
+  phi2 = Dhat1^-1 Dhat0 chi2 (solved as Dhat1^+ (Dhat1 Dhat1^+)^-1 Dhat0
+  chi2), and the fermion action
+  phi1^+ (Dhat1 Dhat1^+)^-1 phi1 + (Dhat1 phi2)^+ (Dhat0 Dhat0^+)^-1 (Dhat1 phi2),
+  which is |chi1|^2 + |chi2|^2 at the heat bath's theta;
 - forces F = -dS/dtheta by automatic differentiation, at the exact solve;
 - the leapfrog of the reference code (positions first, md_steps - 1 force
   evaluations, step tau / md_steps) and the Metropolis test r <= exp(-dH);
@@ -25,14 +31,19 @@ program under test:
 - the true relative residual ||b - Dhat Dhat^+ x|| / ||b|| of a given
   solve, in float64.
 
-Every solve is plain conjugate gradient on Dhat Dhat^+ to a relative
-residual `tol`, in the working precision.
+Every solve is of Dhat Dhat^+ to a relative residual `tol`, in the
+working precision: plain conjugate gradient from x = 0, or with `direct`
+the LU factors of each chain's Dhat as a dense matrix followed by passes
+of refinement on the true residual (near the critical mass a CG to 1e-12
+takes thousands of iterations a solve; the dense factors of a 32x32
+lattice take a fixed time whatever the conditioning). A solve that does
+not reach `tol` is flagged per chain, not raised.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -45,7 +56,8 @@ class Precision(NamedTuple):
     fields: torch.dtype         # what the angles and momenta are stored in
 
 
-# the reference: float64 throughout, solves to 1e-12
+# the reference: float64 throughout, solves to 1e-12 (the harness gives
+# max_iter the configuration's)
 F64 = Precision(torch.float64, torch.complex128, 1e-12, 20000, torch.float64)
 # its controls, one step below what the configuration states: F32 computes
 # the float64 parts (Hamiltonian, observables, solves) in float32, the
@@ -135,7 +147,7 @@ class Dirac:
     """D and its Schur operator on one configuration per chain (links U)."""
 
     def __init__(self, U: torch.Tensor, m0: float):
-        self.U, self.m = U, float(m0) + 2.0
+        self.U, self.m0, self.m = U, float(m0), float(m0) + 2.0
         self.c = 1.0 / (4.0 * self.m)
 
     def dhat(self, v):
@@ -153,9 +165,11 @@ def _dot(a, b):
     return (torch.conj(a) * b).real.sum(dim=(-3, -2, -1))
 
 
-def cg(A, b: torch.Tensor, prec: Precision) -> torch.Tensor:
-    """x with ||b - A x|| < tol ||b|| per system (the last three axes), from
-    x = 0; systems stop one by one. Raises where one has not converged."""
+def cg(A, b: torch.Tensor, prec: Precision):
+    """(x, converged): x with ||b - A x|| < tol ||b|| per system (the last
+    three axes), from x = 0; systems stop one by one. converged is False
+    for a system that has not met tol in prec.max_iter iterations, whose x
+    is the last iterate."""
     x = torch.zeros_like(b)
     r = b.clone()
     p = r.clone()
@@ -163,9 +177,9 @@ def cg(A, b: torch.Tensor, prec: Precision) -> torch.Tensor:
     stop = prec.tol ** 2 * rr
     shape = rr.shape + (1, 1, 1)
     for _ in range(prec.max_iter):
-        active = rr > stop
+        active = ~(rr <= stop)
         if not bool(active.any()):
-            return x
+            break
         Ap = A(p)
         pAp = _dot(p, Ap)
         alpha = torch.where(active, rr / torch.where(active, pAp, 1.0), 0.0)
@@ -175,92 +189,218 @@ def cg(A, b: torch.Tensor, prec: Precision) -> torch.Tensor:
         beta = torch.where(active, rr_new / torch.where(active, rr, 1.0), 0.0)
         p = torch.where(active.reshape(shape), r + beta.reshape(shape) * p, p)
         rr = torch.where(active, rr_new, rr)
-    raise RuntimeError(f"reference CG: no convergence in {prec.max_iter} iterations")
+    return x, rr <= stop
 
 
-def _force(theta, phi, beta, m0, prec):
-    """F = -dS/dtheta at theta, the fermion part at the exact solve."""
+def even_sites(Nx: int, Nt: int, device) -> torch.Tensor:
+    """Flat indices (x Nt + t) of the even sites, in row-major order."""
+    return even_mask(Nx, Nt, device).reshape(-1).nonzero().squeeze(1)
+
+
+def dense_dhat(op: Dirac, block: int = 8) -> torch.Tensor:
+    """Dhat of each chain (op.U [C, 2, Nx, Nt]) as a matrix [C, n, n] on the
+    even sites' spinors, n = Nx Nt: entry s V2 + k is spin s at the k-th
+    even site (V2 of them); column j is Dhat of the j-th unit vector,
+    applied to `block` chains at a time."""
+    C, _, Nx, Nt = op.U.shape
+    sites = even_sites(Nx, Nt, op.U.device)
+    V2 = sites.numel()
+    n = 2 * V2
+    j = torch.arange(n, device=op.U.device)
+    E = torch.zeros((n, 2, Nx * Nt), dtype=op.U.dtype, device=op.U.device)
+    E[j, j // V2, sites.repeat(2)] = 1.0
+    E = E.reshape(n, 2, Nx, Nt)
+    out = []
+    for c0 in range(0, C, block):
+        sub = Dirac(op.U[c0:c0 + block].unsqueeze(1), op.m0)
+        cols = sub.dhat(E).reshape(-1, n, 2, Nx * Nt)[..., sites]
+        out.append(cols.reshape(-1, n, n).transpose(-1, -2))
+    return torch.cat(out)
+
+
+REFINE_PASSES = 8      # a Dhat whose LU leaves more is singular to rounding
+
+
+def direct_solve(op: Dirac, b: torch.Tensor, prec: Precision):
+    """(x, converged) of Dhat Dhat^+ x = b per chain, b [C, 2, Nx, Nt] on
+    the even sites: x = Dhat^-+ Dhat^-1 b by the LU factors of each
+    chain's dense Dhat, then up to REFINE_PASSES passes x += (the same
+    factors) (b - Dhat Dhat^+ x), the residual taken by the stencil. A
+    chain stops once its true residual is under tol ||b||; converged is
+    False for one whose residual stays above 100 tol ||b||, for the true
+    residual of a solve that near the critical mass carries a rounding
+    floor above tol (1e-10, the configuration's contract, for F64)."""
+    C, _, Nx, Nt = b.shape
+    sites = even_sites(Nx, Nt, b.device)
+    LU, piv = torch.linalg.lu_factor(dense_dhat(op))
+
+    def inverse(v):
+        w = v.reshape(C, 2, Nx * Nt)[..., sites].reshape(C, -1, 1)
+        w = torch.linalg.lu_solve(LU, piv, torch.linalg.lu_solve(LU, piv, w),
+                                  adjoint=True)
+        out = torch.zeros_like(v).reshape(C, 2, Nx * Nt)
+        out[..., sites] = w.reshape(C, 2, -1)
+        return out.reshape(v.shape)
+
+    bb = _dot(b, b)
+    x = inverse(b)
+    for k in range(REFINE_PASSES + 1):
+        r = b - op.normal(x)
+        rr = _dot(r, r)
+        done = rr <= prec.tol ** 2 * bb
+        if k == REFINE_PASSES or bool(done.all()):
+            break
+        x = torch.where(done.reshape(-1, 1, 1, 1), x, x + inverse(r))
+    return x, rr <= (100.0 * prec.tol) ** 2 * bb
+
+
+class Solver:
+    """Solves of Dhat Dhat^+ on one configuration per chain (links U), at
+    any mass: ``solve(m0, b) -> (x, converged)``."""
+
+    def __init__(self, U: torch.Tensor, prec: Precision, direct: bool):
+        self.U, self.prec, self.direct = U, prec, direct
+
+    def op(self, m0: float) -> Dirac:
+        return Dirac(self.U, m0)
+
+    def solve(self, m0: float, b: torch.Tensor):
+        op = self.op(m0)
+        if self.direct:
+            return direct_solve(op, b, self.prec)
+        return cg(op.normal, b, self.prec)
+
+
+class Pseudofermions(NamedTuple):
+    """The heat bath's fields: phi at mass m0 (one pseudofermion), or phi1
+    at m1 and phi2 (Hasenbusch, m1 set)."""
+    m0: float
+    m1: Optional[float]
+    phi: torch.Tensor
+    phi2: Optional[torch.Tensor]
+
+
+def _force(theta, pf: Pseudofermions, beta, prec, direct):
+    """(F = -dS/dtheta at theta, the fermion part at the exact solves; the
+    solves' convergence [C]). With psi = (Dhat Dhat^+)^-1 phi and
+    chi = Dhat^+ psi held fixed, -dS_f/dtheta of one pseudofermion is the
+    derivative of 2 Re <psi, Dhat chi>; of the Hasenbusch ratio term, with
+    y = (Dhat0 Dhat0^+)^-1 Dhat1 phi2 and chi0 = Dhat0^+ y, that of
+    2 Re <y, Dhat0 chi0> - 2 Re <y, Dhat1 phi2>."""
     with torch.no_grad():
-        op = Dirac(fermion_links(theta, prec.complex), m0)
-        psi = cg(op.normal, phi, prec)
-        chi = op.dhat_dag(psi)
+        sv = Solver(fermion_links(theta, prec.complex), prec, direct)
+        if pf.m1 is None:
+            psi, conv = sv.solve(pf.m0, pf.phi)
+            terms = [(2.0, psi, pf.m0, sv.op(pf.m0).dhat_dag(psi))]
+        else:
+            psi, conv = sv.solve(pf.m1, pf.phi)
+            y, conv2 = sv.solve(pf.m0, sv.op(pf.m1).dhat(pf.phi2))
+            conv = conv & conv2
+            terms = [(2.0, psi, pf.m1, sv.op(pf.m1).dhat_dag(psi)),
+                     (2.0, y, pf.m0, sv.op(pf.m0).dhat_dag(y)),
+                     (-2.0, y, pf.m1, pf.phi2)]
     with torch.enable_grad():
         th = theta.detach().requires_grad_(True)
-        op = Dirac(fermion_links(th, prec.complex), m0)
-        f = 2.0 * _dot(psi, op.dhat(chi)) - gauge_action(th, beta)
+        U = fermion_links(th, prec.complex)
+        f = 0
+        for coef, a, m, v in terms:
+            f = f + coef * _dot(a, Dirac(U, m).dhat(v))
+        f = f - gauge_action(th, beta)
         (grad,) = torch.autograd.grad(f.sum(), th)
-    return grad
+    return grad, conv
 
 
 class Solve(NamedTuple):
-    """A solve of Dhat Dhat^+ x = b on the full lattice: the angles of its
-    operator and b, x on the even sites (zeros at the odd)."""
+    """A solve of Dhat Dhat^+ x = b on the full lattice at mass m0: the
+    angles of its operator and b, x on the even sites (zeros at the odd)."""
     theta: torch.Tensor
     b: torch.Tensor
     x: torch.Tensor
+    m0: float
 
 
 class Trajectory(NamedTuple):
     theta: torch.Tensor     # the proposal after the MD, folded [C, 2, Nx, Nt]
     dH: torch.Tensor        # [C]
     accept: torch.Tensor    # bool [C]
-    action_solve: Solve     # the Metropolis action solve at the proposal
+    action_solves: tuple    # the Metropolis action solves (Solve) at the proposal
+    converged: torch.Tensor  # bool [C]: every solve of the chain met tol
 
 
-def trajectory(theta, pi, chi_full, r, *, beta, m0, md_steps, tau,
-               prec: Precision = F64) -> Trajectory:
+def trajectory(theta, pi, chi_full, r, *, beta, m0, md_steps, tau, dm=None,
+               prec: Precision = F64, direct: bool = False) -> Trajectory:
     """One HMC trajectory of every chain from theta with the momenta pi,
-    the even-site pseudofermion noise chi_full (zeros at the odd sites) and
-    the Metropolis draw r, all given."""
+    the even-site pseudofermion noise chi_full (zeros at the odd sites;
+    [C, 2, Nx, Nt], or under Hasenbusch, dm set, [C, 2 (chi1, chi2), 2,
+    Nx, Nt]) and the Metropolis draw r, all given."""
     def store(x):
         return x.to(prec.fields).to(prec.real)
 
     th = store(theta.to(prec.real))
     p = store(pi.to(prec.real))
     chi = chi_full.to(prec.complex)
-    op = Dirac(fermion_links(th, prec.complex), m0)
-    phi = op.dhat(chi)
-    H_old = 0.5 * (p ** 2).sum(dim=(1, 2, 3)) + gauge_action(th, beta) \
-        + _dot(chi, chi)
+    sv = Solver(fermion_links(th, prec.complex), prec, direct)
+    if dm is None:
+        pf = Pseudofermions(m0, None, sv.op(m0).dhat(chi), None)
+        conv = torch.ones(chi.shape[0], dtype=torch.bool, device=chi.device)
+        S_old = _dot(chi, chi)
+    else:
+        m1 = m0 + dm
+        x, conv = sv.solve(m1, sv.op(m0).dhat(chi[:, 1]))
+        pf = Pseudofermions(m0, m1, sv.op(m1).dhat(chi[:, 0]),
+                            sv.op(m1).dhat_dag(x))
+        S_old = _dot(chi, chi).sum(dim=-1)
+    H_old = 0.5 * (p ** 2).sum(dim=(1, 2, 3)) + gauge_action(th, beta) + S_old
     dt = tau / md_steps
     th = store(th + 0.5 * dt * p)
-    F = _force(th, phi, beta, m0, prec)
+    F, ok = _force(th, pf, beta, prec, direct)
+    conv = conv & ok
     for _ in range(md_steps - 2):
         p = store(p + dt * F)
         th = store(th + dt * p)
-        F = _force(th, phi, beta, m0, prec)
+        F, ok = _force(th, pf, beta, prec, direct)
+        conv = conv & ok
     p = store(p + dt * F)
     th = store(th + 0.5 * dt * p)
-    op = Dirac(fermion_links(th, prec.complex), m0)
-    x = cg(op.normal, phi, prec)
-    sf = _dot(phi, x)
+    sv = Solver(fermion_links(th, prec.complex), prec, direct)
+    if dm is None:
+        x, ok = sv.solve(m0, pf.phi)
+        solves = (Solve(th, pf.phi, x, m0),)
+        sf = _dot(pf.phi, x)
+    else:
+        x1, ok1 = sv.solve(pf.m1, pf.phi)
+        b2 = sv.op(pf.m1).dhat(pf.phi2)
+        x2, ok = sv.solve(m0, b2)
+        ok = ok & ok1
+        solves = (Solve(th, pf.phi, x1, pf.m1), Solve(th, b2, x2, m0))
+        sf = _dot(pf.phi, x1) + _dot(b2, x2)
+    conv = conv & ok
     H_new = 0.5 * (p ** 2).sum(dim=(1, 2, 3)) + gauge_action(th, beta) + sf
     dH = (H_new - H_old).double()
-    return Trajectory(wrap(th), dH, r.double() <= torch.exp(-dH),
-                      Solve(th, phi, x))
+    return Trajectory(wrap(th), dH, r.double() <= torch.exp(-dH), solves, conv)
 
 
-def residual(s: Solve, m0: float) -> torch.Tensor:
+def residual(s: Solve) -> torch.Tensor:
     """Per chain, the true relative residual ||b - Dhat Dhat^+ x|| / ||b||
     of the solve `s`, worked out in float64 from its angles, b and x as
     they are."""
-    op = Dirac(fermion_links(s.theta.double(), torch.complex128), m0)
+    op = Dirac(fermion_links(s.theta.double(), torch.complex128), s.m0)
     b = s.b.to(torch.complex128)
     r = b - op.normal(s.x.to(torch.complex128))
     return torch.sqrt(_dot(r, r) / _dot(b, b))
 
 
-def packed_solve(thE, thO, b, x) -> Solve:
-    """A solve as the program passes it, on the full lattice: the angles of
-    the even and the odd sites thE, thO [C, 2, Nx, Nt/2]; b and x planar
-    [C, 2 (spin), 2 (re, im), Nx, Nt/2] on the even sites."""
+def packed_solve(thE, thO, b, x, m0: float) -> Solve:
+    """A solve at mass m0 as the program passes it, on the full lattice:
+    the angles of the even and the odd sites thE, thO [C, 2, Nx, Nt/2]; b
+    and x planar [C, 2 (spin), 2 (re, im), Nx, Nt/2] on the even sites."""
     Nt = 2 * thE.shape[-1]
 
     def spinor(p):
         return from_packed(torch.complex(p[..., 0, :, :].double(),
                                          p[..., 1, :, :].double()), Nt)
     theta = from_packed(thE.double(), Nt, 0) + from_packed(thO.double(), Nt, 1)
-    return Solve(theta, spinor(b), spinor(x))
+    return Solve(theta, spinor(b), spinor(x), float(m0))
 
 
 def dirac_inverse(U: torch.Tensor, z: torch.Tensor, m0: float,
@@ -273,7 +413,11 @@ def dirac_inverse(U: torch.Tensor, z: torch.Tensor, m0: float,
     ev = even_mask(Nx, Nt, z.device)
     z_e, z_o = z * ev, z * ~ev
     b = z_e + (hop(U, z_o, False) * ev) / (2.0 * op.m)
-    x_e = op.dhat_dag(cg(op.normal, b, prec)) * ev
+    y, converged = cg(op.normal, b, prec)
+    if not bool(converged.all()):
+        raise RuntimeError(f"reference CG: no convergence in {prec.max_iter} "
+                           "iterations")
+    x_e = op.dhat_dag(y) * ev
     x_o = (z_o + 0.5 * hop(U, x_e, False) * ~ev) / op.m
     return x_e + x_o
 

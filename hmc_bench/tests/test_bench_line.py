@@ -25,7 +25,8 @@ def test_result_line_keys(tiny_checkout):
     assert set(line["metrics"]) == {"chain_traj_per_s", "setup_s"}
     for m in line["metrics"].values():
         assert m["value"] > 0 and m["unit"]
-    assert set(checks) == set(registry.cell(tiny_checkout, "tiny8.gen").limits)
+    assert set(checks) == set(harness.limits(cell))
+    assert checks["ref_unconverged"] == {"value": 0, "limit": 0}
     json.dumps(line)
 
 
@@ -86,3 +87,50 @@ def test_a_run_loads_no_module_of_jax_or_the_jax_package(tiny_checkout):
                        text=True, timeout=600)
     assert r.returncode == 0, r.stderr[-2000:]
     assert r.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_the_probe_leaves_the_programs_results_as_they_are(tiny_checkout):
+    """A call under the probe, which holds the block's exp(-dH) sum aside
+    across its kept steps, returns bit for bit what the same call returns
+    without it; each kept step's exp(-dH) is the step's own."""
+    import numpy as np
+
+    cell = registry.cell(tiny_checkout, "tiny8.gen")
+    out = []
+    for kept in ({0, 2}, None):
+        s = harness.Session(cell, 2**31 + 21, "cpu")
+        s.call(2, 2)
+        if kept is None:
+            res = s.call(0, 3)
+        else:
+            probe = harness.Probe(kept)
+            with probe:
+                res = s.call(0, 3)
+            for before, after in probe.snaps.values():
+                assert bool(((after.exp_mdH > 0) & (after.exp_mdH < 50)).all())
+        out.append(res)
+    a, b = out
+    assert a.exp_mdH_mean == b.exp_mdH_mean
+    assert a.acceptance_rate == b.acceptance_rate
+    assert np.array_equal(a.theta, b.theta)
+
+
+def test_dH_gap_is_absolute_but_where_both_sides_certainly_reject():
+    """dH_gap: |dH - dH_ref| on every chain, 0 only where both sides reject
+    whatever r (dH >= DH_REJECT; an underflowed exp(-dH) reads dH = inf),
+    not where only one side does."""
+    import math
+
+    import torch
+
+    em = torch.tensor([0.0, 0.0, 0.5, 1e-300, 0.5, 0.5], dtype=torch.float64)
+    dH = -torch.log(em)
+    ref_dH = torch.tensor([800.0, 10.0, 0.7, 565.8, 4.0, 25.0], dtype=torch.float64)
+    assert harness.certain_reject(dH).tolist() == [True, True, False, True,
+                                                   False, False]
+    gap = harness.dH_gap(dH, ref_dH).tolist()
+    assert gap[0] == 0.0 and gap[3] == 0.0
+    assert gap[1] == math.inf
+    assert gap[2] == pytest.approx(0.7 - math.log(2))
+    assert gap[4] == pytest.approx(4.0 - math.log(2))
+    assert gap[5] == pytest.approx(25.0 - math.log(2))

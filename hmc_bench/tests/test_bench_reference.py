@@ -14,13 +14,18 @@ from hmc_bench.reference import philox
 REFERENCE = Path(__file__).resolve().parents[1] / "reference"
 
 
-def _port():
+def _port(**physics):
     from schwingermodel_tpu_torch.config import CGParams, HMCParams, LatticeParams
     from schwingermodel_tpu_torch.models.schwinger import SchwingerModel
 
-    h = HMCParams(beta=4.0, m0=0.2, md_steps=10, trajectory_length=0.1,
-                  even_odd=True, cg=CGParams(tol=1e-10, refine=True))
+    kw = dict(beta=4.0, m0=0.2, md_steps=10, trajectory_length=0.1)
+    kw.update(physics)
+    h = HMCParams(**kw, even_odd=True, cg=CGParams(tol=1e-10, refine=True))
     return SchwingerModel(lattice=LatticeParams(Nx=8, Nt=8), hmc=h)
+
+
+NEARCRIT = dict(beta=2.0, m0=-0.19, md_steps=26, trajectory_length=1.0,
+                hasenbusch_dm=0.4)
 
 
 def _theta(C, seed=0):
@@ -151,8 +156,128 @@ def test_residual_reads_the_ports_contract(refined):
         x = rs.solve_refined(thE, thO, b, b, m0=0.2, tol=1e-10).x64
     else:
         x = tr.solve_fused(thE, thO, b, b, m0=0.2, tol=1e-6, max_iter=1000).x
-    res = ref.residual(ref.packed_solve(thE, thO, b, x), 0.2)
+    res = ref.residual(ref.packed_solve(thE, thO, b, x, 0.2))
     if refined:
         assert float(res.max()) < 1e-10
     else:
         assert 1e-8 < float(res.max()) < 1e-5
+
+
+def test_the_reference_without_hasenbusch_is_as_before():
+    """The one-pseudofermion trajectory, bit for bit the float64 reference's
+    before the Hasenbusch split was added (its dH and sums of the proposal
+    as then computed on this fixed input)."""
+    C = 3
+    pi, chi, r = philox.trajectory_noise(123456789012, 37, C, 128, 64, "cpu")
+    out = ref.trajectory(_theta(C), pi.reshape(C, 2, 8, 8),
+                         ref.even_from_packed(chi.reshape(C, 2, 8, 4), 8), r,
+                         beta=4.0, m0=0.2, md_steps=10, tau=0.1,
+                         prec=ref.F64._replace(max_iter=10000))
+    assert [v.hex() for v in out.dH.tolist()] == [
+        "0x1.2b962e7be0000p-9", "0x1.3033614120000p-10", "0x1.ab5ed35db0000p-9"]
+    assert out.theta.sum().item().hex() == "-0x1.e8c946a17ad1cp+2"
+    assert out.theta.abs().sum().item().hex() == "0x1.6377b57c69f77p+7"
+    assert out.converged.all()
+    assert [s.m0 for s in out.action_solves] == [0.2]
+
+
+@pytest.mark.parametrize("seed,traj", [(5, 0), (2**40 + 3, 2**33 + 1)])
+def test_hasenbusch_noise_layout_equals_the_ports(seed, traj):
+    """Under Hasenbusch chi is [C, 2 (chi1, chi2), 2 (spin), Nx, Nt/2] of
+    twice the elements, in the order of the port's noise draw."""
+    from schwingermodel_tpu_torch.hmc.sampler import draw_chain_noise
+
+    model = _port(**NEARCRIT)
+    shape = model.chi_shape((2, 8, 8))
+    assert shape == (2, 2, 8, 4)
+    pi, chi, r = draw_chain_noise(model, seed, traj, 3, "cpu")
+    rpi, rchi, rr = philox.trajectory_noise(seed, traj, 3, 128, 128, "cpu")
+    assert torch.equal(chi, rchi.reshape(3, *shape))
+    assert torch.equal(pi.reshape(3, -1), rpi)
+    assert torch.equal(r, rr)
+
+
+@pytest.mark.parametrize("direct", [False, True])
+def test_hasenbusch_trajectory_agrees_with_the_port(direct):
+    """The reference's Hasenbusch trajectory (CG or the dense direct solve)
+    against the port's packed one with the same noise, near the critical
+    mass: dH to the float32 MD's rounding, the same decisions, theta."""
+    from schwingermodel_tpu_torch.hmc import packed as hp
+    from schwingermodel_tpu_torch.hmc.sampler import draw_chain_noise
+
+    model = _port(**NEARCRIT)
+    C = 3
+    theta = _theta(C)
+    pi, chi, r = draw_chain_noise(model, 12345, 7, C, "cpu")
+    th_new, st = hp.trajectory_packed_given_noise(model, theta, pi, chi, r)
+    out = ref.trajectory(theta, pi, ref.even_from_packed(chi, 8), r, beta=2.0,
+                         m0=-0.19, md_steps=26, tau=1.0, dm=0.4, direct=direct)
+    assert st.cg_converged.all() and out.converged.all()
+    assert torch.equal(out.accept, st.accepted)
+    assert float((out.dH - st.delta_H).abs().max()) < 1e-4
+    kept = torch.where(out.accept.reshape(-1, 1, 1, 1), out.theta, theta.double())
+    assert float(ref.wrap(th_new.double() - kept).abs().max()) < 1e-5
+    assert [s.m0 for s in out.action_solves] == [pytest.approx(0.21), -0.19]
+    assert max(float(ref.residual(s).max()) for s in out.action_solves) < 1e-12
+
+
+def test_hasenbusch_force_is_minus_the_action_gradient():
+    """The force of both Hasenbusch terms against central differences of
+    the action phi1^+ (D1 D1^+)^-1 phi1 + (D1 phi2)^+ (D0 D0^+)^-1 (D1 phi2)
+    plus the gauge action, at 4x4; and the action at the heat bath's theta
+    is |chi1|^2 + |chi2|^2 plus the gauge action."""
+    g = torch.Generator().manual_seed(3)
+    n, m0, m1, beta = 4, -0.19, 0.21, 2.0
+    th = (2 * torch.rand((1, 2, n, n), generator=g, dtype=torch.float64) - 1) * 0.5
+    chi = torch.complex(torch.randn(1, 2, 2, n, n, generator=g, dtype=torch.float64),
+                        torch.randn(1, 2, 2, n, n, generator=g, dtype=torch.float64))
+    chi = chi * ref.even_mask(n, n, "cpu")
+    sv = ref.Solver(ref.fermion_links(th, torch.complex128), ref.F64, True)
+    x, _ = sv.solve(m1, sv.op(m0).dhat(chi[:, 1]))
+    pf = ref.Pseudofermions(m0, m1, sv.op(m1).dhat(chi[:, 0]), sv.op(m1).dhat_dag(x))
+
+    def action(t):
+        s = ref.Solver(ref.fermion_links(t, torch.complex128), ref.F64, False)
+        x1, _ = s.solve(m1, pf.phi)
+        b2 = s.op(m1).dhat(pf.phi2)
+        x2, _ = s.solve(m0, b2)
+        return float(ref.gauge_action(t, beta).sum()
+                     + (torch.conj(pf.phi) * x1).real.sum()
+                     + (torch.conj(b2) * x2).real.sum())
+
+    exact = float(ref.gauge_action(th, beta).sum() + (chi.abs() ** 2).sum())
+    assert action(th) == pytest.approx(exact, rel=1e-12)
+    F, conv = ref._force(th, pf, beta, ref.F64, False)
+    assert conv.all()
+    e = 1e-6
+    for idx in [(0, 0, 1, 2), (0, 1, 3, 0), (0, 0, 0, 0), (0, 1, 2, 3)]:
+        up, down = th.clone(), th.clone()
+        up[idx] += e
+        down[idx] -= e
+        assert float(F[idx]) == pytest.approx(-(action(up) - action(down)) / (2 * e),
+                                               rel=1e-6, abs=1e-8)
+
+
+def test_solves_flag_what_they_do_not_converge():
+    """A CG out of iterations and a direct solve of a singular Dhat flag
+    their chains and return; the direct solve meets the CG's answer."""
+    th = _theta(2, seed=6).double()
+    U = ref.fermion_links(th, torch.complex128)
+    g = torch.Generator().manual_seed(8)
+    b = torch.complex(torch.randn(2, 2, 8, 8, generator=g, dtype=torch.float64),
+                      torch.randn(2, 2, 8, 8, generator=g, dtype=torch.float64))
+    b = b * ref.even_mask(8, 8, "cpu")
+    x, conv = ref.Solver(U, ref.F64, False).solve(-0.1, b)
+    xd, convd = ref.Solver(U, ref.F64, True).solve(-0.1, b)
+    assert conv.all() and convd.all()
+    assert float(((x - xd).abs() ** 2).sum().sqrt() / (x.abs() ** 2).sum().sqrt()) < 1e-9
+    short, conv = ref.Solver(U, ref.F64._replace(max_iter=3), False).solve(-0.1, b)
+    assert not conv.any()
+    # a chain whose links are not finite (an MD blow-up's end) is flagged
+    # alone, by either solve
+    bad = th.clone()
+    bad[0, 0, 3, 3] = float("nan")
+    U = ref.fermion_links(bad, torch.complex128)
+    for direct in (False, True):
+        x, conv = ref.Solver(U, ref.F64._replace(max_iter=200), direct).solve(-0.1, b)
+        assert conv.tolist() == [False, True]

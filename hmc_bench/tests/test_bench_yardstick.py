@@ -39,3 +39,43 @@ def test_roofline_takes_the_larger_bound():
     by_ops = y.Work(1.0, 67e12, 34e12)
     assert by_ops.seconds() == pytest.approx(2.0)
     assert by_ops.compute_seconds() == pytest.approx(2.0)
+
+
+def _physics(name):
+    import json
+    from pathlib import Path
+
+    conf = Path(y.__file__).resolve().parent / "configs" / f"{name}.json"
+    return json.loads(conf.read_text())["physics"]
+
+
+@pytest.mark.parametrize("name", ["demo64", "vol128"])
+def test_counts_of_the_one_pseudofermion_cells_are_as_before(name):
+    """md_steps refined solves and md_steps - 1 force steps a trajectory,
+    the force step's work unchanged: the readings of mfu_pct and
+    roofline_pct.K3 in these cells do not move."""
+    p = _physics(name)
+    md = p["md_steps"]
+    assert y.solves_per_traj(p) == md
+    assert y.force_steps_per_traj(p) == md - 1
+    assert not y.hasenbusch(p)
+    f = y.force_steps(32, 2048, 3, y.hasenbusch(p))
+    assert (f.bytes, f.f32, f.f64) == (3 * 32 * 48 * 2048,
+                                       3 * 32 * 2048 * (80 + 140 + 66 + 120 + 76), 0.0)
+
+
+def test_counts_under_hasenbusch():
+    """nearcrit32: 2 (md - 1) force solves, the heat bath's and two action
+    solves (2 md + 1 = 53); each force step K1 without the staples, K5 with
+    them, and a Dhat."""
+    p = _physics("nearcrit32")
+    assert y.hasenbusch(p)
+    assert y.solves_per_traj(p) == 2 * 26 + 1 == 53
+    assert y.force_steps_per_traj(p) == 25
+    f = y.force_steps(2, 32, 1, split=True)
+    assert f.bytes == 3 * 2 * 48 * 32
+    assert f.f32 == 2 * 32 * ((80 + 140 + 66 + 120) * 2 + 76 + 140)
+    # Omelyan's 2MN: 2 md_steps force evaluations
+    om = dict(p, integrator="omelyan")
+    assert y.force_steps_per_traj(om) == 52
+    assert y.solves_per_traj(om) == 2 * 52 + 3

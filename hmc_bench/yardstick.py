@@ -6,9 +6,10 @@ counts are of the even-odd stencil: a hop to one target site is 7 complex
 products and 12 complex sums (66 flops); Dhat or Dhat^+ on an even site is
 two hops and the a v + b h (140); the normal operator Dhat Dhat^+ 280; a
 CG iteration is a normal apply, two dots and three axpys on 4 reals (320
-a half-lattice site, 160 a lattice site). The program's own PerfMonitor
-reckons 172 a lattice site from the operations of its plain PyTorch ops,
-which is no count of the algorithm.
+a half-lattice site, 160 a lattice site).
+
+How many solves and force evaluations a trajectory makes follows from the
+configuration's physics (``solves_per_traj``, ``force_steps_per_traj``).
 """
 
 from __future__ import annotations
@@ -54,11 +55,38 @@ def refined_solves(C: int, V2: int, n_solves: int, iters: int) -> Work:
     return per * n_solves + Work(0.0, V2 * F_CG_ITER * iters)
 
 
-def force_steps(C: int, V2: int, n_steps: int) -> Work:
-    """n_steps force evaluations of C chains at a given solution: links,
-    Dhat^+ psi, a hop, the force stencil and the staples."""
-    return Work(C * 48 * V2,
-                C * V2 * (F_LINKS + F_DHAT + F_HOP + F_FORCE + F_PLAQ)) * n_steps
+def hasenbusch(physics: dict) -> bool:
+    """Whether the configuration splits the determinant (hasenbusch_dm set)."""
+    return bool(physics.get("hasenbusch_dm"))
+
+
+def force_steps_per_traj(physics: dict) -> int:
+    """Force evaluations a trajectory: md_steps - 1 of the reference's
+    leapfrog (positions first), 2 md_steps of Omelyan's 2MN."""
+    md = int(physics["md_steps"])
+    return md - 1 if physics.get("integrator", "leapfrog") == "leapfrog" else 2 * md
+
+
+def solves_per_traj(physics: dict) -> int:
+    """Refined solves a trajectory: one a force evaluation and the action
+    solve; under Hasenbusch two a force evaluation (the heavy system and
+    the ratio's light one), the heat bath's at m1 and two action solves
+    (2 md_steps + 1 for the leapfrog)."""
+    n = force_steps_per_traj(physics)
+    return 2 * n + 3 if hasenbusch(physics) else n + 1
+
+
+def force_steps(C: int, V2: int, n_steps: int, split: bool = False) -> Work:
+    """n_steps force evaluations of C chains at given solutions: links,
+    Dhat^+ psi, a hop, the force stencil and the staples. With `split`
+    (Hasenbusch) each is that without the staples at m1 (K1), the ratio
+    force with the staples (K5: the same stencil, its two bilinears folded
+    into one) and the Dhat1 phi2 of the light system's right-hand side."""
+    one = F_LINKS + F_DHAT + F_HOP + F_FORCE
+    if split:
+        return Work(C * 3 * 48 * V2,
+                    C * V2 * (2 * one + F_PLAQ + F_DHAT)) * n_steps
+    return Work(C * 48 * V2, C * V2 * (one + F_PLAQ)) * n_steps
 
 
 def condensate_inner(C: int, B: int, V2: int, n_meas: int, iters: int) -> Work:
