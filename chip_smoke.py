@@ -2401,7 +2401,7 @@ def main() -> int:
               flush=True)
     # K4's entry after a solve that converged every chain, as the restart
     # refinement meets it: it reads the flags and copies the solution through
-    clocks = torch.zeros((C_MAIN, 3), dtype=torch.int64, device=dev)
+    clocks = torch.zeros((C_MAIN, 4), dtype=torch.int64, device=dev)
     done = rs.solve_refined(thE, thO, b, b, m0=M0, tol=1e-10, clocks=clocks)
     check(bool(done.converged.all()), "K3 left a chain of the timed inputs unconverged")
     k4_pass_ms = timed(lambda: rs.solve_f64_cg_fallback(thE, thO, b, done, m0=M0,

@@ -26,9 +26,11 @@
 // The K - 1 pairs do not fit beside the recursion's fields (192 KiB a chain
 // at 64x64 and K = 4): they, A hist[0], r1 and x0 live in a per-chain global
 // scratch of 4 (2K + 1) floats a site, read and written by the thread that
-// owns the site, which L2 holds (6 MiB at C = 32). The prologue costs K
-// applies and K(K-1)/2 + K - 1 block sums: at K = 4 about what 9
-// iterations of the recursion cost.
+// owns the site (mre_values(4) = 36 floats a site: 295 KB a chain at 64x64,
+// so 9.4 MB at C = 32, which L2 holds, and 37.7 MB at C = 128, most of the
+// H100's 50 MB of L2). The prologue costs K applies and K(K-1)/2 + K - 1
+// block sums: at K = 4 about what 9 iterations of the recursion cost. Its
+// cycles are the clocks' fourth column, read only where K > 1.
 //
 // What bounds it on the card: per iteration one normal apply (4 dependent
 // stencil stages of ~150 flops per site) and 2 block reductions on 2048
@@ -92,9 +94,9 @@ struct RuParams {
   unsigned char* conv;
   float* s32;
   double* s64;
-  // [C, 3]: cycles of the solve, of its true residuals and of rank 0's thread
-  // 0 waiting on the other blocks of its cluster (0 on the one-block paths);
-  // may be null
+  // [C, 4]: cycles of the solve, of its true residuals, of rank 0's thread
+  // 0 waiting on the other blocks of its cluster (0 on the one-block paths)
+  // and of that thread in the MRE prologue (0 at K = 1); may be null
   long long* clocks;
   int Nx, Nth;
   double m0, tol, tau;
@@ -1057,6 +1059,13 @@ __device__ const float* mre_forecast(Store& S, const RuParams& p, int ch) {
   return x0;
 }
 
+// The MRE prologue's cycles since t0, added into the clocks' fourth column
+// by the chain's first thread (`first`) as the prologue ends, so that the
+// K = 1 path keeps no value of its own across the loop.
+__device__ __forceinline__ void mre_clock(const RuParams& p, int ch, long long t0, bool first) {
+  if (first && p.clocks != nullptr) p.clocks[4 * ch + 3] += clock64() - t0;
+}
+
 // What follows the loop on every path: the chain's outputs and, for a chain
 // left unconverged when the caller asked for it, the f64 fallback from x64
 // (already written). fbw: the fallback's scratch.
@@ -1071,9 +1080,9 @@ __device__ __forceinline__ void ru_finish(const RuParams& p, const RuF64& f, int
     p.fb_iters[ch] = 0;
     p.conv[ch] = conv ? 1 : 0;
     if (p.clocks != nullptr) {  // added, so that one buffer sums a run's launches
-      p.clocks[3 * ch] += clock64() - t_begin;
-      p.clocks[3 * ch + 1] += f.t_res;
-      p.clocks[3 * ch + 2] += f.t_wait;
+      p.clocks[4 * ch] += clock64() - t_begin;
+      p.clocks[4 * ch + 1] += f.t_res;
+      p.clocks[4 * ch + 2] += f.t_wait;
     }
   }
   if (conv || !p.fallback) return;
@@ -1128,8 +1137,10 @@ __global__ void __launch_bounds__(kThreads, 1) solve_ru_shared_kernel(const RuPa
   make_links<double>(p.thO + (size_t)ch * 2 * V2, 1, S.uo64, g);
   const float* x0 = p.hist + (size_t)ch * 4 * V2;
   if (p.K > 1) {
+    const long long t0 = clock64();
     S.init_sites();
     x0 = mre_forecast(S, p, ch);
+    mre_clock(p, ch, t0, threadIdx.x == 0);
   }
   S.init(x0);
 
@@ -1169,8 +1180,10 @@ __global__ void __launch_bounds__(kThreads, 1) solve_ru_cluster_kernel(const RuP
   S.sync();
   const float* x0 = p.hist + (size_t)ch * 4 * V2;
   if (p.K > 1) {
+    const long long t0 = clock64();
     S.init_sites();
     x0 = mre_forecast(S, p, ch);
+    mre_clock(p, ch, t0, rank == 0 && threadIdx.x == 0);
   }
   S.init(x0);
 
@@ -1206,8 +1219,10 @@ __global__ void __launch_bounds__(kThreads) solve_ru_global_kernel(const RuParam
   make_links<double>(p.thO + (size_t)ch * 2 * V2, 1, S.uo64, g);
   const float* x0 = p.hist + (size_t)ch * n;
   if (p.K > 1) {
+    const long long t0 = clock64();
     x0 = mre_forecast(S, p, ch);
     __syncthreads();  // x0 was written by the owners of its sites
+    mre_clock(p, ch, t0, threadIdx.x == 0);
   }
   for (int i = threadIdx.x; i < n; i += kThreads) S.x64[i] = static_cast<double>(x0[i]);
 
@@ -1222,8 +1237,9 @@ __global__ void __launch_bounds__(kThreads) solve_ru_global_kernel(const RuParam
 // hist: f32 [K, C, 2, 2, Nx, Nth], the start (K = 1) or the MRE history,
 // newest first; mre: for K >= 2 f32 [C, mre_values(K) V2], else unused;
 // iters, fb_iters: int32 [C]; conv: one byte per chain; clocks: null or int64
-// [C, 3], to which each chain's cycles (total, true residuals, rank 0's
-// thread 0 waiting on the other blocks of its cluster) are added.
+// [C, 4], to which each chain's cycles (total, true residuals, rank 0's
+// thread 0 waiting on the other blocks of its cluster, that thread in the
+// MRE prologue) are added.
 // path 0: every vector in the scratch, s32 f32 [C, 28 V2] and s64 f64
 // [C, 20 V2] (32 V2 with the fallback); path 1: the f32 recursion in the
 // shared memory of one block (at most 2048 sites, 96 V2 bytes <= 220 KiB),

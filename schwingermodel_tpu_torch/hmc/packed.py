@@ -110,7 +110,7 @@ def trajectory_packed_given_noise(model: SchwingerModel, theta, pi, chi, r,
 
     theta, pi: f32 [C, 2, Nx, Nt]; chi: complex [C, 2, Nx, Nt/2], or
     [C, 2, 2, Nx, Nt/2] under Hasenbusch; r: [C]. clocks: on the card, an
-    int64 [C, 2] buffer into which every refined solve (K3) adds its clock
+    int64 [C, 4] buffer into which every refined solve (K3) adds its clock
     cycles (``rs.solve_refined``). Returns (theta' [C, 2, Nx, Nt] folded to
     [-pi, pi], TrajectoryStats).
     """

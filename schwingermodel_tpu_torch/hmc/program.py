@@ -75,6 +75,7 @@ class BlockSums(NamedTuple):
     k3_cycles: Optional[int]        # K3's clock cycles; None without clocks
     k3_res_cycles: Optional[int]    # of those, in its f64 true residuals
     k3_wait_cycles: Optional[int]   # of those, waiting on the cluster's other blocks
+    k3_mre_cycles: Optional[int]    # of those, in the MRE forecast (0 without it)
 
 
 class Block:
@@ -83,8 +84,9 @@ class Block:
     exp(-dH), fallback solves, the action solves' CG iterations, the
     trajectories with an unconverged solve, and the pre-trajectory
     configuration and index of the first trajectory whose solve failed;
-    with ``clocks``, K3's clock cycles [C, 3] (its total, its f64 true
-    residuals' and its cluster waits', ``ops/refined.solve_refined``),
+    with ``clocks``, K3's clock cycles [C, 4] (its total, its f64 true
+    residuals', its cluster waits' and its MRE forecast's,
+    ``ops/refined.solve_refined``),
     which the trajectory's refined solves add into. Every
     update is in place, so that a CUDA graph of ``add`` accumulates into
     the same storage on every replay; ``updates`` counts chain-trajectories
@@ -100,7 +102,7 @@ class Block:
         self.fallbacks = torch.zeros(C, dtype=torch.int64, device=dev)
         self.action_iters = torch.zeros(C, dtype=torch.int64, device=dev)
         self.unconverged = torch.zeros(C, dtype=torch.int64, device=dev)
-        self.clocks = (torch.zeros((C, 3), dtype=torch.int64, device=dev)
+        self.clocks = (torch.zeros((C, 4), dtype=torch.int64, device=dev)
                        if clocks else None)
         self.fail_theta = torch.zeros_like(theta)
         self.fail_seen = torch.zeros(C, dtype=torch.bool, device=dev)
@@ -150,7 +152,7 @@ class Block:
         per_chain = mh.gather_chains(torch.stack([r.double() for r in rows]),
                                      dim=1)
         acc, it, _, em, fb, act, bad, *cycles = per_chain.sum(dim=1).tolist()
-        cycles = [int(c) for c in cycles] or [None] * 3
+        cycles = [int(c) for c in cycles] or [None] * 4
         return BlockSums(int(acc), int(it), bool(per_chain[2].all()), em,
                          int(fb), int(act), int(bad), *cycles)
 

@@ -310,11 +310,12 @@ def solve_refined(thE, thO, b, x0, *, m0, tol, tau=1e-5, max_iter=10000,
     iterations, by default max_iter, in K4's default of 4 rounds): the
     result is that of ``solve_f64_cg_fallback`` on K3's, and fb_iters says
     per chain how many iterations it added. clocks, on the card only: an
-    int64 [C, 3] tensor to which K3 adds each chain's clock cycles in this
-    launch, of those the cycles in its f64 true residuals, and the cycles
-    its first thread spent waiting on the other blocks of its cluster (0
-    but on the cluster path; zero it to read one launch). Where the kernel keeps its vectors
-    follows from the lattice size and C (``ru_path``)."""
+    int64 [C, 4] tensor to which K3 adds each chain's clock cycles in this
+    launch, of those the cycles in its f64 true residuals, the cycles its
+    first thread spent waiting on the other blocks of its cluster (0 but
+    on the cluster path) and those that thread spent in the MRE forecast
+    (0 at K = 1); zero the tensor to read one launch. Where the kernel
+    keeps its vectors follows from the lattice size and C (``ru_path``)."""
     kw = dict(m0=m0, tol=tol, tau=tau, max_iter=max_iter, max_outer=max_outer,
               certify=certify, cert_k=cert_k, fallback=fallback,
               fb_max_iter=fb_max_iter)
@@ -328,7 +329,7 @@ def solve_refined(thE, thO, b, x0, *, m0, tol, tau=1e-5, max_iter=10000,
     K = hist.shape[0]
     _cuda.check(hist, "x0", torch.float32, (K, C, 2, 2, Nx, Nth))
     if clocks is not None:
-        _cuda.check(clocks, "clocks", torch.int64, (C, 3))
+        _cuda.check(clocks, "clocks", torch.int64, (C, 4))
     dev = b.device
     path, cluster = ru_path(Nx, Nth, C, _cuda.sm_count(dev))
     n32, n64 = _ru_scratch(path, bool(fallback))

@@ -137,12 +137,14 @@ class RunResult:
     action_iters_total: int = 0          # of cg_iters_total, the Metropolis action solves' (packed path)
     unconverged_chain_trajs: int = 0     # chain-trajectories with an unconverged solve
     # K3's clock cycles summed over its launches and the chains, of those the
-    # cycles in its f64 true residuals, and those its first thread spent
-    # waiting on the other blocks of its cluster (0 off the cluster path): the
-    # device program's, on the card; else None
+    # cycles in its f64 true residuals, those its first thread spent waiting
+    # on the other blocks of its cluster (0 off the cluster path), and those
+    # that thread spent in the MRE forecast (0 without it): the device
+    # program's, on the card; else None
     k3_cycles: Optional[int] = None
     k3_res_cycles: Optional[int] = None
     k3_wait_cycles: Optional[int] = None
+    k3_mre_cycles: Optional[int] = None
     # per measurement, the restart passes of the condensate's refinement in
     # which any solve was active (of cg.max_outer); None without it
     condensate_active_passes: Optional[np.ndarray] = None
@@ -283,7 +285,7 @@ def run_hmc(
         fallback_solves = 0
         action_iters_total = 0
         unconverged = 0
-        k3 = None      # K3's [cycles, of those in f64 residuals, in waits], on the card
+        k3 = None      # K3's [cycles, of those in f64 residuals, in waits, in MRE], on the card
         all_converged = True
         ill_records = []
 
@@ -326,8 +328,8 @@ def run_hmc(
             all_converged &= sums.all_converged
             if sums.k3_cycles is not None:
                 k3 = [a + b for a, b in zip(
-                    k3 or (0, 0, 0), (sums.k3_cycles, sums.k3_res_cycles,
-                                      sums.k3_wait_cycles))]
+                    k3 or (0, 0, 0, 0), (sums.k3_cycles, sums.k3_res_cycles,
+                                         sums.k3_wait_cycles, sums.k3_mre_cycles))]
             if not sums.all_converged:
                 dump(blk)
             return sums.accepted, sums.cg_iters, sums.exp_mdH
@@ -479,6 +481,7 @@ def run_hmc(
                 k3_cycles=None if k3 is None else k3[0],
                 k3_res_cycles=None if k3 is None else k3[1],
                 k3_wait_cycles=None if k3 is None else k3[2],
+                k3_mre_cycles=None if k3 is None else k3[3],
                 condensate_active_passes=active_passes)
             if simdata is not None:
                 extra = ({"chiral_condensate": _jack("chiral_condensate")}
@@ -489,6 +492,10 @@ def run_hmc(
     result.perf = perf.summary()
     for line in perf.report_lines():
         log("perf: " + line)
+    if k3 is not None and k3[0]:
+        log(f"perf: K3 clocks: {k3[0]} cycles, {100 * k3[1] / k3[0]:.1f}% in f64 "
+            f"residuals, {100 * k3[2] / k3[0]:.1f}% in cluster waits, "
+            f"{100 * k3[3] / k3[0]:.1f}% in the MRE forecast")
     return result
 
 

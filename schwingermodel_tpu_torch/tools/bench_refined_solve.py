@@ -11,10 +11,11 @@ over a history of four such starts. It prints one JSON row per input with
 the kernel's milliseconds by CUDA events (turns of ``--reps`` launches, no
 clock read in the kernel), the CG iterations summed over the chains and of
 the slowest chain, microseconds per iteration of the slowest chain, the
-shares of the kernel's clock cycles spent in the f64 true residuals and
-waiting on the cluster's other blocks (means over the chains, from one more
-launch with the kernel's own counters on) and the path the lattice size and
-chain count take on this card (``ops/refined.ru_path``).
+shares of the kernel's clock cycles spent in the f64 true residuals, waiting
+on the cluster's other blocks and in the MRE forecast (means over the
+chains, from one more launch with the kernel's own counters on) and the
+path the lattice size and chain count take on this card
+(``ops/refined.ru_path``).
 
 ``--against DIR`` also builds the kernels of the checkout at DIR (e.g. a
 ``git archive`` of an earlier commit) and times its K3 in turns with this
@@ -77,7 +78,7 @@ def _share(clocks, col):
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="python -m schwingermodel_tpu_torch.tools.bench_refined_solve",
-        description="K3 on the card: times, iterations, the f64 and wait shares")
+        description="K3 on the card: times, iterations, the f64, wait and MRE shares")
     p.add_argument("--nx", type=int, default=64)
     p.add_argument("--nt", type=int, default=64)
     p.add_argument("--chains", default="32,128", help="chain counts, comma-separated")
@@ -118,7 +119,7 @@ def main(argv=None) -> int:
                 return rs.solve_refined(thE, thO, b, x0, m0=M0, tol=tol,
                                         certify=certify, clocks=clocks)
 
-            clocks = torch.zeros((C, 3), dtype=torch.int64, device=dev)
+            clocks = torch.zeros((C, 4), dtype=torch.int64, device=dev)
             sol = solve(clocks)
             it_max = int(sol.iters.max())
             row = {"metric": "k3_ms", "input": label,
@@ -151,6 +152,7 @@ def main(argv=None) -> int:
                 "us_per_iter": 1e3 * ms / max(it_max, 1),
                 "f64_residual_share": _share(clocks, 1),
                 "cluster_wait_pct": 100.0 * _share(clocks, 2),
+                "mre_pct": 100.0 * _share(clocks, 3),
                 "all_converged": bool(sol.converged.all())})
             if theirs is not None:
                 row["speedup"] = row["against_ms"] / ms

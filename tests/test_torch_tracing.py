@@ -300,29 +300,32 @@ def test_cluster_wait_metric_is_declared_for_the_cluster_cell():
 
 
 def test_block_keeps_the_clock_layout_the_runner_reads():
-    """Block.clocks is K3's [C, 3] buffer (total, f64 residuals, cluster
-    waits: ops/refined.solve_refined's layout), zeroed by reset, and read()
-    sums each column over the chains into the BlockSums fields the runner
-    adds up; without clocks the three are None."""
+    """Block.clocks is K3's [C, 4] buffer (total, f64 residuals, cluster
+    waits, MRE forecast: ops/refined.solve_refined's layout), zeroed by
+    reset, and read() sums each column over the chains into the BlockSums
+    fields the runner adds up; without clocks the four are None."""
     C = 3
     theta = torch.zeros((C, 2, 4, 4))
     blk = Block(theta, clocks=True)
-    assert blk.clocks.shape == (C, 3) and blk.clocks.dtype == torch.int64
-    blk.clocks.copy_(torch.tensor([[100, 10, 5], [200, 20, 0], [300, 30, 7]]))
+    assert blk.clocks.shape == (C, 4) and blk.clocks.dtype == torch.int64
+    blk.clocks.copy_(torch.tensor([[100, 10, 5, 9], [200, 20, 0, 18], [300, 30, 7, 0]]))
     sums = blk.read()
-    assert (sums.k3_cycles, sums.k3_res_cycles, sums.k3_wait_cycles) == (600, 60, 12)
+    assert (sums.k3_cycles, sums.k3_res_cycles, sums.k3_wait_cycles,
+            sums.k3_mre_cycles) == (600, 60, 12, 27)
     blk.reset()
     assert int(blk.clocks.abs().sum()) == 0
     none = Block(theta).read()
-    assert (none.k3_cycles, none.k3_res_cycles, none.k3_wait_cycles) == (None,) * 3
+    assert (none.k3_cycles, none.k3_res_cycles, none.k3_wait_cycles,
+            none.k3_mre_cycles) == (None,) * 4
 
 
 @pytest.mark.card
 def test_k3_adds_its_clocks():
     """On the card: two K3 launches into one zeroed clocks buffer leave each
     chain's total above its first launch's, the residual cycles below the
-    total, no cluster waits on the one-block path, and x and the iterations
-    bit for bit those of a call without clocks."""
+    total, no cluster waits on the one-block path, no MRE cycles from a
+    start (K = 1), and x and the iterations bit for bit those of a call
+    without clocks."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA card: K3 runs only there")
     dev = torch.device("cuda")
@@ -333,7 +336,7 @@ def test_k3_adds_its_clocks():
     b = torch.randn((C, 2, 2, n, n // 2), generator=g, device=dev)
     kw = dict(m0=0.2, tol=1e-10, fallback=True)
     plain = rs.solve_refined(thE, thO, b, b, **kw)
-    clocks = torch.zeros((C, 3), dtype=torch.int64, device=dev)
+    clocks = torch.zeros((C, 4), dtype=torch.int64, device=dev)
     first = rs.solve_refined(thE, thO, b, b, clocks=clocks, **kw)
     once = clocks.clone()
     rs.solve_refined(thE, thO, b, b, clocks=clocks, **kw)
@@ -343,7 +346,7 @@ def test_k3_adds_its_clocks():
     assert bool((once[:, 1] > 0).all() and (once[:, 1] < once[:, 0]).all())
     assert bool((clocks[:, 0] > once[:, 0]).all())
     assert bool((clocks[:, 1] > once[:, 1]).all() and (clocks[:, 1] < clocks[:, 0]).all())
-    assert int(clocks[:, 2].abs().sum()) == 0
+    assert int(clocks[:, 2:].abs().sum()) == 0
 
 
 @pytest.mark.card
@@ -362,7 +365,7 @@ def test_k3_counts_its_cluster_waits():
     b = torch.randn((C, 2, 2, n, n // 2), generator=g, device=dev)
     kw = dict(m0=0.2, tol=1e-10, fallback=True)
     plain = rs.solve_refined(thE, thO, b, b, **kw)
-    clocks = torch.zeros((C, 3), dtype=torch.int64, device=dev)
+    clocks = torch.zeros((C, 4), dtype=torch.int64, device=dev)
     got = rs.solve_refined(thE, thO, b, b, clocks=clocks, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got.x64, plain.x64) and torch.equal(got.iters, plain.iters)
