@@ -32,10 +32,11 @@ md_steps), also from a checkpoint the JAX package wrote. ``--profile DIR``
 writes a ``torch.profiler`` trace of the run to ``DIR/trace.json``, the
 run's ``hmc.*`` spans among its ranges, and on the card prints the device's
 idle share in ``hmc.run``, starved and queued (``utils.metrics.idle_split``).
-``--mre-history K`` (K >= 2) starts every solve of the packed refined path
-from the MRE forecast over the last K force solutions, computed in K3's
-launch; it is ignored where the JAX package ignores it (the loose
-contract, ``--no-cg-forecast``, Hasenbusch, off the packed path).
+``--mre-history K`` (K >= 2; at most 4 on the card) starts every solve of
+the packed refined path from the MRE forecast over the last K force
+solutions, computed in K3's launch; it is ignored where the JAX package
+ignores it (the loose contract, ``--no-cg-forecast``, Hasenbusch, off the
+packed path).
 
 ``--ranks-x RX --ranks-t RT`` (or the first two prompts) cut the lattice
 into RX x RT shards and run the lattice-sharded trajectory
@@ -144,8 +145,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mre-history", type=int, default=0,
                    help="refined-contract forecast history depth: >= 2 "
                         "MRE-projects each solve's start onto the span of "
-                        "the last K solutions in-kernel; 0 = the 2nd-order "
-                        "extrapolation (default)")
+                        "the last K solutions in-kernel (at most 4 on the "
+                        "card); 0 = the 2nd-order extrapolation (default)")
     p.add_argument("--dtype", choices=["float32", "float64"], default=None,
                    help="working precision (default float32)")
     p.add_argument("--seed", type=int, default=0)

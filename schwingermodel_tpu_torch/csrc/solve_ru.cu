@@ -14,23 +14,29 @@
 // the fallback runs) reads only that chain's state -- the reference's
 // one-CG-per-chain semantics.
 //
-// The start: hist[0] where the history has one entry; with K >= 2 the MRE
-// forecast over it (chronological inversion, pallas_df.py:454-492), as a
-// prologue of the same launch on every path (mre_forecast): w0 = A hist[0],
-// r1 = b - w0, and for each older solution the pair v = hist[i] - hist[0],
-// w = A hist[i] - w0, Gram-Schmidt against the earlier pairs, scaled to a
-// unit w (dropped below 1e-8 of the largest |w|^2: a duplicate history
-// leaves x0 = hist[0] exactly), x0 += <r1, w> v; A in f32 through the
-// path's own stencil (a shared-memory apply of the recursion's links on the
-// shared and cluster paths), dots accumulated in f64 and rounded to f32.
-// The K - 1 pairs do not fit beside the recursion's fields (192 KiB a chain
-// at 64x64 and K = 4): they, A hist[0], r1 and x0 live in a per-chain global
-// scratch of 4 (2K + 1) floats a site, read and written by the thread that
-// owns the site (mre_values(4) = 36 floats a site: 295 KB a chain at 64x64,
-// so 9.4 MB at C = 32, which L2 holds, and 37.7 MB at C = 128, most of the
-// H100's 50 MB of L2). The prologue costs K applies and K(K-1)/2 + K - 1
-// block sums: at K = 4 about what 9 iterations of the recursion cost. Its
-// cycles are the clocks' fourth column, read only where K > 1.
+// The start: hist[0] where the history has one entry; with 2 <= K <= kMreMax
+// the MRE forecast over it (chronological inversion, pallas_df.py:454-492),
+// as a prologue of the same launch on every path (mre_forecast): the
+// correction sum_i c_i v_i, v_i = hist[i] - hist[0], that minimises
+// |r1 - sum_i c_i w_i|, r1 = b - A hist[0] and w_i = A hist[i] - A hist[0],
+// from one pass of Gram sums. A in f32 through the path's own stencil (a
+// shared-memory apply of the recursion's links on the shared and cluster
+// paths), applied to each hist[i] in turn; the thread keeps A hist[0], r1
+// and the w_i it needs again at its own sites (the w_i in registers on the
+// shared and cluster paths, A hist[0] and r1 in the r and t2 planes on the
+// shared path, in the planes not yet filled on the global path) and
+// accumulates <w_i, w_j> (j <= i) and <r1, w_i> in f64, its warps' partials
+// into shared slots; one chain sum of the K (K + 1) / 2 - 1 values (9 at
+// K = 4); every thread then solves the (K - 1) x (K - 1) system by an f64
+// Cholesky, the same bits everywhere, and drops a direction whose pivot, its
+// squared Schmidt norm (the |w|^2 of modified Gram-Schmidt), is not above
+// 1e-8 of the largest, as MGS does (a duplicate history leaves x0 = hist[0]
+// exactly); x0 = hist[0] + sum_i c_i v_i in f64 from one more read of the
+// history, straight into the recursion's x. No per-chain scratch: the
+// prologue reads the history twice and costs K applies and one chain sum.
+// The kernels are instantiated on whether a history is present (MRE), so the
+// K = 1 kernels hold no prologue. Its cycles are the clocks' fourth column,
+// read only where K > 1.
 //
 // What bounds it on the card: per iteration one normal apply (4 dependent
 // stencil stages of ~150 flops per site) and 2 block reductions on 2048
@@ -86,7 +92,6 @@ namespace cg = cooperative_groups;
 struct RuParams {
   const float *thE, *thO, *b;
   const float* hist;  // [K, C, 4 V2]: the start (K = 1) or the MRE history, newest first
-  float* mre;         // [C, mre_values(K) V2] for K >= 2, else null
   int K, C;
   float* x;
   double* x64;
@@ -190,6 +195,61 @@ struct RuF64 {
   long long t_wait;
 };
 
+// The MRE prologue's sizes: the most solutions it takes (the thread keeps
+// w_1 .. w_{K-2} at its own sites, 32 floats in registers at K = 4), its
+// chain sums for a history of K (<w_i, w_j> for j <= i and <r1, w_i>,
+// i = 1 .. K-1), and the warps whose partials each sum adds.
+constexpr int kMreMax = 4;
+__host__ __device__ constexpr int mre_sums(int K) { return (K - 1) * (K + 2) / 2; }
+constexpr int kMreSums = mre_sums(kMreMax);
+constexpr int kWarps = kThreads / 32;
+
+// A spinor the prologue keeps at the thread's own sites: in registers by own
+// site j (the shared and cluster paths, kOwnSites a thread) ...
+struct OwnRegs {
+  float4 v[kOwnSites];
+  __device__ __forceinline__ float4 get(int j, int) const { return v[j]; }
+  __device__ __forceinline__ void set(int j, int, float4 a) { v[j] = a; }
+};
+// ... in a site-major plane of shared memory, site s at p[s + off] ...
+struct OwnSmem {
+  float4* p;
+  int off;
+  __device__ __forceinline__ float4 get(int, int s) const { return p[s + off]; }
+  __device__ __forceinline__ void set(int, int s, float4 a) { p[s + off] = a; }
+};
+// ... or in a planar [4][V2] plane by site s (the global path)
+struct OwnPlane {
+  float* p;
+  int V2;
+  __device__ __forceinline__ float4 get(int, int s) const {
+    return make_float4(p[s], p[V2 + s], p[2 * V2 + s], p[3 * V2 + s]);
+  }
+  __device__ __forceinline__ void set(int, int s, float4 a) {
+    p[s] = a.x;
+    p[V2 + s] = a.y;
+    p[2 * V2 + s] = a.z;
+    p[3 * V2 + s] = a.w;
+  }
+};
+
+// v added over the warp by BlockSumTree's shuffle tree, lane 0 storing it in
+// the warp's slot
+__device__ __forceinline__ void warp_slot(double v, double* slot) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  if ((threadIdx.x & 31) == 0) slot[threadIdx.x >> 5] = v;
+}
+
+// The first M of the prologue's sums over the block, from their warps'
+// slots (kWarps each) after one barrier, by warp_partials_sum: the same bits
+// in every thread; the rest 0
+__device__ __forceinline__ void block_sums(const double* slots, int M,
+                                           double (&out)[kMreSums]) {
+  __syncthreads();
+#pragma unroll
+  for (int v = 0; v < kMreSums; ++v) out[v] = v < M ? warp_partials_sum(slots + v * kWarps) : 0.0;
+}
+
 // Every vector in the global scratch; a thread owns the planar indices
 // tid + k * 512.
 struct RuGlobal : RuF64 {
@@ -239,15 +299,39 @@ struct RuGlobal : RuF64 {
     for (int i = threadIdx.x; i < n; i += kThreads) d[i] = fma_rn(beta, d[i], r[i]);
   }
 
-  // the MRE prologue's pieces (mre_forecast): a chain's sum, the thread's
-  // own sites, and dst = A src at them (planar [4][V2] in global memory)
-  __device__ __forceinline__ double chain_sum(double v) { return sum(v); }
+  // the MRE prologue's pieces (mre_forecast): f(j, s) at the thread's own
+  // sites (the j-th, planar index s); what it keeps, A hist[0], r1 and the
+  // w_i, in the planes the recursion has not filled yet (r, d, and the two
+  // float planes of A x of the f64 true residual); f(j, s, A src) at its own
+  // sites, A src in Ad; the chain's sums; x0
+  using A0 = OwnPlane;
+  using R1 = OwnPlane;
+  using W = OwnPlane;
   template <class F>
   __device__ __forceinline__ void each_own(F f) const {
-    for (int s = threadIdx.x; s < g.V2; s += kThreads) f(s);
+    for (int s = threadIdx.x, j = 0; s < g.V2; s += kThreads, ++j) f(j, s);
   }
-  __device__ __forceinline__ void apply_A_to(const float* src, float* dst) {
-    normal_apply<float>(ue, uo, src, dst, t1, t2, t1, m, c, g);
+  __device__ __forceinline__ OwnPlane stash_a0() const { return {r, g.V2}; }
+  __device__ __forceinline__ OwnPlane stash_r1() const {
+    return {reinterpret_cast<float*>(Ax), g.V2};
+  }
+  __device__ __forceinline__ OwnPlane stash_w(int i) const {
+    return {i == 0 ? d : reinterpret_cast<float*>(Ax) + 4 * g.V2, g.V2};
+  }
+  template <class F>
+  __device__ __forceinline__ void apply_A_own(const float* src, F f) {
+    normal_apply<float>(ue, uo, src, Ad, t1, t2, t1, m, c, g);
+    each_own([&](int j, int s) {
+      f(j, s, make_float4(Ad[s], Ad[g.V2 + s], Ad[2 * g.V2 + s], Ad[3 * g.V2 + s]));
+    });
+  }
+  __device__ __forceinline__ void chain_sums(const double* slots, double*, int M,
+                                             double (&out)[kMreSums]) {
+    block_sums(slots, M, out);
+  }
+  __device__ __forceinline__ void set_x(int, int s, const double (&v)[4]) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) x64[q * g.V2 + s] = v[q];
   }
 };
 
@@ -280,30 +364,49 @@ struct RuShared : RuF64 {
     }
   }
 
-  __device__ __forceinline__ double chain_sum(double v) { return sum(v); }
+  // the MRE prologue's pieces (mre_forecast), as RuGlobal's: the w_i in
+  // registers, A hist[0] in r's place and r1 in t2's (apply_A_own leaves it)
+  using A0 = OwnSmem;
+  using R1 = OwnSmem;
+  using W = OwnRegs;
   template <class F>
   __device__ __forceinline__ void each_own(F f) const {
 #pragma unroll
     for (int j = 0; j < kOwnSites; ++j) {
       const int s = threadIdx.x + j * kThreads;
-      if (s < g.V2) f(s);
+      if (s < g.V2) f(j, s);
     }
   }
+  __device__ __forceinline__ OwnSmem stash_a0() const { return {r, 0}; }
+  __device__ __forceinline__ OwnSmem stash_r1() const { return {t2, 0}; }
+  __device__ __forceinline__ OwnRegs stash_w(int) const { return {}; }
+  __device__ __forceinline__ void chain_sums(const double* slots, double*, int M,
+                                             double (&out)[kMreSums]) {
+    block_sums(slots, M, out);
+  }
+  __device__ __forceinline__ void set_x(int j, int, const double (&v)[4]) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) x[j][q] = v[q];
+  }
 
-  // dst = A src at the thread's own sites, src and dst planar [4][V2] in
-  // global memory: src in d's place and the stages of apply_dAd, before the
-  // recursion uses d, t1 and t2. The barrier after the load orders it after
-  // the previous apply's reads of t1 (every thread has passed its stages).
-  __device__ __forceinline__ void apply_A_to(const float* src, float* dst) {
-    each_own([&](int s) {
+  // f(j, s, A src) at the thread's own sites, src planar [4][V2] in global
+  // memory: the stages of apply_dAd on d and t1 alone, before the recursion
+  // uses them, src in d's place and Dhat^+ src over it (the second stage
+  // reads src only at the site it writes, the first stage's reads of its
+  // neighbours are past the barrier between). The barrier after the load
+  // orders it after the previous apply's reads of t1 and of d at the
+  // neighbours (every thread has passed its third stage).
+  template <class F>
+  __device__ __forceinline__ void apply_A_own(const float* src, F f) {
+    each_own([&](int, int s) {
       d[s] = make_float4(src[s], src[g.V2 + s], src[2 * g.V2 + s], src[3 * g.V2 + s]);
     });
     __syncthreads();
     stage<true, false>(uo, ue, d, 1, t1, nullptr, 0.f, 0.f);
     __syncthreads();
-    stage<true, true>(ue, uo, t1, 0, t2, d, m, -c);
+    stage<true, true>(ue, uo, t1, 0, d, d, m, -c);
     __syncthreads();
-    stage<false, false>(uo, ue, t2, 1, t1, nullptr, 0.f, 0.f);
+    stage<false, false>(uo, ue, d, 1, t1, nullptr, 0.f, 0.f);
     __syncthreads();
 #pragma unroll
     for (int j = 0; j < kOwnSites; ++j) {
@@ -311,13 +414,10 @@ struct RuShared : RuF64 {
       if (s < g.V2) {
         Cx<float> h0, h1;
         hop_site_shared<false>(ue, uo, t1, s, own.nbrs(j, 0, g), g.V2, h0, h1);
-        const float4 vs = t2[s];
+        const float4 vs = d[s];
         h0 = axpby(m, lo(vs), -c, h0);
         h1 = axpby(m, hi(vs), -c, h1);
-        dst[s] = h0.re;
-        dst[g.V2 + s] = h0.im;
-        dst[2 * g.V2 + s] = h1.re;
-        dst[3 * g.V2 + s] = h1.im;
+        f(j, s, f4(h0, h1));
       }
     }
   }
@@ -585,7 +685,9 @@ struct RuCluster : RuF64 {
   // the threads that read what it brings wait. Every thread flips the parity.
   // A phase that never completes traps after ~2^35 cycles instead of hanging.
   __device__ __forceinline__ void wait_for(int b, bool reader) {
-    const int bytes = b >= kMbSum ? 8 * N : 2 * 16 * g.Nth;
+    wait_bytes(b, reader, b >= kMbSum ? 8 * N : 2 * 16 * g.Nth);
+  }
+  __device__ __forceinline__ void wait_bytes(int b, bool reader, int bytes) {
     if (threadIdx.x == 0)
       asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(mbar(b)),
                    "r"(bytes)
@@ -737,19 +839,57 @@ struct RuCluster : RuF64 {
     d_sent = false;
   }
 
-  __device__ __forceinline__ double chain_sum(double v) { return cluster_sum(v); }
+  // the MRE prologue's pieces (mre_forecast), as RuShared's but r1 in
+  // registers (the apply uses t2); s is the own site's planar index in the
+  // chain's lattice
+  using A0 = OwnSmem;
+  using R1 = OwnRegs;
+  using W = OwnRegs;
   template <class F>
   __device__ __forceinline__ void each_own(F f) const {
 #pragma unroll
     for (int j = 0; j < kOwnSites; ++j) {
       const int sl = threadIdx.x + j * kThreads;
-      if (sl < Vl) f(row0() * g.Nth + sl);
+      if (sl < Vl) f(j, row0() * g.Nth + sl);
+    }
+  }
+  __device__ __forceinline__ OwnSmem stash_a0() const { return {r(), halo() - row0() * g.Nth}; }
+  __device__ __forceinline__ OwnRegs stash_r1() const { return {}; }
+  __device__ __forceinline__ OwnRegs stash_w(int) const { return {}; }
+  __device__ __forceinline__ void set_x(int j, int, const double (&v)[4]) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) x[j][q] = v[q];
+  }
+
+  // The first M of the prologue's sums over the chain: the block's, as
+  // block_sums adds them, stored by N M of its threads into every block's
+  // slots cs[v * kRuClusterMax + rank] as cluster_sum stores one, counted on
+  // the sums' next mbarrier, and the N block sums of each added in rank order
+  // by every thread. The slots are used once a launch.
+  __device__ __forceinline__ void chain_sums(const double* slots, double* cs, int M,
+                                             double (&out)[kMreSums]) {
+    __syncthreads();
+    const int b = kMbSum + cset;
+    cset ^= 1;
+    if (threadIdx.x < N * M) {
+      const int v = threadIdx.x % M;
+      send(cs + v * kRuClusterMax + rank, threadIdx.x / M, b,
+           warp_partials_sum(slots + v * kWarps));
+    }
+    wait_bytes(b, true, 8 * N * M);
+#pragma unroll
+    for (int v = 0; v < kMreSums; ++v) {
+      double all = 0.0;
+      if (v < M)
+        for (int i = 0; i < N; ++i) all += cs[v * kRuClusterMax + i];
+      out[v] = all;
     }
   }
 
-  // dst = A src at the block's rows, as RuShared::apply_A_to, the edge rows
-  // also sent into the neighbours' halo rows
-  __device__ __forceinline__ void apply_A_to(const float* src, float* dst) {
+  // f(j, s, A src) at the block's rows, as RuShared::apply_A_own, the edge
+  // rows of each stage also sent into the neighbours' halo rows
+  template <class F>
+  __device__ __forceinline__ void apply_A_own(const float* src, F f) {
 #pragma unroll
     for (int j = 0; j < kOwnSites; ++j) {
       const int sl = threadIdx.x + j * kThreads, s = row0() * g.Nth + sl;
@@ -761,14 +901,8 @@ struct RuCluster : RuF64 {
     split_stage(kMbT3, [&](bool e) {
 #pragma unroll
       for (int j = 0; j < kOwnSites; ++j) {
-        const int sl = threadIdx.x + j * kThreads, s = row0() * g.Nth + sl;
-        if (sl < Vl && edge(j) == e) {
-          const float4 a = dhat_site(j, sl + halo());
-          dst[s] = a.x;
-          dst[g.V2 + s] = a.y;
-          dst[2 * g.V2 + s] = a.z;
-          dst[3 * g.V2 + s] = a.w;
-        }
+        const int sl = threadIdx.x + j * kThreads;
+        if (sl < Vl && edge(j) == e) f(j, row0() * g.Nth + sl, dhat_site(j, sl + halo()));
       }
     });
   }
@@ -965,98 +1099,118 @@ struct RuCluster : RuF64 {
   }
 };
 
-// f32 values a chain's MRE scratch holds per half-lattice site: A hist[0],
-// r1, x0 and the K - 1 pairs (v, w), a spinor of 4 floats each.
-__host__ __device__ inline int mre_values(int K) { return 4 * (3 + 2 * (K - 1)); }
+// Re<u, w> of two spinors at one site, in f64
+__device__ __forceinline__ double dot4(float4 u, float4 w) {
+  return static_cast<double>(u.x) * static_cast<double>(w.x) +
+         static_cast<double>(u.y) * static_cast<double>(w.y) +
+         static_cast<double>(u.z) * static_cast<double>(w.z) +
+         static_cast<double>(u.w) * static_cast<double>(w.w);
+}
+__device__ __forceinline__ float4 sub4(float4 a, float4 b) {
+  return make_float4(a.x - b.x, a.y - b.y, a.z - b.z, a.w - b.w);
+}
 
-// The MRE forecast of one chain (K >= 2; pallas_df.py:454-492) on a store
-// of its vectors: returns x0, planar [4][V2] in the chain's scratch. Every
-// vector operation is f32 at the thread's own sites (each site read and
-// written by the thread that owns it, so only the applies and the sums
-// synchronise); each dot is accumulated in f64 and rounded to f32, the same
-// bits in every thread (and every block of a cluster), so every thread
-// takes the same keep decision.
+// The forecast's coefficients c_1 .. c_n (n = K - 1; c[i - 1]) from its sums
+// gs (direction i's at mre_sums(i): <w_i, w_1> .. <w_i, w_i>, <r1, w_i>): the
+// least-squares solution of min |r1 - sum_i c_i w_i| by the Cholesky factor
+// R of the Gram matrix, R^T y = <r1, w>, R c = y, with 1 / R_ii in inv.
+// R_ii^2 is the squared Schmidt norm of w_i against the directions kept
+// before it, MGS's |w|^2; a direction where it is not above 1e-8 of the
+// largest so far is dropped (inv_i 0: its row of R, y_i and c_i 0), as MGS
+// drops it. In f64, the same bits in every thread.
+__device__ __forceinline__ void mre_solve(const double (&gs)[kMreSums], int n,
+                                          double (&c)[kMreMax - 1]) {
+  constexpr int kN = kMreMax - 1;
+  double R[kN][kN], inv[kN], y[kN];
+  double largest = 0.0;
+#pragma unroll
+  for (int i = 0; i < kN; ++i) {
+    const int row = mre_sums(i + 1);
+    double nrm = gs[row + i], yi = gs[row + i + 1];
+#pragma unroll
+    for (int j = 0; j < i; ++j) {
+      double rji = gs[row + j];
+#pragma unroll
+      for (int k = 0; k < j; ++k) rji -= R[k][j] * R[k][i];
+      rji *= inv[j];
+      R[j][i] = rji;
+      nrm -= rji * rji;
+      yi -= rji * y[j];
+    }
+    largest = i == 0 ? nrm : fmax(largest, nrm);
+    inv[i] = i < n && nrm > 1e-8 * largest ? rsqrt(nrm) : 0.0;
+    y[i] = yi * inv[i];
+  }
+#pragma unroll
+  for (int i = kN - 1; i >= 0; --i) {
+    double ci = y[i];
+#pragma unroll
+    for (int j = i + 1; j < kN; ++j) ci -= R[i][j] * c[j];
+    c[i] = ci * inv[i];
+  }
+}
+
+// The MRE forecast of one chain (2 <= K <= kMreMax; pallas_df.py:454-492) on
+// a store of its vectors, into the store's x (S.set_x): A hist[0], then for
+// each older solution w_i = A hist[i] - A hist[0] and its sums with r1 =
+// b - A hist[0] and with the w_j before it, in f32 at the thread's own sites
+// with each product added in f64 (kept where the store keeps them: A hist[0],
+// r1, w_1 .. w_{K-2}); after each apply the warps' partials of its i + 1
+// sums into `slots` (kWarps a sum); one chain sum of all; the coefficients
+// (mre_solve); x0 = hist[0] + sum_i c_i (hist[i] - hist[0]) in f64.
+// slots: kMreSums * kWarps doubles of shared memory; cs: the cluster's
+// kMreSums * kRuClusterMax slots.
 template <class Store>
-__device__ const float* mre_forecast(Store& S, const RuParams& p, int ch) {
+__device__ void mre_forecast(Store& S, const RuParams& p, int ch, double* slots, double* cs) {
   const int V2 = S.g.V2, n = 4 * V2;
   const size_t step = static_cast<size_t>(p.C) * n;  // hist[i] to hist[i + 1]
-  const float* base = p.hist + static_cast<size_t>(ch) * n;
+  const float* h0 = p.hist + static_cast<size_t>(ch) * n;
   const float* b = S.b;
-  float* w0 = p.mre + static_cast<size_t>(ch) * mre_values(p.K) * V2;
-  float* r1 = w0 + n;
-  float* x0 = r1 + n;
-  float* vs = x0 + n;
-  float* ws = vs + static_cast<size_t>(p.K - 1) * n;
-  S.apply_A_to(base, w0);
-  S.each_own([&](int s) {
+  typename Store::A0 a0 = S.stash_a0();
+  typename Store::R1 r1 = S.stash_r1();
+  typename Store::W w_kept[kMreMax - 2];  // w_1 .. w_{K-2}
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int i = q * V2 + s;
-      r1[i] = b[i] - w0[i];
-      x0[i] = base[i];
-    }
+  for (int i = 0; i < kMreMax - 2; ++i) w_kept[i] = S.stash_w(i);
+  S.apply_A_own(h0, [&](int j, int s, float4 a) {
+    a0.set(j, s, a);
+    r1.set(j, s, sub4(make_float4(b[s], b[V2 + s], b[2 * V2 + s], b[3 * V2 + s]), a));
   });
-  float nrm_max = 0.0f;
-  for (int k = 1; k < p.K; ++k) {
-    const float* h = base + k * step;
-    float* v = vs + static_cast<size_t>(k - 1) * n;
-    float* w = ws + static_cast<size_t>(k - 1) * n;
-    // the difference about the fixed base, so that (v, w = A v) stay a pair
-    S.apply_A_to(h, w);
-    S.each_own([&](int s) {
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int i = q * V2 + s;
-        v[i] = h[i] - base[i];
-        w[i] = w[i] - w0[i];
-      }
-    });
-    for (int j = 0; j < k - 1; ++j) {  // modified Gram-Schmidt
-      const float* vj = vs + static_cast<size_t>(j) * n;
-      const float* wj = ws + static_cast<size_t>(j) * n;
-      double acc = 0.0;
-      S.each_own([&](int s) {
+  for (int i = 1; i < kMreMax; ++i) {
+    if (i < p.K) {
+      double acc[kMreMax] = {};  // <w_i, w_1> .. <w_i, w_i>, <r1, w_i>
+      S.apply_A_own(h0 + i * step, [&](int j, int s, float4 a) {
+        const float4 w = sub4(a, a0.get(j, s));
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
-          acc += static_cast<double>(w[q * V2 + s]) * static_cast<double>(wj[q * V2 + s]);
+        for (int k = 1; k < i; ++k) acc[k - 1] += dot4(w, w_kept[k - 1].get(j, s));
+        acc[i - 1] += dot4(w, w);
+        acc[i] += dot4(r1.get(j, s), w);
+        if (i < kMreMax - 1 && i + 1 < p.K) w_kept[i - 1].set(j, s, w);
       });
-      const float cj = static_cast<float>(S.chain_sum(acc));
-      S.each_own([&](int s) {
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int i = q * V2 + s;
-          w[i] = fma_rn(-cj, wj[i], w[i]);
-          v[i] = fma_rn(-cj, vj[i], v[i]);
-        }
-      });
+      for (int v = 0; v <= i; ++v) warp_slot(acc[v], slots + (mre_sums(i) + v) * kWarps);
     }
-    double acc = 0.0;
-    S.each_own([&](int s) {
+  }
+  double gs[kMreSums], c[kMreMax - 1];
+  S.chain_sums(slots, cs, mre_sums(p.K), gs);
+  mre_solve(gs, p.K - 1, c);
+  // the loads unconditional (hist[0] in the place of an entry past K), so
+  // that they are in flight together; a dropped direction leaves x as it is
+  S.each_own([&](int j, int s) {
+    double x0[4], x[4];
 #pragma unroll
-      for (int q = 0; q < 4; ++q)
-        acc += static_cast<double>(w[q * V2 + s]) * static_cast<double>(w[q * V2 + s]);
-    });
-    const float nrm = static_cast<float>(S.chain_sum(acc));
-    nrm_max = k == 1 ? nrm : fmaxf(nrm_max, nrm);
-    // drop a direction degenerate beyond the f32 Gram-Schmidt noise floor
-    const float inv = nrm > 1e-8f * nrm_max ? __frsqrt_rn(fmaxf(nrm, FLT_MIN)) : 0.0f;
-    acc = 0.0;
-    S.each_own([&](int s) {
+    for (int q = 0; q < 4; ++q) x0[q] = x[q] = h0[q * V2 + s];
+#pragma unroll
+    for (int i = 1; i < kMreMax; ++i) {
+      const float* h = h0 + (i < p.K ? i * step : 0);
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        const int i = q * V2 + s;
-        w[i] *= inv;
-        v[i] *= inv;
-        acc += static_cast<double>(r1[i]) * static_cast<double>(w[i]);
+        const double xi = fma(c[i - 1], static_cast<double>(h[q * V2 + s]) - x0[q], x[q]);
+        x[q] = c[i - 1] != 0.0 ? xi : x[q];
       }
-    });
-    const float a = static_cast<float>(S.chain_sum(acc));
-    S.each_own([&](int s) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) x0[q * V2 + s] = fma_rn(a, v[q * V2 + s], x0[q * V2 + s]);
-    });
-  }
-  return x0;
+    }
+    S.set_x(j, s, x);
+  });
 }
 
 // The MRE prologue's cycles since t0, added into the clocks' fourth column
@@ -1113,6 +1267,9 @@ __device__ __forceinline__ RuF64 ru_f64(const RuParams& p, int ch, const Geo& g,
           0};
 }
 
+// The kernels of a launch with a history (MRE: the prologue, K >= 2) and
+// without (K = 1), so that the K = 1 kernels hold no prologue.
+template <bool MRE>
 __global__ void __launch_bounds__(kThreads, 1) solve_ru_shared_kernel(const RuParams p) {
   extern __shared__ __align__(16) float smem[];
   __shared__ double sh[2 * (kThreads / 32)];
@@ -1135,14 +1292,15 @@ __global__ void __launch_bounds__(kThreads, 1) solve_ru_shared_kernel(const RuPa
   make_links_shared(p.thO + (size_t)ch * 2 * V2, 1, S.uo, g);
   make_links<double>(p.thE + (size_t)ch * 2 * V2, 0, S.ue64, g);
   make_links<double>(p.thO + (size_t)ch * 2 * V2, 1, S.uo64, g);
-  const float* x0 = p.hist + (size_t)ch * 4 * V2;
-  if (p.K > 1) {
+  if constexpr (MRE) {
+    __shared__ double slots[kMreSums * kWarps];
     const long long t0 = clock64();
     S.init_sites();
-    x0 = mre_forecast(S, p, ch);
+    mre_forecast(S, p, ch, slots, nullptr);
     mre_clock(p, ch, t0, threadIdx.x == 0);
+  } else {
+    S.init(p.hist + (size_t)ch * 4 * V2);
   }
-  S.init(x0);
 
   int iters;
   const bool conv = ru_loop(S, p, iters);
@@ -1153,6 +1311,7 @@ __global__ void __launch_bounds__(kThreads, 1) solve_ru_shared_kernel(const RuPa
 
 // One chain per cluster of N blocks (the launch's cluster dimension; N
 // divides Nx, and a block's rows hold at most kOwnSites * kThreads sites).
+template <bool MRE>
 __global__ void __launch_bounds__(kThreads, 1) solve_ru_cluster_kernel(const RuParams p) {
   extern __shared__ __align__(16) float smem[];
   __shared__ double sh[2 * (kThreads / 32)];
@@ -1178,14 +1337,15 @@ __global__ void __launch_bounds__(kThreads, 1) solve_ru_cluster_kernel(const RuP
   // every block of the cluster runs, with its mbarriers set up, before any
   // writes into another's halo
   S.sync();
-  const float* x0 = p.hist + (size_t)ch * 4 * V2;
-  if (p.K > 1) {
+  if constexpr (MRE) {
+    __shared__ double slots[kMreSums * kWarps], cs[kMreSums * kRuClusterMax];
     const long long t0 = clock64();
     S.init_sites();
-    x0 = mre_forecast(S, p, ch);
+    mre_forecast(S, p, ch, slots, cs);
     mre_clock(p, ch, t0, rank == 0 && threadIdx.x == 0);
+  } else {
+    S.init(p.hist + (size_t)ch * 4 * V2);
   }
-  S.init(x0);
 
   int iters;
   const bool conv = ru_loop(S, p, iters);
@@ -1195,6 +1355,7 @@ __global__ void __launch_bounds__(kThreads, 1) solve_ru_cluster_kernel(const RuP
   if (rank == 0) ru_finish(p, S, ch, iters, conv, t_begin, scratch + 8 * V2, sum);
 }
 
+template <bool MRE>
 __global__ void __launch_bounds__(kThreads) solve_ru_global_kernel(const RuParams p) {
   __shared__ double sh[2 * (kThreads / 32)];
   const long long t_begin = clock64();
@@ -1217,14 +1378,15 @@ __global__ void __launch_bounds__(kThreads) solve_ru_global_kernel(const RuParam
   make_links<float>(p.thO + (size_t)ch * 2 * V2, 1, S.uo, g);
   make_links<double>(p.thE + (size_t)ch * 2 * V2, 0, S.ue64, g);
   make_links<double>(p.thO + (size_t)ch * 2 * V2, 1, S.uo64, g);
-  const float* x0 = p.hist + (size_t)ch * n;
-  if (p.K > 1) {
+  if constexpr (MRE) {
+    __shared__ double slots[kMreSums * kWarps];
     const long long t0 = clock64();
-    x0 = mre_forecast(S, p, ch);
-    __syncthreads();  // x0 was written by the owners of its sites
+    mre_forecast(S, p, ch, slots, nullptr);
     mre_clock(p, ch, t0, threadIdx.x == 0);
+  } else {
+    const float* x0 = p.hist + (size_t)ch * n;
+    for (int i = threadIdx.x; i < n; i += kThreads) S.x64[i] = static_cast<double>(x0[i]);
   }
-  for (int i = threadIdx.x; i < n; i += kThreads) S.x64[i] = static_cast<double>(x0[i]);
 
   int iters;
   const bool conv = ru_loop(S, p, iters);
@@ -1234,12 +1396,11 @@ __global__ void __launch_bounds__(kThreads) solve_ru_global_kernel(const RuParam
 }  // namespace sm
 
 // thE, thO: f32 [C, 2, Nx, Nth]; b, x: f32 and x64: f64 [C, 2, 2, Nx, Nth];
-// hist: f32 [K, C, 2, 2, Nx, Nth], the start (K = 1) or the MRE history,
-// newest first; mre: for K >= 2 f32 [C, mre_values(K) V2], else unused;
-// iters, fb_iters: int32 [C]; conv: one byte per chain; clocks: null or int64
-// [C, 4], to which each chain's cycles (total, true residuals, rank 0's
-// thread 0 waiting on the other blocks of its cluster, that thread in the
-// MRE prologue) are added.
+// hist: f32 [K, C, 2, 2, Nx, Nth], 1 <= K <= kMreMax, the start (K = 1) or
+// the MRE history, newest first; iters, fb_iters: int32 [C]; conv: one byte
+// per chain; clocks: null or int64 [C, 4], to which each chain's cycles
+// (total, true residuals, rank 0's thread 0 waiting on the other blocks of
+// its cluster, that thread in the MRE prologue) are added.
 // path 0: every vector in the scratch, s32 f32 [C, 28 V2] and s64 f64
 // [C, 20 V2] (32 V2 with the fallback); path 1: the f32 recursion in the
 // shared memory of one block (at most 2048 sites, 96 V2 bytes <= 220 KiB),
@@ -1249,17 +1410,16 @@ __global__ void __launch_bounds__(kThreads) solve_ru_global_kernel(const RuParam
 // Nx / cluster rows hold at most 2048 sites and, with two halo rows, 220
 // KiB), scratch as on path 1.
 extern "C" int solve_ru_launch(const void* thE, const void* thO, const void* b, const void* hist,
-                               int K, void* mre, void* x, void* x64, void* iters, void* fb_iters, void* conv,
+                               int K, void* x, void* x64, void* iters, void* fb_iters, void* conv,
                                void* s32, void* s64, void* clocks, int C, int Nx, int Nth,
                                double m0, double tol, double tau, int max_iter, int max_outer,
                                int certify, int cert_k, int fallback, int fb_max_iter,
                                int fb_max_rounds, int path, int cluster, void* stream) {
-  if (K < 1 || (K > 1 && mre == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  if (K < 1 || K > sm::kMreMax) return static_cast<int>(cudaErrorInvalidValue);
   const sm::RuParams p{static_cast<const float*>(thE),
                        static_cast<const float*>(thO),
                        static_cast<const float*>(b),
                        static_cast<const float*>(hist),
-                       static_cast<float*>(mre),
                        K,
                        C,
                        static_cast<float*>(x),
@@ -1284,8 +1444,11 @@ extern "C" int solve_ru_launch(const void* thE, const void* thO, const void* b, 
                        fb_max_rounds,
                        path == 2 ? 1 : 0};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool mre = K > 1;  // the kernels with the MRE prologue
   if (path == 0) {
-    sm::solve_ru_global_kernel<<<C, sm::kThreads, 0, s>>>(p);
+    const auto kernel =
+        mre ? sm::solve_ru_global_kernel<true> : sm::solve_ru_global_kernel<false>;
+    kernel<<<C, sm::kThreads, 0, s>>>(p);
     return static_cast<int>(cudaGetLastError());
   }
   const size_t V2 = static_cast<size_t>(Nx) * Nth;
@@ -1293,10 +1456,12 @@ extern "C" int solve_ru_launch(const void* thE, const void* thO, const void* b, 
     const size_t bytes = sizeof(float) * 24 * V2 + (path == 2 ? sizeof(double) * 20 * V2 : 0);
     if (V2 > sm::kOwnSites * sm::kThreads || bytes > sm::kSharedMax)
       return static_cast<int>(cudaErrorInvalidValue);
-    const cudaError_t e = cudaFuncSetAttribute(
-        sm::solve_ru_shared_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sm::kSharedMax);
+    const auto kernel =
+        mre ? sm::solve_ru_shared_kernel<true> : sm::solve_ru_shared_kernel<false>;
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sm::kSharedMax);
     if (e != cudaSuccess) return static_cast<int>(e);
-    sm::solve_ru_shared_kernel<<<C, sm::kThreads, bytes, s>>>(p);
+    kernel<<<C, sm::kThreads, bytes, s>>>(p);
     return static_cast<int>(cudaGetLastError());
   }
   // a cluster of `cluster` blocks a chain, each with its rows of x and two
@@ -1307,9 +1472,10 @@ extern "C" int solve_ru_launch(const void* thE, const void* thO, const void* b, 
   const size_t bytes = sizeof(float) * 24 * (rows + 2) * Nth;
   if (rows * Nth > sm::kOwnSites * sm::kThreads || bytes > sm::kSharedMax)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = cudaFuncSetAttribute(sm::solve_ru_cluster_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       sm::kSharedMax);
+  const auto kernel =
+      mre ? sm::solve_ru_cluster_kernel<true> : sm::solve_ru_cluster_kernel<false>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sm::kSharedMax);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(C * cluster);
@@ -1323,7 +1489,7 @@ extern "C" int solve_ru_launch(const void* thE, const void* thO, const void* b, 
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, sm::solve_ru_cluster_kernel, p);
+  e = cudaLaunchKernelEx(&cfg, kernel, p);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -63,11 +63,11 @@ SIGNATURES = {
     # thE, thO, psi, phi2, FE, FO, scratch, C, Nx, Nth, m0, m1, beta, path,
     # blocks, stream
     "ratio_force_launch": [P, P, P, P, P, P, P, I, I, I, D, D, D, I, I, P],
-    # thE, thO, b, hist, K, mre, x, x64, iters, fb_iters, conv, scratch32,
+    # thE, thO, b, hist, K, x, x64, iters, fb_iters, conv, scratch32,
     # scratch64, clocks, C, Nx, Nth, m0, tol, tau, max_iter, max_outer,
     # certify, cert_k, fallback, fb_max_iter, fb_max_rounds, path, cluster,
     # stream
-    "solve_ru_launch": [P, P, P, P, I, P, P, P, P, P, P, P, P, P,
+    "solve_ru_launch": [P, P, P, P, I, P, P, P, P, P, P, P, P,
                         I, I, I, D, D, D, I, I, I, I, I, I, I, I, I, P],
     # thE, thO, b, x64_in, conv_in, iters_in, x, x64, iters, fb_iters, conv,
     # scratch64, C, Nx, Nth, m0, tol, tau, max_iter, max_rounds, stream

@@ -12,9 +12,10 @@ algorithm and uses f64 for that half.
   residual. With ``fallback=True`` the chains it leaves unconverged go on
   as K4's f64 CG at the end of the same launch (the ``lax.cond`` of
   ``solve_refined_fused``): one launch per refined solve. Given a history
-  of K >= 2 earlier solutions in place of the start, the launch begins
-  with the MRE forecast over it (``mre_forecast_reference`` is its plain
-  twin).
+  of 2 <= K <= MRE_MAX earlier solutions in place of the start, the launch
+  begins with the MRE forecast over it, from one pass of Gram sums and a
+  Cholesky solve (``mre_forecast_reference``, modified Gram-Schmidt, is the
+  definition it is held to by tolerance).
 - ``solve_f64_cg_fallback`` is K4 as an entry of its own
   (``csrc/cg_fallback.cu``, replacing ``pallas_df._df_cg_fb_kernel``): the
   same f64 CG continuation (``csrc/cg_fallback.cuh``) for the entries the
@@ -127,10 +128,15 @@ def _solve_ru_chain(ue, uo, ue64, uo64, b, x0, m0, tol, tau, max_iter,
 
 
 def mre_forecast_reference(thE, thO, b, hist, *, m0) -> torch.Tensor:
-    """Plain twin of K3's MRE forecast (chronological inversion, the K > 1
-    branch of ``pallas_df._solve_ru_kernel``): the start x0 = psi_1 + d, d
-    the minimum-residual correction over span{psi_i - psi_1}, taken in the
-    difference space about the newest solution psi_1 = hist[0].
+    """The MRE forecast as modified Gram-Schmidt defines it (chronological
+    inversion, the K > 1 branch of ``pallas_df._solve_ru_kernel``, line by
+    line): the start x0 = psi_1 + d, d the minimum-residual correction over
+    span{psi_i - psi_1}, taken in the difference space about the newest
+    solution psi_1 = hist[0]. K3 computes the same correction another way
+    (the Gram sums of the w in one pass, a Cholesky solve with the drop rule
+    on its pivots, x0 in f64; csrc/solve_ru.cu mre_forecast) and is held to
+    this function by tolerance; the CPU path of ``solve_refined`` starts
+    from it.
 
     thE/thO f32 [C, 2, Nx, Nth]; b [C, 2, 2, Nx, Nth]; hist [K, C, 2, 2,
     Nx, Nth], newest first, f32 (as the TPU kernel) or f64. The working
@@ -229,6 +235,7 @@ def solve_refined_reference(thE, thO, b, x0, *, m0, tol, tau=1e-5,
 # _cuda.SHARED_MAX and holds _cuda.BLOCK_SITES sites).
 _RU_SHARED_F32, _RU_SHARED_F64 = 96, 160
 _FB_MAX_ROUNDS = 4   # solve_f64_cg_fallback's default max_rounds
+MRE_MAX = 4          # the longest history K3 takes (solve_ru.cu kMreMax)
 RU_GLOBAL, RU_SHARED, RU_ALL_SHARED, RU_CLUSTER = range(4)
 
 
@@ -270,13 +277,6 @@ def ru_path_name(Nx: int, Nth: int, C: int, sms: int = _cuda.H100_SMS) -> str:
     return ("global", "shared", "all shared", f"cluster of {n}")[path]
 
 
-def _mre_values(K: int) -> int:
-    """f32 values per half-lattice site and chain of K3's MRE scratch
-    (solve_ru.cu mre_values): A hist[0], r1, x0 and the K - 1 pairs (v, w),
-    a spinor of 4 floats each."""
-    return 4 * (3 + 2 * (K - 1))
-
-
 def _ru_scratch(path: int, fallback: bool):
     """(f32, f64) scratch values per half-lattice site and chain
     (solve_ru.cu): the f32 planes on the global path; the f64 links (8)
@@ -298,7 +298,10 @@ def solve_refined(thE, thO, b, x0, *, m0, tol, tau=1e-5, max_iter=10000,
     [C, 2, 2, Nx, Nth] or a history [K, C, 2, 2, Nx, Nth], newest first
     (``pallas_df.solve_refined_fused``'s hist): K = 1 starts from hist[0],
     K >= 2 from the MRE forecast over it (``mre_forecast_reference``),
-    computed at the start of the same launch. tau: the
+    computed at the start of the same launch, on the card from the
+    history's applies and one chain sum with no scratch of its own, for at
+    most MRE_MAX solutions (the kernel keeps K - 1 of them at each thread's
+    sites; a deeper history raises ValueError there). tau: the
     contraction of the recursive residual between true-residual
     replacements. certify=False (the MD force solves) trusts the recursive
     exit for segments shorter than cert_k iterations. converged: the last
@@ -328,6 +331,9 @@ def solve_refined(thE, thO, b, x0, *, m0, tol, tau=1e-5, max_iter=10000,
     hist = x0 if x0.ndim == 6 else x0[None]
     K = hist.shape[0]
     _cuda.check(hist, "x0", torch.float32, (K, C, 2, 2, Nx, Nth))
+    if K > MRE_MAX:
+        raise ValueError(f"x0: K3's MRE forecast takes at most {MRE_MAX} "
+                         f"solutions on the card, got a history of {K}")
     if clocks is not None:
         _cuda.check(clocks, "clocks", torch.int64, (C, 4))
     dev = b.device
@@ -339,12 +345,9 @@ def solve_refined(thE, thO, b, x0, *, m0, tol, tau=1e-5, max_iter=10000,
     conv = torch.empty(C, dtype=torch.bool, device=dev)
     s32 = torch.empty(C * n32 * Nx * Nth, dtype=torch.float32, device=dev)
     s64 = torch.empty(C * n64 * Nx * Nth, dtype=torch.float64, device=dev)
-    mre = (torch.empty(C * _mre_values(K) * Nx * Nth, dtype=torch.float32,
-                       device=dev) if K > 1 else None)
     p = _cuda.ptr
     _cuda.KERNELS.call(
-        "solve_ru_launch", p(thE), p(thO), p(b), p(hist), K,
-        None if mre is None else p(mre), p(x), p(x64),
+        "solve_ru_launch", p(thE), p(thO), p(b), p(hist), K, p(x), p(x64),
         p(counts[0]), p(counts[1]), p(conv), p(s32), p(s64),
         None if clocks is None else p(clocks), C, Nx, Nth, float(m0),
         float(tol), float(tau), int(max_iter), int(max_outer),

@@ -13,20 +13,23 @@ clock read in the kernel), the CG iterations summed over the chains and of
 the slowest chain, microseconds per iteration of the slowest chain, the
 shares of the kernel's clock cycles spent in the f64 true residuals, waiting
 on the cluster's other blocks and in the MRE forecast (means over the
-chains, from one more launch with the kernel's own counters on) and the
+chains, from one more launch with the kernel's own counters on; the last
+also as microseconds of the launch, ``mre_us``) and the
 path the lattice size and chain count take on this card
 (``ops/refined.ru_path``).
 
-``--against DIR`` also builds the kernels of the checkout at DIR (e.g. a
-``git archive`` of an earlier commit) and times its K3 in turns with this
-one (theirs, ours, ours, theirs) on the same inputs, and says whether x64,
-the iterations, the fallback's iterations and the flags are the same bits.
+``--against DIR`` also imports the port of the checkout at DIR (e.g. a
+``git archive`` of an earlier commit) beside this one, its wrapper with its
+own kernel library, built under DIR, so that a K3 with another launch
+interface compares too, and times its K3 in turns with this one (theirs,
+ours, ours, theirs) on the same inputs, and says whether x64, the
+iterations, the fallback's iterations and the flags are the same bits.
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
+import importlib
 import json
 import math
 import sys
@@ -60,15 +63,26 @@ def _timed(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
-@contextlib.contextmanager
-def _kernels(lib):
-    """K3's wrapper launches from `lib` inside the block."""
-    saved = _cuda.KERNELS
-    _cuda.KERNELS = lib
+def _their_refined(root: Path):
+    """``ops.refined`` of the port at `root`, imported as a package of its own
+    (its wrappers and kernel library; this process's modules are put back)."""
+    pkg = "schwingermodel_tpu_torch"
+
+    def loaded():
+        return {k: m for k, m in sys.modules.items() if k == pkg or k.startswith(pkg + ".")}
+
+    ours = loaded()
+    for k in ours:
+        del sys.modules[k]
+    sys.path.insert(0, str(root))
     try:
-        yield
+        mod = importlib.import_module(pkg + ".ops.refined")
     finally:
-        _cuda.KERNELS = saved
+        sys.path.remove(str(root))
+        for k in loaded():
+            del sys.modules[k]
+        sys.modules.update(ours)
+    return mod
 
 
 def _share(clocks, col):
@@ -95,9 +109,8 @@ def main(argv=None) -> int:
     card = card_label(dev)
     theirs = None
     if args.against:
-        pkg = Path(args.against) / "schwingermodel_tpu_torch"
-        theirs = _cuda.KernelLibrary(pkg / "csrc", pkg / "_build")
-        theirs.build()
+        theirs = _their_refined(Path(args.against).resolve())
+        theirs._cuda.KERNELS.build()
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     rows = []
@@ -115,9 +128,12 @@ def main(argv=None) -> int:
         for label, tol, certify, start in INPUTS:
             x0 = starts[start]
 
-            def solve(clocks=None):
-                return rs.solve_refined(thE, thO, b, x0, m0=M0, tol=tol,
-                                        certify=certify, clocks=clocks)
+            def solve(clocks=None, mod=rs):
+                return mod.solve_refined(thE, thO, b, x0, m0=M0, tol=tol,
+                                         certify=certify, clocks=clocks)
+
+            def solve_theirs():
+                return solve(mod=theirs)
 
             clocks = torch.zeros((C, 4), dtype=torch.int64, device=dev)
             sol = solve(clocks)
@@ -129,12 +145,10 @@ def main(argv=None) -> int:
             if theirs is None:
                 turns = [_timed(solve, args.reps) for _ in range(2)]
             else:
-                with _kernels(theirs):
-                    ref = solve()
-                    against = [_timed(solve, args.reps)]
+                ref = solve_theirs()
+                against = [_timed(solve_theirs, args.reps)]
                 turns = [_timed(solve, args.reps) for _ in range(2)]
-                with _kernels(theirs):
-                    against.append(_timed(solve, args.reps))
+                against.append(_timed(solve_theirs, args.reps))
                 ms_against = sum(against) / 2
                 row.update({
                     "against": args.against, "against_ms": ms_against,
@@ -153,6 +167,7 @@ def main(argv=None) -> int:
                 "f64_residual_share": _share(clocks, 1),
                 "cluster_wait_pct": 100.0 * _share(clocks, 2),
                 "mre_pct": 100.0 * _share(clocks, 3),
+                "mre_us": 1e3 * ms * _share(clocks, 3),
                 "all_converged": bool(sol.converged.all())})
             if theirs is not None:
                 row["speedup"] = row["against_ms"] / ms

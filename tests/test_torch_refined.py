@@ -342,3 +342,24 @@ def test_ru_cluster_follows_the_cards_multiprocessors(sms, C, path):
     once on the card's multiprocessors, else the smallest that holds the
     lattice."""
     assert rs.ru_path_name(128, 64, C, sms) == path
+
+
+def test_bench_tool_imports_another_checkouts_wrapper():
+    """tools/bench_refined_solve --against DIR times DIR's K3 through DIR's
+    own wrapper, so that a K3 with another launch interface compares too:
+    the module is imported as a package of its own (here the checkout
+    itself stands for DIR), with its own kernel library, and this
+    process's modules are put back."""
+    import sys
+    from pathlib import Path
+
+    from schwingermodel_tpu_torch.ops import _cuda
+    from schwingermodel_tpu_torch.tools import bench_refined_solve as brs
+
+    root = Path(__file__).resolve().parents[1]
+    theirs = brs._their_refined(root)
+    assert theirs is not rs and theirs._cuda is not _cuda
+    assert theirs._cuda.KERNELS is not _cuda.KERNELS
+    assert Path(theirs.__file__) == root / "schwingermodel_tpu_torch" / "ops" / "refined.py"
+    assert sys.modules["schwingermodel_tpu_torch.ops.refined"] is rs
+    assert sys.modules["schwingermodel_tpu_torch.ops._cuda"] is _cuda

@@ -13,9 +13,10 @@ On the CPU, at 8x8:
 
 On the card (``-m card``; this file imports neither JAX nor the JAX
 package, so ``python -m pytest --noconftest tests/test_torch_tau1.py -m
-card`` runs there): K3's clock columns at K = 1 and K = 4, and the forecast
-K3 starts from against the plain one on a history taken from a graphed
-trajectory.
+card`` runs there): K3's clock columns at K = 1 and K = 4; the forecast K3
+starts from against the float64 MGS forecast on each of K3's paths and four
+histories (a walk, the TPU test's, a near-degenerate one, a duplicate); and
+on a history taken from a graphed trajectory.
 """
 
 import json
@@ -34,6 +35,7 @@ from schwingermodel_tpu_torch.hmc import packed as hp
 from schwingermodel_tpu_torch.hmc.program import TrajectoryProgram
 from schwingermodel_tpu_torch.hmc.sampler import draw_chain_noise
 from schwingermodel_tpu_torch.models.schwinger import SchwingerModel
+from schwingermodel_tpu_torch.ops import _cuda
 from schwingermodel_tpu_torch.ops import refined as rs
 from schwingermodel_tpu_torch.ops import traj as tr
 from schwingermodel_tpu_torch.runner import hot_start
@@ -60,9 +62,9 @@ def _packed_normal(thE, thO, m0):
     return A
 
 
-def _angles(C, n, seed, device="cpu", spread=0.3):
+def _angles(C, n, seed, device="cpu", spread=0.3, nt=None):
     g = torch.Generator(device=device).manual_seed(seed)
-    th = (2 * torch.rand((C, 2, n, n), generator=g, device=device) - 1) * spread * math.pi
+    th = (2 * torch.rand((C, 2, n, nt or n), generator=g, device=device) - 1) * spread * math.pi
     return tr.pack_planes(th.float())
 
 
@@ -229,6 +231,60 @@ def test_k3_clock_columns(card, K):
         assert int(prologue.abs().sum()) == 0
     else:
         assert bool(((prologue > 0) & (prologue < total)).all())
+
+
+def _nudged(x, every):
+    """x moved up by one ulp at every `every`-th value."""
+    flat = x.flatten().clone()
+    flat[::every] = torch.nextafter(flat[::every], torch.full_like(flat[::every], math.inf))
+    return flat.reshape(x.shape)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("history", ["walk", "tpu", "near-degenerate", "duplicate"])
+@pytest.mark.parametrize("nx,nt,path", [(64, 64, rs.RU_SHARED), (128, 128, rs.RU_CLUSTER),
+                                        (126, 128, rs.RU_GLOBAL)],
+                         ids=["shared", "cluster", "global"])
+def test_k3_forecast_matches_the_mgs_reference(card, nx, nt, path, history):
+    """On the card, C=2, on each of K3's paths for a lattice of its size:
+    the start of a launch with max_iter 0 (the forecast from K3's Gram sums
+    and Cholesky solve, x0 in f64) against mre_forecast_reference in f64
+    (modified Gram-Schmidt) to 1e-6 of ||x0||. Histories of 4 solutions,
+    newest first: the walk of tests/test_torch_mre.py (certified solutions
+    of the angles moved back by 0.01 steps), the TPU test's (the solution,
+    1.001 times it, b, zeros), a near-degenerate walk (the solutions one to
+    three steps back, the third one the second moved by one ulp at every
+    4096th value: its w within ~1e-7 of the second's, so its squared
+    Schmidt norm lies ~1e-13 below the largest and both drop it), and the
+    duplicate history, which gives hist[0] bit for bit."""
+    C = 2
+    assert rs.ru_path(nx, nt // 2, C, _cuda.sm_count(card))[0] == path
+    thE, thO = _angles(C, nx, 21, card, spread=1.0, nt=nt)
+    g = torch.Generator(device=card).manual_seed(22)
+    b = torch.randn((C, 2, 2, nx, nt // 2), generator=g, device=card)
+    step = 0.01 * torch.randn(thE.shape, generator=g, device=card)
+
+    def back(k):
+        return rs.solve_refined(thE - k * step, thO - k * step, b, b, m0=M0, tol=1e-10).x
+
+    if history == "walk":
+        hist = torch.stack([back(k) for k in range(4)])
+    elif history == "tpu":
+        x = back(0)
+        hist = torch.stack([x, 1.001 * x, b, torch.zeros_like(b)])
+    elif history == "near-degenerate":
+        s1, s2, s3 = back(1), back(2), back(3)
+        hist = torch.stack([s1, s2, _nudged(s2, 4096), s3])
+    else:
+        hist = torch.stack([back(0)] * 4)
+    start = rs.solve_refined(thE, thO, b, hist, m0=M0, tol=1e-10, max_iter=0)
+    torch.cuda.synchronize()
+    if history == "duplicate":
+        assert torch.equal(start.x, hist[0]) and torch.equal(start.x64, hist[0].double())
+        return
+    want = rs.mre_forecast_reference(thE, thO, b.double(), hist.double(), m0=M0)
+    gap = (start.x64 - want).flatten(1).norm(dim=1) / want.flatten(1).norm(dim=1)
+    assert float(gap.max()) < 1e-6, gap.tolist()
 
 
 @pytest.mark.card
