@@ -244,9 +244,7 @@ def _main(args) -> int:
     )
     from schwingermodel_tpu_torch.parallel.mesh import lattice_mesh
     from schwingermodel_tpu_torch.runner import run_hmc
-    from schwingermodel_tpu_torch.utils.metrics import (
-        kernel_launches, profiler_trace,
-    )
+    from schwingermodel_tpu_torch.utils.metrics import profiler_trace
 
     # ---- parameters: flags, else reference-style stdin prompts ----
     need_stdin = any(
@@ -442,11 +440,14 @@ def _main(args) -> int:
     if result.n_ill:
         echo(f"WARNING: {result.n_ill} ill (CG-failed) configurations dumped")
     if distributed:
-        # each process's own line: where it ran and what it launched
-        # one write, so that the processes' lines do not interleave
+        # each process's own line: where it ran and its device programs'
+        # captures, replays and kernel nodes; one write, so that the
+        # processes' lines do not interleave
+        graphs = {k: {s: g[s] for s in ("captures", "replays", "kernel_nodes")}
+                  for k, g in result.perf.items() if k != "spans"}
         sys.stderr.write(f"process {multihost.process_index()} of "
-                         f"{multihost.process_count()} on {device}: kernel "
-                         f"launches {kernel_launches()}\n")
+                         f"{multihost.process_count()} on {device}: graphs "
+                         f"{graphs}\n")
         sys.stderr.flush()
     if args.checkpoint and multihost.is_primary():
         # primary-only, like every other writer (result.theta holds every

@@ -18,11 +18,9 @@ and one launch from the host. On the CPU the same step runs eagerly (the
 caller asked for the CPU). A capture or replay that fails raises: there is
 no fallback to the eager loop. A change of dt or md_steps is captured anew.
 
-The kernel wrappers count their launches in Python (``.launches``, K1's
-``.variants``), and the block counts its updates there, so a replay would
-run none of that: the program records how much each count rose during the
-capture, puts it back, and adds it on every replay, so that the counts are
-those of as many eager steps.
+A replay runs no Python, so the trajectory program keeps the block's
+host-side count of chain-trajectories (``Block.updates``) itself: C a
+step.
 
 A ``MeasurementProgram`` runs a measurement of a static theta (the
 trajectory program's, which its replays rewrite in place) the same way:
@@ -50,7 +48,6 @@ and ``hmc.meas.replay``.
 
 from __future__ import annotations
 
-import collections
 from typing import NamedTuple, Optional
 
 import torch
@@ -58,9 +55,8 @@ import torch
 from schwingermodel_tpu_torch.hmc import packed as hp
 from schwingermodel_tpu_torch.models.schwinger import SchwingerModel
 from schwingermodel_tpu_torch.ops import _cuda
-from schwingermodel_tpu_torch.ops import traj as tr
 from schwingermodel_tpu_torch.parallel import multihost as mh
-from schwingermodel_tpu_torch.utils.metrics import PerfMonitor, counted_kernels
+from schwingermodel_tpu_torch.utils.metrics import PerfMonitor
 
 
 class BlockSums(NamedTuple):
@@ -161,8 +157,7 @@ class _GraphedStep:
     """A step on static state: on the card the first call eager on a side
     stream, then one capture into a CUDA graph and a replay every call
     (captured anew when ``_key()`` changes); eager on the CPU. Subclasses
-    give ``_body`` and the prefix of their spans (``SPAN``) and may add
-    counts of their own (``_counts``, ``_add_count``). tracer: the
+    give ``_body`` and the prefix of their spans (``SPAN``). tracer: the
     PerfMonitor that takes the capture and replay spans (a new one by
     default)."""
 
@@ -173,10 +168,10 @@ class _GraphedStep:
         self.tracer = PerfMonitor() if tracer is None else tracer
         self._graph = None
         self._graph_key = None
-        self._delta = None
         self.captures = 0
         self.replays = 0
-        self.kernel_nodes = None         # kernel nodes of the captured graph
+        self.kernels = None              # the captured graph's kernel nodes by name
+        self.kernel_nodes = None         # and their number
 
     def _body(self):
         raise NotImplementedError
@@ -184,30 +179,9 @@ class _GraphedStep:
     def _key(self):
         return None
 
-    def _counts(self):
-        """The Python-side counts a step raises: each kernel wrapper's
-        launches and K1's launches by variant."""
-        c = collections.Counter({fn: fn.launches for fn in counted_kernels()})
-        c.update({("variant", k): n for k, n in tr.force_step.variants.items()})
-        return c
-
-    def _add_count(self, name: str, n: int):
-        raise KeyError(name)
-
-    def _apply(self, delta, sign=1):
-        """Add sign * delta to the counts of ``_counts``."""
-        for k, n in delta.items():
-            if isinstance(k, str):
-                self._add_count(k, sign * n)
-            elif isinstance(k, tuple):
-                tr.force_step.variants[k[1]] += sign * n
-            else:
-                k.launches += sign * n
-
     def _capture(self):
         """The warm-up step on a side stream (a real step), then the capture
-        of the step, in one span; the counts the capture raised are taken
-        back and kept as the replay's."""
+        of the step, in one span."""
         _cuda.KERNELS.build()              # nvcc and dlopen outside the capture
         with self.tracer.span(self.SPAN + ".capture"):
             cur = torch.cuda.current_stream()
@@ -217,18 +191,12 @@ class _GraphedStep:
                 self._body()
             cur.wait_stream(side)
             graph = torch.cuda.CUDAGraph()
-            before = self._counts()
             with torch.cuda.graph(graph):
                 self._body()
-                nodes = _cuda.captured_kernel_nodes(
-                    torch.cuda.current_stream().cuda_stream)
-        after = self._counts()
-        delta = collections.Counter(after)
-        delta.subtract(before)
-        self._apply(delta, -1)
-        self._graph, self._delta = graph, +delta
+                kernels = _cuda.captured_kernels(torch.cuda.current_stream().cuda_stream)
+        self._graph = graph
         self._graph_key = self._key()
-        self.kernel_nodes = nodes
+        self.kernels, self.kernel_nodes = kernels, sum(kernels.values())
         self.captures += 1
 
     def step(self):
@@ -244,7 +212,6 @@ class _GraphedStep:
         with self.tracer.span(self.SPAN + ".replay"):
             self._graph.replay()
         self.replays += 1
-        self._apply(self._delta)
 
     def run(self, n: int):
         for _ in range(n):
@@ -293,16 +260,12 @@ class TrajectoryProgram(_GraphedStep):
         self.index.add_(1)
         self.theta.copy_(theta_next)
 
-    def _counts(self):
-        """The kernels' counts and the block's updates."""
-        c = super()._counts()
-        c["updates"] = self.block.updates
-        return c
-
-    def _add_count(self, name: str, n: int):
-        if name != "updates":
-            raise KeyError(name)
-        self.block.updates += n
+    def step(self):
+        updates = self.block.updates
+        super().step()
+        # C chain-trajectories a step, whichever ran: a replay runs no
+        # Python, and a capture's body (after its eager warm-up) no trajectory
+        self.block.updates = updates + self.theta.shape[0]
 
     def _key(self):
         # C is fixed by the static buffers

@@ -14,6 +14,7 @@ No ``--use_fast_math``: the 1e-10 solver contract needs accurate
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -226,11 +227,33 @@ def _driver():
     return ctypes.CDLL("libcuda.so.1")
 
 
-def captured_kernel_nodes(stream: int) -> int:
-    """Kernel nodes of the graph that `stream` (a raw cudaStream_t, as
-    ``torch.cuda.current_stream().cuda_stream``) is capturing, by the CUDA
-    driver's stream-capture and graph queries; raise where the stream is not
-    capturing or a query fails."""
+class _KernelNodeParams(ctypes.Structure):
+    """CUDA_KERNEL_NODE_PARAMS_v2 of the driver's API."""
+    _fields_ = [("func", P), ("grid", ctypes.c_uint * 3), ("block", ctypes.c_uint * 3),
+                ("shared_bytes", ctypes.c_uint), ("params", P), ("extra", P),
+                ("kern", P), ("ctx", P)]
+
+
+def _kernel_name(drv, node) -> str:
+    """The device function a kernel node launches, as the driver names it
+    (mangled), or "?" where the driver cannot say."""
+    params, name = _KernelNodeParams(), ctypes.c_char_p()
+    if drv.cuGraphKernelNodeGetParams_v2(P(node), ctypes.byref(params)) != 0:
+        return "?"
+    func = P(params.func)
+    if not func.value and params.kern:
+        drv.cuKernelGetFunction(ctypes.byref(func), P(params.kern))
+    if not func.value or drv.cuFuncGetName(ctypes.byref(name), func) != 0:
+        return "?"
+    return name.value.decode()
+
+
+def captured_kernels(stream: int) -> collections.Counter:
+    """The kernel nodes of the graph that `stream` (a raw cudaStream_t, as
+    ``torch.cuda.current_stream().cuda_stream``) is capturing, counted by
+    the name of the device function each launches, by the CUDA driver's
+    stream-capture and graph queries; raise where the stream is not
+    capturing or a query of the nodes fails."""
     drv = _driver()
     status, cid = ctypes.c_int(), ctypes.c_uint64()
     graph, deps, n_deps = ctypes.c_void_p(), ctypes.c_void_p(), ctypes.c_size_t()
@@ -252,12 +275,13 @@ def captured_kernel_nodes(stream: int) -> int:
     nodes = (ctypes.c_void_p * n.value)()
     if err == 0 and n.value:
         err = drv.cuGraphGetNodes(graph, nodes, ctypes.byref(n))
-    kind, kernels = ctypes.c_int(), 0
+    kind, kernels = ctypes.c_int(), collections.Counter()
     for node in nodes:
         if err != 0:
             break
         err = drv.cuGraphNodeGetType(P(node), ctypes.byref(kind))
-        kernels += kind.value == 0         # CU_GRAPH_NODE_TYPE_KERNEL
+        if kind.value == 0:                # CU_GRAPH_NODE_TYPE_KERNEL
+            kernels[_kernel_name(drv, node)] += 1
     if err != 0:
         raise RuntimeError(f"graph node query: CUDA error {err}")
     return kernels

@@ -117,8 +117,4 @@ def cg_solve_eo(ue, uo, b, x0, *, m0, tol, max_iter, active=None) -> SolveResult
         _cuda.check(active, "active", torch.bool, (C, B))
     x, iters, rho, bnorm2 = _launch(ue, uo, b, x0, m0, tol, max_iter,
                                     _cuda.sm_count(b.device), active=active)
-    cg_solve_eo.launches += 1
     return _solve_result(x, iters, rho, bnorm2, tol)
-
-
-cg_solve_eo.launches = 0

@@ -156,7 +156,6 @@ class _NormalLaunch(_Launch):
         self._launch(*self.ptrs, v_ext.data_ptr(), r_ptr, out.data_ptr(), dots_ptr,
                      self.scratch_ptr, self.n, self.Nxe, self.Nthe, self.m0,
                      int(r_loc is not None), self.path, self.blocks)
-        halo_normal.launches += 1
         return out if r_loc is None else (out, dots)
 
 
@@ -174,7 +173,6 @@ class _ForceLaunch(_Launch):
         self._launch(*self.ptrs, psi_ext.data_ptr(), FE.data_ptr(), FO.data_ptr(),
                      self.scratch_ptr, self.n, self.Nxe, self.Nthe, float(m0), float(beta),
                      self.path, self.blocks)
-        halo_force.launches += 1
         return FE, FO
 
 
@@ -237,9 +235,6 @@ def halo_normal(ue_ext, uo_ext, off_ext, v_ext, r_loc=None, *, m0,
     return _NormalLaunch(ue_ext, uo_ext, off_ext, m0)(v_ext, r_loc if with_dots else None)
 
 
-halo_normal.launches = 0
-
-
 # ---------- K8 ----------
 
 def halo_force_reference(ue_ext, uo_ext, off_ext, psi_ext, *, m0, beta):
@@ -269,9 +264,6 @@ def halo_force(ue_ext, uo_ext, off_ext, psi_ext, *, m0, beta):
                                     beta=beta)
     _check_planes(ue_ext, uo_ext, off_ext)
     return _ForceLaunch(ue_ext, uo_ext, off_ext)(psi_ext, m0, beta)
-
-
-halo_force.launches = 0
 
 
 # ---------- the operators of the sharded path ----------

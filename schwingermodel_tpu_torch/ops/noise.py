@@ -73,13 +73,9 @@ def chain_noise(seed: int, traj_index, n_chains: int, pi_shape, chi_shape,
     _cuda.KERNELS.call("noise_launch", tptr, tval, key0, key1, int(chain_offset),
                        p(pi), p(chi), p(r), None if w is None else p(w),
                        n_chains, n_pi // 2, n_chi, int(rdtype == torch.float64))
-    chain_noise.launches += 1
     if words:
         return pi, chi, r, w.to(torch.int64) & 0xFFFFFFFF
     return pi, chi, r
-
-
-chain_noise.launches = 0
 
 
 def z2_noise(seed: int, meas_index, n_chains: int, n_noise: int, site_shape,
@@ -108,13 +104,9 @@ def z2_noise(seed: int, meas_index, n_chains: int, n_noise: int, site_shape,
     _cuda.KERNELS.call("z2_launch", mptr, mval, key0, key1, int(chain_offset),
                        _cuda.ptr(z), None if w is None else _cuda.ptr(w),
                        n_chains, n_noise, n_el)
-    z2_noise.launches += 1
     if words:
         return z, w.to(torch.int64) & 0xFFFFFFFF
     return z
-
-
-z2_noise.launches = 0
 
 
 def philox(ctr: torch.Tensor, key) -> torch.Tensor:

@@ -354,12 +354,8 @@ def solve_refined(thE, thO, b, x0, *, m0, tol, tau=1e-5, max_iter=10000,
         int(bool(certify)), int(cert_k), int(bool(fallback)),
         int(max_iter if fb_max_iter is None else fb_max_iter),
         _FB_MAX_ROUNDS, path, cluster)
-    solve_refined.launches += 1
     return RefinedSolveResult(x=x, x64=x64, iters=counts[0], converged=conv,
                               fb_iters=counts[1])
-
-
-solve_refined.launches = 0
 
 
 # ---------- K4 ----------
@@ -482,12 +478,8 @@ def solve_f64_cg_fallback(thE, thO, b, prev: RefinedSolveResult, *, m0, tol,
         p(prev.converged), p(prev.iters), p(x), p(x64), p(counts[0]),
         p(counts[1]), p(conv), p(s64), C, Nx, Nth, float(m0), float(tol),
         float(tau), int(max_iter), int(max_rounds))
-    solve_f64_cg_fallback.launches += 1
     return RefinedSolveResult(x=x, x64=x64, iters=counts[0], converged=conv,
                               fb_iters=counts[1])
-
-
-solve_f64_cg_fallback.launches = 0
 
 
 # ---------- K9 ----------
@@ -634,8 +626,4 @@ def residual_f64(thE, thO, b, x, *, m0, active=None, out=None):
         _cuda.check(out[1], "out[1]", torch.float64, (C, B))
     out = _launch_residual(thE, thO, b, x, m0, _cuda.sm_count(b.device),
                            active=active, out=out)
-    residual_f64.launches += 1
     return out
-
-
-residual_f64.launches = 0

@@ -35,7 +35,6 @@ from this layout: the parameter bridge between the two packages.
 
 from __future__ import annotations
 
-import collections
 import functools
 import math
 from typing import NamedTuple
@@ -318,11 +317,7 @@ def solve_fused(thE, thO, b, x0, *, m0, tol, max_iter) -> SolveResult:
     x, iters, rho, bnorm2 = _launch_solve(
         "solve_fused_launch", _SOLVE_SCRATCH if path == CG_GLOBAL else 0, thE,
         thO, b, x0, m0, tol, max_iter, path)
-    solve_fused.launches += 1
     return _solve_result(x, iters, rho, bnorm2, tol)
-
-
-solve_fused.launches = 0
 
 
 # ---------- K10: K2 with its x-shifts as one-hot products ----------
@@ -386,11 +381,7 @@ def shift_x_mxu(a: torch.Tensor):
     out_p, out_m = torch.empty_like(a), torch.empty_like(a)
     p = _cuda.ptr
     _cuda.KERNELS.call("shift_mxu_launch", p(a), p(out_p), p(out_m), n, Nx, Nth)
-    shift_x_mxu.launches += 1
     return out_p, out_m
-
-
-shift_x_mxu.launches = 0
 
 
 def solve_fused_mxu_reference(thE, thO, b, x0, *, m0, tol, max_iter) -> SolveResult:
@@ -419,11 +410,7 @@ def solve_fused_mxu(thE, thO, b, x0, *, m0, tol, max_iter) -> SolveResult:
     x, iters, rho, bnorm2 = _launch_solve(
         "solve_mxu_launch", _SOLVE_SCRATCH if path == CG_GLOBAL else 0, thE,
         thO, b, x0, m0, tol, max_iter, path)
-    solve_fused_mxu.launches += 1
     return _solve_result(x, iters, rho, bnorm2, tol)
-
-
-solve_fused_mxu.launches = 0
 
 
 # ---------- K1: the fused force step ----------
@@ -504,15 +491,7 @@ def force_step(thE, thO, phi, x0, *, m0, beta, tol, max_iter, with_solve=True,
                        C, Nx, Nth, float(m0), float(beta), float(tol),
                        int(max_iter), int(bool(with_solve)),
                        int(bool(with_gauge)), path, blocks)
-    force_step.launches += 1
-    force_step.variants[f"with_solve={bool(with_solve)},"
-                        f"with_gauge={bool(with_gauge)}"] += 1
     return ForceStepResult(FE=FE, FO=FO, psi=psi, iters=iters, converged=conv)
-
-
-force_step.launches = 0
-force_step.variants = collections.Counter()   # launches per (with_solve, with_gauge)
-
 
 # ---------- K5: the Hasenbusch ratio force ----------
 
@@ -577,8 +556,4 @@ def ratio_force(thE, thO, psi, phi2, *, m0, m1, beta):
     _cuda.check(phi2, "phi2", torch.float32, (C, 2, 2, Nx, Nth))
     FE, FO = _launch_ratio(thE, thO, psi, phi2, m0, m1, beta,
                            _cuda.sm_count(psi.device))
-    ratio_force.launches += 1
     return FE, FO
-
-
-ratio_force.launches = 0

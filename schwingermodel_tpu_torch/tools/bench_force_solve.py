@@ -20,7 +20,7 @@ random angles' folded links and B right-hand sides per configuration, and
 K6 at tol 1e-5 from x0 = 0 (the refinement's inner solve). It prints one
 JSON row per (kernel, variant, shape) with the kernel's milliseconds by
 CUDA events in two turns of ``--reps`` launches, ``ms`` as the launches are
-issued (the yardstick of ``chip_smoke.py``'s kernels line) and
+issued (the yardstick of the port's kernel timings) and
 ``device_ms`` with them queued behind a spin of the card, which leaves the
 host's launch cost out (``utils.metrics.device_ms``); for the solves the CG
 iterations summed and of the slowest chain or entry, microseconds per

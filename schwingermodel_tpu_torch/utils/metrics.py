@@ -1,4 +1,4 @@
-"""Performance metrics: the run's spans, kernel launches, the profiler.
+"""Performance metrics: the run's spans, the profiler.
 
 The reference's only performance instrumentation is end-to-end MPI_Wtime
 (src/main.cpp:152-171) plus a commented-out -g flag "#For profiling"
@@ -7,7 +7,8 @@ named spans on the host's clock (runner.py: ``hmc.run`` and the spans
 inside it); while a ``torch.profiler`` records, each span is also a range
 of the same name in its trace, on the device trace's clock.
 ``profiler_trace`` is the CLI's ``--profile``; ``idle_split`` parts the
-card's idle time by whether the host had issued the work that ended it.
+card's idle time by whether the host had issued the work that ended it;
+``device_kernels`` names the kernels a call ran on the card.
 
 Counterpart of ``schwingermodel_tpu/utils/metrics.py`` (its per-phase
 ``PerfMonitor`` and ``profiler_trace``).
@@ -30,6 +31,7 @@ FLOP counts of the operators (the bench tools' GFLOP/s, tools/bench_kernels.py):
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import os
@@ -57,27 +59,6 @@ def card_label(device) -> str:
         return out.stdout.strip().splitlines()[0]
     except (OSError, subprocess.SubprocessError):
         return torch.cuda.get_device_name(device)
-
-
-def counted_kernels() -> tuple:
-    """Every CUDA kernel wrapper with a launch counter (each adds one to
-    ``.launches`` where it launches its kernel; a CPU tensor runs the plain
-    twin and counts nothing)."""
-    from schwingermodel_tpu_torch.ops import cg_eo, halo, noise
-    from schwingermodel_tpu_torch.ops import refined as rs
-    from schwingermodel_tpu_torch.ops import traj as tr
-
-    return (tr.force_step, tr.solve_fused, tr.solve_fused_mxu, tr.ratio_force,
-            rs.solve_refined, rs.solve_f64_cg_fallback, cg_eo.cg_solve_eo,
-            rs.residual_f64, halo.halo_normal, halo.halo_force,
-            noise.chain_noise, noise.z2_noise)
-
-
-def kernel_launches() -> dict:
-    """Entry point -> launches since its counter was last set, of every
-    wrapper of ``counted_kernels`` (a graph replay counts as the launches
-    its capture recorded, hmc/program.py)."""
-    return {fn.__name__: fn.launches for fn in counted_kernels()}
 
 
 @dataclasses.dataclass
@@ -244,6 +225,27 @@ def idle_split(ops, window) -> tuple:
     return starved * 1e-9, queued * 1e-9
 
 
+def device_kernels(fn, n: int = 1) -> collections.Counter:
+    """The kernels the card ran in n calls of fn, by name and count, from
+    the device events of a torch.profiler window around them (no copy or
+    fill of memory, and not the spin that opens the window: a spin of the
+    card and a pause of the host come before the calls). The trace may
+    miss launches, most after many windows in one process: a captured
+    graph's own count is its program's ``kernels``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return collections.Counter(
+        e.name() for e in prof.profiler.kineto_results.events()
+        if e.device_type() == torch.autograd.DeviceType.CUDA
+        and not e.name().startswith(("Memcpy", "Memset")) and "spin_kernel" not in e.name())
 
 
 def trace_idle(prof, span: str = "hmc.run") -> Optional[dict]:

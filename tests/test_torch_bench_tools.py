@@ -106,9 +106,7 @@ def test_local_applies_match_jax_composite_and_pallas(block):
 
     vt = torch.from_numpy(v)[None]
     plain = bsk.local_apply_plain(inner, blk, vt, M0)[0].numpy()
-    launches = halo.halo_normal.launches
     fused = to_complex(bsk.local_apply_fused(inner, blk, to_planar(vt).contiguous(), M0))
-    assert halo.halo_normal.launches == launches       # CPU tensors: the twin
     fused = fused[0].numpy()
     scale = np.abs(want).max()
     for a, b in ((plain, want), (fused, want_k), (plain, fused), (fused, want)):
@@ -154,10 +152,8 @@ def test_forces_match_jax_composite_and_pallas(block):
     mesh = inner.geom.mesh
     th_s = shard(torch.from_numpy(theta)[None], mesh)
     psi_s = shard(torch.from_numpy(psi)[None], mesh)
-    launches = halo.halo_force.launches
     got = {False: bsk.force_plain(inner, th_s, psi_s, M0),
            True: bsk.force_fused(inner, th_s, psi_s, M0)}
-    assert halo.halo_force.launches == launches
     scale = max(np.abs(want[False]).max(), 1.0)
     for f in (False, True):
         g = unshard(got[f], mesh)[0].numpy()

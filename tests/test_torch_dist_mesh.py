@@ -229,7 +229,7 @@ def test_four_processes_equal_the_one_process_mesh(runs, name):
     assert banner in o4
     assert f"* Chain groups = {groups} (one a plane of {4 // groups} processes)" in o4
     for p, (_, _, err) in enumerate(r["four"]):
-        assert f"process {p} of 4 on cpu: kernel launches" in err
+        assert f"process {p} of 4 on cpu: graphs {{}}" in err
 
 
 def test_a_mesh_the_processes_do_not_fill_exits_1(runs):

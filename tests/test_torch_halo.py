@@ -7,7 +7,7 @@ On the CPU each wrapper runs its plain twin. The JAX side runs under
 ``shard_map`` on the 8 virtual CPU devices of tests/conftest.py, its Pallas
 kernels in interpret mode, x64 on; inputs come from a numpy seed and go to
 both packages through ``parallel.mesh.shard``. The CUDA kernels are held
-against the same twins on the card by chip_smoke.py.
+against the same twins on the card by tests/test_torch_card_kernels.py.
 """
 
 import jax
@@ -263,9 +263,7 @@ def test_halo_normal_twin_matches_pallas(rng, mesh_shape):
 
     pue, puo, poff, pv = _port_blocks(mesh, ue, uo, off, v_ext)
     pres = shard(tr.to_planar(torch.from_numpy(r))[None], mesh)
-    launches = halo.halo_normal.launches
     out, dots = halo.halo_normal(pue, puo, poff, pv, pres, m0=M0, with_dots=True)
-    assert halo.halo_normal.launches == launches      # CPU tensors: plain twin
     assert dots.shape == (1, *mesh_shape, 4) and dots.dtype == torch.float32
     np.testing.assert_allclose(unshard(out, mesh)[0].numpy(), np.asarray(jout),
                                rtol=0, atol=2e-5)
@@ -303,9 +301,7 @@ def test_halo_force_twin_matches_pallas(rng, mesh_shape):
 
     inner = _port(jm, mesh)
     Uf = inner.field_fermion_links(shard(theta[None], mesh))
-    launches = halo.halo_force.launches
     F = halo.force_halo_fused(inner.geom, Uf, M0, shard(psi[None], mesh), BETA)
-    assert halo.halo_force.launches == launches
     got = unshard(F, mesh)[0].numpy()
     assert got.shape == (2, 16, 16) and got.dtype == np.float32
     np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=2e-5)
@@ -405,9 +401,7 @@ def test_sharded_cg_matches_jax(rng, fused):
     jsolve = _shard_map(run, (2, 2), (SPEC, SPEC), (SPEC, P(), P()))
     mesh = lattice_mesh((2, 2))
     inner = _port(jm, mesh)
-    launches = halo.halo_normal.launches
     res = inner._solve_eo_lo(inner.eo_ops(shard(theta, mesh)), shard(b, mesh))
-    assert halo.halo_normal.launches == launches
     assert res.iters.shape == (2, 1, 1) and res.converged.shape == (2, 1, 1)
     x = unshard(res.x, mesh).numpy()
     for c in range(2):

@@ -6,7 +6,8 @@ whole block's interior rows.
 
 On the CPU the wrappers run their plain twins; the launch paths are read
 through a recorder standing in for the kernel's C entry. The kernels
-themselves are held against the twins on the card by chip_smoke.py.
+themselves are held against the twins on the card by
+tests/test_torch_card_kernels.py.
 """
 
 import types

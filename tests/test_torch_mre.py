@@ -21,7 +21,7 @@ port is held against:
   action solve over the whole history.
 
 The CUDA prologue of K3 is held against the same plain twin on the card by
-chip_smoke.py (phase 2).
+tests/test_torch_card_kernels.py.
 """
 
 import dataclasses

@@ -140,8 +140,8 @@ def runs(tmp_path_factory):
 def test_cli_two_processes_end_to_end_and_resume(runs):
     """Two processes run the CLI: one chain group each, one SimData and one
     checkpoint (written by process 0), the results printed by process 0
-    only, each process's device and launches on its own stderr line; both
-    resume from the checkpoint."""
+    only, each process's device and device programs on its own stderr
+    line; both resume from the checkpoint."""
     two = runs["two"]
     assert len(list(two.glob("*SimData*"))) == 1
     assert sorted(p.name for p in two.glob("*.npz")) == ["ck.npz", "ck2.npz"]
@@ -149,8 +149,8 @@ def test_cli_two_processes_end_to_end_and_resume(runs):
     assert "* Chain groups = 2 processes on 1 device (gloo)" in out0
     assert out0.count("Average plaquette value") == 1
     assert out1 == ""
-    assert "process 0 of 2 on cpu: kernel launches" in err0
-    assert "process 1 of 2 on cpu: kernel launches" in err1
+    assert "process 0 of 2 on cpu: graphs {'graph': {'captures': 0, 'replays': 0" in err0
+    assert "process 1 of 2 on cpu: graphs {'graph': {'captures': 0, 'replays': 0" in err1
     (_, rout0, _), (_, rout1, _) = runs["res2"]
     assert rout0.count("Average plaquette value") == 1 and rout1 == ""
     assert "all solves converged: True" in rout0

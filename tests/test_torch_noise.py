@@ -9,7 +9,8 @@ trajectory index and the counter as a tensor draw the same), the moments
 and a Kolmogorov-Smirnov test of every field in f32 and f64 for every
 shape of the pseudofermion noise, the shapes ``draw_chain_noise`` gives
 each mode, and the committed 64x64 physics row run on this stream. The
-kernel itself is held against the twin on the card by chip_smoke.py.
+kernel itself is held against the twin on the card by
+tests/test_torch_card_kernels.py.
 """
 
 import json

@@ -1,7 +1,8 @@
 """The device program of the packed main path (hmc/program.py) on the CPU.
 
 On the card a ``TrajectoryProgram`` replays one CUDA graph a trajectory
-(chip_smoke.py holds the replays against eager calls bit for bit); on the
+(tests/test_torch_card_program.py holds the replays against eager calls
+bit for bit there); on the
 CPU it runs the same step eagerly. Here: three steps from the counter
 equal three eager ``hmc_trajectory_packed`` calls at the same indices, theta
 and every block accumulator bit for bit, under the refined and loose
@@ -172,13 +173,16 @@ def test_port_noise_through_jax_and_port_trajectories():
     np.testing.assert_allclose(th_got.numpy(), th_ref, rtol=0, atol=2e-4)
 
 
-def test_counters_stay_at_zero_on_the_cpu():
-    """The counters stay at zero on the CPU: the wrappers count only kernel
-    launches on the card, and the program adds no replays there."""
-    from schwingermodel_tpu_torch.utils.metrics import kernel_launches
-
-    before = kernel_launches()
-    prog = TrajectoryProgram(_model(), hot_start(LatticeParams(Nx=NX, Nt=NT), 0, 1,
+def test_program_counts_its_updates_on_the_cpu():
+    """On the CPU, n steps of a program of C chains add n * C
+    chain-trajectories to the block's updates with no capture, no replay
+    and no graph; reset() zeroes the updates."""
+    C, n = 3, 2
+    prog = TrajectoryProgram(_model(), hot_start(LatticeParams(Nx=NX, Nt=NT), 0, C,
                                                  "cpu"), 0, 0)
-    prog.run(2)
-    assert kernel_launches() == before
+    prog.run(n)
+    assert prog.block.updates == n * C
+    assert prog.stats() == {"captures": 0, "replays": 0, "kernel_nodes": None,
+                            "host_us_per_replay": None}
+    prog.block.reset()
+    assert prog.block.updates == 0

@@ -16,7 +16,7 @@ their shared-memory kernels run them.
   rule fails without a card.
 
 The CUDA kernels are held against the same twins on the card by
-chip_smoke.py.
+tests/test_torch_card_kernels.py.
 """
 
 import jax.numpy as jnp

@@ -7,7 +7,7 @@ tensors run are held to the contract instead: the complex128 true residual
 from the per-site NumPy oracle (tests/reference_impl.py), the JAX x64
 refinement (solvers/refine.cg_refine through the model) and its f64 CG
 finish (solvers/refine._f64_cg_finish). The CUDA kernels are held against
-the same twins on the card by chip_smoke.py.
+the same twins on the card by tests/test_torch_card_kernels.py.
 """
 
 import jax.numpy as jnp
@@ -19,9 +19,12 @@ from schwingermodel_tpu.config import CGParams, HMCParams, LatticeParams
 from schwingermodel_tpu.models.schwinger import SchwingerModel
 from schwingermodel_tpu.ops import eo as jeo
 from schwingermodel_tpu.solvers.refine import _f64_cg_finish
+from schwingermodel_tpu_torch.ops import _cuda, halo
 from schwingermodel_tpu_torch.ops import refined as rs
 from schwingermodel_tpu_torch.ops import traj as tr
+from schwingermodel_tpu_torch.ops.eo_halo import W
 from tests import reference_impl as ref
+from tests import test_torch_card_kernels as card
 
 torch.set_num_threads(1)
 
@@ -77,9 +80,7 @@ def test_solve_refined_certified_meets_contract(rng):
     """certify=True at 1e-10: oracle residual below 1e-10 ||b||, the flag is
     set, and x agrees with the JAX x64 refinement to 1e-8 relative."""
     theta, b, thE, thO, bp = _system(rng, 2)
-    launches = rs.solve_refined.launches
     sol = rs.solve_refined(thE, thO, bp, bp, m0=M0, tol=TOL, certify=True)
-    assert rs.solve_refined.launches == launches      # plain twin on CPU
     assert sol.x64.dtype == torch.float64 and sol.x.dtype == torch.float32
     assert bool(sol.converged.all())
     assert (_rel_residual(theta, b, sol.x64) < TOL).all()
@@ -155,9 +156,7 @@ def test_fallback_reaches_contract_like_jax_f64_finish(rng):
     """K4 from a truncated K3 result reaches 1e-10 on the oracle and agrees
     with solvers/refine._f64_cg_finish started from the same x."""
     theta, b, thE, thO, bp, prev = _truncated(rng)
-    launches = rs.solve_f64_cg_fallback.launches
     fb = rs.solve_f64_cg_fallback(thE, thO, bp, prev, m0=M0, tol=TOL)
-    assert rs.solve_f64_cg_fallback.launches == launches
     assert bool(fb.converged.all())
     assert (_rel_residual(theta, b, fb.x64) < TOL).all()
     assert (fb.iters > prev.iters).all()
@@ -363,3 +362,40 @@ def test_bench_tool_imports_another_checkouts_wrapper():
     assert Path(theirs.__file__) == root / "schwingermodel_tpu_torch" / "ops" / "refined.py"
     assert sys.modules["schwingermodel_tpu_torch.ops.refined"] is rs
     assert sys.modules["schwingermodel_tpu_torch.ops._cuda"] is _cuda
+
+
+def test_card_kernel_shapes_reach_every_route():
+    """The card's kernel tests take every route of the rules on an H100: a
+    route is the path and whether a chain (a shard) spans one block or
+    several. K3: all four of ru_path's paths; K1 in its four variants, K2,
+    K10, K5 and K6 (its C*B entries): the shared path on one block, on
+    several where the rule splits, and the global path; K9's rule on the
+    shared path on one slab and on several, and the global path (the test
+    runs every other route too); K7 and K8 shared on one block and on
+    several, and the global path, which their global tests launch by
+    route."""
+    sms = _cuda.H100_SMS
+
+    def kinds(routes):
+        return {(path, n > 1) for path, n, *_ in routes}
+
+    one, split, glob = (tr.CG_SHARED, False), (tr.CG_SHARED, True), (tr.CG_GLOBAL, False)
+    shapes = [(nx, nt // 2, C) for nx, nt, C in card.SHAPES]
+    assert {rs.ru_path(*s, sms)[0] for s in shapes + [
+        (nx, nt // 2, C) for nx, nt, C in card.MRE_SHAPES]} == set(range(4))
+    for solve, gauge in ((False, True), (False, False), (True, True), (True, False)):
+        got = kinds(tr.cg_path(*s, sms, solve, gauge) for s in shapes)
+        assert got == ({one, glob} if solve else {one, split, glob}), (solve, gauge)
+    assert kinds(tr.cg_path(*s, sms) for s in shapes) == {one, glob}
+    assert kinds(tr.ratio_force_path(nx, nt // 2, C, sms)
+                 for nx, nt, C in card.K5_SHAPES) == {one, split, glob}
+    assert kinds(tr.cg_path(nx, nth, C * card.RHS[C], sms)
+                 for nx, nth, C in shapes) == {one, glob}
+    assert kinds(rs.residual_path(nx, nth, C, card.RHS[C], sms)
+                 for nx, nth, C in shapes) == {one, split, glob}
+    for per_site in (halo._NORMAL_BYTES, halo._FORCE_BYTES):
+        got = kinds(halo.halo_path(nx // rx + 2 * W, nt // rt // 2 + 2 * W, C * rx * rt,
+                                   sms, per_site)
+                    for nx, nt, (rx, rt), C in card.HALO_SHAPES)
+        assert got | {glob} == {one, split, glob} and card.HALO_GLOBAL, per_site
+        assert set(map(tuple, card.HALO_GLOBAL)) <= set(map(tuple, card.HALO_SHAPES))
