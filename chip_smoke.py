@@ -14,11 +14,13 @@ Run from the repository root on a machine with a CUDA card:
    checks);
 2. the main paths' device programs at beta=4 m0=0.2: the refined, loose,
    Hasenbusch (dm=0.4), Omelyan (md=5) and MRE (K=4, md=40, tau=1)
-   trajectories of 32 chains at 64x64, the refined one of 8 chains at
-   128x128, and the refined and loose measurements with the condensate of
-   8 noise vectors; each is captured and replayed once: the launches of
-   each entry point a replay, from its graph's kernel nodes by the name the
-   CUDA driver gives each (``program.kernels``), then held to what
+   trajectories of 32 chains at 64x64, the refined one of 32 chains at
+   128x128 (the 128x128 cell's, K3 on its L2 path, as every one of its 10
+   K3 nodes a replay is to name), and the refined and loose measurements
+   with the condensate of 8 noise vectors; each is captured and replayed
+   once: the launches of each entry point a replay, from its graph's
+   kernel nodes by the name the CUDA driver gives each (``program.kernels``),
+   then held to what
    N_REPLAYS replays under torch.profiler launch on the card; then one
    eager trajectory of 4 chains at 16x16 on 2x2 shards, the path of K7 and
    K8, which no device program runs;
@@ -178,9 +180,11 @@ PROGRAMS = {   # label: (lattice, chains, HMC parameters, launches a replay)
     "omelyan": (LATTICE, C, hmc_params(md_steps=5, integrator="omelyan"), {}),
     "mre tau=1": (LATTICE, C, hmc_params(md_steps=40, tau=1.0, mre_history=4),
                   {"solve_refined": 40}),
-    "128x128": (LatticeParams(Nx=128, Nt=128, real_dtype="float32"), 8, hmc_params(),
+    "128x128": (LatticeParams(Nx=128, Nt=128, real_dtype="float32"), 32, hmc_params(),
                 {"solve_refined": 10, "force_step": 9}),
 }
+# the device function of a program's K3 nodes, where it is checked
+K3_KERNEL = {"128x128": "solve_ru_l2_kernel"}
 
 
 def replayed(label, prog):
@@ -209,6 +213,9 @@ def device_programs() -> dict:
         for name, count in {"chain_noise": 1, "solve_f64_cg_fallback": 0, **want}.items():
             check(got.get(name, 0) == count, f"{label}: {name} {got.get(name, 0)} a replay, "
                   f"not {count}")
+        if label in K3_KERNEL:
+            k3 = {k: v for k, v in prog.kernels.items() if entry_of(k) == "solve_refined"}
+            check(all(K3_KERNEL[label] in k for k in k3), f"{label}: K3's nodes {k3}")
         if label == "refined":
             theta = prog.theta.clone()
     for refine in (True, False):

@@ -444,7 +444,7 @@ def _main(args) -> int:
         # captures, replays and kernel nodes; one write, so that the
         # processes' lines do not interleave
         graphs = {k: {s: g[s] for s in ("captures", "replays", "kernel_nodes")}
-                  for k, g in result.perf.items() if k != "spans"}
+                  for k, g in result.perf.items() if "captures" in g}
         sys.stderr.write(f"process {multihost.process_index()} of "
                          f"{multihost.process_count()} on {device}: graphs "
                          f"{graphs}\n")

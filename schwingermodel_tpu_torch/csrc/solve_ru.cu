@@ -42,10 +42,10 @@
 // stencil stages of ~150 flops per site) and 2 block reductions on 2048
 // sites per chain at 64x64, i.e. the latency of barriers and of what a
 // thread waits for after each, not bandwidth or flops. One thread block of
-// 512 threads per chain (or one cluster of blocks) runs the whole solve, so
-// no host synchronisation or relaunch happens per iteration. Where the
-// vectors of the f32 recursion live is chosen by lattice size and chain
-// count before the launch (ops/refined.ru_path):
+// 512 threads per chain (or 2-8 blocks of rows) runs the whole solve, so no
+// host synchronisation or relaunch happens per iteration. Where the vectors
+// of the f32 recursion live is chosen by lattice size, chain count and what
+// the card runs at once before the launch (ops/refined.ru_path):
 //
 // - shared (up to 64x64: V2 = Nx Nt/2 <= 2048 sites): the f32 links of both
 //   parities, d, r and two stencil temporaries are six fields of 4 floats a
@@ -70,6 +70,16 @@
 //   barrier (a cluster.sync() costs ~1500 cycles, ~0.75 us, on the H100,
 //   where __syncthreads() costs ~240). Where one block holds the lattice a
 //   cluster is the slower choice and is not taken;
+// - L2 (a lattice too large for one block, whose C clusters the card does
+//   not run at once but whose C n blocks it does: 128x128 at C = 32, where
+//   the H100 runs 30 clusters of 4 and 132 blocks): the same recursion on n
+//   ordinary blocks a chain anywhere on the card, one cooperative launch,
+//   the halo rows and the sums exchanged through global memory, which stays
+//   in L2 (RuCluster<true>): the thread of an edge site stores it into its
+//   block's slot as words that carry the phase beside the value; the thread
+//   beside the halo site loads them until they hold its phase and puts the
+//   site into the block's halo row. Where the card would run the clusters
+//   in two waves, one wave over L2 is the faster (ops/refined.ru_path);
 // - global (what no cluster holds): every vector in a per-chain global
 //   scratch of 28 V2 floats and 20 V2 doubles that stays in L2, 7 barriers
 //   an iteration, 5 of them followed by neighbour reads from L2.
@@ -100,7 +110,7 @@ struct RuParams {
   float* s32;
   double* s64;
   // [C, 4]: cycles of the solve, of its true residuals, of rank 0's thread
-  // 0 waiting on the other blocks of its cluster (0 on the one-block paths)
+  // 0 waiting on the other blocks of its chain (0 on the one-block paths)
   // and of that thread in the MRE prologue (0 at K = 1); may be null
   long long* clocks;
   int Nx, Nth;
@@ -108,6 +118,10 @@ struct RuParams {
   int max_iter, max_outer, certify, cert_k;
   int fallback, fb_max_iter, fb_max_rounds;
   int f64_shared;  // shared path only: the f64 set lies in shared memory too
+  // L2 path only: the exchange areas (ru_l2_words a chain, 0 between
+  // launches) and the blocks a chain
+  unsigned long long* xch;
+  int blocks;
 };
 
 // f64 scratch values per half-lattice site and chain: the links and the true
@@ -190,8 +204,9 @@ struct RuF64 {
   // the kernel without them, by a flag of the launch or as an instantiation
   // of its own, was 2-4% slower in turns.
   long long t_res;
-  // cycles spent waiting on the other blocks of a cluster (RuCluster::sync
-  // and wait_for); 0 on the other paths
+  // cycles spent waiting on the other blocks of the chain (RuCluster's
+  // barriers, halo rows and sums, on either transport); 0 on the one-block
+  // paths
   long long t_wait;
 };
 
@@ -573,8 +588,69 @@ struct RuShared : RuF64 {
 // Blocks of one chain's cluster at most.
 constexpr int kRuClusterMax = 8;
 
-// The same recursion on a thread-block cluster of N blocks a chain. Block
-// `rank` owns the rows [rank * rows, (rank + 1) * rows) of x of every field
+// The L2 path's exchange area of a chain of N blocks of rows of Nth sites,
+// in 8-byte words: each block's two edge rows for each of the 4 halo
+// mailboxes and 2 phases, a site in 4 words; each block's kMreSums sums of
+// 2 phases, a sum in 2 words; the arrivals at the chain's barriers; whole
+// 128-byte lines. A word holds 32 bits of a value and, above them, the
+// phase that wrote it, so that a reader that finds its phase in every word
+// of a site has the site's value, with no fence between data and flag; 0
+// before a launch, and again after it.
+__host__ __device__ constexpr size_t ru_l2_words(int N, int Nth) {
+  return (static_cast<size_t>(N) * (64 * Nth + 4 * kMreSums) + 1 + 15) / 16 * 16;
+}
+
+// Two words at p (16-byte aligned), each stored and loaded whole.
+__device__ __forceinline__ void st_words(unsigned long long* p, unsigned long long a,
+                                         unsigned long long b) {
+  asm volatile("st.volatile.global.v2.u64 [%0], {%1, %2};" ::"l"(p), "l"(a), "l"(b) : "memory");
+}
+__device__ __forceinline__ void ld_words(const unsigned long long* p, unsigned long long& a,
+                                         unsigned long long& b) {
+  asm volatile("ld.volatile.global.v2.u64 {%0, %1}, [%2];" : "=l"(a), "=l"(b) : "l"(p) : "memory");
+}
+// 32 bits of a value under the phase c, and back
+__device__ __forceinline__ unsigned long long tagged(unsigned bits, unsigned c) {
+  return static_cast<unsigned long long>(c) << 32 | bits;
+}
+__device__ __forceinline__ unsigned phase_of(unsigned long long w) {
+  return static_cast<unsigned>(w >> 32);
+}
+__device__ __forceinline__ unsigned bits_of(unsigned long long w) {
+  return static_cast<unsigned>(w);
+}
+
+__device__ __forceinline__ void red_release(unsigned* f, unsigned v) {
+  asm volatile("red.release.gpu.global.add.u32 [%0], %1;" ::"l"(f), "r"(v) : "memory");
+}
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* f) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(f) : "memory");
+  return v;
+}
+// A spin that traps after ~2^35 cycles instead of hanging
+__device__ __forceinline__ void spin_guard(long long t0) {
+  if (clock64() - t0 > (1ll << 35)) __trap();
+}
+
+// The L2 transport's state in RuCluster<true>: the chain's exchange area
+// and the phases the block has reached (the same in every block of the
+// chain, which runs the same sequence of exchanges); nothing in the
+// cluster's.
+template <bool L2>
+struct RuXch {};
+template <>
+struct RuXch<true> {
+  unsigned long long* halo;  // [N][4 mailboxes][2 phases][2 rows][Nth][4]
+  unsigned long long* sums;  // [N][2 phases][kMreSums][2]
+  unsigned* bar;             // the arrivals at the chain's barriers
+  unsigned hc[4];            // phases received, by mailbox
+  unsigned sc, bc;           // sum phases, barriers passed
+};
+
+// The same recursion on N blocks a chain, on one of two transports: a
+// thread-block cluster (L2 = false, below) or ordinary blocks that exchange
+// through global memory (L2 = true, further below). Block `rank` owns the rows [rank * rows, (rank + 1) * rows) of x of every field
 // and holds them, site-major as RuShared does, between two halo rows: row -1
 // and row `rows` are the neighbour blocks' edge rows, so a stencil stage
 // reads local shared memory only and x needs no wrap. The f64 true residual
@@ -617,6 +693,30 @@ constexpr int kRuClusterMax = 8;
 // The same chains of dependence keep an mbarrier from receiving a phase's
 // bytes before its previous phase completed. Every block runs the same
 // sequence of exchanges, so each mbarrier's parity is the same everywhere.
+//
+// The L2 transport (L2 = true) keeps that shape with global memory in the
+// place of the neighbours' shared memory, a block's halo rows written by the
+// block itself, each site by the one thread that reads it. The thread of an
+// edge site stores it into its block's slot of the mailbox and phase (which
+// alternates, so a slot is rewritten two phases later) as four 8-byte words,
+// each a float with the phase above it (ru_l2_words); the thread of the edge
+// site beside the halo site loads the four until each holds the phase it
+// waits for, and puts the site into the block's halo row before its stage
+// reads it. A word is stored and loaded whole, so the phase in it vouches
+// for the value beside it: no fence between data and flag, one trip to L2
+// once the data is there (a release of a counter after the data, and a
+// second load after the acquire, took ~21.7 us an iteration at 128x128 C=32
+// on the H100, against 13.3 for one wave of clusters). A sum is the block's,
+// stored by thread 0 in two such words; lane i < N of every warp waits for
+// block i's, and every thread adds the N sums, shuffled from those lanes, in
+// rank order. A full barrier is __syncthreads(), thread 0's red.release.gpu
+// on the chain's arrival counter and its ld.acquire.gpu spin to N times the
+// barriers passed, then __syncthreads(). The stores follow the last reads of
+// what they overwrite by the same chains of dependence. At the end each
+// block arrives once more and rank 0 alone waits for the others, then sets
+// the chain's area back to 0, so that a phase found in a word is this
+// launch's and the next launch needs no zeroing before it.
+template <bool L2>
 struct RuCluster : RuF64 {
   float* fields;            // the block's dynamic shared memory: 24 Vh floats
   double* csum;             // 2 sets of kRuClusterMax block sums
@@ -628,6 +728,7 @@ struct RuCluster : RuF64 {
   bool d_sent;              // d's edge rows were sent and not yet waited for
   int sxk[kOwnSites];        // local row << 16 | packed column of each own site
   double x[kOwnSites][4];
+  RuXch<L2> xch;
 
   // the mbarriers: the halo rows of d, of t1 from stage 1, of t2, of t1 from
   // stage 3, and the sums' two slot sets
@@ -650,13 +751,101 @@ struct RuCluster : RuF64 {
   __device__ __forceinline__ int halo() const { return g.Nth; }
   __device__ __forceinline__ int row0() const { return rank * rows; }
 
-  // a full cluster barrier (the f64 true residual, the start and the end):
-  // the release makes the block's global stores visible to the others
+  // a full barrier of the chain's blocks (the f64 true residual, the start
+  // and the end): the release makes the block's global stores visible to
+  // the others
   __device__ __forceinline__ void sync() {
     const long long t0 = clock64();
-    asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
-    asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+    if constexpr (L2) {
+      const unsigned c = N * ++xch.bc;
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        red_release(xch.bar, 1u);
+        for (const long long t1 = clock64(); ld_acquire(xch.bar) < c;) spin_guard(t1);
+      }
+      __syncthreads();
+    } else {
+      asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+      asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+    }
     t_wait += clock64() - t0;
+  }
+
+  // the L2 transport's words: site k of block r's edge row `row` (0 the
+  // first, 1 the last) of mailbox b in phase c; block r's sums of phase c
+  __device__ __forceinline__ unsigned long long* site_words(int r, int b, unsigned c, int row,
+                                                           int k) const {
+    return xch.halo + ((((r * 4 + b) * 2 + static_cast<int>(c & 1u)) * 2 + row) * g.Nth + k) * 4;
+  }
+  __device__ __forceinline__ unsigned long long* sum_words(int r, unsigned c) const {
+    return xch.sums + (r * 2 + static_cast<int>(c & 1u)) * kMreSums * 2;
+  }
+
+  // site k of the block's edge row `row`, in the mailbox's next phase
+  __device__ __forceinline__ void give(int b, int row, int k, float4 v) const {
+    const unsigned c = xch.hc[b] + 1;
+    unsigned long long* w = site_words(rank, b, c, row, k);
+    st_words(w, tagged(__float_as_uint(v.x), c), tagged(__float_as_uint(v.y), c));
+    st_words(w + 2, tagged(__float_as_uint(v.z), c), tagged(__float_as_uint(v.w), c));
+  }
+  // site k of block r's edge row `row` in phase c, once every word holds it
+  __device__ __forceinline__ float4 take(int r, int b, int row, int k, unsigned c) {
+    const unsigned long long* w = site_words(r, b, c, row, k);
+    unsigned long long w0, w1, w2, w3;
+    const long long t0 = clock64();
+    for (;;) {
+      ld_words(w, w0, w1);
+      ld_words(w + 2, w2, w3);
+      if (phase_of(w0) == c && phase_of(w1) == c && phase_of(w2) == c && phase_of(w3) == c)
+        break;
+      spin_guard(t0);
+    }
+    t_wait += clock64() - t0;
+    return make_float4(__uint_as_float(bits_of(w0)), __uint_as_float(bits_of(w1)),
+                       __uint_as_float(bits_of(w2)), __uint_as_float(bits_of(w3)));
+  }
+  // the next phase of mailbox b into the halo rows of its field, each halo
+  // site by the thread of the edge site beside it (the only one that reads
+  // it)
+  __device__ __forceinline__ void fetch(int b) {
+    const unsigned c = ++xch.hc[b];
+    float4* f = b == kMbD ? d() : b == kMbT2 ? t2() : t1();
+#pragma unroll
+    for (int j = 0; j < kOwnSites; ++j) {
+      if (threadIdx.x + j * kThreads < Vl && edge(j)) {
+        const int xl = sxk[j] >> 16, k = sxk[j] & 0xffff;
+        if (xl == 0) f[k] = take((rank + N - 1) % N, b, 1, k, c);
+        if (xl == rows - 1) f[(rows + 1) * g.Nth + k] = take((rank + 1) % N, b, 0, k, c);
+      }
+    }
+  }
+  // sum v of the block in phase c (thread 0)
+  __device__ __forceinline__ void give_sum(int v, unsigned c, double x) const {
+    const unsigned long long bits = static_cast<unsigned long long>(__double_as_longlong(x));
+    st_words(sum_words(rank, c) + 2 * v, tagged(static_cast<unsigned>(bits), c),
+             tagged(static_cast<unsigned>(bits >> 32), c));
+  }
+  // sum v of phase c over the chain's blocks: lane i < N of each warp
+  // waits for block i's, and every lane adds the N in rank order
+  __device__ __forceinline__ double chain_sum(int v, unsigned c) {
+    const int lane = threadIdx.x & 31;
+    const long long t0 = clock64();
+    double mine = 0.0;
+    if (lane < N) {
+      const unsigned long long* w = sum_words(lane, c) + 2 * v;
+      unsigned long long lo, hi;
+      for (;;) {
+        ld_words(w, lo, hi);
+        if (phase_of(lo) == c && phase_of(hi) == c) break;
+        spin_guard(t0);
+      }
+      mine = __longlong_as_double(static_cast<long long>(
+          static_cast<unsigned long long>(bits_of(hi)) << 32 | bits_of(lo)));
+    }
+    double all = 0.0;
+    for (int i = 0; i < N; ++i) all += __shfl_sync(0xffffffffu, mine, i);
+    t_wait += clock64() - t0;
+    return all;
   }
 
   static __device__ __forceinline__ unsigned smem(const void* p) {
@@ -673,7 +862,7 @@ struct RuCluster : RuF64 {
   // the mbarriers, before the cluster barrier that every block passes before
   // its first exchange
   __device__ __forceinline__ void init_mbars() const {
-    if (threadIdx.x == 0) {
+    if (!L2 && threadIdx.x == 0) {
       for (int b = 0; b < kMbars; ++b)
         asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(mbar(b)) : "memory");
       asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
@@ -747,8 +936,12 @@ struct RuCluster : RuF64 {
   template <class F>
   __device__ __forceinline__ void split_stage(int b, F f) {
     __syncthreads();
-    wait_for(b, edge_thread());
-    if (b == kMbD) d_sent = false;
+    if constexpr (L2) {
+      fetch(b);
+    } else {
+      wait_for(b, edge_thread());
+      if (b == kMbD) d_sent = false;
+    }
     f(true);
     f(false);
   }
@@ -823,6 +1016,11 @@ struct RuCluster : RuF64 {
   // sum over the chain's blocks, the same bits in every thread of each
   __device__ __forceinline__ double cluster_sum(double v) {
     const double tot = sum(v);
+    if constexpr (L2) {
+      const unsigned c = ++xch.sc;
+      if (threadIdx.x == 0) give_sum(0, c, tot);
+      return chain_sum(0, c);
+    }
     const int b = kMbSum + cset;
     double* slot = csum + cset * kRuClusterMax;
     cset ^= 1;
@@ -837,6 +1035,34 @@ struct RuCluster : RuF64 {
   __device__ __forceinline__ void drain() {
     if (d_sent) wait_for(kMbD, edge_thread());
     d_sent = false;
+  }
+
+  // After the loop: x64 written out by every block before rank 0, which
+  // alone goes on (ru_finish), reads it. The cluster's blocks wait for the
+  // halo rows in flight and pass a full barrier; on L2 each block arrives
+  // and rank 0 waits for the others, then sets the chain's exchange area
+  // back to 0 (no block reads it any more).
+  __device__ __forceinline__ void end() {
+    if constexpr (L2) {
+      write_x64();
+      const unsigned c = N * (xch.bc + 1);
+      __syncthreads();
+      if (threadIdx.x == 0) red_release(xch.bar, 1u);
+      if (rank != 0) return;
+      if (threadIdx.x == 0) {
+        const long long t0 = clock64();
+        while (ld_acquire(xch.bar) < c) spin_guard(t0);
+        t_wait += clock64() - t0;
+      }
+      __syncthreads();
+      ulonglong2* w = reinterpret_cast<ulonglong2*>(xch.halo);
+      for (int i = threadIdx.x; i < static_cast<int>(ru_l2_words(N, g.Nth) / 2); i += kThreads)
+        w[i] = make_ulonglong2(0ull, 0ull);
+    } else {
+      drain();
+      write_x64();
+      sync();
+    }
   }
 
   // the MRE prologue's pieces (mre_forecast), as RuShared's but r1 in
@@ -869,6 +1095,14 @@ struct RuCluster : RuF64 {
   __device__ __forceinline__ void chain_sums(const double* slots, double* cs, int M,
                                              double (&out)[kMreSums]) {
     __syncthreads();
+    if constexpr (L2) {
+      const unsigned c = ++xch.sc;
+      if (threadIdx.x == 0)
+        for (int v = 0; v < M; ++v) give_sum(v, c, warp_partials_sum(slots + v * kWarps));
+#pragma unroll
+      for (int v = 0; v < kMreSums; ++v) out[v] = v < M ? chain_sum(v, c) : 0.0;
+      return;
+    }
     const int b = kMbSum + cset;
     cset ^= 1;
     if (threadIdx.x < N * M) {
@@ -913,9 +1147,14 @@ struct RuCluster : RuF64 {
   __device__ __forceinline__ void put(float4* f, int sl, int b, float4 v) {
     const int h = sl + halo();
     f[h] = v;
-    if (sl < g.Nth) send(f + h + Vl, (rank + N - 1) % N, b, v);
-    if (sl >= Vl - g.Nth) send(f + h - Vl, (rank + 1) % N, b, v);
-    if (b == kMbD) d_sent = true;
+    if constexpr (L2) {
+      if (sl < g.Nth) give(b, 0, sl, v);
+      if (sl >= Vl - g.Nth) give(b, 1, sl - (Vl - g.Nth), v);
+    } else {
+      if (sl < g.Nth) send(f + h + Vl, (rank + N - 1) % N, b, v);
+      if (sl >= Vl - g.Nth) send(f + h - Vl, (rank + 1) % N, b, v);
+      if (b == kMbD) d_sent = true;
+    }
   }
 
   // neighbours of own site j at index h
@@ -1309,22 +1548,27 @@ __global__ void __launch_bounds__(kThreads, 1) solve_ru_shared_kernel(const RuPa
   ru_finish(p, S, ch, iters, conv, t_begin, p.f64_shared ? scratch : scratch + 8 * V2, sum);
 }
 
-// One chain per cluster of N blocks (the launch's cluster dimension; N
-// divides Nx, and a block's rows hold at most kOwnSites * kThreads sites).
-template <bool MRE>
-__global__ void __launch_bounds__(kThreads, 1) solve_ru_cluster_kernel(const RuParams p) {
+// One chain on N blocks (N divides Nx, and a block's rows hold at most
+// kOwnSites * kThreads sites), block `rank` of them, on either transport.
+template <bool MRE, bool L2>
+__device__ __forceinline__ void ru_blocks_solve(const RuParams& p, long long t_begin, int N,
+                                                int rank) {
   extern __shared__ __align__(16) float smem[];
   __shared__ double sh[2 * (kThreads / 32)];
   __shared__ double csum[2 * kRuClusterMax];
-  __shared__ unsigned long long mb[RuCluster::kMbars];
-  const long long t_begin = clock64();
-  const int N = cg::this_cluster().num_blocks(), rank = cg::this_cluster().block_rank();
+  __shared__ unsigned long long mb[RuCluster<L2>::kMbars];
   const Geo g{p.Nx, p.Nth, p.Nx * p.Nth};
   const int V2 = g.V2, ch = blockIdx.x / N;
   const int rows = p.Nx / N, Vl = rows * p.Nth, Vh = (rows + 2) * p.Nth;
   BlockSum sum{sh, 0};
   double* scratch = p.s64 + (size_t)ch * ru_s64_values(false, p.fallback) * V2;
-  RuCluster S{ru_f64(p, ch, g, scratch), smem, csum, mb, sum, N, rank, rows, Vl, Vh, 0, 0u, false};
+  RuCluster<L2> S{ru_f64(p, ch, g, scratch), smem, csum, mb, sum, N, rank, rows, Vl, Vh, 0, 0u,
+                  false};
+  if constexpr (L2) {
+    unsigned long long* w = p.xch + ch * ru_l2_words(N, p.Nth);
+    S.xch = {w, w + 64 * N * p.Nth,
+             reinterpret_cast<unsigned*>(w + N * (64 * p.Nth + 4 * kMreSums))};
+  }
   S.init_mbars();
   const float* thE = p.thE + (size_t)ch * 2 * V2;
   const float* thO = p.thO + (size_t)ch * 2 * V2;
@@ -1334,7 +1578,7 @@ __global__ void __launch_bounds__(kThreads, 1) solve_ru_cluster_kernel(const RuP
   // visible after the first sync
   make_links_range<double>(thE, 0, S.ue64, g, rank * Vl, (rank + 1) * Vl);
   make_links_range<double>(thO, 1, S.uo64, g, rank * Vl, (rank + 1) * Vl);
-  // every block of the cluster runs, with its mbarriers set up, before any
+  // every block of the chain runs, with its mbarriers set up, before any
   // writes into another's halo
   S.sync();
   if constexpr (MRE) {
@@ -1349,10 +1593,24 @@ __global__ void __launch_bounds__(kThreads, 1) solve_ru_cluster_kernel(const RuP
 
   int iters;
   const bool conv = ru_loop(S, p, iters);
-  S.drain();
-  S.write_x64();
-  S.sync();
+  S.end();
   if (rank == 0) ru_finish(p, S, ch, iters, conv, t_begin, scratch + 8 * V2, sum);
+}
+
+// One chain per cluster of N blocks (the launch's cluster dimension).
+template <bool MRE>
+__global__ void __launch_bounds__(kThreads, 1) solve_ru_cluster_kernel(const RuParams p) {
+  const long long t_begin = clock64();
+  ru_blocks_solve<MRE, false>(p, t_begin, cg::this_cluster().num_blocks(),
+                              cg::this_cluster().block_rank());
+}
+
+// One chain per p.blocks consecutive blocks of a cooperative launch, which
+// exchange through L2.
+template <bool MRE>
+__global__ void __launch_bounds__(kThreads, 1) solve_ru_l2_kernel(const RuParams p) {
+  const long long t_begin = clock64();
+  ru_blocks_solve<MRE, true>(p, t_begin, p.blocks, blockIdx.x % p.blocks);
 }
 
 template <bool MRE>
@@ -1395,12 +1653,54 @@ __global__ void __launch_bounds__(kThreads) solve_ru_global_kernel(const RuParam
 
 }  // namespace sm
 
+namespace {
+
+// The dynamic shared memory of K3's kernel on `path` (0: none), or false
+// where the path does not hold an Nx x 2 Nth lattice on n blocks a chain
+bool ru_shared_bytes(int path, int Nx, int Nth, int n, size_t& bytes) {
+  const size_t V2 = static_cast<size_t>(Nx) * Nth;
+  if (path == 0) {
+    bytes = 0;
+    return true;
+  }
+  if (path == 1 || path == 2) {
+    bytes = sizeof(float) * 24 * V2 + (path == 2 ? sizeof(double) * 20 * V2 : 0);
+    return V2 <= sm::kOwnSites * sm::kThreads && bytes <= sm::kSharedMax;
+  }
+  // path 3 or 4: each block with its rows of x and two halo rows
+  if ((path != 3 && path != 4) || n < 2 || n > sm::kRuClusterMax || Nx % n != 0) return false;
+  const size_t rows = Nx / n;
+  bytes = sizeof(float) * 24 * (rows + 2) * Nth;
+  return rows * Nth <= sm::kOwnSites * sm::kThreads && bytes <= sm::kSharedMax;
+}
+
+// K3's K = 1 or MRE kernel on `path`
+const void* ru_kernel(int path, bool mre) {
+  switch (path) {
+    case 0:
+      return mre ? (const void*)sm::solve_ru_global_kernel<true>
+                 : (const void*)sm::solve_ru_global_kernel<false>;
+    case 1:
+    case 2:
+      return mre ? (const void*)sm::solve_ru_shared_kernel<true>
+                 : (const void*)sm::solve_ru_shared_kernel<false>;
+    case 3:
+      return mre ? (const void*)sm::solve_ru_cluster_kernel<true>
+                 : (const void*)sm::solve_ru_cluster_kernel<false>;
+    default:
+      return mre ? (const void*)sm::solve_ru_l2_kernel<true>
+                 : (const void*)sm::solve_ru_l2_kernel<false>;
+  }
+}
+
+}  // namespace
+
 // thE, thO: f32 [C, 2, Nx, Nth]; b, x: f32 and x64: f64 [C, 2, 2, Nx, Nth];
 // hist: f32 [K, C, 2, 2, Nx, Nth], 1 <= K <= kMreMax, the start (K = 1) or
 // the MRE history, newest first; iters, fb_iters: int32 [C]; conv: one byte
 // per chain; clocks: null or int64 [C, 4], to which each chain's cycles
 // (total, true residuals, rank 0's thread 0 waiting on the other blocks of
-// its cluster, that thread in the MRE prologue) are added.
+// its chain, that thread in the MRE prologue) are added.
 // path 0: every vector in the scratch, s32 f32 [C, 28 V2] and s64 f64
 // [C, 20 V2] (32 V2 with the fallback); path 1: the f32 recursion in the
 // shared memory of one block (at most 2048 sites, 96 V2 bytes <= 220 KiB),
@@ -1408,10 +1708,15 @@ __global__ void __launch_bounds__(kThreads) solve_ru_global_kernel(const RuParam
 // bytes more), s64 f64 [C, 24 V2] with the fallback and unused without it;
 // path 3: `cluster` blocks a chain (2 to 8, a divisor of Nx; a block's
 // Nx / cluster rows hold at most 2048 sites and, with two halo rows, 220
-// KiB), scratch as on path 1.
+// KiB), scratch as on path 1; path 4: the same blocks, not a cluster, in
+// one cooperative launch (all C * cluster blocks resident at once, or the
+// launch fails), exchanging through xch, uint64 [C, ru_l2_words], which
+// must be 0 before the first such launch and is 0 again after each; xch is
+// unused on the other paths.
 extern "C" int solve_ru_launch(const void* thE, const void* thO, const void* b, const void* hist,
                                int K, void* x, void* x64, void* iters, void* fb_iters, void* conv,
-                               void* s32, void* s64, void* clocks, int C, int Nx, int Nth,
+                               void* s32, void* s64, void* clocks, void* xch, int C, int Nx,
+                               int Nth,
                                double m0, double tol, double tau, int max_iter, int max_outer,
                                int certify, int cert_k, int fallback, int fb_max_iter,
                                int fb_max_rounds, int path, int cluster, void* stream) {
@@ -1442,54 +1747,92 @@ extern "C" int solve_ru_launch(const void* thE, const void* thO, const void* b, 
                        fallback,
                        fb_max_iter,
                        fb_max_rounds,
-                       path == 2 ? 1 : 0};
+                       path == 2 ? 1 : 0,
+                       static_cast<unsigned long long*>(xch),
+                       cluster};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool mre = K > 1;  // the kernels with the MRE prologue
+  size_t bytes = 0;
+  if (!ru_shared_bytes(path, Nx, Nth, cluster, bytes))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (path == 0) {
-    const auto kernel =
-        mre ? sm::solve_ru_global_kernel<true> : sm::solve_ru_global_kernel<false>;
-    kernel<<<C, sm::kThreads, 0, s>>>(p);
+    const auto k = mre ? sm::solve_ru_global_kernel<true> : sm::solve_ru_global_kernel<false>;
+    k<<<C, sm::kThreads, 0, s>>>(p);
     return static_cast<int>(cudaGetLastError());
   }
-  const size_t V2 = static_cast<size_t>(Nx) * Nth;
-  if (path == 1 || path == 2) {
-    const size_t bytes = sizeof(float) * 24 * V2 + (path == 2 ? sizeof(double) * 20 * V2 : 0);
-    if (V2 > sm::kOwnSites * sm::kThreads || bytes > sm::kSharedMax)
-      return static_cast<int>(cudaErrorInvalidValue);
-    const auto kernel =
-        mre ? sm::solve_ru_shared_kernel<true> : sm::solve_ru_shared_kernel<false>;
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sm::kSharedMax);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    kernel<<<C, sm::kThreads, bytes, s>>>(p);
-    return static_cast<int>(cudaGetLastError());
-  }
-  // a cluster of `cluster` blocks a chain, each with its rows of x and two
-  // halo rows in shared memory
-  if (path != 3 || cluster < 2 || cluster > sm::kRuClusterMax || Nx % cluster != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t rows = Nx / cluster;
-  const size_t bytes = sizeof(float) * 24 * (rows + 2) * Nth;
-  if (rows * Nth > sm::kOwnSites * sm::kThreads || bytes > sm::kSharedMax)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel =
-      mre ? sm::solve_ru_cluster_kernel<true> : sm::solve_ru_cluster_kernel<false>;
+  const void* kernel = ru_kernel(path, mre);
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sm::kSharedMax);
   if (e != cudaSuccess) return static_cast<int>(e);
+  if (path == 1 || path == 2) {
+    const auto k = mre ? sm::solve_ru_shared_kernel<true> : sm::solve_ru_shared_kernel<false>;
+    k<<<C, sm::kThreads, bytes, s>>>(p);
+    return static_cast<int>(cudaGetLastError());
+  }
+  // `cluster` blocks a chain, each with its rows of x and two halo rows in
+  // shared memory: a cluster (path 3) or a cooperative launch (path 4)
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(C * cluster);
   cfg.blockDim = dim3(sm::kThreads);
   cfg.dynamicSmemBytes = bytes;
   cfg.stream = s;
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
+  if (path == 3) {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+  } else {
+    attr[0].id = cudaLaunchAttributeCooperative;
+    attr[0].val.cooperative = 1;
+  }
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, p);
+  void* args[] = {const_cast<sm::RuParams*>(&p)};
+  e = cudaLaunchKernelExC(&cfg, kernel, args);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+// What the card runs at once of K3's kernel on `path` for an Nx x 2 Nth
+// lattice on n blocks a chain: clusters of n on path 3
+// (cudaOccupancyMaxActiveClusters), blocks on the others (the blocks a
+// multiprocessor runs by the occupancy calculator, times the
+// multiprocessors: on path 4 the most a cooperative launch may hold); or
+// minus the CUDA error.
+extern "C" int solve_ru_at_once(int Nx, int Nth, int path, int n) {
+  size_t bytes = 0;
+  if (!ru_shared_bytes(path, Nx, Nth, n, bytes)) return -static_cast<int>(cudaErrorInvalidValue);
+  const void* kernel = ru_kernel(path, false);
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sm::kSharedMax);
+  int out = 0;
+  if (e == cudaSuccess && path == 3) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(n);
+    cfg.blockDim = dim3(sm::kThreads);
+    cfg.dynamicSmemBytes = bytes;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = n;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    e = cudaOccupancyMaxActiveClusters(&out, kernel, &cfg);
+  } else if (e == cudaSuccess) {
+    int dev = 0, sms = 0, per_sm = 0;
+    e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, sm::kThreads, bytes);
+    out = per_sm * sms;
+  }
+  return e == cudaSuccess ? out : -static_cast<int>(e);
+}
+
+// The 8-byte words of the L2 path's exchange area a chain on n blocks of
+// rows of Nth sites (ru_l2_words): what xch holds a chain.
+extern "C" int solve_ru_l2_words(int n, int Nth) {
+  return static_cast<int>(sm::ru_l2_words(n, Nth));
 }

@@ -65,10 +65,10 @@ SIGNATURES = {
     # blocks, stream
     "ratio_force_launch": [P, P, P, P, P, P, P, I, I, I, D, D, D, I, I, P],
     # thE, thO, b, hist, K, x, x64, iters, fb_iters, conv, scratch32,
-    # scratch64, clocks, C, Nx, Nth, m0, tol, tau, max_iter, max_outer,
+    # scratch64, clocks, xch, C, Nx, Nth, m0, tol, tau, max_iter, max_outer,
     # certify, cert_k, fallback, fb_max_iter, fb_max_rounds, path, cluster,
     # stream
-    "solve_ru_launch": [P, P, P, P, I, P, P, P, P, P, P, P, P,
+    "solve_ru_launch": [P, P, P, P, I, P, P, P, P, P, P, P, P, P,
                         I, I, I, D, D, D, I, I, I, I, I, I, I, I, I, P],
     # thE, thO, b, x64_in, conv_in, iters_in, x, x64, iters, fb_iters, conv,
     # scratch64, C, Nx, Nth, m0, tol, tau, max_iter, max_rounds, stream
@@ -96,8 +96,14 @@ SIGNATURES = {
     "philox_launch": [P, U, U, P, I, P],
     # Nx, Nth, path -> K6's blocks a multiprocessor runs at once (no stream)
     "cg_eo_blocks_per_sm": [I, I, I],
+    # Nx, Nth, path, blocks a chain -> K3's clusters (cluster path) or
+    # blocks (the others) the card runs at once (no stream)
+    "solve_ru_at_once": [I, I, I, I],
+    # blocks a chain, Nth -> the 8-byte words of the L2 path's exchange
+    # area a chain (no stream)
+    "solve_ru_l2_words": [I, I],
 }
-QUERIES = ("cg_eo_blocks_per_sm",)
+QUERIES = ("cg_eo_blocks_per_sm", "solve_ru_at_once", "solve_ru_l2_words")
 
 
 class KernelLibrary:

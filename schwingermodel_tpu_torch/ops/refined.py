@@ -236,7 +236,7 @@ def solve_refined_reference(thE, thO, b, x0, *, m0, tol, tau=1e-5,
 _RU_SHARED_F32, _RU_SHARED_F64 = 96, 160
 _FB_MAX_ROUNDS = 4   # solve_f64_cg_fallback's default max_rounds
 MRE_MAX = 4          # the longest history K3 takes (solve_ru.cu kMreMax)
-RU_GLOBAL, RU_SHARED, RU_ALL_SHARED, RU_CLUSTER = range(4)
+RU_GLOBAL, RU_SHARED, RU_ALL_SHARED, RU_CLUSTER, RU_L2 = range(5)
 
 
 def _blocks_fit(Nx: int, Nth: int, n: int, f64_too: bool = False) -> bool:
@@ -252,15 +252,22 @@ def _blocks_fit(Nx: int, Nth: int, n: int, f64_too: bool = False) -> bool:
     return rows * Nth <= _cuda.BLOCK_SITES and shared <= _cuda.SHARED_MAX
 
 
-def ru_path(Nx: int, Nth: int, C: int, sms: int = _cuda.H100_SMS):
-    """K3's path for C chains of an Nx x 2 Nth lattice on a card of `sms`
-    multiprocessors: (path, blocks per chain). One block a chain wherever the f32 recursion fits its shared
+def ru_path(Nx: int, Nth: int, C: int, clusters: dict, blocks: dict):
+    """K3's path for C chains of an Nx x 2 Nth lattice: (path, blocks per
+    chain). One block a chain wherever the f32 recursion fits its shared
     memory: RU_ALL_SHARED where the f64 true residual fits too (up to 32x32
-    and a little above), RU_SHARED else (up to 64x64). A larger lattice
-    takes a thread-block cluster of 2, 4 or 8 blocks a chain, rows of x
-    split (RU_CLUSTER; 128x128): the largest that leaves all C clusters
-    running at once, else the smallest that holds the lattice. What no
-    cluster holds keeps every vector in the global scratch (RU_GLOBAL)."""
+    and a little above), RU_SHARED else (up to 64x64). A larger lattice is
+    split by rows over n = 2, 4 or 8 blocks a chain, by what the card runs
+    at once, both by n (``ru_card_counts`` asks the card): `clusters`, its
+    clusters of n blocks of K3, and `blocks`, the blocks of K3's L2 kernel
+    a cooperative launch may hold:
+    1. RU_CLUSTER, the largest n whose C clusters all run at once;
+    2. else RU_L2, the smallest n whose C n blocks all run at once, the
+       same recursion on blocks that exchange through L2, in one wave
+       (128x128 C=32 on an H100: 30 clusters of 4, 132 blocks);
+    3. else RU_CLUSTER, the smallest n, in waves.
+    What no split holds keeps every vector in the global scratch
+    (RU_GLOBAL)."""
     if _blocks_fit(Nx, Nth, 1, f64_too=True):
         return RU_ALL_SHARED, 1
     if _blocks_fit(Nx, Nth, 1):
@@ -268,13 +275,51 @@ def ru_path(Nx: int, Nth: int, C: int, sms: int = _cuda.H100_SMS):
     fits = [n for n in (2, 4, 8) if _blocks_fit(Nx, Nth, n)]
     if not fits:
         return RU_GLOBAL, 1
-    at_once = [n for n in fits if n * C <= sms]
-    return RU_CLUSTER, (max(at_once) if at_once else min(fits))
+    at_once = [n for n in fits if C <= clusters[n]]
+    if at_once:
+        return RU_CLUSTER, max(at_once)
+    resident = [n for n in fits if C * n <= blocks[n]]
+    if resident:
+        return RU_L2, min(resident)
+    return RU_CLUSTER, min(fits)
 
 
-def ru_path_name(Nx: int, Nth: int, C: int, sms: int = _cuda.H100_SMS) -> str:
-    path, n = ru_path(Nx, Nth, C, sms)
-    return ("global", "shared", "all shared", f"cluster of {n}")[path]
+def ru_route_name(path: int, n: int) -> str:
+    return ("global", "shared", "all shared", f"cluster of {n}", f"L2 of {n}")[path]
+
+
+@functools.lru_cache(maxsize=None)
+def _at_once(Nx: int, Nth: int, path: int, n: int, index: int) -> int:
+    with torch.cuda.device(index):
+        return _cuda.KERNELS.query("solve_ru_at_once", Nx, Nth, path, n)
+
+
+def _index(device: torch.device) -> int:
+    return device.index if device.index is not None else torch.cuda.current_device()
+
+
+def ru_card_counts(Nx: int, Nth: int, device: torch.device):
+    """The counts ``ru_path`` takes, from the card `device`: its clusters
+    of n blocks of K3 (cudaOccupancyMaxActiveClusters) and the blocks of
+    K3's L2 kernel it runs at once (the cooperative occupancy), by each n
+    that holds the lattice where one block does not."""
+    i = _index(device)
+    fits = [] if _blocks_fit(Nx, Nth, 1) else [n for n in (2, 4, 8) if _blocks_fit(Nx, Nth, n)]
+    return ({n: _at_once(Nx, Nth, RU_CLUSTER, n, i) for n in fits},
+            {n: _at_once(Nx, Nth, RU_L2, n, i) for n in fits})
+
+
+def ru_card_route(Nx: int, Nth: int, C: int, device: torch.device):
+    """K3's launch for C chains on the card `device`: (path, blocks per
+    chain, waves), the waves ceil(C / the chains it runs at once on that
+    path)."""
+    path, n = ru_path(Nx, Nth, C, *ru_card_counts(Nx, Nth, device))
+    i = _index(device)
+    if path == RU_CLUSTER:
+        at_once = _at_once(Nx, Nth, path, n, i)
+    else:
+        at_once = _at_once(Nx, Nth, path, n, i) // n
+    return path, n, -(-C // max(at_once, 1))
 
 
 def _ru_scratch(path: int, fallback: bool):
@@ -285,6 +330,64 @@ def _ru_scratch(path: int, fallback: bool):
     if path == RU_ALL_SHARED:
         return 0, 24 if fallback else 0
     return (28 if path == RU_GLOBAL else 0), 8 + (24 if fallback else 12)
+
+
+# device -> the L2 path's exchange areas, the last the largest
+_RU_XCH: dict = {}
+
+
+def _ru_xch(C: int, words: int, device: torch.device) -> torch.Tensor:
+    """The L2 path's exchange areas for C chains of `words` 8-byte words
+    each (the kernel library's ``solve_ru_l2_words``): 0 before its first
+    launch, and each launch sets its chains' back to 0 behind its last
+    barrier (solve_ru.cu), so a graph that captures the launch holds no
+    memset of them. One buffer a device, replaced by a larger one, zeroed
+    as it is made, where a launch needs more; none is freed, since a
+    captured graph keeps the address it was given. Launches that share them run one after
+    another on one stream, as K3's launches of a program do; the first
+    launch of a size is to come before a capture (the program's first
+    trajectory is eager), or the capture holds the zeroing."""
+    need = C * words
+    bufs = _RU_XCH.setdefault(device, [])
+    if not bufs or bufs[-1].numel() < need:
+        bufs.append(torch.zeros(need, dtype=torch.int64, device=device))
+    return bufs[-1]
+
+
+def _launch_ru(thE, thO, b, hist, route, clocks=None, *, m0, tol, tau=1e-5,
+               max_iter=10000, max_outer=12, certify=True, cert_k=192,
+               fallback=False, fb_max_iter=None) -> RefinedSolveResult:
+    """K3's launch on b's device on `route`, (path, blocks per chain), with
+    the history hist [K, C, ...] (``solve_refined`` takes the route from
+    ``ru_path`` on the card's counts; the card's tests compare routes): the
+    scratch the path needs, and on the L2 path its exchange areas."""
+    C, _, Nx, Nth = thE.shape
+    path, n = route
+    dev = b.device
+    n32, n64 = _ru_scratch(path, bool(fallback))
+    x = torch.empty_like(b)
+    x64 = torch.empty(b.shape, dtype=torch.float64, device=dev)
+    counts = torch.empty((2, C), dtype=torch.int32, device=dev)
+    conv = torch.empty(C, dtype=torch.bool, device=dev)
+    s32 = torch.empty(C * n32 * Nx * Nth, dtype=torch.float32, device=dev)
+    s64 = torch.empty(C * n64 * Nx * Nth, dtype=torch.float64, device=dev)
+    xch = None
+    if path == RU_L2:
+        xch = _ru_xch(C, _cuda.KERNELS.query("solve_ru_l2_words", n, Nth), dev)
+
+    def p(t):
+        return None if t is None else _cuda.ptr(t)
+
+    _cuda.KERNELS.call(
+        "solve_ru_launch", p(thE), p(thO), p(b), p(hist), hist.shape[0], p(x),
+        p(x64), p(counts[0]), p(counts[1]), p(conv), p(s32), p(s64), p(clocks),
+        p(xch), C, Nx, Nth,
+        float(m0), float(tol), float(tau), int(max_iter), int(max_outer),
+        int(bool(certify)), int(cert_k), int(bool(fallback)),
+        int(max_iter if fb_max_iter is None else fb_max_iter),
+        _FB_MAX_ROUNDS, path, n)
+    return RefinedSolveResult(x=x, x64=x64, iters=counts[0], converged=conv,
+                              fb_iters=counts[1])
 
 
 def solve_refined(thE, thO, b, x0, *, m0, tol, tau=1e-5, max_iter=10000,
@@ -315,10 +418,11 @@ def solve_refined(thE, thO, b, x0, *, m0, tol, tau=1e-5, max_iter=10000,
     per chain how many iterations it added. clocks, on the card only: an
     int64 [C, 4] tensor to which K3 adds each chain's clock cycles in this
     launch, of those the cycles in its f64 true residuals, the cycles its
-    first thread spent waiting on the other blocks of its cluster (0 but
-    on the cluster path) and those that thread spent in the MRE forecast
-    (0 at K = 1); zero the tensor to read one launch. Where the kernel
-    keeps its vectors follows from the lattice size and C (``ru_path``)."""
+    first thread spent waiting on the other blocks of its chain (0 but on
+    the cluster and L2 paths) and those that thread spent in the MRE
+    forecast (0 at K = 1); zero the tensor to read one launch. Where the
+    kernel keeps its vectors follows from the lattice size, C and what the
+    card runs at once (``ru_path`` on ``ru_card_counts``)."""
     kw = dict(m0=m0, tol=tol, tau=tau, max_iter=max_iter, max_outer=max_outer,
               certify=certify, cert_k=cert_k, fallback=fallback,
               fb_max_iter=fb_max_iter)
@@ -336,26 +440,8 @@ def solve_refined(thE, thO, b, x0, *, m0, tol, tau=1e-5, max_iter=10000,
                          f"solutions on the card, got a history of {K}")
     if clocks is not None:
         _cuda.check(clocks, "clocks", torch.int64, (C, 4))
-    dev = b.device
-    path, cluster = ru_path(Nx, Nth, C, _cuda.sm_count(dev))
-    n32, n64 = _ru_scratch(path, bool(fallback))
-    x = torch.empty_like(b)
-    x64 = torch.empty(b.shape, dtype=torch.float64, device=dev)
-    counts = torch.empty((2, C), dtype=torch.int32, device=dev)
-    conv = torch.empty(C, dtype=torch.bool, device=dev)
-    s32 = torch.empty(C * n32 * Nx * Nth, dtype=torch.float32, device=dev)
-    s64 = torch.empty(C * n64 * Nx * Nth, dtype=torch.float64, device=dev)
-    p = _cuda.ptr
-    _cuda.KERNELS.call(
-        "solve_ru_launch", p(thE), p(thO), p(b), p(hist), K, p(x), p(x64),
-        p(counts[0]), p(counts[1]), p(conv), p(s32), p(s64),
-        None if clocks is None else p(clocks), C, Nx, Nth, float(m0),
-        float(tol), float(tau), int(max_iter), int(max_outer),
-        int(bool(certify)), int(cert_k), int(bool(fallback)),
-        int(max_iter if fb_max_iter is None else fb_max_iter),
-        _FB_MAX_ROUNDS, path, cluster)
-    return RefinedSolveResult(x=x, x64=x64, iters=counts[0], converged=conv,
-                              fb_iters=counts[1])
+    route = ru_path(Nx, Nth, C, *ru_card_counts(Nx, Nth, b.device))
+    return _launch_ru(thE, thO, b, hist, route, clocks, **kw)
 
 
 # ---------- K4 ----------

@@ -75,6 +75,7 @@ from schwingermodel_tpu_torch.io.checkpoint import seed_key
 from schwingermodel_tpu_torch.io.simdata import SimData, simdata_filename
 from schwingermodel_tpu_torch.models.schwinger import SchwingerModel
 from schwingermodel_tpu_torch.ops import _cuda
+from schwingermodel_tpu_torch.ops import refined as rs
 from schwingermodel_tpu_torch.parallel import multihost as mh
 from schwingermodel_tpu_torch.utils import prng, statistics
 from schwingermodel_tpu_torch.utils.metrics import PerfMonitor
@@ -129,6 +130,8 @@ class RunResult:
     cg_iters_total: int = 0
     all_converged: bool = True
     exp_mdH_mean: float = float("nan")   # <exp(-dH)> over measured trajectories
+    # the spans, each device program's stats and, where K3 ran on the card,
+    # "k3": {"path": its path's name, "waves": its waves a launch}
     perf: Optional[dict] = None
     ill_records: list = dataclasses.field(default_factory=list)
     condensate_converged: bool = True    # every condensate solve converged
@@ -493,6 +496,11 @@ def run_hmc(
     for line in perf.report_lines():
         log("perf: " + line)
     if k3 is not None and k3[0]:
+        # K3's launch on this card (ops/refined.ru_card_route): its path and
+        # the waves in which the card runs a launch's chains
+        path, n, waves = rs.ru_card_route(lattice.Nx, lattice.Nt // 2, theta.shape[0], device)
+        result.perf["k3"] = {"path": rs.ru_route_name(path, n), "waves": waves}
+        log(f"perf: K3 path: {result.perf['k3']['path']}, {waves} wave(s) a launch")
         log(f"perf: K3 clocks: {k3[0]} cycles, {100 * k3[1] / k3[0]:.1f}% in f64 "
             f"residuals, {100 * k3[2] / k3[0]:.1f}% in cluster waits, "
             f"{100 * k3[3] / k3[0]:.1f}% in the MRE forecast")

@@ -12,11 +12,11 @@ the kernel's milliseconds by CUDA events (turns of ``--reps`` launches, no
 clock read in the kernel), the CG iterations summed over the chains and of
 the slowest chain, microseconds per iteration of the slowest chain, the
 shares of the kernel's clock cycles spent in the f64 true residuals, waiting
-on the cluster's other blocks and in the MRE forecast (means over the
+on the chain's other blocks and in the MRE forecast (means over the
 chains, from one more launch with the kernel's own counters on; the last
-also as microseconds of the launch, ``mre_us``) and the
-path the lattice size and chain count take on this card
-(``ops/refined.ru_path``).
+also as microseconds of the launch, ``mre_us``), the
+path the lattice size and chain count take on this card and its waves a
+launch (``ops/refined.ru_card_route``).
 
 ``--against DIR`` also imports the port of the checkout at DIR (e.g. a
 ``git archive`` of an earlier commit) beside this one, its wrapper with its
@@ -37,7 +37,6 @@ from pathlib import Path
 
 import torch
 
-from schwingermodel_tpu_torch.ops import _cuda
 from schwingermodel_tpu_torch.ops import refined as rs
 from schwingermodel_tpu_torch.ops import traj as tr
 from schwingermodel_tpu_torch.utils.metrics import card_label
@@ -138,9 +137,10 @@ def main(argv=None) -> int:
             clocks = torch.zeros((C, 4), dtype=torch.int64, device=dev)
             sol = solve(clocks)
             it_max = int(sol.iters.max())
+            path, n, waves = rs.ru_card_route(args.nx, args.nt // 2, C, dev)
             row = {"metric": "k3_ms", "input": label,
                    "shape": f"{args.nx}x{args.nt} C={C}",
-                   "path": rs.ru_path_name(args.nx, args.nt // 2, C, _cuda.sm_count(dev)),
+                   "path": rs.ru_route_name(path, n), "waves": waves,
                    "card": card}
             if theirs is None:
                 turns = [_timed(solve, args.reps) for _ in range(2)]

@@ -53,6 +53,9 @@ K5_SHAPES = [(64, 64, 32), (64, 64, 1), (8, 12, 3), (32, 32, 32), (20, 34, 2),
              (128, 128, 2), (126, 128, 2), (64, 64, 128), (128, 128, 8)]
 # K10's shifts alone
 SHIFT_SHAPES = SHAPES[:3]
+# K3 also at the 128x128 cell's 32 chains, whose clusters of 4 the card
+# does not run at once: the L2 path
+K3_SHAPES = SHAPES + [(128, 128, 32)]
 # K3's MRE forecast on each of its paths
 MRE_SHAPES = [(32, 32, 32), (64, 64, 32), (128, 128, 2), (126, 128, 2)]
 # (Nx, Nt, mesh, C) of K7 and K8; their global kernels are also run by
@@ -281,13 +284,19 @@ def test_k5_against_its_twin(shape):
 # ---------- K3 and K4 ----------
 
 @pytest.mark.parametrize("certify", [True, False], ids=["certified", "force"])
-@pytest.mark.parametrize("shape", SHAPES, ids=_ids(SHAPES))
+@pytest.mark.parametrize("shape", K3_SHAPES, ids=_ids(K3_SHAPES))
 def test_k3_against_its_twin(shape, certify):
     """K3 certified at 1e-10 from x0 = b, or on the force contract at 1e-8
     from a forecast start (the certified solution perturbed by 1e-3): every
     chain's f64 true residual under tol ||b|| in kernel and twin, equal
-    flags, all converged, no fallback iterations, and each chain alone
-    equal to its chain of the batch bit for bit."""
+    flags, all converged, no fallback iterations, and each chain alone on
+    the batch's route (``ru_path`` on the card's counts; alone it would
+    take another at 128x128 C=32) equal to its chain of the batch bit for
+    bit."""
+    nx, nt, C = shape
+    route = rs.ru_path(nx, nt // 2, C, *rs.ru_card_counts(nx, nt // 2, DEV))
+    if shape == (128, 128, 32):
+        assert route == (rs.RU_L2, 4)
     thE, thO, b, g = _inputs(15, *shape)
     x0, tol = b, 1e-10
     if not certify:
@@ -302,9 +311,9 @@ def test_k3_against_its_twin(shape, certify):
     assert bool((_rel_residual(thE, thO, b, p.x64) < tol).all())
     assert torch.equal(k.converged, p.converged) and bool(k.converged.all())
     assert not bool(k.fb_iters.any())
-    for i in range(shape[2]):
+    for i in range(C):
         s = slice(i, i + 1)
-        one = rs.solve_refined(thE[s], thO[s], b[s], x0[s], **kw)
+        one = rs._launch_ru(thE[s], thO[s], b[s], x0[None, s], route, **kw)
         assert torch.equal(one.x64[0], k.x64[i]) and int(one.iters[0]) == int(k.iters[i]), i
 
 
@@ -410,6 +419,48 @@ def test_k3_mre_against_its_twin(shape, history, monkeypatch):
         s = slice(i, i + 1)
         one = rs.solve_refined(thE[s], thO[s], b[s], hist[:, s].contiguous(), **kw)
         assert torch.equal(one.x64[0], k.x64[i]) and int(one.iters[0]) == int(k.iters[i])
+
+
+# K3's L2 path against the cluster path at 128x128: (C, blocks a chain)
+L2_ROUTES = [(2, 4), (2, 8), (30, 4), (32, 4)]
+
+
+@pytest.mark.parametrize("start", ["cold", "MRE K=4", "fallback"])
+@pytest.mark.parametrize("C,n", L2_ROUTES, ids=[f"C{C}-{n}-blocks" for C, n in L2_ROUTES])
+def test_k3_l2_against_the_cluster(C, n, start):
+    """K3 at 128x128 on n blocks a chain, launched on the L2 path and on the
+    cluster path by the launch's path argument (``refined._launch_ru``):
+    x, x64, the iterations, the flags and the fallback's iterations bit
+    for bit, cold at 1e-10 from x0 = b, from the MRE forecast over four
+    forecast starts (K = 4) at 1e-8 uncertified, and at 1e-10 from x0 = b
+    with the fallback on for every chain, held unconverged by max_iter 20
+    (the cold solves take ~40);
+    on the L2 path every chain's third clock column (its waits on the
+    chain's other blocks) above 0 and below its total; a second L2 launch,
+    from the counters the first set back to 0, the same bits."""
+    thE, thO, b, g = _inputs(19, 128, 128, C)
+    kw = dict(m0=M0, tol=1e-10)
+    hist = b[None]
+    if start == "MRE K=4":
+        exact = rs.solve_refined(thE, thO, b, b, **kw).x
+        scale = 1e-3 * exact.abs().amax(dim=(1, 2, 3, 4), keepdim=True)
+        hist = torch.stack([exact + scale * torch.randn(b.shape, generator=g, device=DEV)
+                            for _ in range(4)])
+        kw = dict(m0=M0, tol=1e-8, certify=False)
+    elif start == "fallback":
+        kw.update(max_iter=20, fallback=True, fb_max_iter=MAX_ITER)
+    ref = rs._launch_ru(thE, thO, b, hist, (rs.RU_CLUSTER, n), **kw)
+    clocks = torch.zeros((C, 4), dtype=torch.int64, device=DEV)
+    got = rs._launch_ru(thE, thO, b, hist, (rs.RU_L2, n), clocks, **kw)
+    again = rs._launch_ru(thE, thO, b, hist, (rs.RU_L2, n), **kw)
+    torch.cuda.synchronize()
+    for field in ref._fields:
+        assert torch.equal(getattr(got, field), getattr(ref, field)), field
+        assert torch.equal(getattr(again, field), getattr(ref, field)), field
+    assert bool(((clocks[:, 2] > 0) & (clocks[:, 2] < clocks[:, 0])).all())
+    assert bool(ref.converged.all())
+    if start == "fallback":
+        assert bool((ref.fb_iters > 0).all())
 
 
 # ---------- K6 and K9 ----------

@@ -132,7 +132,14 @@ BRANCHES = {
     "mre": (LATTICE, C, hmc_params(mre_history=4), {"K3": 10}),
     "mre tau=1": (LATTICE, C, hmc_params(md_steps=40, tau=1.0, mre_history=4), {"K3": 40}),
     "128x128": (BIG, 8, hmc_params(), {"K3": 10, "K2": 0}),
+    "128x128 C=32": (BIG, 32, hmc_params(), {"K3": 10, "K2": 0}),
 }
+# the kernel nodes of a branch's replay, where the benchmark reads them
+# (graph_nodes.traj: 128x128 C=32 is vol128.gen, K3 on the L2 path)
+NODES = {"refined": 485, "128x128 C=32": 485}
+# K3's kernel at 128x128 by its chains: clusters of 8 at C=8, and at C=32,
+# whose clusters of 4 the card does not run at once, the L2 path
+K3_KERNEL = {"128x128": "solve_ru_cluster_kernel", "128x128 C=32": "solve_ru_l2_kernel"}
 
 
 @pytest.mark.parametrize("branch", list(BRANCHES))
@@ -142,7 +149,10 @@ def test_program_replays_equal_eager_steps(branch):
     theta, every accumulator, the counter and the updates bit for bit; K3's
     clocks in the block on the refined branches; a replay's graph launches
     the noise kernel once, never K4's own entry, and the branch's kernels
-    (its kernel nodes by name); a new step size is captured anew."""
+    (its kernel nodes by name: one K3 node a solve), as many kernel nodes
+    as the benchmark's cells read where NODES names them, and at 128x128
+    K3's nodes all of the kernel K3_KERNEL names; a new step size is
+    captured anew."""
     lat, n_chains, hmc, want = BRANCHES[branch]
     model = SchwingerModel(lattice=lat, hmc=hmc)
     theta0 = hot_start(lat, 0, n_chains, DEV)
@@ -164,6 +174,9 @@ def test_program_replays_equal_eager_steps(branch):
         assert bool((cyc[:, 0] > cyc[:, 1]).all() and (cyc[:, 1] > 0).all())
     got = replayed(prog)
     assert got["noise"] == 1 and got["K4"] == 0, got
+    assert prog.kernel_nodes == NODES.get(branch, prog.kernel_nodes)
+    if branch in K3_KERNEL:
+        assert sum(c for k, c in prog.kernels.items() if K3_KERNEL[branch] in k) == got["K3"]
     for fam, n in want.items():
         assert (got[fam] > 0 if n is None else got[fam] == n), (fam, got)
     prog.dt = 0.5 * hmc.step_size

@@ -299,6 +299,17 @@ def test_fallback_off_reports_no_fallback_iterations(rng):
     assert bool(done.converged.all()) and not bool(done.fb_iters.any())
 
 
+# What an H100 runs at once of K3 (the kernel library's solve_ru_at_once
+# on the card): clusters of n blocks, as its GPCs hold them, and blocks of
+# the L2 kernel, one a multiprocessor
+H100 = {2: 66, 4: 30, 8: 15}
+H100_BLOCKS = {2: 132, 4: 132, 8: 132}
+
+
+def _path_name(Nx, Nth, C, clusters=H100, blocks=H100_BLOCKS):
+    return rs.ru_route_name(*rs.ru_path(Nx, Nth, C, clusters, blocks))
+
+
 @pytest.mark.parametrize("Nx,Nt,C,path,scratch", [
     (8, 12, 3, "all shared", ((0, 0), (0, 24))),
     (32, 32, 32, "all shared", ((0, 0), (0, 24))),
@@ -307,7 +318,7 @@ def test_fallback_off_reports_no_fallback_iterations(rng):
     (64, 64, 1, "shared", ((0, 20), (0, 32))),
     (64, 64, 128, "shared", ((0, 20), (0, 32))),
     (128, 128, 2, "cluster of 8", ((0, 20), (0, 32))),
-    (128, 128, 32, "cluster of 4", ((0, 20), (0, 32))),
+    (128, 128, 32, "L2 of 4", ((0, 20), (0, 32))),
     (128, 128, 128, "cluster of 4", ((0, 20), (0, 32))),
     (64, 128, 8, "cluster of 8", ((0, 20), (0, 32))),
     (64, 128, 64, "cluster of 2", ((0, 20), (0, 32))),
@@ -316,18 +327,18 @@ def test_fallback_off_reports_no_fallback_iterations(rng):
     (256, 256, 2, "global", ((28, 20), (28, 32)))])
 def test_ru_path_by_lattice_size(Nx, Nt, C, path, scratch):
     """Where K3 keeps its vectors follows from the lattice size and the
-    chain count alone, within what a block's shared memory (220 KiB) and
-    threads (4 sites each) hold, and the scratch the wrapper allocates
-    follows the path."""
+    chain count alone on an H100, within what a block's shared memory (220
+    KiB) and threads (4 sites each) hold, and the scratch the wrapper
+    allocates follows the path."""
     Nth = Nt // 2
-    assert rs.ru_path_name(Nx, Nth, C) == path
-    idx, n = rs.ru_path(Nx, Nth, C)
+    assert _path_name(Nx, Nth, C) == path
+    idx, n = rs.ru_path(Nx, Nth, C, H100, H100_BLOCKS)
     V2, halo = Nx * Nth, 96 * (Nx // n + (2 if n > 1 else 0)) * Nth
     if path == "all shared":
         assert halo + 160 * V2 <= 220 * 1024
     elif path == "shared":
         assert halo <= 220 * 1024 < halo + 160 * V2 and V2 <= 2048
-    elif idx == rs.RU_CLUSTER:
+    elif idx in (rs.RU_CLUSTER, rs.RU_L2):
         assert Nx % n == 0 and Nx // n * Nth <= 2048 and halo <= 220 * 1024
     assert (rs._ru_scratch(idx, False), rs._ru_scratch(idx, True)) == scratch
 
@@ -337,10 +348,73 @@ def test_ru_path_by_lattice_size(Nx, Nt, C, path, scratch):
     (132, 33, "cluster of 4"), (114, 28, "cluster of 4"),
     (114, 29, "cluster of 4"), (60, 32, "cluster of 4")])
 def test_ru_cluster_follows_the_cards_multiprocessors(sms, C, path):
-    """At 128x128 the cluster is the largest whose C clusters all run at
-    once on the card's multiprocessors, else the smallest that holds the
-    lattice."""
-    assert rs.ru_path_name(128, 64, C, sms) == path
+    """At 128x128 on a card of `sms` multiprocessors whose clusters of n
+    tile them (sms // n at once): the cluster is the largest whose C
+    clusters all run at once, else the smallest that holds the lattice
+    (where the C n blocks do not all run at once either)."""
+    assert _path_name(128, 64, C, {n: sms // n for n in (4, 8)}, {4: sms, 8: sms}) == path
+
+
+@pytest.mark.parametrize("Nx,Nt,C,clusters,blocks,path", [
+    (128, 128, 32, H100, H100_BLOCKS, "L2 of 4"),
+    (128, 128, 33, H100, H100_BLOCKS, "L2 of 4"),
+    (128, 128, 32, H100, {4: 128, 8: 128}, "L2 of 4"),
+    (128, 128, 30, H100, H100_BLOCKS, "cluster of 4"),
+    (128, 128, 16, H100, H100_BLOCKS, "cluster of 4"),
+    (128, 128, 15, H100, H100_BLOCKS, "cluster of 8"),
+    (128, 128, 40, H100, H100_BLOCKS, "cluster of 4"),
+    (128, 128, 32, H100, {4: 120, 8: 132}, "cluster of 4"),
+    (64, 128, 8, H100, H100_BLOCKS, "cluster of 8"),
+    (64, 128, 16, H100, H100_BLOCKS, "cluster of 4"),
+    (64, 128, 64, H100, H100_BLOCKS, "cluster of 2"),
+    (64, 128, 64, {2: 60, 4: 30, 8: 15}, H100_BLOCKS, "L2 of 2"),
+    (64, 128, 67, H100, H100_BLOCKS, "cluster of 2"),
+    (64, 64, 128, H100, H100_BLOCKS, "shared"),
+    (126, 128, 32, H100, H100_BLOCKS, "global")])
+def test_ru_path_by_the_cards_counts(Nx, Nt, C, clusters, blocks, path):
+    """The rule for a lattice that one block does not hold, from what the
+    card runs at once (``ru_path`` takes both counts: its clusters of n
+    blocks, and the blocks of the L2 kernel a cooperative launch holds):
+    the largest cluster whose C clusters all run at once (C=16 at 128x128
+    takes clusters of 4, since 15 of 8 run), else the L2 path on the
+    smallest n whose C n blocks all run at once (C=32 and 33 on 132 blocks;
+    64x128 C=64 where only 60 clusters of 2 run), else clusters of the
+    smallest n in waves (C=40: 160 blocks; 64x128 C=67: 134)."""
+    assert _path_name(Nx, Nt // 2, C, clusters, blocks) == path
+
+
+def test_ru_card_route_counts_the_waves(monkeypatch):
+    """ru_card_route takes the card's counts (here an H100's answers to the
+    kernel library's query: 30 clusters of 4, 15 of 8, 132 blocks of the
+    L2 kernel and of the shared kernel) and gives the launch's waves: at
+    128x128 C=32 the L2 path in one wave, where the cluster rule alone
+    (the parent's: clusters of 4 as 4 C <= 132) took two; C=30 one wave of
+    clusters; C=40 two; 64x64 C=128 one wave of single blocks."""
+    answers = {(rs.RU_CLUSTER, 4): 30, (rs.RU_CLUSTER, 8): 15, (rs.RU_L2, 4): 132,
+               (rs.RU_L2, 8): 132, (rs.RU_SHARED, 1): 132}
+    monkeypatch.setattr(rs, "_at_once", lambda Nx, Nth, path, n, i: answers[path, n])
+    dev = torch.device("cuda", 0)
+    assert rs.ru_card_route(128, 64, 32, dev) == (rs.RU_L2, 4, 1)
+    assert rs.ru_card_route(128, 64, 30, dev) == (rs.RU_CLUSTER, 4, 1)
+    assert rs.ru_card_route(128, 64, 40, dev) == (rs.RU_CLUSTER, 4, 2)
+    assert rs.ru_card_route(128, 64, 2, dev) == (rs.RU_CLUSTER, 8, 1)
+    assert rs.ru_card_route(64, 32, 128, dev) == (rs.RU_SHARED, 1, 1)
+
+
+def test_ru_l2_exchange_areas_are_kept_and_grown_zeroed(monkeypatch):
+    """The L2 path's exchange areas: one zeroed buffer a device, the same
+    for launches it holds, a larger zeroed one where a launch needs more,
+    and the smaller kept (a captured graph holds its address); C chains of
+    the words a chain the kernel library gives (16544 at 128x128 on 4
+    blocks)."""
+    monkeypatch.setattr(rs, "_RU_XCH", {})
+    dev = torch.device("cpu")
+    small = rs._ru_xch(2, 16544, dev)
+    assert small.numel() == 2 * 16544 and small.dtype == torch.int64
+    assert not bool(small.any()) and rs._ru_xch(1, 16544, dev) is small
+    big = rs._ru_xch(32, 16544, dev)
+    assert big.numel() == 32 * 16544 and not bool(big.any())
+    assert rs._RU_XCH[dev] == [small, big] and rs._ru_xch(8, 16544, dev) is big
 
 
 def test_bench_tool_imports_another_checkouts_wrapper():
@@ -367,7 +441,8 @@ def test_bench_tool_imports_another_checkouts_wrapper():
 def test_card_kernel_shapes_reach_every_route():
     """The card's kernel tests take every route of the rules on an H100: a
     route is the path and whether a chain (a shard) spans one block or
-    several. K3: all four of ru_path's paths; K1 in its four variants, K2,
+    several. K3: all five of ru_path's paths (L2 at 128x128 C=32, the
+    shape K3's own twin test adds); K1 in its four variants, K2,
     K10, K5 and K6 (its C*B entries): the shared path on one block, on
     several where the rule splits, and the global path; K9's rule on the
     shared path on one slab and on several, and the global path (the test
@@ -381,8 +456,8 @@ def test_card_kernel_shapes_reach_every_route():
 
     one, split, glob = (tr.CG_SHARED, False), (tr.CG_SHARED, True), (tr.CG_GLOBAL, False)
     shapes = [(nx, nt // 2, C) for nx, nt, C in card.SHAPES]
-    assert {rs.ru_path(*s, sms)[0] for s in shapes + [
-        (nx, nt // 2, C) for nx, nt, C in card.MRE_SHAPES]} == set(range(4))
+    assert {rs.ru_path(nx, nt // 2, C, H100, H100_BLOCKS)[0]
+            for nx, nt, C in card.K3_SHAPES + card.MRE_SHAPES} == set(range(5))
     for solve, gauge in ((False, True), (False, False), (True, True), (True, False)):
         got = kinds(tr.cg_path(*s, sms, solve, gauge) for s in shapes)
         assert got == ({one, glob} if solve else {one, split, glob}), (solve, gauge)

@@ -35,7 +35,6 @@ from schwingermodel_tpu_torch.hmc import packed as hp
 from schwingermodel_tpu_torch.hmc.program import TrajectoryProgram
 from schwingermodel_tpu_torch.hmc.sampler import draw_chain_noise
 from schwingermodel_tpu_torch.models.schwinger import SchwingerModel
-from schwingermodel_tpu_torch.ops import _cuda
 from schwingermodel_tpu_torch.ops import refined as rs
 from schwingermodel_tpu_torch.ops import traj as tr
 from schwingermodel_tpu_torch.runner import hot_start
@@ -258,7 +257,7 @@ def test_k3_forecast_matches_the_mgs_reference(card, nx, nt, path, history):
     Schmidt norm lies ~1e-13 below the largest and both drop it), and the
     duplicate history, which gives hist[0] bit for bit."""
     C = 2
-    assert rs.ru_path(nx, nt // 2, C, _cuda.sm_count(card))[0] == path
+    assert rs.ru_card_route(nx, nt // 2, C, card)[0] == path
     thE, thO = _angles(C, nx, 21, card, spread=1.0, nt=nt)
     g = torch.Generator(device=card).manual_seed(22)
     b = torch.randn((C, 2, 2, nx, nt // 2), generator=g, device=card)

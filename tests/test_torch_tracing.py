@@ -358,7 +358,7 @@ def test_k3_counts_its_cluster_waits():
         pytest.skip("no CUDA card: K3 runs only there")
     dev = torch.device("cuda")
     C, n = 4, 128
-    assert rs.ru_path_name(n, n // 2, C).startswith("cluster")
+    assert rs.ru_card_route(n, n // 2, C, dev)[0] == rs.RU_CLUSTER
     g = torch.Generator(device=dev).manual_seed(6)
     th = (2.0 * torch.rand((C, 2, n, n), generator=g, device=dev) - 1.0) * np.pi
     thE, thO = tr.pack_planes(th)
